@@ -1,0 +1,218 @@
+"""EVA: control-variate fusion of exact local attention and RF global attention.
+
+PyTorch counterpart of ``efficient_attention_tpu/attention/eva.py``
+(reference ``efficient-attention/efficient_attention/eva.py``, ICLR 2023):
+
+  1. blocked local attention over 2-D windows with learned RPE,
+  2. chunked random-feature global attention: per-chunk adaptive proposal
+     ``mu = (mu_q(mean q) + mu_k(mean k)) / 2`` (its mean at eval) and a
+     per-chunk SNIS value summary ``beta``,
+  3. one softmax over ``[local logits | chunk logits]`` (``eva.py:222-227``).
+
+Ported: the 2-D eval forward without halo or padding mask, by two paths.
+``impl='auto'`` sends it to the single-pass ``eva_single`` kernel when the
+geometry fits that kernel's gate; ``impl='xla'`` (the JAX package's name for
+the plain path) forces the eager tensor-op path.  Not ported yet, each
+raising ``NotImplementedError`` with its ROADMAP.md item: the training
+forward (random-feature sampling, kernel K1), 1-D windows, halos, padding
+masks, T5 RPE, sequence parallelism, and the TPU-only ``impl`` choices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from efficient_attention_torch.attention.local import LocalAttention
+from efficient_attention_torch.ops.kernels.eva_single import (
+    eva_attention_single,
+    supports_single,
+)
+
+_TPU_IMPLS = {"packed": "K1", "pallas": "K11", "rowmajor": "K12"}
+
+
+def _adaptive_proj(head_dim: int, with_ln: bool) -> nn.Sequential:
+    layers = [nn.Linear(head_dim, head_dim)]
+    if with_ln:
+        layers.append(nn.LayerNorm(head_dim, eps=1e-6))
+    return nn.Sequential(*layers)
+
+
+class EVA(LocalAttention):
+    """EVA attention (``eva.py:68-243``).
+
+    Extra args over :class:`LocalAttention`:
+      * ``adaptive_proj``: ``default`` (Linear+LN) / ``no-ln`` / ``none``
+      * ``num_landmarks``: number of global RF chunks
+      * ``impl``: ``auto`` (single-pass kernel where the gate allows, else
+        eager) or ``xla`` (eager)
+    """
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 fp32: bool = False, use_rpe: bool = False,
+                 window_size: int = 2, attn_2d: bool = False,
+                 overlap_window: bool = False, adaptive_proj: str = "default",
+                 num_landmarks: int = 49, use_t5_rpe: bool = False,
+                 impl: str = "auto", seq_axis: Optional[str] = None):
+        super().__init__(dim, num_heads, qkv_bias=qkv_bias,
+                         attn_drop=attn_drop, proj_drop=proj_drop, fp32=fp32,
+                         use_rpe=use_rpe, window_size=window_size,
+                         attn_2d=attn_2d, overlap_window=overlap_window)
+        if use_t5_rpe:
+            raise NotImplementedError(
+                "EVA with T5 RPE is not ported yet; see ROADMAP.md Queue 1, "
+                "item 6")
+        if seq_axis is not None:
+            raise NotImplementedError(
+                "sequence-parallel EVA is not ported yet; see ROADMAP.md "
+                "Queue 1, item 7")
+        if impl in _TPU_IMPLS:
+            raise NotImplementedError(
+                f"impl={impl!r} selects TPU kernel {_TPU_IMPLS[impl]}, not "
+                "ported yet; see ROADMAP.md Queue 2")
+        if impl not in ("auto", "xla"):
+            raise ValueError(f"unknown EVA impl {impl!r}; use 'auto' or 'xla'")
+        self.adaptive_proj = adaptive_proj
+        self.num_landmarks = num_landmarks
+        self.impl = impl
+        d = self.head_dim
+        if adaptive_proj in ("default", "no-ln"):
+            self.adaptive_mu_q = _adaptive_proj(d, adaptive_proj == "default")
+            self.adaptive_mu_k = _adaptive_proj(d, adaptive_proj == "default")
+        elif adaptive_proj == "none":
+            self.adaptive_mu_k = _adaptive_proj(d, True)
+        else:
+            raise NotImplementedError(f"adaptive_proj={adaptive_proj}")
+
+    def forward(self, x: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """EVA eval forward over a ``[B, H, W, C]`` token grid
+        (``eva.py:138-233``)."""
+        if self.training:
+            raise NotImplementedError(
+                "EVA's training forward (random-feature sampling, kernel K1) "
+                "is not ported yet; see ROADMAP.md Queue 1, item 3. Call "
+                ".eval() for the eval forward")
+        if key_padding_mask is not None:
+            raise NotImplementedError(
+                "EVA with a key-padding mask is not ported yet; see "
+                "ROADMAP.md Queue 1, item 6")
+        if x.dim() != 4:
+            raise ValueError(f"2-D EVA takes [B, H, W, C], got {tuple(x.shape)}")
+        B, gh, gw, C = x.shape
+        ws = self.window_size
+        if ws <= 0 or gh % ws or gw % ws:
+            raise ValueError(f"grid {gh}x{gw} is not divisible by window {ws}")
+        N = gh * gw
+        j = int(math.sqrt(N // self.num_landmarks))
+        if j == 0:
+            raise ValueError(
+                f"num_landmarks={self.num_landmarks} exceeds the sequence "
+                f"length {N}; the RF chunk size would be 0")
+        if gh % j or gw % j:
+            raise ValueError(f"grid {gh}x{gw} is not divisible by chunk {j}")
+        if (self.impl == "auto" and j * j * self.num_landmarks == N
+                and supports_single(B, gh, gw, ws, j, self.adaptive_proj,
+                                    3 * C, self.num_heads, x.element_size())):
+            return self._forward_single(x, j)
+        return self._forward_eager(x, j)
+
+    def _forward_single(self, x: torch.Tensor, j: int) -> torch.Tensor:
+        """Single-pass eval path: one ``eva_single`` launch computes the
+        chunk summaries and the joint softmax from the packed qkv."""
+        B, gh, gw, C = x.shape
+        qkv = self.qkv(x.reshape(B, gh * gw, C))  # [B, N, 3*H*D]
+        mq, mk = self.adaptive_mu_q, self.adaptive_mu_k
+        use_ln = self.adaptive_proj == "default"
+        out = eva_attention_single(
+            qkv, mq[0].weight.t(), mq[0].bias, mk[0].weight.t(), mk[0].bias,
+            mq[1].weight if use_ln else None, mq[1].bias if use_ln else None,
+            mk[1].weight if use_ln else None, mk[1].bias if use_ln else None,
+            self.scale, self.num_heads, gw, self.window_size, j, use_ln,
+            bias=self.window_bias())
+        return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+
+    def _chunk_summaries_natural(self, q, k, v, seq_shape: Tuple[int, int],
+                                 j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Chunk summaries ``(rf_k_bar, beta)``, each ``[b, h, c, d]``, from
+        ``[b, h, n, d]`` q/k/v (``eva.py:150-196`` with no padding)."""
+        nh, d = self.num_heads, self.head_dim
+        B = q.shape[0]
+        gh, gw = seq_shape
+        hc, wc = gh // j, gw // j
+        c = hc * wc
+
+        def chunked(t):
+            return t.reshape(B, nh, hc, j, wc, j, d)
+
+        k6 = chunked(k)
+        k_mean = k6.mean(dim=(3, 5)).reshape(B, nh, c, d)
+        if self.adaptive_proj in ("default", "no-ln"):
+            q_mean = chunked(q).mean(dim=(3, 5)).reshape(B, nh, c, d)
+            rf_q_bar = self.adaptive_mu_q(q_mean)
+            rf_k_bar = self.adaptive_mu_k(k_mean)
+            mu = 0.5 * (rf_q_bar + rf_k_bar)
+        else:
+            rf_k_bar = self.adaptive_mu_k(k_mean)
+            mu = torch.zeros_like(rf_k_bar)
+        w6 = mu.reshape(B, nh, hc, wc, d).float()
+        # log phi(k)[c, j] = <w_c, k_j>/sqrt(d) - |k_j|^2/(2 sqrt(d)),
+        # softmax-normalised over each chunk's members with the true max
+        dn = d ** -0.5
+        k6f = k6.float()
+        dash = dn * torch.einsum("bhaicjd,bhacd->bhaicj", k6f, w6)
+        norm = (0.5 * dn) * k6f.square().sum(-1)
+        logp = dash - norm  # [b, h, hc, j, wc, j]
+        p = torch.exp(logp - logp.amax(dim=(3, 5), keepdim=True))
+        p = p / p.sum(dim=(3, 5), keepdim=True)
+        beta = torch.einsum("bhaicj,bhaicjd->bhacd", p.to(v.dtype),
+                            chunked(v)).reshape(B, nh, c, d)
+        return rf_k_bar, beta
+
+    def _forward_eager(self, x: torch.Tensor, j: int) -> torch.Tensor:
+        """Eager path: natural-layout summaries, then the joint softmax
+        over ``[window keys | chunk keys]`` (``eva.py:795-840``)."""
+        B, gh, gw, C = x.shape
+        seq_shape = (gh, gw)
+        q, k, v = self.proj_and_split_heads(x)
+        rf_k_bar, beta = self._chunk_summaries_natural(q, k, v, seq_shape, j)
+        w_q = self.window_partition(q, seq_shape)
+        w_k = self.window_partition(k, seq_shape)
+        w_v = self.window_partition(v, seq_shape)
+        rfa_chunk = torch.einsum("bhwid,bhcd->bhwic", w_q,
+                                 (self.scale * rf_k_bar).to(w_q.dtype))
+        local = (torch.einsum("bhwie,bhwje->bhwij", w_q, w_k)
+                 * self.scale).to(q.dtype)
+        if self.rpe_enabled:
+            local = self.add_rel_pos_bias(local)
+        local_len = local.shape[-1]
+        attn = F.softmax(torch.cat([local, rfa_chunk.to(local.dtype)], dim=-1),
+                         dim=-1).to(w_v.dtype)
+        output = (torch.einsum("bhwij,bhwjd->bhwid", attn[..., :local_len], w_v)
+                  + torch.einsum("bhwic,bhcd->bhwid", attn[..., local_len:],
+                                 beta.to(w_v.dtype)))
+        output = self.window_merge(output, seq_shape)
+        x = output.transpose(1, 2).reshape(B, gh, gw, C)
+        return self.proj_dropout(self.proj(x))
+
+    @staticmethod
+    def add_attn_specific_args(parent_parser, struct_name="attn_args", prefix=""):
+        from efficient_attention_torch.config import add_nested_argument
+
+        parent_parser = LocalAttention.add_attn_specific_args(
+            parent_parser, struct_name=struct_name, prefix=prefix
+        )
+        parser = parent_parser.add_argument_group("attention")
+        p = prefix + "-" if len(prefix) > 1 else ""
+        add_nested_argument(parser, f"--{p}adaptive-proj", struct_name=struct_name,
+                            prefix=prefix, default="default", type=str)
+        add_nested_argument(parser, f"--{p}num-landmarks", struct_name=struct_name,
+                            prefix=prefix, default=49, type=int)
+        add_nested_argument(parser, f"--{p}use-t5-rpe", action="store_true",
+                            struct_name=struct_name, prefix=prefix, default=False)
+        return parent_parser

@@ -1,0 +1,120 @@
+"""Blocked 2-D local (window) attention with learned relative-position bias.
+
+PyTorch counterpart of ``efficient_attention_tpu/attention/local.py``
+(reference ``local_attention.py:25-182``).  Only the eager 2-D path without
+halo is ported; the 1-D and halo'd variants are ROADMAP.md Queue 1, item 6,
+and the packed window kernel (K7) is ROADMAP.md Queue 2.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from efficient_attention_torch.attention.base import MASK_VAL, MultiheadAttention
+from efficient_attention_torch.ops import windows as W
+from efficient_attention_torch.ops.rpe import local_2d_rpe_index
+
+
+class LocalAttention(MultiheadAttention):
+    """Window attention with learned 2-D RPE (``local_attention.py:25-182``)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 fp32: bool = False, use_rpe: bool = False,
+                 window_size: int = 2, attn_2d: bool = False,
+                 overlap_window: bool = False):
+        super().__init__(dim, num_heads, qkv_bias=qkv_bias,
+                         attn_drop=attn_drop, proj_drop=proj_drop, fp32=fp32)
+        if not attn_2d:
+            raise NotImplementedError(
+                "1-D local windows are not ported yet; see ROADMAP.md "
+                "Queue 1, item 6")
+        if overlap_window:
+            raise NotImplementedError(
+                "overlapping (halo'd) windows are not ported yet; see "
+                "ROADMAP.md Queue 1, item 6")
+        self.use_rpe = use_rpe
+        self.window_size = window_size
+        if self.rpe_enabled:
+            index, table_size = local_2d_rpe_index(window_size, 0)
+            self.register_buffer("relative_position_index",
+                                 torch.from_numpy(index).long())
+            self.local_relative_position_bias_table = nn.Parameter(
+                torch.zeros(table_size, num_heads))
+            nn.init.trunc_normal_(self.local_relative_position_bias_table,
+                                  std=0.02)
+
+    @property
+    def rpe_enabled(self) -> bool:
+        return self.use_rpe and self.window_size > 0
+
+    def window_bias(self) -> Optional[torch.Tensor]:
+        """Per-window additive bias ``[H, S, S]`` (``S = w*w``), or None."""
+        if not self.rpe_enabled:
+            return None
+        S = self.window_size ** 2
+        bias = self.local_relative_position_bias_table[
+            self.relative_position_index.reshape(-1)]
+        return bias.reshape(S, S, self.num_heads).permute(2, 0, 1)
+
+    def add_rel_pos_bias(self, local_dots: torch.Tensor) -> torch.Tensor:
+        """``local_dots [b, h, g, i, j]`` plus the learned bias
+        (``local_attention.py:70-79``)."""
+        return local_dots + self.window_bias()[None, :, None]
+
+    def window_partition(self, x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+        """``[..., n, d] -> [..., g, w*w, d]`` over the ``(H, W)`` grid."""
+        H, W_ = shape
+        *lead, n, d = x.shape
+        return W.window_2d_partition(x.reshape(*lead, H, W_, d), self.window_size)
+
+    def window_merge(self, x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+        out = W.window_2d_merge(x, self.window_size, tuple(shape))
+        *lead, H, W_, d = out.shape
+        return out.reshape(*lead, H * W_, d)
+
+    def _apply_attention(self, q, k, v, key_padding_mask):
+        """Windowed attention core over a square grid
+        (``local_attention.py:134-182``)."""
+        b, h, n, d = q.shape
+        side = math.isqrt(n)
+        if side * side != n:
+            raise ValueError(f"2-D local attention needs a square grid, got n={n}")
+        shape = (side, side)
+        w_q = self.window_partition(q, shape)
+        w_k = self.window_partition(k, shape)
+        w_v = self.window_partition(v, shape)
+        local_dots = (torch.einsum("bhwie,bhwje->bhwij", w_q, w_k)
+                      * self.scale).to(q.dtype)
+        if self.rpe_enabled:
+            local_dots = self.add_rel_pos_bias(local_dots)
+        if key_padding_mask is not None:
+            kpm = key_padding_mask.to(q.dtype)[:, None, :, None]
+            mask = self.window_partition(kpm, shape).bool().transpose(-1, -2)
+            local_dots = local_dots.masked_fill(mask, MASK_VAL)
+        local_attn = self.attn_dropout(F.softmax(local_dots, dim=-1))
+        output = torch.einsum("bhwij,bhwje->bhwie", local_attn.to(w_v.dtype), w_v)
+        return self.window_merge(output, shape)
+
+    @staticmethod
+    def add_attn_specific_args(parent_parser, struct_name="attn_args", prefix=""):
+        from efficient_attention_torch.config import add_nested_argument
+
+        parent_parser = MultiheadAttention.add_attn_specific_args(
+            parent_parser, struct_name=struct_name, prefix=prefix
+        )
+        parser = parent_parser.add_argument_group("Attention")
+        p = prefix + "-" if len(prefix) > 1 else ""
+        add_nested_argument(parser, f"--{p}use-rpe", action="store_true",
+                            struct_name=struct_name, prefix=prefix, default=False)
+        add_nested_argument(parser, f"--{p}window-size", struct_name=struct_name,
+                            prefix=prefix, default=4, type=int)
+        add_nested_argument(parser, f"--{p}attn-2d", action="store_true",
+                            struct_name=struct_name, prefix=prefix, default=False)
+        add_nested_argument(parser, f"--{p}overlap-window", action="store_true",
+                            struct_name=struct_name, prefix=prefix, default=False)
+        return parent_parser

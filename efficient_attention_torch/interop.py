@@ -1,0 +1,122 @@
+"""Carry the JAX package's flax parameters into the port's modules.
+
+``state_dict_from_jax`` walks a flax param tree (nested dicts of numpy
+arrays, as ``flax.linen.Module.init`` returns them after ``np.asarray``) and
+names every leaf as the reference PyTorch model does, with the port's own
+copy of the flax -> reference name rules of
+``efficient_attention_tpu/interop.py:56-105``.  Layouts follow: Dense
+``[in, out]`` becomes Linear ``[out, in]``, conv HWIO becomes OIHW, LayerNorm
+``scale`` becomes ``weight``.  ``load_jax_params`` loads the result into a
+module and accepts as missing only the buffers the port derives itself.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+# attention classes appear in flax paths by class name (factory-built inside
+# Block); the reference names the submodule 'attn' (efficient_vit.py:112)
+_ATTN_CLASSES = (
+    "EVA", "LocalAttention", "MultiheadAttention", "KernelizedAttention",
+    "RandomizedAttention", "LinearRA", "ScatterBrain", "CausalEVAttention",
+)
+
+# flax path component -> reference component
+_COMPONENT_MAP = {
+    "GatedMlp_0": "mlp",
+    "MlpWithDepthwiseConv_0": "mlp",
+    "Dense_0": "fc1",
+    "Dense_1": "fc2",
+    "Conv_0": "dwconv.dwconv",
+    "LayerNorm_0": "norm1",
+    "LayerNorm_1": "norm2",
+    "layers_0": "0",
+    "layers_1": "1",
+}
+
+# buffers the port derives from its configuration
+DERIVED_BUFFERS = ("relative_position_index",)
+
+_PVT_BLOCK = re.compile(r"block(\d+)_(\d+)")
+
+
+def flax_path_to_torch_key(parts) -> str:
+    """``['blocks_0', 'EVA_0', 'qkv', 'kernel'] -> 'blocks.0.attn.qkv.weight'``
+    (PVT paths as well: ``block1_0`` -> ``block1.0.attn.attn_fn``)."""
+    pvt = any(_PVT_BLOCK.fullmatch(p) for p in parts)
+    body, out = parts[:-1], []
+    i = 0
+    while i < len(body):
+        p = body[i]
+        m = _PVT_BLOCK.fullmatch(p)
+        if p.startswith("blocks_"):
+            out.append("blocks." + p[len("blocks_"):])
+        elif m:
+            out.append(f"block{m.group(1)}.{m.group(2)}")
+        elif any(p == f"{c}_0" for c in _ATTN_CLASSES):
+            out.append("attn.attn_fn" if pvt else "attn")
+        elif p.startswith("patch_embed"):
+            child = body[i + 1] if i + 1 < len(body) else ""
+            out.append(p + (".norm" if child == "LayerNorm_0" else ".proj"))
+            i += 2
+            continue
+        elif p in _COMPONENT_MAP:
+            out.append(_COMPONENT_MAP[p])
+        else:
+            out.append(p)
+        i += 1
+    leaf = parts[-1]
+    if leaf in ("kernel", "scale"):
+        out.append("weight")
+    else:
+        out.append(leaf)  # bias and named tables
+    return ".".join(out)
+
+
+def _to_torch_layout(value: np.ndarray, leaf: str) -> np.ndarray:
+    v = np.asarray(value, np.float32)
+    if leaf == "kernel":
+        if v.ndim == 2:
+            return v.T
+        if v.ndim == 4:  # conv HWIO -> OIHW
+            return v.transpose(3, 2, 0, 1)
+    return v
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a flax param tree (with or without its ``params`` collection
+    key) onto the reference's parameter names, in PyTorch layouts."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for parts, val in _flatten(params):
+        key = flax_path_to_torch_key(list(parts))
+        if key in out:
+            raise ValueError(f"two flax leaves map to {key!r}")
+        out[key] = torch.from_numpy(
+            np.ascontiguousarray(_to_torch_layout(val, parts[-1])))
+    return out
+
+
+def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Load flax params into ``module``; every parameter must be matched,
+    and only the derived buffers may be missing."""
+    missing, unexpected = module.load_state_dict(
+        state_dict_from_jax(params), strict=False)
+    missing = [k for k in missing if not k.endswith(DERIVED_BUFFERS)]
+    if missing or unexpected:
+        raise ValueError(f"flax params do not fit the module: missing "
+                         f"{missing}, unexpected {unexpected}")
+    return module

@@ -1,0 +1,110 @@
+"""Shared model layers: gated MLP, stochastic depth, patch embedding.
+
+PyTorch counterparts of ``efficient_attention_tpu/models/layers.py``
+(reference ``vit/models/model_utils.py`` and ``vit/models/efficient_vit.py:
+32-95``).  Token grids stay ``[B, H, W, C]`` as in the JAX package; the
+patch embedding permutes to PyTorch's NCHW only around its convolution.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (timm ``DropPath``), active in training mode only.
+    ``generator`` draws the per-sample keep mask (None: the global one)."""
+
+    def __init__(self, rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+class GatedMlp(nn.Module):
+    """MLP with optional GLU gating (``vit/models/model_utils.py:11-45``).
+
+    The activation is GELU with the tanh approximation, as flax's
+    ``nn.gelu`` is."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: Optional[int] = None, drop: float = 0.0,
+                 use_glu: bool = False):
+        super().__init__()
+        out_features = out_features or in_features
+        self.use_glu = use_glu
+        if use_glu:
+            # 2/3 hidden scaling as in the reference (``model_utils.py:20-24``)
+            hidden_features = int(2 * hidden_features / 3)
+            self.fc1 = nn.Linear(in_features, hidden_features * 2)
+        else:
+            self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.drop = nn.Dropout(drop)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.fc1(x)
+        if self.use_glu:
+            x1, x2 = x.chunk(2, dim=-1)
+            x = F.gelu(x1, approximate="tanh") * x2
+        else:
+            x = F.gelu(x, approximate="tanh")
+        x = self.fc2(self.drop(x))
+        return self.drop(x)
+
+
+class PatchEmbed(nn.Module):
+    """Image-to-grid patch embedding, ``[B, H, W, 3] -> [B, H/p, W/p, d]``.
+    Only the ``default`` single-conv stem is ported; ``conv`` and ``hmlp``
+    are ROADMAP.md Queue 1, item 2."""
+
+    def __init__(self, patch_size: int = 16, embed_dim: int = 768,
+                 in_chans: int = 3, stem_type: str = "default"):
+        super().__init__()
+        if stem_type != "default":
+            raise NotImplementedError(
+                f"patchify stem {stem_type!r} is not ported yet; see "
+                "ROADMAP.md Queue 1, item 2")
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.proj(x.permute(0, 3, 1, 2))
+        return x.permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialise every parameter from ``generator`` as the JAX package
+    initialises its modules: truncated-normal(0.02) Linear weights, learned
+    tables and embeddings, zero biases, unit LayerNorms, and convolutions
+    normal(0, sqrt(2/fan_out)).  Draws on the CPU, so one seed gives the
+    same weights on every device."""
+    for module in model.modules():
+        for name, param in module.named_parameters(recurse=False):
+            cpu = torch.empty(param.shape, dtype=torch.float32)
+            if isinstance(module, nn.LayerNorm):
+                cpu.fill_(1.0 if name == "weight" else 0.0)
+            elif name == "bias":
+                cpu.zero_()
+            elif isinstance(module, nn.Conv2d):
+                kh, kw = module.kernel_size
+                cpu.normal_(0.0, math.sqrt(2.0 / (kh * kw * module.out_channels)),
+                            generator=generator)
+            else:
+                nn.init.trunc_normal_(cpu, std=0.02, a=-0.04, b=0.04,
+                                      generator=generator)
+            param.copy_(cpu)
+    return model

@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use; load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so a
+build takes seconds.  The shared library goes to ``build/kernels/`` at the
+root of the checkout, named by a hash of its source and flags, so an edited
+source never loads a stale library.  Nothing here runs at import time: a
+CPU-only machine without ``nvcc`` imports the package and never builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every named source whose library is missing, one ``nvcc``
+    process per source, all started together.  Returns the seconds each
+    build took (0.0 where the library was already there); the compiler's
+    resource report (``-Xptxas -v``) is kept in ``build/kernels/<name>.log``.
+    Raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs, seconds = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if missing."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _LIBS[name] = lib
+        return lib

@@ -1,0 +1,224 @@
+"""Attention modules of the PyTorch port against the JAX package.
+
+The port's ``EVA`` (both its paths), ``LocalAttention`` and
+``MultiheadAttention`` take the JAX modules' weights through
+``state_dict_from_jax`` and must give the JAX eager outputs in float32 to
+3e-5 abs / 1e-4 rel; the recorded reference goldens load with
+``load_state_dict`` and must match to the same tolerance (that of
+``test_goldens.py``).  On the CPU, EVA's ``impl='auto'`` takes the
+single-kernel path through the plain version of ``eva_single``.
+"""
+import functools
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import exact_float32, jax_apply, randomize, to_jax, torch_apply
+from efficient_attention_tpu import AttentionFactory as JaxFactory
+from efficient_attention_torch import AttentionFactory
+from efficient_attention_torch.interop import load_jax_params
+from efficient_attention_torch.ops import windows as W
+from efficient_attention_torch.ops.kernels import eva_single as K
+
+ATOL, RTOL = 3e-5, 1e-4
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+
+# (grid side, window, landmarks, heads, head dim)
+GEOMETRIES = {
+    "8x8-w4-j4": (8, 4, 4, 3, 16),
+    "8x8-w2-j2": (8, 2, 16, 3, 16),
+    "14x14-w7-j2": (14, 7, 49, 4, 12),
+}
+
+
+@pytest.fixture(autouse=True)
+def _f32():
+    with exact_float32():
+        yield
+
+
+def _eva_args(geometry, adaptive_proj):
+    side, ws, landmarks, nh, d = GEOMETRIES[geometry]
+    return {"dim": nh * d, "num_heads": nh, "window_size": ws,
+            "num_landmarks": landmarks, "attn_2d": True, "use_rpe": True,
+            "adaptive_proj": adaptive_proj}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_eva(geometry, adaptive_proj):
+    """(x, flax params, JAX eager output) for one configuration."""
+    args = _eva_args(geometry, adaptive_proj)
+    side = GEOMETRIES[geometry][0]
+    x = np.random.default_rng(1).standard_normal(
+        (2, side, side, args["dim"])).astype(np.float32)
+    m = JaxFactory.build_attention("eva", dict(args, impl="xla"))
+    params = randomize(m.init(jax.random.PRNGKey(0), jnp.asarray(x)), seed=2)
+    return x, params, jax_apply(m, params, x)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+@pytest.mark.parametrize("adaptive_proj", ["default", "no-ln", "none"])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_eva_matches_jax(geometry, adaptive_proj, impl):
+    x, params, ref = _jax_eva(geometry, adaptive_proj)
+    m = AttentionFactory.build_attention(
+        "eva", dict(_eva_args(geometry, adaptive_proj), impl=impl))
+    load_jax_params(m, params)
+    np.testing.assert_allclose(torch_apply(m, x), ref, atol=ATOL, rtol=RTOL)
+
+
+def test_eva_auto_takes_the_single_kernel_path(monkeypatch):
+    """impl='auto' goes through the eva_single wrapper where the gate
+    allows it; impl='xla' never does."""
+    x, params, _ = _jax_eva("8x8-w4-j4", "default")
+    calls = []
+    wrapper = K.eva_attention_single
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return wrapper(*args, **kwargs)
+
+    monkeypatch.setattr("efficient_attention_torch.attention.eva."
+                        "eva_attention_single", spy)
+    for impl, expected in (("auto", 1), ("xla", 1)):
+        m = AttentionFactory.build_attention(
+            "eva", dict(_eva_args("8x8-w4-j4", "default"), impl=impl))
+        torch_apply(load_jax_params(m, params), x)
+        assert len(calls) == expected
+    assert calls == [(2, 64, 144)]
+
+
+def _golden(name):
+    data = np.load(os.path.join(GOLDEN_DIR, name))
+    sd = {k[len("param:"):]: torch.from_numpy(data[k]) for k in data.files
+          if k.startswith("param:")}
+    return data["x"], data["out"], sd
+
+
+def _load_golden(module, sd):
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    assert missing in ([], ["relative_position_index"]) and not unexpected
+    return module
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_golden_eva_2d_rpe(impl):
+    x, ref, sd = _golden("eva_2d_rpe.npz")
+    m = AttentionFactory.build_attention("eva", {
+        "dim": 48, "num_heads": 4, "window_size": 4, "num_landmarks": 4,
+        "attn_2d": True, "use_rpe": True, "adaptive_proj": "default",
+        "impl": impl})
+    out = torch_apply(_load_golden(m, sd), x)
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
+def test_golden_local_2d_rpe():
+    x, ref, sd = _golden("local_2d_rpe.npz")
+    m = AttentionFactory.build_attention("local", {
+        "dim": 48, "num_heads": 4, "window_size": 4, "attn_2d": True,
+        "use_rpe": True})
+    out = torch_apply(_load_golden(m, sd), x)
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
+def test_golden_softmax_mha():
+    x, ref, sd = _golden("softmax_mha.npz")
+    m = AttentionFactory.build_attention("softmax", {"dim": 48, "num_heads": 4})
+    m.load_state_dict(sd)
+    np.testing.assert_allclose(torch_apply(m, x), ref, atol=ATOL, rtol=RTOL)
+
+
+def test_local_matches_jax_with_padding_mask():
+    args = {"dim": 48, "num_heads": 4, "window_size": 4, "attn_2d": True,
+            "use_rpe": True}
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 8, 8, 48)).astype(np.float32)
+    mask = rng.random((2, 64)) < 0.2
+    jm = JaxFactory.build_attention("local", args)
+    params = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)), seed=6)
+    ref = np.asarray(jm.apply(to_jax(params),
+                              jnp.asarray(x), key_padding_mask=jnp.asarray(mask)))
+    m = load_jax_params(AttentionFactory.build_attention("local", args), params)
+    with torch.no_grad():
+        out = m.eval()(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("fp32", [False, True])
+def test_softmax_matches_jax_with_padding_mask(fp32):
+    args = {"dim": 48, "num_heads": 4, "fp32": fp32}
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 16, 48)).astype(np.float32)
+    mask = rng.random((2, 16)) < 0.25
+    jm = JaxFactory.build_attention("softmax", args)
+    params = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)), seed=8)
+    ref = np.asarray(jm.apply(to_jax(params),
+                              jnp.asarray(x), key_padding_mask=jnp.asarray(mask)))
+    m = load_jax_params(AttentionFactory.build_attention("softmax", args), params)
+    with torch.no_grad():
+        out = m.eval()(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+
+_EVA = {"dim": 48, "num_heads": 4, "window_size": 4, "num_landmarks": 4,
+        "attn_2d": True, "use_rpe": True}
+
+
+@pytest.mark.parametrize("args,error", [
+    (dict(_EVA, attn_2d=False), NotImplementedError),       # 1-D EVA
+    (dict(_EVA, overlap_window=True), NotImplementedError),  # halo
+    (dict(_EVA, use_rpe=False, use_t5_rpe=True), NotImplementedError),
+    (dict(_EVA, seq_axis="seq"), NotImplementedError),      # seq-parallel
+    (dict(_EVA, impl="packed"), NotImplementedError),        # TPU kernel K1
+    (dict(_EVA, impl="rowmajor"), NotImplementedError),      # TPU kernel K12
+    (dict(_EVA, impl="fast"), ValueError),                   # unknown impl
+    (dict(_EVA, adaptive_proj="mlp"), NotImplementedError),
+])
+def test_eva_unported_configurations_raise(args, error):
+    with pytest.raises(error, match="ROADMAP|impl|adaptive_proj"):
+        AttentionFactory.build_attention("eva", args)
+
+
+def test_eva_unported_forwards_raise():
+    m = AttentionFactory.build_attention("eva", _EVA)
+    x = torch.zeros(1, 8, 8, 48)
+    with pytest.raises(NotImplementedError, match="training"):
+        m.train()(x)
+    with pytest.raises(NotImplementedError, match="padding"):
+        m.eval()(x, torch.zeros(1, 64, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("name,match", [("performer", "not ported"),
+                                        ("causal_eva", "not ported"),
+                                        ("flash", "unknown")])
+def test_factory_unported_names(name, match):
+    with pytest.raises(KeyError, match=match):
+        AttentionFactory.build_attention(name, {"dim": 48, "num_heads": 4})
+
+
+def test_factory_drops_unknown_keys():
+    m = AttentionFactory.build_attention(
+        "eva", dict(_EVA, name="eva", use_megakernel=False))
+    assert m.num_landmarks == 4 and m.impl == "auto"
+
+
+def test_windows_and_rpe_match_jax():
+    from efficient_attention_tpu.ops import rpe as jax_rpe
+    from efficient_attention_tpu.ops import windows as jax_windows
+    from efficient_attention_torch.ops import rpe
+
+    x = np.random.default_rng(9).standard_normal((2, 3, 14, 14, 5)).astype(np.float32)
+    parts = W.window_2d_partition(torch.from_numpy(x), 7)
+    np.testing.assert_array_equal(
+        parts.numpy(), np.asarray(jax_windows.window_2d_partition(jnp.asarray(x), 7)))
+    np.testing.assert_array_equal(W.window_2d_merge(parts, 7, (14, 14)).numpy(), x)
+    for w, e in ((7, 0), (4, 0), (4, 2)):
+        idx, size = rpe.local_2d_rpe_index(w, e)
+        jidx, jsize = jax_rpe.local_2d_rpe_index(w, e)
+        np.testing.assert_array_equal(idx, jidx)
+        assert size == jsize
+    assert rpe.local_2d_rpe_index(7, 0)[1] == 97
