@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-The main path is the eval forward of DeiT-tiny-p8 (``evit_tiny_p8``, 224 px,
-28x28 tokens, dim 192, 3 heads, 12 blocks) with 2-D EVA (window 7, 49
-landmarks, learned RPE, ``adaptive_proj='default'``), random weights from a
-seed.  Phases, each raising on failure:
+The model is DeiT-tiny-p8 (``evit_tiny_p8``, 224 px, 28x28 tokens, dim 192,
+3 heads, 12 blocks) with 2-D EVA (window 7, 49 landmarks, learned RPE,
+``adaptive_proj='default'``), random weights from a seed.  Its two paths are
+the eval forward (serving; every block runs ``eva_single``, K2) and the
+training step (every block runs ``eva_packed``'s forward and backward
+kernels, K1; the end-of-epoch eval runs K2).  Phases, each raising on
+failure:
 
-1. build: compile every kernel of the path with nvcc (one process per
-   source, all at once) and print the seconds;
-2. kernels against their plain versions on the card: ``eva_single`` at the
-   main path's shape in bf16 and f32, and at the golden geometry in f32;
+1. build: compile every kernel with nvcc (one process per source, all at
+   once) and print the seconds;
+2. kernels against their plain versions on the card: ``eva_single``, and
+   ``eva_packed``'s forward and backward on all four gradients, at the main
+   path's shape in bf16 and f32 and at the golden geometry in f32;
 3. the serving path: the port's ``cli.train_vit --eval`` in-process at batch
    128 in bf16 on synthetic images, with the kernels' launch counts set to 0
    just before and read just after, then the f32 logits of the kernel path
    against the port's eager path (``impl='xla'``) on the card;
-4. timings with CUDA events (kernel, plain version, forward images/s);
-5. the kernels line, the card line, and the result line, last.
+4. the training path: ``cli.train_vit`` in-process for 8 steps at batch 128
+   with ``--bf16`` and the DeiT recipe (mixup, cutmix, erasing, drop-path),
+   counts set to 0 just before and read just after (12 x 8 launches of each
+   K1 kernel, 12 x 4 of K2 in the end-of-epoch eval), finite losses and
+   grad norms; then the f32 gradients of every parameter, kernel path
+   against eager path, at batch 8 in train mode with zero RF noise and no
+   drop-path;
+5. timings with CUDA events (kernels, plain versions, bounds, an SDPA
+   yardstick, forward and train-step images/s) and a profile of 3 train
+   steps by op;
+6. the kernels line, the card line, and the result line, last.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -28,6 +41,7 @@ import math
 import subprocess
 import sys
 import time
+from unittest import mock
 
 MAIN_ARGV = [
     "--model", "evit_tiny_p8", "--attn-name", "eva",
@@ -44,6 +58,21 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2 ** -6}
 # f32 logits, kernel path vs eager path, through 12 blocks
 LOGITS_TOL = 1e-4
+# eva_packed vs its plain version, relative to the largest |value| of each
+# output (at least 1): f32 differs in summation order (and, in the
+# backward's drf/dbeta/dbias sums, the order of f32 atomics); bf16 also by
+# one rounding of each output, one bf16 spacing (2**-7 relative) at most
+K1_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2 ** -7}
+# f32 parameter gradients, kernel path vs eager path, through 12 blocks,
+# relative to the largest |gradient| (at least 1)
+GRAD_TOL = 1e-4
+# the three shapes every kernel is checked at: (B, grid side, window,
+# chunk side, heads, head dim) and the dtype
+CHECKS = (("main bf16", (128, 28, 7, 4, 3, 64), "bfloat16"),
+          ("main f32", (128, 28, 7, 4, 3, 64), "float32"),
+          ("golden f32", (2, 14, 7, 2, 4, 12), "float32"))
+TRAIN_ARGV = ["--bf16", "--epochs", "1", "--max-steps-per-epoch", "8",
+              "--warmup-epochs", "0", "--output-dir", "build/smoke_train"]
 
 
 def log(msg):
@@ -97,6 +126,82 @@ def k2_bound(args, bias, out):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k1_inputs(B, g, ws, j, nh, d, dtype, seed):
+    """qkv, rf_k_bar, beta, bias, output gradient at one geometry."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    C = (g // j) ** 2
+    return (r(B, g * g, 3 * nh * d).to(dtype), r(B, C, nh * d).to(dtype),
+            r(B, C, nh * d).to(dtype), 0.5 * r(nh, ws * ws, ws * ws),
+            r(B, g * g, nh * d).to(dtype))
+
+
+def k1_bound(qkv, rf, beta, bias, nh, ws, backward):
+    """Least time of eva_packed's forward or backward at these inputs:
+    every input byte read once and every output written once over HBM (the
+    backward's drf/dbeta in f32), or its operations at the peak of the
+    inputs' type (2 N (S+C) d per image and head for each of the forward's
+    two products, five such in the backward), whichever is larger."""
+    B, N, three_hd = qkv.shape
+    d = three_hd // (3 * nh)
+    S, C = ws * ws, rf.shape[1]
+    t = qkv.element_size()
+    moved = (qkv.numel() + rf.numel() + beta.numel()) * t + bias.numel() * 4
+    out = B * N * nh * d * t
+    if backward:
+        moved += out + qkv.numel() * t + 2 * rf.numel() * 4 + bias.numel() * 4
+    else:
+        moved += out
+    flops = (5 if backward else 2) * 2 * B * nh * N * (S + C) * d
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(qkv.dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_yardstick(qkv, rf, beta, bias, nh, W, ws, grad):
+    """One torch.nn.functional.scaled_dot_product_attention call for the
+    same joint softmax on pre-partitioned windows: q [B*G, H, S, D], keys
+    and values [window | chunk] of length S+C, additive mask [H, S, S+C]
+    holding the RPE and 0 on chunk columns.  Returns (forward ms, backward
+    ms, forward+backward ms); the partition, the broadcast of the chunks to
+    every window and the sum of their gradients back are excluded, and the
+    mask takes no gradient (no dbias)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, N, three_hd = qkv.shape
+    d = three_hd // (3 * nh)
+    S, C = ws * ws, rf.shape[1]
+
+    def windows(t):  # [B, N, H*D] -> [B*G, H, S, D]
+        return (t.reshape(B, N // W // ws, ws, W // ws, ws, nh, d)
+                .permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, nh, S, d))
+
+    G = N // (ws * ws)
+
+    def chunks(t):  # [B, C, H*D] -> [B*G, H, C, D]
+        return (t.reshape(B, 1, C, nh, d).permute(0, 1, 3, 2, 4)
+                .expand(B, G, nh, C, d).reshape(-1, nh, C, d))
+
+    q, k, v = (windows(t).contiguous() for t in qkv.chunk(3, dim=-1))
+    k = torch.cat([k, chunks(rf)], dim=2).requires_grad_()
+    v = torch.cat([v, chunks(beta)], dim=2).requires_grad_()
+    q = q.requires_grad_()
+    mask = torch.cat([bias, bias.new_zeros(nh, S, C)], dim=-1).to(qkv.dtype)
+    g = windows(grad).contiguous()
+    scale = d ** -0.5
+    fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, scale=scale)
+    out = fwd()
+    fwd_ms = cuda_ms(fwd, 20)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                 retain_graph=True), 20)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), g), 20)
+    return fwd_ms, bwd_ms, both_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -108,7 +213,9 @@ def main() -> int:
         return 1
     try:
         from efficient_attention_torch.cli import train_vit
+        from efficient_attention_torch.attention.eva import EVA
         from efficient_attention_torch.ops.kernels import _build
+        from efficient_attention_torch.ops.kernels import eva_packed as k1
         from efficient_attention_torch.ops.kernels import eva_single as k2
     except ImportError as err:
         print(f"chip_smoke: run from the root of a checkout ({err})",
@@ -124,22 +231,26 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    built = _build.build([k2.NAME])
+    built = _build.build([k2.NAME, k1.NAME])
     log(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.2f} s")
-    for line in (_build.BUILD_DIR / f"{k2.NAME}.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for name in (k2.NAME, k1.NAME):
+        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
     lib_smem = k2._lib().eva_single_smem_bytes(98, 64, 2, 49, 7, 7)
     if lib_smem != k2.smem_bytes(98, 64, 2, 49, 7, 7):
         raise AssertionError(f"gate's smem layout {k2.smem_bytes(98, 64, 2, 49, 7, 7)}"
                              f" != kernel's {lib_smem}")
+    for backward in (0, 1):
+        lib_smem = k1._lib().eva_packed_smem_bytes(backward, 64, 49, 49)
+        if lib_smem != k1.smem_bytes(bool(backward), 64, 49, 49):
+            raise AssertionError(f"eva_packed gate's smem layout != kernel's "
+                                 f"{lib_smem} (backward={backward})")
 
     # ---- 2. kernels against their plain versions
     errors = {}
-    for label, geo, dtype in (
-            ("main bf16", (128, 28, 7, 4, 3, 64), torch.bfloat16),
-            ("main f32", (128, 28, 7, 4, 3, 64), torch.float32),
-            ("golden f32", (2, 14, 7, 2, 4, 12), torch.float32)):
+    for label, geo, dtype_name in CHECKS:
+        dtype = getattr(torch, dtype_name)
         args, bias = k2_inputs(*geo, dtype, seed=len(errors))
         out = k2.eva_attention_single(*args, bias=bias)
         torch.cuda.synchronize()
@@ -155,6 +266,32 @@ def main() -> int:
         if not err <= tol:
             raise AssertionError(f"eva_single {label}: max abs err {err} > {tol}")
         errors[label] = err
+    k1_errors = {}
+    for label, (B, g, ws, j, nh, d), dtype_name in CHECKS:
+        dtype = getattr(torch, dtype_name)
+        qkv, rf, beta, bias, grad = k1_inputs(B, g, ws, j, nh, d, dtype,
+                                              seed=10 + len(k1_errors))
+        scale = d ** -0.5
+        got = [k1._forward(qkv, rf, beta, bias, scale, nh, g, ws),
+               *k1._backward(qkv, rf, beta, bias, grad, scale, nh, g, ws)]
+        torch.cuda.synchronize()
+        want = [k1.eva_packed_fwd_ref(qkv, rf, beta, scale, nh, g, ws, bias),
+                *k1.eva_packed_bwd_ref(qkv, rf, beta, bias, grad, scale, nh,
+                                       g, ws)]
+        for name, a, b in zip(("out", "dqkv", "drf", "dbeta", "dbias"),
+                              got, want):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"eva_packed {label} {name}: {a.shape} "
+                                     f"{a.dtype} vs {b.shape} {b.dtype}")
+            err = (a.float() - b.float()).abs().max().item()
+            peak = b.float().abs().max().item()
+            tol = K1_TOL[str(b.dtype)] * max(1.0, peak)
+            log(f"[k1 vs plain] {label} {name}: max abs err {err:.3e} "
+                f"(tol {tol:.1e}), max |value| {peak:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"eva_packed {label} {name}: max abs err "
+                                     f"{err} > {tol}")
+            k1_errors[(label, name)] = err
 
     # ---- 3. the serving path, counts set to 0 just before and read just after
     k2.LAUNCHES = 0
@@ -191,7 +328,60 @@ def main() -> int:
     if not lerr <= LOGITS_TOL:
         raise AssertionError(f"f32 logits differ by {lerr}")
 
-    # ---- 4. timings
+    # ---- 4. the training path, counts set to 0 just before and read after
+    k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
+    t0 = time.perf_counter()
+    record = train_vit.cli_main(MAIN_ARGV + TRAIN_ARGV)
+    torch.cuda.synchronize()
+    train_launches = {"eva_packed_fwd": k1.LAUNCHES_FWD,
+                      "eva_packed_bwd": k1.LAUNCHES_BWD,
+                      "eva_single": k2.LAUNCHES}
+    log(f"[train] 8 steps + eval {json.dumps(record)} in "
+        f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(train_launches)}")
+    # the epoch's loss and grad norm are means over its steps, so they are
+    # finite only if every step's are (the loop itself aborts on a
+    # non-finite loss)
+    for key in ("loss", "grad_norm", "val_loss", "val_acc1"):
+        if not math.isfinite(record[key]):
+            raise AssertionError(f"non-finite {key} in {record}")
+    if train_launches != {"eva_packed_fwd": 12 * 8, "eva_packed_bwd": 12 * 8,
+                          "eva_single": 12 * 4}:
+        raise AssertionError(f"launches {train_launches} for 8 train steps and "
+                             "4 eval batches of a 12-block model")
+    # f32 gradients of every parameter: the kernel path against the eager
+    # path, train mode, zero RF noise, no drop-path
+    args = train_vit.parse_args(MAIN_ARGV + ["--drop-path", "0"])
+    model = train_vit.build_model(args).cuda().train()
+    eager = copy.deepcopy(model)
+    for blk in eager.blocks:
+        blk.attn.impl = "xla"
+    from efficient_attention_torch.data.mixup import (
+        one_hot_smooth,
+        soft_target_cross_entropy,
+    )
+
+    labels = torch.arange(8, device="cuda") * 97 % 1000
+    targets = one_hot_smooth(labels, 1000, 0.1)
+    before = k1.LAUNCHES_FWD
+    with mock.patch.object(EVA, "_sample_weights", lambda self, mu: mu):
+        for m in (model, eager):
+            soft_target_cross_entropy(m(x), targets).backward()
+    torch.cuda.synchronize()
+    if k1.LAUNCHES_FWD - before != 12:
+        raise AssertionError("the kernel path did not run eva_packed 12 times")
+    gerr, gpeak = 0.0, 0.0
+    for (name, p), pe in zip(model.named_parameters(), eager.parameters()):
+        gerr = max(gerr, (p.grad - pe.grad).abs().max().item())
+        gpeak = max(gpeak, pe.grad.abs().max().item())
+    gtol = GRAD_TOL * max(1.0, gpeak)
+    log(f"[train] f32 gradients kernel path vs eager path, all "
+        f"{len(list(model.parameters()))} parameters: max abs err {gerr:.3e} "
+        f"(tol {gtol:.1e}), max |grad| {gpeak:.3e}")
+    if not gerr <= gtol:
+        raise AssertionError(f"f32 gradients differ by {gerr}")
+    del model, eager
+
+    # ---- 5. timings
     args, bias = k2_inputs(128, 28, 7, 4, 3, 64, torch.bfloat16, seed=7)
     out = k2.eva_attention_single(*args, bias=bias)
     k2_ms = cuda_ms(lambda: k2.eva_attention_single(*args, bias=bias), 20)
@@ -222,13 +412,110 @@ def main() -> int:
         f"{12 * k2_ms / fwd_ms:.3f} (12 x {k2_ms:.4f} ms of {fwd_ms:.3f} ms);"
         f" {card}")
 
-    # ---- 5. the kernels line, the card line, the result
+    qkv, rf, beta, bias, grad = k1_inputs(128, 28, 7, 4, 3, 64, bf16, seed=20)
+    k1_args = (qkv, rf, beta, bias, 64 ** -0.5, 3, 28, 7)
+    k1_ms = {
+        "fwd": cuda_ms(lambda: k1._forward(*k1_args), 20),
+        "bwd": cuda_ms(lambda: k1._backward(*k1_args[:4], grad,
+                                            *k1_args[4:]), 10),
+        "plain_fwd": cuda_ms(lambda: k1.eva_packed_fwd_ref(
+            *k1_args[:3], *k1_args[4:], bias), 5),
+        "plain_bwd": cuda_ms(lambda: k1.eva_packed_bwd_ref(
+            *k1_args[:4], grad, *k1_args[4:]), 3),
+    }
+    k1_bounds = {"fwd": k1_bound(qkv, rf, beta, bias, 3, 7, False),
+                 "bwd": k1_bound(qkv, rf, beta, bias, 3, 7, True)}
+    sdpa = dict(zip(("fwd", "bwd", "fwd+bwd"),
+                    sdpa_yardstick(qkv, rf, beta, bias, 3, 28, 7, grad)))
+    log(f"[time] eva_packed main shape bf16: {json.dumps(k1_ms)} ms, bounds "
+        f"{json.dumps(k1_bounds)}, SDPA on pre-partitioned windows "
+        f"{json.dumps(sdpa)} ms; {card}")
+    del qkv, rf, beta, grad, kernel_model, eager_model, softmax_model
+
+    # the train step at B=128 bf16 with the recipe's mixup, cutmix, erasing
+    # and drop-path, on one batch held on the card: kernel path, eager
+    # path, eager, kernel; then a profile of 3 kernel-path steps by op
+    from efficient_attention_torch.data.erasing import ErasingConfig
+    from efficient_attention_torch.data.mixup import MixupConfig
+    from efficient_attention_torch.training.optim import make_optimizer
+    from efficient_attention_torch.training.train_state import (
+        TrainState,
+        make_vit_train_step,
+    )
+
+    step_fn = make_vit_train_step(MixupConfig(num_classes=1000), 1000,
+                                  erasing_cfg=ErasingConfig(),
+                                  compute_dtype=bf16)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    images = torch.randn(128, 224, 224, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (128,), generator=gen, device="cuda")
+    train_args = train_vit.parse_args(MAIN_ARGV + TRAIN_ARGV)
+    states = {}
+    for path in ("kernel", "eager"):
+        m = train_vit.build_model(train_args).cuda()
+        if path == "eager":
+            for blk in m.blocks:
+                blk.attn.impl = "xla"
+        states[path] = TrainState(m, make_optimizer(
+            "adamw", m.named_parameters(), lambda step: 5e-4 * 128 / 512))
+
+    def steps(state, n):
+        for _ in range(n):
+            step_fn(state, images, labels, gen)
+
+    train_rates = {}
+    for i, path in enumerate(("kernel", "eager", "eager", "kernel")):
+        steps(states[path], 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(states[path], 10)
+        torch.cuda.synchronize()
+        train_rates[f"{path} path ({'first' if i in (0, 1) else 'second'})"] = (
+            128 * 10 / (time.perf_counter() - t0))
+    log(f"[time] train step B=128 bf16 images/s: {json.dumps(train_rates)}; "
+        f"{card}")
+    prof = train_vit._profiler(device)
+    with prof:
+        t0 = time.perf_counter()
+        steps(states["kernel"], 3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels_only = [e for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+    self_ms = lambda e: getattr(  # noqa: E731
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+    busy = sum(self_ms(e) for e in kernels_only)
+    k1_ms_total = sum(self_ms(e) for e in kernels_only if "eva_packed" in e.key)
+    step_ms = 128e3 / train_rates["kernel path (second)"]
+    log(f"[profile] 3 kernel-path train steps: device busy {busy:.3f} ms "
+        f"({busy / 3:.3f} ms a step, against {step_ms:.3f} ms a step "
+        f"unprofiled: idle share {1 - busy / 3 / step_ms:.3f}; "
+        f"{wall_ms:.3f} ms wall while profiled), eva_packed kernels "
+        f"{k1_ms_total:.3f} ms ({k1_ms_total / busy:.3f} of busy)")
+    print(events.table(sort_by="self_device_time_total", row_limit=20),
+          flush=True)
+
+    # ---- 6. the kernels line, the card line, the result
     kernels = [{
         "name": k2.NAME, "route": "cuda", "source": k2.SOURCE,
         "replaces": k2.REPLACES, "launches": launches,
         "max_abs_err": errors["main bf16"], "ms": k2_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }]
+    for part, replaces, out_name in (("fwd", k1.REPLACES_FWD, "out"),
+                                     ("bwd", k1.REPLACES_BWD, None)):
+        name = f"{k1.NAME}_{part}"
+        err = (k1_errors[("main bf16", out_name)] if out_name else
+               max(k1_errors[("main bf16", n)]
+                   for n in ("dqkv", "drf", "dbeta", "dbias")))
+        kernels.append({
+            "name": name, "route": "cuda", "source": k1.SOURCE,
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": err, "ms": k1_ms[part],
+            "plain_ms": k1_ms[f"plain_{part}"], "bound_ms": k1_bounds[part][0],
+            "bound_by": k1_bounds[part][1], "library_ms": sdpa[part],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

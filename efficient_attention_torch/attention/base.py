@@ -4,7 +4,8 @@ PyTorch counterpart of ``efficient_attention_tpu/attention/base.py``
 (reference ``abstract_attention.py:41-140``).  Call convention:
 ``forward(x, key_padding_mask=None)`` with ``x: [B, N, C]`` or
 ``[B, H, W, C]`` and ``key_padding_mask: [B, N]`` bool, True = padding.
-Dropout follows ``module.training``.
+Dropout follows ``module.training`` and draws from the ``generator`` that
+``models.layers.set_generator`` hands it.
 """
 from __future__ import annotations
 
@@ -17,6 +18,24 @@ from torch import nn
 
 # fp16/bf16-safe large-negative fill (``local_attention.py:141``)
 MASK_VAL = -5e4
+
+
+class Dropout(nn.Module):
+    """Dropout whose keep mask comes from ``generator`` (None: torch's
+    default one), active in training mode only (flax ``nn.Dropout``)."""
+
+    def __init__(self, p: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.p == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class MultiheadAttention(nn.Module):
@@ -32,8 +51,8 @@ class MultiheadAttention(nn.Module):
         self.fp32 = fp32
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
-        self.attn_dropout = nn.Dropout(attn_drop)
-        self.proj_dropout = nn.Dropout(proj_drop)
+        self.attn_dropout = Dropout(attn_drop)
+        self.proj_dropout = Dropout(proj_drop)
 
     @property
     def head_dim(self) -> int:

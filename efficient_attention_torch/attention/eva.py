@@ -5,17 +5,22 @@ PyTorch counterpart of ``efficient_attention_tpu/attention/eva.py``
 
   1. blocked local attention over 2-D windows with learned RPE,
   2. chunked random-feature global attention: per-chunk adaptive proposal
-     ``mu = (mu_q(mean q) + mu_k(mean k)) / 2`` (its mean at eval) and a
-     per-chunk SNIS value summary ``beta``,
+     ``mu = (mu_q(mean q) + mu_k(mean k)) / 2``, one RF sample
+     ``w ~ N(mu, I)`` in training (its mean at eval), and a per-chunk SNIS
+     value summary ``beta``,
   3. one softmax over ``[local logits | chunk logits]`` (``eva.py:222-227``).
 
-Ported: the 2-D eval forward without halo or padding mask, by two paths.
-``impl='auto'`` sends it to the single-pass ``eva_single`` kernel when the
-geometry fits that kernel's gate; ``impl='xla'`` (the JAX package's name for
-the plain path) forces the eager tensor-op path.  Not ported yet, each
-raising ``NotImplementedError`` with its ROADMAP.md item: the training
-forward (random-feature sampling, kernel K1), 1-D windows, halos, padding
-masks, T5 RPE, sequence parallelism, and the TPU-only ``impl`` choices.
+Ported: the 2-D forward without halo or padding mask, in training and eval,
+by the JAX dispatch order (``eva.py:542-593``).  In eval, ``impl='auto'``
+(or ``'packed'``) takes the single-pass ``eva_single`` kernel (K2) where its
+gate holds, else the ``eva_packed`` kernel (K1) on the packed chunk
+summaries, else the eager tensor-op path; in training, K1 where its gate
+holds, else eager.  ``impl='xla'`` (the JAX package's name for the plain
+path) forces the eager path, and ``impl='packed'`` raises ``ValueError``
+where K1's gate fails.  The RF noise is drawn from ``self.generator``, which
+the train step sets.  Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP.md item: 1-D windows, halos, padding masks, T5 RPE,
+sequence parallelism, and the other TPU-only ``impl`` choices.
 """
 from __future__ import annotations
 
@@ -27,12 +32,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from efficient_attention_torch.attention.local import LocalAttention
+from efficient_attention_torch.ops.kernels.eva_packed import (
+    eva_attention_packed,
+    supports_packed,
+)
 from efficient_attention_torch.ops.kernels.eva_single import (
     eva_attention_single,
     supports_single,
 )
 
-_TPU_IMPLS = {"packed": "K1", "pallas": "K11", "rowmajor": "K12"}
+_TPU_IMPLS = {"pallas": "K11", "rowmajor": "K12"}
 
 
 def _adaptive_proj(head_dim: int, with_ln: bool) -> nn.Sequential:
@@ -48,8 +57,12 @@ class EVA(LocalAttention):
     Extra args over :class:`LocalAttention`:
       * ``adaptive_proj``: ``default`` (Linear+LN) / ``no-ln`` / ``none``
       * ``num_landmarks``: number of global RF chunks
-      * ``impl``: ``auto`` (single-pass kernel where the gate allows, else
-        eager) or ``xla`` (eager)
+      * ``impl``: ``auto`` (the kernels where their gates allow, else
+        eager), ``packed`` (the kernels, raising where K1's gate fails) or
+        ``xla`` (eager)
+
+    ``generator`` (None: torch's default one) draws the RF noise in
+    training.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
@@ -75,11 +88,13 @@ class EVA(LocalAttention):
             raise NotImplementedError(
                 f"impl={impl!r} selects TPU kernel {_TPU_IMPLS[impl]}, not "
                 "ported yet; see ROADMAP.md Queue 2")
-        if impl not in ("auto", "xla"):
-            raise ValueError(f"unknown EVA impl {impl!r}; use 'auto' or 'xla'")
+        if impl not in ("auto", "packed", "xla"):
+            raise ValueError(
+                f"unknown EVA impl {impl!r}; use 'auto', 'packed' or 'xla'")
         self.adaptive_proj = adaptive_proj
         self.num_landmarks = num_landmarks
         self.impl = impl
+        self.generator: Optional[torch.Generator] = None
         d = self.head_dim
         if adaptive_proj in ("default", "no-ln"):
             self.adaptive_mu_q = _adaptive_proj(d, adaptive_proj == "default")
@@ -91,13 +106,8 @@ class EVA(LocalAttention):
 
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """EVA eval forward over a ``[B, H, W, C]`` token grid
-        (``eva.py:138-233``)."""
-        if self.training:
-            raise NotImplementedError(
-                "EVA's training forward (random-feature sampling, kernel K1) "
-                "is not ported yet; see ROADMAP.md Queue 1, item 3. Call "
-                ".eval() for the eval forward")
+        """EVA forward over a ``[B, H, W, C]`` token grid
+        (``eva.py:138-233``); training mode samples the RF weights."""
         if key_padding_mask is not None:
             raise NotImplementedError(
                 "EVA with a key-padding mask is not ported yet; see "
@@ -116,10 +126,22 @@ class EVA(LocalAttention):
                 f"length {N}; the RF chunk size would be 0")
         if gh % j or gw % j:
             raise ValueError(f"grid {gh}x{gw} is not divisible by chunk {j}")
-        if (self.impl == "auto" and j * j * self.num_landmarks == N
+        kernels = self.impl in ("auto", "packed")
+        chunk_ok = j * j * self.num_landmarks == N
+        if (kernels and chunk_ok and not self.training
                 and supports_single(B, gh, gw, ws, j, self.adaptive_proj,
                                     3 * C, self.num_heads, x.element_size())):
             return self._forward_single(x, j)
+        if (kernels and chunk_ok and self.attn_dropout.p == 0.0
+                and supports_packed(B, N, gw, ws, self.num_landmarks,
+                                    self.head_dim, x.element_size(),
+                                    self.num_heads)):
+            return self._forward_packed(x, j)
+        if self.impl == "packed":
+            raise ValueError(
+                "impl='packed' requires square windows and chunks dividing "
+                "the grid, attn_drop=0 and a geometry within the eva_packed "
+                "kernel's gate (supports_packed)")
         return self._forward_eager(x, j)
 
     def _forward_single(self, x: torch.Tensor, j: int) -> torch.Tensor:
@@ -136,6 +158,74 @@ class EVA(LocalAttention):
             self.scale, self.num_heads, gw, self.window_size, j, use_ln,
             bias=self.window_bias())
         return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+
+    def _sample_weights(self, mu: torch.Tensor) -> torch.Tensor:
+        """One RF sample ``w ~ N(mu, I)`` in training, drawn from
+        ``self.generator``; ``mu`` itself at eval (``eva.py:411-416``)."""
+        if not self.training:
+            return mu
+        return mu + torch.randn(mu.shape, generator=self.generator,
+                                dtype=mu.dtype, device=mu.device)
+
+    def _forward_packed(self, x: torch.Tensor, j: int) -> torch.Tensor:
+        """Packed path (``eva.py:359-393``): the fused qkv projection, the
+        chunk summaries read from its packed output, the ``eva_packed``
+        kernel, the output projection; no head transpose or window
+        partition in between."""
+        B, gh, gw, C = x.shape
+        qkv = self.qkv(x.reshape(B, gh * gw, C))  # [B, N, 3*H*D]
+        rf_k_bar, beta = self._chunk_summaries_packed(qkv, (gh, gw), j)
+        out = eva_attention_packed(qkv, rf_k_bar, beta, self.scale,
+                                   self.num_heads, gw, self.window_size,
+                                   bias=self.window_bias())
+        return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+
+    def _chunk_summaries_packed(self, qkv: torch.Tensor,
+                                seq_shape: Tuple[int, int], j: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Chunk summaries ``(rf_k_bar, beta)``, each packed ``[B, C, H*D]``,
+        read from the packed ``[B, N, 3*H*D]`` projection output by the
+        training form of ``eva.py:196-296``: every chunk reduction is a
+        product with the 0/1 chunk-membership matrix ``P [C, N]``, and the
+        per-chunk softmax of ``<w, k>/sqrt(d) - |k|^2/(2 sqrt(d))`` over the
+        chunk's members is shifted by its true maximum.  At eval ``w = mu``,
+        which is the same function as the JAX eval form."""
+        nh, d = self.num_heads, self.head_dim
+        hd = nh * d
+        B, N, _ = qkv.shape
+        gh, gw = seq_shape
+        hc, wc = gh // j, gw // j
+        c = hc * wc
+        # static chunk membership [C, N]: token (y, x) -> chunk (y//j, x//j)
+        t = torch.arange(N, device=qkv.device)
+        chunk_of = (t // (gw * j)) * wc + (t % gw) // j
+        P = (chunk_of[None, :] == torch.arange(c, device=qkv.device)[:, None]
+             ).to(qkv.dtype)
+        P_mean = P / float(j * j)
+        qf, kf, vf = qkv.split(hd, dim=-1)
+        k_mean = (P_mean @ kf).reshape(B, c, nh, d)
+        if self.adaptive_proj in ("default", "no-ln"):
+            q_mean = (P_mean @ qf).reshape(B, c, nh, d)
+            rf_k_bar = self.adaptive_mu_k(k_mean)
+            mu = 0.5 * (self.adaptive_mu_q(q_mean) + rf_k_bar)
+        else:
+            rf_k_bar = self.adaptive_mu_k(k_mean)
+            mu = torch.zeros_like(rf_k_bar)
+        weights = self._sample_weights(mu)  # [B, C, nh, d]
+        # log phi(k)[n] = <w_chunk(n), k_n>/sqrt(d) - |k_n|^2/(2 sqrt(d))
+        dn = d ** -0.5
+        w_tok = P.t() @ weights.reshape(B, c, hd).to(P.dtype)  # [B, N, HD]
+        k4 = kf.reshape(B, N, nh, d).float()
+        dash = dn * (k4 * w_tok.reshape(B, N, nh, d).float()).sum(-1)
+        logp = dash - (0.5 * dn) * k4.square().sum(-1)  # [B, N, nh]
+        Pf = P.float()
+        m_c = logp.reshape(B, hc, j, wc, j, nh).amax(dim=(2, 4))
+        p = torch.exp(logp - Pf.t() @ m_c.reshape(B, c, nh))
+        denom = Pf @ p  # [B, C, nh]
+        pv = (p[..., None].to(qkv.dtype)
+              * vf.reshape(B, N, nh, d)).reshape(B, N, hd)
+        beta = (P @ pv).reshape(B, c, nh, d) / denom[..., None]
+        return rf_k_bar.reshape(B, c, hd), beta.to(qkv.dtype).reshape(B, c, hd)
 
     def _chunk_summaries_natural(self, q, k, v, seq_shape: Tuple[int, int],
                                  j: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -160,7 +250,7 @@ class EVA(LocalAttention):
         else:
             rf_k_bar = self.adaptive_mu_k(k_mean)
             mu = torch.zeros_like(rf_k_bar)
-        w6 = mu.reshape(B, nh, hc, wc, d).float()
+        w6 = self._sample_weights(mu).reshape(B, nh, hc, wc, d).float()
         # log phi(k)[c, j] = <w_c, k_j>/sqrt(d) - |k_j|^2/(2 sqrt(d)),
         # softmax-normalised over each chunk's members with the true max
         dn = d ** -0.5

@@ -1,23 +1,31 @@
-"""ViT CLI of the port: the ``--eval`` and ``--throughput`` paths.
+"""ViT CLI of the port: training, ``--eval`` and ``--throughput``.
 
-Counterpart of ``efficient_attention_tpu/cli/train_vit.py`` with the same
-two-pass parsing, which injects the chosen attention's flags into a nested
-namespace (``vit/main.py:186-193``).  This slice serves: ``--eval`` scores
-the synthetic validation set, ``--throughput`` times forwards.  Training,
-real datasets and checkpoints are ROADMAP.md Queue 1, item 3.  The model
-runs on ``--device`` (default ``cuda``).
+Counterpart of ``efficient_attention_tpu/cli/train_vit.py``, with the same
+flags and the same two-pass parsing, which injects the chosen attention's
+flags into a nested namespace (``vit/main.py:186-193``).  Without ``--eval``
+or ``--throughput`` it trains with the DeiT recipe's defaults (AdamW,
+per-epoch cosine, mixup/cutmix, label smoothing, random erasing, stochastic
+depth) on the synthetic dataset, scores the synthetic validation set after
+each epoch and appends the epoch's record to ``log.txt`` under
+``--output-dir``.  ``--eval`` scores the validation set, ``--throughput``
+times forwards.  The model runs on ``--device`` (default ``cuda``), on one
+device.  Flags whose module is not ported yet raise ``NotImplementedError``
+naming their ROADMAP.md item; no checkpoint is written yet.
 
 Example (DeiT-tiny-p8 with 2-D EVA, the main path):
 
   python -m efficient_attention_torch.cli.train_vit \\
       --model evit_tiny_p8 --attn-name eva --attn-window-size 7 \\
       --attn-num-landmarks 49 --attn-attn-2d --attn-use-rpe \\
-      --batch-size 128 --eval --bf16
+      --batch-size 128 --bf16 --epochs 1 --max-steps-per-epoch 8
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
+import sys
 import time
 
 import numpy as np
@@ -26,27 +34,98 @@ import torch
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        "EfficientAttention-Torch ViT eval", add_help=False)
+        "EfficientAttention-Torch ViT training", add_help=False)
+    # the JAX CLI's flags (vit/main.py:32-195)
     parser.add_argument("--batch-size", default=64, type=int)
+    parser.add_argument("--epochs", default=300, type=int)
     parser.add_argument("--model", default="evit_tiny_p16", type=str)
     parser.add_argument("--attn-name", default="softmax", type=str)
     parser.add_argument("--input-size", default=224, type=int)
     parser.add_argument("--drop", default=0.0, type=float)
     parser.add_argument("--drop-path", default=0.1, type=float)
     parser.add_argument("--attn-drop-rate", default=0.0, type=float)
+    parser.add_argument("--model-ema", action="store_true", default=False)
+    parser.add_argument("--model-ema-decay", default=0.99996, type=float)
+    parser.add_argument("--sched", default="cosine", type=str,
+                        choices=["cosine", "step"])
+    parser.add_argument("--decay-epochs", default=30, type=float,
+                        help="epochs between step-scheduler decays")
+    parser.add_argument("--decay-rate", default=0.1, type=float)
+    parser.add_argument("--cooldown-epochs", default=0, type=int,
+                        help="extra epochs held at min-lr after the decay "
+                             "ends (timm --cooldown-epochs)")
+    parser.add_argument("--opt", default="adamw", type=str)
+    parser.add_argument("--opt-eps", default=1e-8, type=float)
+    parser.add_argument("--opt-betas", default=None, type=str,
+                        help="optimizer betas, e.g. '0.9,0.999'")
+    parser.add_argument("--momentum", default=0.9, type=float,
+                        help="sgd/nag momentum")
     parser.add_argument("--no-pos-emb", action="store_true", default=False)
+    parser.add_argument("--weight-decay", default=0.05, type=float)
+    parser.add_argument("--lr", default=5e-4, type=float)
+    parser.add_argument("--lr-ratio", default=1.0, type=float)
+    parser.add_argument("--warmup-epochs", default=10, type=int)
+    parser.add_argument("--warmup-lr", default=1e-6, type=float)
+    parser.add_argument("--min-lr", default=1e-5, type=float)
+    parser.add_argument("--clip-grad", default=None, type=float)
+    parser.add_argument("--mixup", default=0.8, type=float)
+    parser.add_argument("--cutmix", default=1.0, type=float)
+    parser.add_argument("--mixup-prob", default=1.0, type=float)
+    parser.add_argument("--mixup-switch-prob", default=0.5, type=float)
+    parser.add_argument("--mixup-mode", default="batch", type=str,
+                        choices=["batch", "pair", "elem"])
+    parser.add_argument("--cutmix-minmax", default=None, type=str,
+                        help="cutmix box side range as 'lo,hi' fractions")
+    parser.add_argument("--smoothing", default=0.1, type=float)
+    # augmentation of real images (vit/main.py:105-124); the synthetic
+    # dataset takes none, as in the JAX CLI
+    parser.add_argument("--aa", default="rand-m9-mstd0.5-inc1", type=str)
+    parser.add_argument("--color-jitter", default=0.4, type=float)
+    parser.add_argument("--train-interpolation", default="bicubic", type=str)
+    parser.add_argument("--reprob", default=0.25, type=float)
+    parser.add_argument("--remode", default="pixel", type=str)
+    parser.add_argument("--recount", default=1, type=int)
+    parser.add_argument("--repeated-aug", action="store_true", default=False)
+    parser.add_argument("--data-path", default=None, type=str)
     parser.add_argument("--data-set", default="SYNTHETIC", type=str,
                         choices=["IMAGENET", "CIFAR10", "CIFAR100",
                                  "SYNTHETIC"])
     parser.add_argument("--num-classes", default=1000, type=int)
+    parser.add_argument("--output-dir", default="./checkpoints/vit")
     parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--resume", default="", type=str)
+    parser.add_argument("--init-params", default="", type=str)
     parser.add_argument("--eval", action="store_true")
+    parser.add_argument("--checkpoint-activations", action="store_true")
     parser.add_argument("--throughput", action="store_true")
-    parser.add_argument("--profile", action="store_true", default=False,
-                        help="with --throughput: trace 3 more forwards with "
-                             "torch.profiler and print the ops by device time")
+    parser.add_argument("--profile", nargs="?", const="", default=None,
+                        metavar="LOGDIR",
+                        help="trace 3 steps (train steps 1-3, or 3 more "
+                             "forwards with --throughput) with "
+                             "torch.profiler, print the ops by device time, "
+                             "and write a Chrome trace to LOGDIR if given")
+    parser.add_argument("--num-workers", default=8, type=int,
+                        help="threads that load a batch's samples")
+    parser.add_argument("--uint8-cache", default="", type=str)
+    parser.add_argument("--decode-backend", default="thread",
+                        choices=["thread", "process"])
+    parser.add_argument("--accum-steps", default=1, type=int)
+    parser.add_argument("--max-steps-per-epoch", default=None, type=int,
+                        help="truncate epochs (smoke tests)")
+    parser.add_argument("--mesh-fsdp", default=1, type=int)
+    parser.add_argument("--mesh-model", default=1, type=int)
     parser.add_argument("--bf16", action="store_true", default=False,
-                        help="run the model in bfloat16")
+                        help="mixed precision: float32 master parameters, "
+                             "bfloat16 compute (--eval/--throughput: the "
+                             "model in bfloat16)")
+    parser.add_argument("--tensorboard-logdir", default=None, type=str)
+    parser.add_argument("--wandb-project", default=None, type=str)
+    parser.add_argument("--azureml-logging", action="store_true")
+    dist = parser.add_argument_group("distributed")
+    dist.add_argument("--distributed", action="store_true", default=False)
+    dist.add_argument("--coordinator-address", default=None, type=str)
+    dist.add_argument("--num-processes", default=None, type=int)
+    dist.add_argument("--process-id", default=None, type=int)
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to run on ('cuda' or 'cpu')")
     return parser
@@ -68,6 +147,39 @@ def parse_args(argv=None):
     return parser.parse_args(argv, namespace=NestedNamespace())
 
 
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` for every flag set to something whose
+    module is not ported yet, naming its ROADMAP.md item."""
+    queued = [
+        (args.data_set != "SYNTHETIC", f"--data-set {args.data_set}",
+         "Queue 1, item 3 (real datasets)"),
+        (bool(args.uint8_cache), "--uint8-cache", "Queue 1, item 3"),
+        (args.decode_backend != "thread", "--decode-backend process",
+         "Queue 1, item 3"),
+        (args.repeated_aug, "--repeated-aug", "Queue 1, item 3 (RASampler)"),
+        (args.sched != "cosine", f"--sched {args.sched}", "Queue 1, item 3"),
+        (args.checkpoint_activations, "--checkpoint-activations",
+         "Queue 1, item 3"),
+        (bool(args.resume), "--resume",
+         "Queue 1, item 8 (training/checkpoint.py)"),
+        (bool(args.init_params), "--init-params",
+         "Queue 1, item 8 (training/checkpoint.py)"),
+        (args.mesh_fsdp != 1 or args.mesh_model != 1,
+         "--mesh-fsdp/--mesh-model", "Queue 1, item 7"),
+        (args.distributed or args.coordinator_address is not None
+         or args.num_processes is not None or args.process_id is not None,
+         "the distributed flags", "Queue 1, item 7"),
+        (args.tensorboard_logdir is not None, "--tensorboard-logdir",
+         "Queue 1, item 8"),
+        (args.wandb_project is not None, "--wandb-project", "Queue 1, item 8"),
+        (args.azureml_logging, "--azureml-logging", "Queue 1, item 8"),
+    ]
+    for unported, flag, item in queued:
+        if unported:
+            raise NotImplementedError(
+                f"{flag} is not ported yet; see ROADMAP.md {item}")
+
+
 def build_model(args) -> torch.nn.Module:
     """The model of ``args`` with weights drawn from ``args.seed``, in eval
     mode on the CPU in float32."""
@@ -84,7 +196,8 @@ def build_model(args) -> torch.nn.Module:
         attn_drop_rate=args.attn_drop_rate,
         patchify_stem=getattr(args, "patchify_stem", "default"),
         use_glu=getattr(args, "use_glu", False),
-        use_pos_emb=not getattr(args, "no_pos_emb", False))
+        use_pos_emb=not getattr(args, "no_pos_emb", False),
+        checkpoint_activations=getattr(args, "checkpoint_activations", False))
     if getattr(args, "depth", None):
         model_kwargs["depth"] = args.depth
     if getattr(args, "num_heads", None):
@@ -95,14 +208,16 @@ def build_model(args) -> torch.nn.Module:
 
 
 def evaluate(model, dataset, args, device, dtype) -> dict:
-    """Mean top-1/top-5/loss over the whole batches of ``dataset``."""
+    """Mean top-1/top-5/loss over the whole batches of ``dataset``;
+    ``model`` is any callable from images to logits."""
     from efficient_attention_torch.data.imagenet import batch_iterator
     from efficient_attention_torch.training.train_state import vit_eval_step
 
     totals = {"acc1": 0.0, "acc5": 0.0, "loss": 0.0}
     n = 0
     for imgs, labels in batch_iterator(dataset, args.batch_size,
-                                       np.arange(len(dataset))):
+                                       np.arange(len(dataset)),
+                                       args.num_workers):
         out = vit_eval_step(
             model, torch.from_numpy(imgs).to(device=device, dtype=dtype),
             torch.from_numpy(labels).to(device))
@@ -112,6 +227,24 @@ def evaluate(model, dataset, args, device, dtype) -> dict:
     stats = {k: v / max(n, 1) for k, v in totals.items()}
     stats["batches"] = n
     return stats
+
+
+def _print_profile(prof, device, logdir) -> None:
+    print(prof.key_averages().table(
+        sort_by="self_device_time_total" if device.type == "cuda"
+        else "self_cpu_time_total", row_limit=20))
+    if logdir:
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def _profiler(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
 
 
 @torch.no_grad()
@@ -134,39 +267,147 @@ def compute_throughput(model, args, device, dtype) -> dict:
     sync()
     ips = args.batch_size * 30 / (time.perf_counter() - t0)
     print(f"throughput: {ips:.1f} images/sec")
-    if getattr(args, "profile", False):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+    if getattr(args, "profile", None) is not None:
+        with _profiler(device) as prof:
             for _ in range(3):
                 model(x)
             sync()
-        print(prof.key_averages().table(
-            sort_by="self_device_time_total" if device.type == "cuda"
-            else "self_cpu_time_total", row_limit=20))
+        _print_profile(prof, device, args.profile)
     return {"images_per_sec": ips}
 
 
+def train(args, device) -> dict:
+    """The training loop (JAX ``cli/train_vit.py:213-461``) on one device;
+    returns the last epoch's record."""
+    from efficient_attention_torch.data.erasing import ErasingConfig
+    from efficient_attention_torch.data.imagenet import (
+        SyntheticImageDataset,
+        batch_iterator,
+        shard_indices,
+    )
+    from efficient_attention_torch.data.mixup import MixupConfig
+    from efficient_attention_torch.training.metrics import (
+        MetricLogger,
+        write_log_line,
+    )
+    from efficient_attention_torch.training.optim import (
+        cosine_schedule,
+        make_optimizer,
+    )
+    from efficient_attention_torch.training.train_state import (
+        TrainState,
+        make_vit_train_step,
+    )
+
+    model = build_model(args).to(device)  # float32 master parameters
+    train_ds = SyntheticImageDataset(
+        num_samples=args.batch_size * 16, img_size=args.input_size,
+        num_classes=args.num_classes, train=True)
+    val_ds = SyntheticImageDataset(
+        num_samples=args.batch_size * 4, img_size=args.input_size,
+        num_classes=args.num_classes, train=False)
+    # linear lr scaling (vit/main.py:292-293)
+    lr = args.lr * args.lr_ratio * args.batch_size / 512.0
+    steps_per_epoch = max(1, len(train_ds) // args.batch_size)
+    if args.max_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
+    # --cooldown-epochs: the cosine ends early and the tail holds min-lr
+    schedule = cosine_schedule(
+        lr, warmup_steps=args.warmup_epochs * steps_per_epoch,
+        total_steps=max(1, args.epochs - args.cooldown_epochs) * steps_per_epoch,
+        warmup_init_lr=args.warmup_lr, min_lr=args.min_lr,
+        steps_per_epoch=steps_per_epoch)
+    betas = (tuple(float(b) for b in args.opt_betas.replace(" ", "")
+                   .strip("()").split(","))
+             if args.opt_betas else (0.9, 0.999))
+    optimizer = make_optimizer(args.opt, model.named_parameters(), schedule,
+                               weight_decay=args.weight_decay,
+                               clip_grad=args.clip_grad, betas=betas,
+                               eps=args.opt_eps)
+    state = TrainState(model, optimizer,
+                       ema_decay=args.model_ema_decay if args.model_ema else 0.0)
+    mixup_cfg = None
+    if args.mixup > 0 or args.cutmix > 0:
+        minmax = (tuple(float(v) for v in args.cutmix_minmax.split(","))
+                  if args.cutmix_minmax else None)
+        mixup_cfg = MixupConfig(
+            mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+            prob=args.mixup_prob, switch_prob=args.mixup_switch_prob,
+            label_smoothing=args.smoothing, num_classes=args.num_classes,
+            mode=args.mixup_mode, cutmix_minmax=minmax)
+    erasing_cfg = (ErasingConfig(prob=args.reprob, mode=args.remode,
+                                 count=args.recount)
+                   if args.reprob > 0 else None)
+    train_step = make_vit_train_step(
+        mixup_cfg, num_classes=args.num_classes,
+        label_smoothing=args.smoothing, accum_steps=args.accum_steps,
+        erasing_cfg=erasing_cfg,
+        compute_dtype=torch.bfloat16 if args.bf16 else None)
+
+    def eval_model(x):
+        if state.ema_params is None:
+            return model(x)
+        return torch.func.functional_call(model, state.ema_params, (x,))
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    log_path = os.path.join(args.output_dir, "log.txt")
+    print("| no checkpoint is written: training/checkpoint.py is not ported "
+          "yet (ROADMAP.md Queue 1, item 8)")
+    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    prof = None
+    record = {}
+    for epoch in range(args.epochs):
+        logger = MetricLogger()
+        idx = shard_indices(len(train_ds), epoch, args.seed)
+        t0 = time.time()
+        batches = batch_iterator(train_ds, args.batch_size, idx,
+                                 args.num_workers)
+        for i, (imgs, labels) in enumerate(
+                logger.log_every(batches, 50, f"Epoch [{epoch}]")):
+            if args.max_steps_per_epoch and i >= args.max_steps_per_epoch:
+                break
+            if args.profile is not None and epoch == 0 and i == 1:
+                prof = _profiler(device)
+                prof.start()
+            metrics = train_step(state, torch.from_numpy(imgs).to(device),
+                                 torch.from_numpy(labels).to(device),
+                                 generator)
+            loss = float(metrics.loss)
+            logger.update(loss=loss, grad_norm=float(metrics.grad_norm))
+            if prof is not None and i == 3:
+                prof.stop()
+                _print_profile(prof, device, args.profile)
+                prof = None
+            if not math.isfinite(loss):
+                # the reference aborts on a non-finite loss (vit/engine.py:53-55)
+                print("Loss is not finite, stopping training")
+                sys.exit(1)
+        if prof is not None:  # the epoch ended inside the traced steps
+            prof.stop()
+            _print_profile(prof, device, args.profile)
+            prof = None
+        model.eval()
+        val_stats = evaluate(eval_model, val_ds, args, device, torch.float32)
+        record = {"epoch": epoch, **logger.global_avg_dict(),
+                  **{f"val_{k}": v for k, v in val_stats.items()},
+                  "epoch_time": time.time() - t0}
+        write_log_line(log_path, record)
+        print(json.dumps(record))
+    return record
+
+
 def main(args) -> dict:
-    if not (args.eval or args.throughput):
-        raise NotImplementedError(
-            "ViT training is not ported yet (ROADMAP.md Queue 1, item 3); "
-            "pass --eval or --throughput")
-    if args.data_set != "SYNTHETIC":
-        raise NotImplementedError(
-            f"--data-set {args.data_set} is not ported yet (ROADMAP.md "
-            "Queue 1, item 3); use SYNTHETIC")
     from efficient_attention_torch.data.imagenet import SyntheticImageDataset
 
+    check_ported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
     # float32 means float32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if not (args.eval or args.throughput):
+        return train(args, device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = build_model(args).to(device=device, dtype=dtype)
     if args.throughput:

@@ -17,7 +17,12 @@ import torch
 from torch import nn
 
 from efficient_attention_torch import AttentionFactory
-from efficient_attention_torch.models.layers import DropPath, GatedMlp, PatchEmbed
+from efficient_attention_torch.models.layers import (
+    DropPath,
+    Dropout,
+    GatedMlp,
+    PatchEmbed,
+)
 from efficient_attention_torch.models.registry import register_model
 
 
@@ -51,8 +56,13 @@ class EfficientTransformer(nn.Module):
                  qkv_bias: bool = True, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  patchify_stem: str = "default", use_glu: bool = False,
-                 use_pos_emb: bool = True):
+                 use_pos_emb: bool = True,
+                 checkpoint_activations: bool = False):
         super().__init__()
+        if checkpoint_activations:
+            raise NotImplementedError(
+                "--checkpoint-activations (rematerialised blocks) is not "
+                "ported yet; see ROADMAP.md Queue 1, item 3")
         self.num_classes = num_classes
         self.use_pos_emb = use_pos_emb
         self.patch_embed = PatchEmbed(patch_size, embed_dim, in_chans,
@@ -61,7 +71,7 @@ class EfficientTransformer(nn.Module):
         if use_pos_emb:
             self.pos_embed = nn.Parameter(torch.zeros(1, grid, grid, embed_dim))
             nn.init.trunc_normal_(self.pos_embed, std=0.02)
-            self.pos_drop = nn.Dropout(drop_rate)
+            self.pos_drop = Dropout(drop_rate)
         merged_attn_args = {
             **(attn_args or {}),
             "dim": embed_dim,
@@ -70,6 +80,8 @@ class EfficientTransformer(nn.Module):
             "attn_drop": attn_drop_rate,
             "proj_drop": drop_rate,
         }
+        # stochastic depth grows linearly over the blocks (JAX
+        # ``efficient_vit.py:104``)
         dpr = [float(x) for x in np.linspace(0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList([
             Block(attn_name, merged_attn_args, embed_dim, mlp_ratio, dpr[i],

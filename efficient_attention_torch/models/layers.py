@@ -1,4 +1,4 @@
-"""Shared model layers: gated MLP, stochastic depth, patch embedding.
+"""Shared model layers: dropout, gated MLP, stochastic depth, patch embedding.
 
 PyTorch counterparts of ``efficient_attention_tpu/models/layers.py``
 (reference ``vit/models/model_utils.py`` and ``vit/models/efficient_vit.py:
@@ -14,10 +14,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from efficient_attention_torch.attention.base import Dropout
+
+
+def set_generator(model: nn.Module,
+                  generator: Optional[torch.Generator]) -> nn.Module:
+    """Hand ``generator`` to every module of ``model`` that draws random
+    numbers in training (``Dropout``, ``DropPath``, EVA's RF noise): the
+    train step's counterpart of flax's ``rngs={"dropout", "sample"}``."""
+    for module in model.modules():
+        if hasattr(module, "generator"):
+            module.generator = generator
+    return model
+
 
 class DropPath(nn.Module):
-    """Stochastic depth (timm ``DropPath``), active in training mode only.
-    ``generator`` draws the per-sample keep mask (None: the global one)."""
+    """Stochastic depth (timm ``DropPath``, JAX ``models/layers.py:31``),
+    active in training mode only.  ``generator`` draws the per-sample keep
+    mask (None: torch's default one)."""
 
     def __init__(self, rate: float = 0.0,
                  generator: Optional[torch.Generator] = None):
@@ -53,7 +67,7 @@ class GatedMlp(nn.Module):
         else:
             self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.fc1(x)

@@ -1,0 +1,350 @@
+"""K1 ``eva_packed``: the 2-D EVA joint softmax of the training step.
+
+Replaces ``efficient_attention_tpu/ops/pallas/eva_packed.py::
+eva_attention_packed``, the kernel that every EVA block of the training step
+goes through, with its fused backward.  From the packed projection output
+``qkv [B, N, 3*H*D]`` and the chunk summaries ``rf_k_bar, beta [B, C, H*D]``
+each query attends over its own window's keys (plus the window RPE bias
+``[H, S, S]``) and all ``C`` chunk keys, with values ``[window v | beta]``,
+in one softmax; the output is ``[B, N, H*D]``.
+
+The TPU kernel computes this over row strips with masked cross-window
+logits; the masked entries are exactly 0 after its softmax, so the
+window-local form here is the same function.  Roundings follow the TPU
+kernel: the chunk summaries are taken in qkv's dtype, the softmax
+numerators (forward) and the normalised ``P`` and ``dS`` (backward) are
+rounded to that dtype before the products that consume them, every sum is
+f32, and the output is ``out / denom`` in f32, then cast.
+
+``eva_attention_packed`` is a ``torch.autograd.Function``.  For CUDA
+tensors its forward and backward launch the kernels of
+``csrc/eva_packed.cu`` or raise; for CPU tensors they compute the same
+function with ``eva_packed_fwd_ref`` and ``eva_packed_bwd_ref``, the plain
+PyTorch versions (the backward in explicit formulas, not autograd), which
+are also what the kernels are held against on the card.  ``LAUNCHES_FWD``
+and ``LAUNCHES_BWD`` count the kernels' launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from efficient_attention_torch.ops import windows
+from efficient_attention_torch.ops.kernels import _build
+
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+
+NAME = "eva_packed"
+SOURCE = "efficient_attention_torch/csrc/eva_packed.cu"
+REPLACES_FWD = "efficient_attention_tpu/ops/pallas/eva_packed.py:238"
+REPLACES_BWD = "efficient_attention_tpu/ops/pallas/eva_packed.py:467"
+
+# the kernel's own limits: head dims it is instantiated for (multiples of
+# 4, for its 16-byte shared-memory loads), the shared
+# memory a block may use on Hopper, and the most windows a block takes in
+# turn (the largest of WINDOWS_PER_BLOCK that divides the window count)
+HEAD_DIMS = (12, 16, 32, 64)
+SMEM_LIMIT = 232448
+WINDOWS_PER_BLOCK = (4, 2, 1)
+_MAX_GRID_YZ = 65535
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def row_stride(d: int) -> int:
+    """Floats between rows of ``d`` in shared memory (``row_stride`` in
+    ``csrc/eva_packed.cu``): a multiple of 4 that is 4 mod 8."""
+    return ((d // 4 + 1) | 1) * 4
+
+
+def smem_bytes(backward: bool, d: int, S: int, C: int) -> int:
+    """Dynamic shared memory of one block; the same layout as
+    ``make_layout`` in ``csrc/eva_packed.cu``: keys ``[window k | rf]`` and
+    values ``[window v | beta]``, the query rows, the logits and the bias,
+    all f32, rows of ``d`` at ``row_stride(d)`` and logit rows padded by one
+    float; the backward adds the g rows, ``dS``, and the block's dbias, drf
+    and dbeta sums."""
+    rows_d = lambda n: _align16(n * row_stride(d) * 4)  # noqa: E731
+    logits = _align16(S * (S + C + 1) * 4)
+    total = 2 * rows_d(S + C) + rows_d(S) + logits + _align16(S * S * 4)
+    if backward:
+        return (total + rows_d(S) + logits + _align16(S * S * 4)
+                + 2 * _align16(C * d * 4))
+    return total + _align16(S * 4)
+
+
+def plan(B: int, N: int, W: int, ws: int, C: int, num_heads: int, d: int,
+         itemsize: int) -> Optional[int]:
+    """Windows per block for a launch, or None where the kernels cannot take
+    the geometry: square windows dividing a ``N/W x W`` grid, a head dim they
+    are built for, float32 or bfloat16, and the backward's block (the larger
+    of the two) within Hopper's shared memory."""
+    if not 1 <= B <= _MAX_GRID_YZ or not 1 <= num_heads <= _MAX_GRID_YZ:
+        return None
+    if W <= 0 or ws <= 0 or C <= 0 or N % W or (N // W) % ws or W % ws:
+        return None
+    if d not in HEAD_DIMS or itemsize not in (2, 4):
+        return None
+    if smem_bytes(True, d, ws * ws, C) > SMEM_LIMIT:
+        return None
+    n_win = (N // W // ws) * (W // ws)
+    return next(g for g in WINDOWS_PER_BLOCK if n_win % g == 0)
+
+
+def supports_packed(B: int, N: int, W: int, ws: int, c: int, head_dim: int,
+                    itemsize: int = 2, num_heads: int = 1) -> bool:
+    """Geometry gate of the kernels (JAX ``supports_packed``, with the head
+    dim and element size that the kernels are built for)."""
+    return plan(B, N, W, ws, c, num_heads, head_dim, itemsize) is not None
+
+
+def _windows(t: torch.Tensor, gh: int, gw: int, ws: int, nh: int
+             ) -> torch.Tensor:
+    """``[B, N, nh*d] -> [B, nh, G, S, d]`` in f32 (window-major)."""
+    heads = t.float().reshape(t.shape[0], gh, gw, nh, -1).permute(0, 3, 1, 2, 4)
+    return windows.window_2d_partition(heads, ws)
+
+
+def _merge(t: torch.Tensor, gh: int, gw: int, ws: int) -> torch.Tensor:
+    """Inverse of ``_windows``: ``[B, nh, G, S, d] -> [B, N, nh*d]``."""
+    B, nh, _, _, d = t.shape
+    grid = windows.window_2d_merge(t, ws, (gh, gw))  # [B, nh, gh, gw, d]
+    return grid.permute(0, 2, 3, 1, 4).reshape(B, gh * gw, nh * d)
+
+
+def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:
+    """``[B, C, nh*d] -> [B, nh, C, d]`` in f32."""
+    B, C, hd = t.shape
+    return t.float().reshape(B, C, nh, hd // nh).transpose(1, 2)
+
+
+def _logits(qkv, rf, scale, nh, W, ws, bias):
+    """Joint logits ``[B, nh, G, S, S + C]`` and the window q, k, v, rf."""
+    B, N, _ = qkv.shape
+    gh = N // W
+    q, k, v = (_windows(t, gh, W, ws, nh) for t in qkv.chunk(3, dim=-1))
+    rfh = _heads(rf.to(qkv.dtype), nh)
+    local = torch.einsum("bhgsd,bhgtd->bhgst", q, k) * scale
+    if bias is not None:
+        local = local + bias.float()[None, :, None]
+    chunk = torch.einsum("bhgsd,bhcd->bhgsc", q, rfh) * scale
+    return torch.cat([local, chunk], dim=-1), q, k, v, rfh
+
+
+def eva_packed_fwd_ref(qkv: torch.Tensor, rf_k_bar: torch.Tensor,
+                       beta: torch.Tensor, scale: float, num_heads: int,
+                       W: int, ws: int,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch forward (the counterpart of ``_kernel``): the same
+    function and roundings as the kernel in f32 tensor ops.  Differentiable
+    by autograd, which the tests hold the explicit backward against."""
+    T = qkv.dtype
+    gh = qkv.shape[1] // W
+    S = ws * ws
+    logits, _, _, v, _ = _logits(qkv, rf_k_bar, scale, num_heads, W, ws, bias)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True)
+    pr = p.to(T).float()
+    bth = _heads(beta.to(T), num_heads)
+    out = (torch.einsum("bhgst,bhgtd->bhgsd", pr[..., :S], v)
+           + torch.einsum("bhgsc,bhcd->bhgsd", pr[..., S:], bth))
+    return _merge(out / denom, gh, W, ws).to(T)
+
+
+def eva_packed_bwd_ref(qkv: torch.Tensor, rf_k_bar: torch.Tensor,
+                       beta: torch.Tensor, bias: Optional[torch.Tensor],
+                       g: torch.Tensor, scale: float, num_heads: int, W: int,
+                       ws: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch backward in explicit formulas (the counterpart of
+    ``_bwd_kernel``): recompute the softmax ``P``, then ``dP = g vals^T``,
+    ``dS = P (dP - sum(P dP))`` and its products.  Returns ``(dqkv, drf,
+    dbeta, dbias)``: dqkv in qkv's dtype, drf/dbeta in the summaries'
+    dtypes (computed in f32), dbias ``[H, S, S]`` summed over every window
+    of every image (None without a bias)."""
+    T = qkv.dtype
+    gh = qkv.shape[1] // W
+    S = ws * ws
+    nh = num_heads
+    logits, q, k, v, rfh = _logits(qkv, rf_k_bar, scale, nh, W, ws, bias)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    P = p / p.sum(dim=-1, keepdim=True)
+    gw_ = _windows(g.to(T), gh, W, ws, nh)
+    bth = _heads(beta.to(T), nh)
+    dP = torch.cat([torch.einsum("bhgsd,bhgtd->bhgst", gw_, v),
+                    torch.einsum("bhgsd,bhcd->bhgsc", gw_, bth)], dim=-1)
+    dSf = P * (dP - (P * dP).sum(dim=-1, keepdim=True))
+    dS = dSf.to(T).float()
+    Pr = P.to(T).float()
+    dq = scale * (torch.einsum("bhgst,bhgtd->bhgsd", dS[..., :S], k)
+                  + torch.einsum("bhgsc,bhcd->bhgsd", dS[..., S:], rfh))
+    dk = scale * torch.einsum("bhgst,bhgsd->bhgtd", dS[..., :S], q)
+    dv = torch.einsum("bhgst,bhgsd->bhgtd", Pr[..., :S], gw_)
+    drf = scale * torch.einsum("bhgsc,bhgsd->bhcd", dS[..., S:], q)
+    dbeta = torch.einsum("bhgsc,bhgsd->bhcd", Pr[..., S:], gw_)
+    dqkv = torch.cat([_merge(t, gh, W, ws) for t in (dq, dk, dv)], dim=-1)
+
+    def packed(t):  # [B, nh, C, d] -> [B, C, nh*d]
+        return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+
+    dbias = None
+    if bias is not None:
+        dbias = dSf[..., :S].sum(dim=(0, 2)).to(bias.dtype)
+    return (dqkv.to(T), packed(drf).to(rf_k_bar.dtype),
+            packed(dbeta).to(beta.dtype), dbias)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(NAME)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.eva_packed_fwd_launch.argtypes = ([ptr] * 5 + [i32] * 9
+                                          + [ctypes.c_float, ptr])
+    lib.eva_packed_fwd_launch.restype = i32
+    lib.eva_packed_bwd_launch.argtypes = ([ptr] * 9 + [i32] * 9
+                                          + [ctypes.c_float, ptr])
+    lib.eva_packed_bwd_launch.restype = i32
+    lib.eva_packed_smem_bytes.argtypes = [i32] * 4
+    lib.eva_packed_smem_bytes.restype = i32
+    lib.eva_packed_error_string.argtypes = [i32]
+    lib.eva_packed_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cuda_operands(qkv, rf, beta, bias, num_heads, W, ws):
+    """Checked, contiguous kernel operands and the launch geometry."""
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be [B, N, 3*H*D], got {tuple(qkv.shape)}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"eva_packed takes float32 or bfloat16, got {qkv.dtype}")
+    B, N, three_hd = qkv.shape
+    nh = num_heads
+    if three_hd % (3 * nh) or W <= 0 or N % W:
+        raise ValueError(f"qkv {tuple(qkv.shape)} does not split into {nh} "
+                         f"heads over a grid of width {W}")
+    d = three_hd // (3 * nh)
+    if rf.dim() != 3 or rf.shape[0] != B or rf.shape[2] != nh * d:
+        raise ValueError(f"rf_k_bar must be [B, C, H*D], got {tuple(rf.shape)}")
+    C = rf.shape[1]
+    if tuple(beta.shape) != tuple(rf.shape):
+        raise ValueError(f"beta {tuple(beta.shape)} != rf_k_bar {tuple(rf.shape)}")
+    wpb = plan(B, N, W, ws, C, nh, d, qkv.element_size())
+    if wpb is None:
+        raise ValueError(
+            f"eva_packed cannot take B={B}, grid {N // W}x{W}, window {ws}, "
+            f"{C} chunks, head dim {d}, {qkv.dtype}; see supports_packed")
+    for t, what in ((rf, "rf_k_bar"), (beta, "beta"), (bias, "bias")):
+        if t is not None and t.device != qkv.device:
+            raise ValueError(f"{what} is on {t.device}, qkv on {qkv.device}")
+    if bias is not None and tuple(bias.shape) != (nh, ws * ws, ws * ws):
+        raise ValueError(f"bias must be {(nh, ws * ws, ws * ws)}, got "
+                         f"{tuple(bias.shape)}")
+    qkv = qkv.contiguous()
+    rf = rf.to(qkv.dtype).contiguous()
+    beta = beta.to(qkv.dtype).contiguous()
+    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    return qkv, rf, beta, bias, (B, N, nh, d, C, wpb)
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"eva_packed {what} launch failed: "
+                           f"{_lib().eva_packed_error_string(rc).decode()}")
+
+
+def _forward(qkv, rf, beta, bias, scale, num_heads, W, ws):
+    if qkv.device.type == "cpu":
+        return eva_packed_fwd_ref(qkv, rf, beta, scale, num_heads, W, ws, bias)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"eva_packed runs on CUDA or CPU tensors, got {qkv.device}")
+    qkv, rf, beta, bias, (B, N, nh, d, C, wpb) = _cuda_operands(
+        qkv, rf, beta, bias, num_heads, W, ws)
+    out = torch.empty((B, N, nh * d), dtype=qkv.dtype, device=qkv.device)
+    lib = _lib()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.eva_packed_fwd_launch(
+            qkv.data_ptr(), rf.data_ptr(), beta.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            B, N, W, ws, nh, d, C, wpb, int(qkv.dtype == torch.bfloat16),
+            float(scale), stream)
+    _check(rc, "forward")
+    global LAUNCHES_FWD
+    LAUNCHES_FWD += 1
+    return out
+
+
+def _backward(qkv, rf, beta, bias, g, scale, num_heads, W, ws):
+    if qkv.device.type == "cpu":
+        return eva_packed_bwd_ref(qkv, rf, beta, bias, g, scale, num_heads, W, ws)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"eva_packed runs on CUDA or CPU tensors, got {qkv.device}")
+    rf_dtype, beta_dtype = rf.dtype, beta.dtype
+    bias_dtype = None if bias is None else bias.dtype
+    qkv, rf, beta, bias, (B, N, nh, d, C, wpb) = _cuda_operands(
+        qkv, rf, beta, bias, num_heads, W, ws)
+    if tuple(g.shape) != (B, N, nh * d) or g.device != qkv.device:
+        raise ValueError(f"g must be [{B}, {N}, {nh * d}] on {qkv.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    g = g.to(qkv.dtype).contiguous()
+    S = ws * ws
+    dqkv = torch.empty_like(qkv)
+    drf = torch.zeros((B, C, nh * d), dtype=torch.float32, device=qkv.device)
+    dbeta = torch.zeros_like(drf)
+    dbias_part = torch.zeros((B, nh, S, S), dtype=torch.float32, device=qkv.device)
+    lib = _lib()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.eva_packed_bwd_launch(
+            qkv.data_ptr(), rf.data_ptr(), beta.data_ptr(),
+            None if bias is None else bias.data_ptr(), g.data_ptr(),
+            dqkv.data_ptr(), drf.data_ptr(), dbeta.data_ptr(),
+            dbias_part.data_ptr(), B, N, W, ws, nh, d, C, wpb,
+            int(qkv.dtype == torch.bfloat16), float(scale), stream)
+    _check(rc, "backward")
+    global LAUNCHES_BWD
+    LAUNCHES_BWD += 1
+    # the per-image dbias partials are summed here, as the TPU kernel's
+    # caller sums its batch-group partials
+    dbias = None if bias is None else dbias_part.sum(dim=0).to(bias_dtype)
+    return dqkv, drf.to(rf_dtype), dbeta.to(beta_dtype), dbias
+
+
+class _EvaPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, rf_k_bar, beta, bias, scale, num_heads, W, ws):
+        ctx.save_for_backward(qkv, rf_k_bar, beta, bias)
+        ctx.geometry = (scale, num_heads, W, ws)
+        return _forward(qkv, rf_k_bar, beta, bias, scale, num_heads, W, ws)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, rf_k_bar, beta, bias = ctx.saved_tensors
+        dqkv, drf, dbeta, dbias = _backward(qkv, rf_k_bar, beta, bias, g,
+                                            *ctx.geometry)
+        return dqkv, drf, dbeta, dbias, None, None, None, None
+
+
+def eva_attention_packed(
+    qkv: torch.Tensor,       # [B, N, 3*H*D] fused projection output
+    rf_k_bar: torch.Tensor,  # [B, C, H*D]
+    beta: torch.Tensor,      # [B, C, H*D]
+    scale: float,
+    num_heads: int,
+    W: int,                  # token-grid width
+    ws: int,                 # window side
+    bias: Optional[torch.Tensor] = None,  # [H, S, S] window RPE bias
+) -> torch.Tensor:
+    """EVA joint softmax over the packed layout; returns ``[B, N, H*D]`` in
+    qkv's dtype, differentiable in qkv, rf_k_bar, beta and bias.
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels or
+    raise."""
+    return _EvaPacked.apply(qkv, rf_k_bar, beta, bias, float(scale),
+                            int(num_heads), int(W), int(ws))

@@ -1,12 +1,157 @@
-"""Evaluation step of the ViT (``efficient_attention_tpu/training/
-train_state.py:187-200``, reference ``vit/engine.py:76-107``).  The train
-step, optimizer and EMA are ROADMAP.md Queue 1, item 3."""
+"""Train state and the ViT train and eval steps.
+
+Counterpart of ``efficient_attention_tpu/training/train_state.py`` (reference
+``vit/engine.py``): one ``TrainState`` (model with float32 master
+parameters, optimizer, update count, optional EMA), a train step that runs
+random erasing, then mixup, then the loss and its gradients, their global
+norm and the update, with gradient accumulation as a Python loop over
+microbatches, and the eval step.  The random draws of a step (erasing,
+mixup, stochastic depth, dropout, EVA's RF noise) all come from the
+``torch.Generator`` the caller hands it.
+
+Mixed precision (``--bf16``) is the JAX package's scheme, not
+``torch.autocast``: the forward runs on a bfloat16 copy of the float32
+master parameters (``cast_params`` through ``torch.func.functional_call``),
+and the cast's backward returns float32 gradients to the masters.
+"""
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
+
+from efficient_attention_torch.data.mixup import (
+    MixupConfig,
+    apply_mixup,
+    one_hot_smooth,
+    soft_target_cross_entropy,
+)
+from efficient_attention_torch.models.layers import set_generator
+from efficient_attention_torch.training.optim import global_norm
+
+
+class TrainState:
+    """The model (float32 master parameters), its optimizer, the number of
+    updates applied, and an EMA of the parameters when ``ema_decay > 0``."""
+
+    def __init__(self, model: torch.nn.Module, optimizer,
+                 ema_decay: float = 0.0):
+        self.model = model
+        self.optimizer = optimizer
+        self.step = 0
+        self.ema_decay = ema_decay
+        self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+        if ema_decay:
+            self.ema_params = {n: p.detach().clone()
+                               for n, p in model.named_parameters()}
+
+    @torch.no_grad()
+    def apply_gradients(self) -> None:
+        """Apply the gradients held in the parameters' ``.grad`` and move
+        the EMA: ``e = e * d + p * (1 - d)``."""
+        self.optimizer.step()
+        self.step += 1
+        if self.ema_params is not None:
+            for n, p in self.model.named_parameters():
+                self.ema_params[n].lerp_(p, 1.0 - self.ema_decay)
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    grad_norm: torch.Tensor
+    # True where the update was skipped because loss or gradients were
+    # non-finite; None when skipping is off
+    skipped: Optional[torch.Tensor] = None
+
+
+def apply_or_skip(state: TrainState, loss: torch.Tensor,
+                  grad_norm: torch.Tensor) -> torch.Tensor:
+    """Apply the gradients unless loss or grad norm is non-finite; then the
+    state stays as it was (no update, step not counted), the bf16 form of
+    fairseq's overflow recovery (``trainer.py:911-920``).  Returns whether
+    the update was skipped."""
+    skipped = ~(torch.isfinite(loss) & torch.isfinite(grad_norm))
+    if not bool(skipped):
+        state.apply_gradients()
+    return skipped
+
+
+def cast_params(params: Dict[str, torch.Tensor],
+                compute_dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
+    """The float32 entries of ``params`` cast to ``compute_dtype`` (others
+    as they are); the cast is differentiable, so gradients reach the float32
+    masters in float32."""
+    if compute_dtype is None:
+        return params
+    return {n: p.to(compute_dtype) if p.dtype == torch.float32 else p
+            for n, p in params.items()}
+
+
+def make_vit_train_step(
+    mixup_cfg: Optional[MixupConfig],
+    num_classes: int,
+    label_smoothing: float = 0.1,
+    accum_steps: int = 1,
+    erasing_cfg=None,
+    skip_nonfinite: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[..., StepMetrics]:
+    """The ViT train step (``vit/engine.py:train_one_epoch``'s inner loop):
+    ``train_step(state, images, labels, generator) -> StepMetrics``, which
+    updates ``state`` in place.  With ``accum_steps > 1`` the batch splits
+    into that many microbatches whose gradients are averaged."""
+
+    def loss_fn(model, images, targets):
+        params = cast_params(dict(model.named_parameters()), compute_dtype)
+        if compute_dtype is not None:
+            images = images.to(compute_dtype)
+        logits = functional_call(model, params, (images,))
+        return soft_target_cross_entropy(logits, targets)
+
+    def microbatch_loss(model, images, labels, generator):
+        if erasing_cfg is not None and erasing_cfg.prob > 0:
+            from efficient_attention_torch.data.erasing import (
+                apply_random_erasing,
+            )
+
+            images = apply_random_erasing(images, erasing_cfg, generator)
+        if mixup_cfg is not None:
+            images, targets = apply_mixup(images, labels, mixup_cfg, generator)
+        else:
+            targets = one_hot_smooth(labels, num_classes, label_smoothing)
+        return loss_fn(model, images, targets)
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   labels: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> StepMetrics:
+        model = state.model
+        set_generator(model.train(), generator)
+        state.optimizer.zero_grad()
+        if accum_steps == 1:
+            loss = microbatch_loss(model, images, labels, generator)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            if images.shape[0] % accum_steps:
+                raise ValueError(f"batch {images.shape[0]} does not split "
+                                 f"into {accum_steps} microbatches")
+            loss = torch.zeros((), device=images.device)
+            for im, lb in zip(images.chunk(accum_steps),
+                              labels.chunk(accum_steps)):
+                part = microbatch_loss(model, im, lb, generator)
+                (part / accum_steps).backward()
+                loss += part.detach() / accum_steps
+        grad_norm = global_norm(p.grad for p in model.parameters()
+                                if p.grad is not None)
+        if skip_nonfinite:
+            return StepMetrics(loss, grad_norm,
+                               apply_or_skip(state, loss, grad_norm))
+        state.apply_gradients()
+        return StepMetrics(loss, grad_norm)
+
+    return train_step
 
 
 @torch.no_grad()
@@ -14,7 +159,7 @@ def vit_eval_step(model: Callable[[torch.Tensor], torch.Tensor],
                   images: torch.Tensor,
                   labels: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Top-1, top-5 and cross-entropy of ``model(images)``, as scalars on
-    the model's device (metrics in float32)."""
+    the model's device (metrics in float32; ``vit/engine.py:76-107``)."""
     logits = model(images).float()
     top1 = (logits.argmax(-1) == labels).float().mean()
     top5_pred = logits.topk(min(5, logits.shape[-1]), dim=-1).indices

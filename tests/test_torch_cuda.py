@@ -1,4 +1,5 @@
-"""Tests of the PyTorch port that need an NVIDIA GPU (marker ``cuda``).
+"""Tests of the PyTorch port that need an NVIDIA GPU (marker ``cuda``): the
+kernels eva_single (K2) and eva_packed (K1) against their plain versions.
 
 They skip where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine without them:
@@ -64,3 +65,59 @@ def test_eva_single_kernel_raises_outside_its_gate(cuda_device):
     args, bias = _k2_args(cuda_device, torch.float16, 1, 8, 4, 4, 3, 16, True)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         K.eva_attention_single(*args, bias=bias)
+
+
+def _k1_args(device, dtype, B, g, ws, C, nh, d, seed=17):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    return (t(B, g * g, 3 * nh * d).to(dtype), t(B, C, nh * d).to(dtype),
+            t(B, C, nh * d).to(dtype), 0.5 * t(nh, ws * ws, ws * ws),
+            t(B, g * g, nh * d).to(dtype))
+
+
+def _k1_tol(dtype, ref):
+    """f32: summation order (and atomics order in the backward's sums)
+    only; bf16: one rounding of the output, one bf16 spacing (2**-7
+    relative) at the output's largest magnitude."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", [(2, 28, 7, 49, 3, 64),
+                                      (2, 14, 7, 49, 4, 12),
+                                      (3, 8, 4, 4, 3, 16)])
+def test_eva_packed_kernels_match_plain(cuda_device, geometry, dtype):
+    from efficient_attention_torch.ops.kernels import eva_packed as K1
+
+    B, g, ws, C, nh, d = geometry
+    qkv, rf, beta, bias, grad = _k1_args(cuda_device, dtype, *geometry)
+    scale = d ** -0.5
+    before = (K1.LAUNCHES_FWD, K1.LAUNCHES_BWD)
+    leaves = [t.clone().requires_grad_() for t in (qkv, rf, beta, bias)]
+    out = K1.eva_attention_packed(*leaves[:3], scale, nh, g, ws, bias=leaves[3])
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert (K1.LAUNCHES_FWD, K1.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    ref = K1.eva_packed_fwd_ref(qkv, rf, beta, scale, nh, g, ws, bias)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
+    want = K1.eva_packed_bwd_ref(qkv, rf, beta, bias, grad, scale, nh, g, ws)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == w.dtype and leaf.grad.shape == w.shape
+        tol = _k1_tol(w.dtype, w)
+        assert (leaf.grad.float() - w.float()).abs().max().item() <= tol
+
+
+def test_eva_packed_kernel_raises_outside_its_gate(cuda_device):
+    from efficient_attention_torch.ops.kernels import eva_packed as K1
+
+    qkv, rf, beta, bias, _ = _k1_args(cuda_device, torch.float32, 1, 8, 4, 4,
+                                      2, 24)
+    with pytest.raises(ValueError, match="cannot take"):  # head dim 24
+        K1.eva_attention_packed(qkv, rf, beta, 24 ** -0.5, 2, 8, 4, bias=bias)
+    qkv, rf, beta, bias, _ = _k1_args(cuda_device, torch.float16, 1, 8, 4, 4,
+                                      3, 16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K1.eva_attention_packed(qkv, rf, beta, 0.25, 3, 8, 4, bias=bias)

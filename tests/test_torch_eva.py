@@ -173,7 +173,7 @@ _EVA = {"dim": 48, "num_heads": 4, "window_size": 4, "num_landmarks": 4,
     (dict(_EVA, overlap_window=True), NotImplementedError),  # halo
     (dict(_EVA, use_rpe=False, use_t5_rpe=True), NotImplementedError),
     (dict(_EVA, seq_axis="seq"), NotImplementedError),      # seq-parallel
-    (dict(_EVA, impl="packed"), NotImplementedError),        # TPU kernel K1
+    (dict(_EVA, impl="pallas"), NotImplementedError),        # TPU kernel K11
     (dict(_EVA, impl="rowmajor"), NotImplementedError),      # TPU kernel K12
     (dict(_EVA, impl="fast"), ValueError),                   # unknown impl
     (dict(_EVA, adaptive_proj="mlp"), NotImplementedError),
@@ -184,12 +184,12 @@ def test_eva_unported_configurations_raise(args, error):
 
 
 def test_eva_unported_forwards_raise():
+    """A key-padding mask is not ported, in training or at eval."""
     m = AttentionFactory.build_attention("eva", _EVA)
     x = torch.zeros(1, 8, 8, 48)
-    with pytest.raises(NotImplementedError, match="training"):
-        m.train()(x)
-    with pytest.raises(NotImplementedError, match="padding"):
-        m.eval()(x, torch.zeros(1, 64, dtype=torch.bool))
+    for mode in (m.train, m.eval):
+        with pytest.raises(NotImplementedError, match="padding"):
+            mode()(x, torch.zeros(1, 64, dtype=torch.bool))
 
 
 @pytest.mark.parametrize("name,match", [("performer", "not ported"),
@@ -222,3 +222,156 @@ def test_windows_and_rpe_match_jax():
         np.testing.assert_array_equal(idx, jidx)
         assert size == jsize
     assert rpe.local_2d_rpe_index(7, 0)[1] == 97
+
+
+# ---- the training forward (RF noise injected on both sides) ----
+
+from efficient_attention_tpu.attention.eva import EVA as JaxEVA  # noqa: E402
+from efficient_attention_torch.attention.eva import EVA  # noqa: E402
+from efficient_attention_torch.interop import state_dict_from_jax  # noqa: E402
+from efficient_attention_torch.ops.kernels import eva_packed as K1  # noqa: E402
+
+GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+def _inject_noise(monkeypatch, noise):
+    """Both packages' ``_sample_weights`` add ``noise`` ([B, C, nh, d]; its
+    transpose where the sample has the natural [B, nh, C, d] layout)."""
+    def port_sample(self, mu):
+        if not self.training:
+            return mu
+        n = torch.from_numpy(noise)
+        return mu + (n if tuple(mu.shape) == n.shape else n.transpose(1, 2))
+
+    def jax_sample(self, mu, deterministic):
+        if deterministic:
+            return mu
+        n = jnp.asarray(noise)
+        return mu + (n if mu.shape == n.shape else jnp.swapaxes(n, 1, 2))
+
+    monkeypatch.setattr(EVA, "_sample_weights", port_sample)
+    monkeypatch.setattr(JaxEVA, "_sample_weights", jax_sample)
+
+
+def _noise(geometry, seed=21):
+    side, _, landmarks, nh, d = GEOMETRIES[geometry]
+    assert landmarks != nh  # the two layouts are told apart by shape
+    return np.random.default_rng(seed).standard_normal(
+        (2, landmarks, nh, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("adaptive_proj", ["default", "none"])
+@pytest.mark.parametrize("geometry", ["8x8-w4-j4", "14x14-w7-j2"])
+def test_training_summaries_match_jax(monkeypatch, geometry, adaptive_proj):
+    """The training form of the packed chunk summaries against JAX
+    ``_chunk_summaries_packed(..., deterministic=False)``."""
+    x, params, _ = _jax_eva(geometry, adaptive_proj)
+    noise = _noise(geometry)
+    _inject_noise(monkeypatch, noise)
+    side = GEOMETRIES[geometry][0]
+    j = side // int(np.sqrt(GEOMETRIES[geometry][2]))
+    dim = _eva_args(geometry, adaptive_proj)["dim"]
+    qkv = np.random.default_rng(22).standard_normal(
+        (2, side * side, 3 * dim)).astype(np.float32)
+    jm = JaxFactory.build_attention(
+        "eva", dict(_eva_args(geometry, adaptive_proj), impl="xla"))
+    want = jm.apply(to_jax(params), jnp.asarray(qkv), (side, side), j, False,
+                    method=JaxEVA._chunk_summaries_packed)
+    m = load_jax_params(AttentionFactory.build_attention(
+        "eva", _eva_args(geometry, adaptive_proj)), params).train()
+    with torch.no_grad():
+        got = m._chunk_summaries_packed(torch.from_numpy(qkv), (side, side), j)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_eva_train_mode_matches_jax(monkeypatch, geometry, impl):
+    """Train-mode output and every gradient (parameters and input) against
+    the JAX module at deterministic=False with the same noise.  'auto'
+    takes the packed path (K1's plain versions on the CPU), 'xla' the eager
+    one."""
+    x, params, _ = _jax_eva(geometry, "default")
+    _inject_noise(monkeypatch, _noise(geometry))
+    cot = np.random.default_rng(23).standard_normal(x.shape).astype(np.float32)
+    jm = JaxFactory.build_attention("eva", dict(_eva_args(geometry, "default"),
+                                                impl="xla"))
+
+    def loss(p, xx):
+        out = jm.apply(p, xx, deterministic=False)
+        return jnp.sum(out * jnp.asarray(cot)), out
+
+    (_, ref), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(
+        to_jax(params), jnp.asarray(x))
+    m = load_jax_params(AttentionFactory.build_attention(
+        "eva", dict(_eva_args(geometry, "default"), impl=impl)), params).train()
+    xt = torch.from_numpy(x).requires_grad_()
+    calls = K1.eva_attention_packed
+    spy = []
+    monkeypatch.setattr("efficient_attention_torch.attention.eva."
+                        "eva_attention_packed",
+                        lambda *a, **k: spy.append(1) or calls(*a, **k))
+    out = m(xt)
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert len(spy) == (impl == "auto")
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **GRAD_TOL)
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.array, gp))
+    named = dict(m.named_parameters())
+    assert set(want) == set(named)
+    for name, g in want.items():
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(),
+                                   **GRAD_TOL, err_msg=name)
+
+
+def test_eva_dispatch_order(monkeypatch):
+    """Eval: K2 where its gate holds, else K1 on the deterministic
+    summaries; training: K1 (eva.py:542-593)."""
+    import efficient_attention_torch.attention.eva as eva_module
+
+    calls = []
+    for name in ("eva_attention_single", "eva_attention_packed"):
+        monkeypatch.setattr(
+            eva_module, name,
+            lambda *a, _n=name, _f=getattr(eva_module, name), **k:
+            calls.append(_n) or _f(*a, **k))
+    x = torch.from_numpy(_jax_eva("8x8-w4-j4", "default")[0])
+    for adaptive_proj, train, expected in (
+            ("default", False, "eva_attention_single"),
+            ("none", False, "eva_attention_packed"),   # K2 takes Dense (+LN)
+            ("default", True, "eva_attention_packed")):
+        m = AttentionFactory.build_attention(
+            "eva", _eva_args("8x8-w4-j4", adaptive_proj)).train(train)
+        with torch.no_grad():
+            m(x)
+        assert calls.pop() == expected and not calls
+
+
+def test_eva_packed_impl_raises_outside_the_gate():
+    # head dim 24 is outside the kernels' head dims
+    m = AttentionFactory.build_attention("eva", dict(_EVA, num_heads=2,
+                                                     impl="packed"))
+    x = torch.zeros(1, 8, 8, 48)
+    with pytest.raises(ValueError, match="impl='packed'"):
+        m.train()(x)
+    auto = AttentionFactory.build_attention("eva", dict(_EVA, num_heads=2))
+    assert auto.train()(x).shape == x.shape  # 'auto' falls back to eager
+    packed = AttentionFactory.build_attention("eva", dict(_EVA, impl="packed"))
+    assert packed.train()(x).shape == x.shape
+
+
+def test_rf_noise_comes_from_the_generator():
+    m = AttentionFactory.build_attention("eva", _EVA).train()
+    x = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        (1, 8, 8, 48)).astype(np.float32))
+    outs = []
+    for seed in (0, 0, 1):
+        m.generator = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            outs.append(m(x))
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    with torch.no_grad():
+        assert torch.equal(m.eval()(x), m(x))  # no noise at eval
