@@ -3,34 +3,46 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-The model is DeiT-tiny-p8 (``evit_tiny_p8``, 224 px, 28x28 tokens, dim 192,
-3 heads, 12 blocks) with 2-D EVA (window 7, 49 landmarks, learned RPE,
-``adaptive_proj='default'``), random weights from a seed.  Its two paths are
-the eval forward (serving; every block runs ``eva_single``, K2) and the
-training step (every block runs ``eva_packed``'s forward and backward
-kernels, K1; the end-of-epoch eval runs K2).  Phases, each raising on
-failure:
+Two models, random weights from a seed:
+
+* DeiT-tiny-p8 (``evit_tiny_p8``, 224 px, 28x28 tokens, dim 192, 3 heads,
+  12 blocks) with 2-D EVA (window 7, 49 landmarks, learned RPE,
+  ``adaptive_proj='default'``).  Its eval forward (serving) runs
+  ``eva_single`` (K2) in every block; its training step runs
+  ``eva_packed``'s forward and backward kernels (K1), and the end-of-epoch
+  eval K2.
+* ``transformer_lm_wiki103`` (16 decoder layers, d=1024, ffn 4096, 8 heads
+  of 128, adaptive input and tied adaptive softmax over 267,744 words) with
+  causal EVA (window 128, chunk 8, ``adaptive_proj='qk'``, T5 bias), the
+  WikiText-103 recipe at B = 18 x 512 tokens in bf16 with NAG, cosine and
+  clip 0.1, on dummy tokens, dropout 0.  Its training step runs
+  ``causal_packed``'s forward and backward kernels (K3) in every layer; its
+  validation (on the float32 parameters) runs the K3 forward.
+
+Phases, each raising on failure:
 
 1. build: compile every kernel with nvcc (one process per source, all at
    once) and print the seconds;
-2. kernels against their plain versions on the card: ``eva_single``, and
-   ``eva_packed``'s forward and backward on all four gradients, at the main
-   path's shape in bf16 and f32 and at the golden geometry in f32;
-3. the serving path: the port's ``cli.train_vit --eval`` in-process at batch
-   128 in bf16 on synthetic images, with the kernels' launch counts set to 0
-   just before and read just after, then the f32 logits of the kernel path
-   against the port's eager path (``impl='xla'``) on the card;
-4. the training path: ``cli.train_vit`` in-process for 8 steps at batch 128
-   with ``--bf16`` and the DeiT recipe (mixup, cutmix, erasing, drop-path),
-   counts set to 0 just before and read just after (12 x 8 launches of each
-   K1 kernel, 12 x 4 of K2 in the end-of-epoch eval), finite losses and
-   grad norms; then the f32 gradients of every parameter, kernel path
-   against eager path, at batch 8 in train mode with zero RF noise and no
-   drop-path;
-5. timings with CUDA events (kernels, plain versions, bounds, an SDPA
-   yardstick, forward and train-step images/s) and a profile of 3 train
-   steps by op;
-6. the kernels line, the card line, and the result line, last.
+2. kernels against their plain versions on the card: ``eva_single``;
+   ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
+   forward and its six gradients, at the main paths' shapes in bf16 and
+   f32 and at small odd geometries (K3 in both types);
+3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
+   flags, then its validation, counts set to 0 just before and read just
+   after (16 x 8 launches of each K3 kernel in training, 16 a validation
+   batch), finite losses, the peak device memory; then the f32 gradients of
+   a 2-layer full-width LM, kernel path against eager path;
+4. the ViT serving path: ``cli.train_vit --eval`` in-process at batch 128
+   in bf16, with the kernels' launch counts set to 0 just before and read
+   just after, then f32 logits of the kernel path against the eager path;
+5. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
+   ``--bf16`` and the DeiT recipe, counts set to 0 just before and read
+   just after (12 x 8 launches of each K1 kernel, 12 x 4 of K2), finite
+   losses; then f32 gradients, kernel path against eager path;
+6. timings with CUDA events (kernels, plain versions, bounds, SDPA
+   yardsticks, forward and train-step rates of both models) and profiles of
+   3 train steps of each model by op;
+7. the kernels line, the card line, and the result line, last.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -73,6 +85,28 @@ CHECKS = (("main bf16", (128, 28, 7, 4, 3, 64), "bfloat16"),
           ("golden f32", (2, 14, 7, 2, 4, 12), "float32"))
 TRAIN_ARGV = ["--bf16", "--epochs", "1", "--max-steps-per-epoch", "8",
               "--warmup-epochs", "0", "--output-dir", "build/smoke_train"]
+# the WikiText-103 recipe (configs/wikitext103_causal_eva.yaml's attention
+# flags, spelled out) on dummy tokens of the real vocabulary, 8 updates
+LM_VOCAB = 267744
+LM_ARGV = [
+    "--arch", "transformer_lm_wiki103", "--attn-name-decoder", "causal_eva",
+    "--decoder-attn-window-size", "128", "--decoder-attn-chunk-size", "8",
+    "--decoder-attn-adaptive-proj", "qk", "--decoder-attn-use-t5-rpe",
+    "--decoder-attn-causal", "--tokens-per-sample", "512",
+    "--max-tokens", "9216", "--optimizer", "nag", "--lr-scheduler", "cosine",
+    "--clip-norm", "0.1", "--criterion", "adaptive_loss", "--bf16",
+    "--dummy-data", "--dummy-vocab", str(LM_VOCAB), "--dropout", "0",
+    "--seed", "0", "--device", "cuda", "--save-dir", "build/smoke_lm",
+]
+LM_TRAIN_ARGV = ["--max-update", "8", "--log-interval", "1"]
+# causal_packed's main shape (B, T, heads, head dim, window, chunk) and the
+# small odd ones: T = w (window 0 alone) and T = 2w, each in bf16 and f32
+K3_CHECKS = (("main bf16", (18, 512, 8, 128, 128, 8), "bfloat16"),
+             ("main f32", (18, 512, 8, 128, 128, 8), "float32"),
+             ("T=w bf16", (2, 16, 2, 64, 16, 4), "bfloat16"),
+             ("T=w f32", (2, 16, 2, 64, 16, 4), "float32"),
+             ("T=2w bf16", (2, 32, 2, 64, 16, 4), "bfloat16"),
+             ("T=2w f32", (2, 32, 2, 64, 16, 4), "float32"))
 
 
 def log(msg):
@@ -140,10 +174,11 @@ def k1_inputs(B, g, ws, j, nh, d, dtype, seed):
 
 def k1_bound(qkv, rf, beta, bias, nh, ws, backward):
     """Least time of eva_packed's forward or backward at these inputs:
-    every input byte read once and every output written once over HBM (the
-    backward's drf/dbeta in f32), or its operations at the peak of the
-    inputs' type (2 N (S+C) d per image and head for each of the forward's
-    two products, five such in the backward), whichever is larger."""
+    every input byte read once and every output written once over HBM
+    (drf/dbeta in the summaries' dtype, as the function returns them), or
+    its operations at the peak of the inputs' type (2 N (S+C) d per image
+    and head for each of the forward's two products, five such in the
+    backward), whichever is larger."""
     B, N, three_hd = qkv.shape
     d = three_hd // (3 * nh)
     S, C = ws * ws, rf.shape[1]
@@ -151,7 +186,7 @@ def k1_bound(qkv, rf, beta, bias, nh, ws, backward):
     moved = (qkv.numel() + rf.numel() + beta.numel()) * t + bias.numel() * 4
     out = B * N * nh * d * t
     if backward:
-        moved += out + qkv.numel() * t + 2 * rf.numel() * 4 + bias.numel() * 4
+        moved += out + qkv.numel() * t + 2 * rf.numel() * t + bias.numel() * 4
     else:
         moved += out
     flops = (5 if backward else 2) * 2 * B * nh * N * (S + C) * d
@@ -202,6 +237,104 @@ def sdpa_yardstick(qkv, rf, beta, bias, nh, W, ws, grad):
     return fwd_ms, bwd_ms, both_ms
 
 
+def k3_inputs(B, T, nh, d, w, cs, dtype, seed):
+    """q, k, v, rf_k_bar, beta, the [w, w] table (causal triangle plus a
+    bias) and an output gradient at one geometry."""
+    import torch
+    from efficient_attention_torch.ops.kernels import causal_packed as k3
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    C = T // cs
+    ops = [r(B, T, nh * d).to(dtype) for _ in range(3)]
+    ops += [r(B, C, nh * d).to(dtype), r(B, C, nh * d).to(dtype),
+            k3.causal_table(w, 0.3 * r(w, w), device="cuda")]
+    return ops, r(B, T, nh * d).to(dtype)
+
+
+def k3_bound(q, rf, w, cs, nh, backward):
+    """Least time of causal_packed's forward or backward at these inputs:
+    every input byte read once and every output written once over HBM
+    (drf/dbeta in the summaries' dtype, as the function returns them; the
+    kernel's f32 accumulation buffers are its own choice), or its operations
+    at the peak of the inputs' type, whichever is larger.  The operations
+    count the columns a query can see, (i + 1) local ones for window row i
+    and min(C, p // cs) chunks at position p, at 2 d multiply-adds per
+    product and column: two products in the forward, five in the
+    backward."""
+    B, T, hd = q.shape
+    C, t = rf.shape[1], q.element_size()
+    tok, cd, tab = B * T * hd * t, 2 * rf.numel() * t, w * w * 4
+    if backward:
+        moved = 4 * tok + cd + tab + 3 * tok + cd + tab
+    else:
+        moved = 3 * tok + cd + tab + tok
+    pos = range(T)
+    cols = sum(p % w + 1 + min(C, p // cs) for p in pos)
+    flops = (5 if backward else 2) * 2 * B * (hd // nh) * nh * cols
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(q.dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k3_sdpa(ops, grad, nh, w, cs):
+    """One scaled_dot_product_attention call for the same joint softmax on
+    pre-partitioned windows: q [B*G, H, w, D], keys and values [window |
+    C chunks] of w + C, and an additive [B*G, 1, w, w+C] mask holding the
+    table and the chunk mask.  Returns (forward ms, backward ms,
+    forward+backward ms); the partition, the broadcast of the chunks to every
+    window and the sum of their gradients back are excluded, and the mask
+    takes no gradient (no dbias)."""
+    import torch
+    import torch.nn.functional as F
+    from efficient_attention_torch.ops.kernels import causal_packed as k3
+
+    q, k, v, rf, beta, tab = ops
+    B, T, hd = q.shape
+    d, G, C = hd // nh, T // w, rf.shape[1]
+
+    def windows(t):  # [B, T, H*D] -> [B*G, H, w, D]
+        return t.reshape(B, G, w, nh, d).permute(0, 1, 3, 2, 4).reshape(-1, nh, w, d)
+
+    def chunks(t):  # [B, C, H*D] -> [B*G, H, C, D]
+        return (t.reshape(B, 1, C, nh, d).permute(0, 1, 3, 2, 4)
+                .expand(B, G, nh, C, d).reshape(-1, nh, C, d))
+
+    qq = windows(q).contiguous().requires_grad_()
+    kk = torch.cat([windows(k), chunks(rf)], dim=2).requires_grad_()
+    vv = torch.cat([windows(v), chunks(beta)], dim=2).requires_grad_()
+    mask = k3._joint_add(tab, G, w, cs, C)[:, None].repeat(B, 1, 1, 1).to(q.dtype)
+    g = windows(grad).contiguous()
+    fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qq, kk, vv, attn_mask=mask, scale=d ** -0.5)
+    out = fwd()
+    fwd_ms = cuda_ms(fwd, 20)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), g,
+                                                 retain_graph=True), 20)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (qq, kk, vv), g), 20)
+    return fwd_ms, bwd_ms, both_ms
+
+
+def profile_steps(torch, prof_factory, run, kernel_tag):
+    """Device busy time, its share in kernels named ``kernel_tag``, and the
+    op table of ``run()`` (3 train steps) under ``torch.profiler``."""
+    prof = prof_factory(torch.device("cuda"))
+    with prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels_only = [e for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+    self_ms = lambda e: getattr(  # noqa: E731
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+    busy = sum(self_ms(e) for e in kernels_only)
+    tagged = sum(self_ms(e) for e in kernels_only if kernel_tag in e.key)
+    return busy, tagged, wall_ms, events.table(sort_by="self_device_time_total",
+                                               row_limit=20)
+
+
 def main() -> int:
     try:
         import torch
@@ -217,6 +350,11 @@ def main() -> int:
         from efficient_attention_torch.ops.kernels import _build
         from efficient_attention_torch.ops.kernels import eva_packed as k1
         from efficient_attention_torch.ops.kernels import eva_single as k2
+        from efficient_attention_torch.ops.kernels import causal_packed as k3
+        from efficient_attention_torch.cli import train_lm
+        from efficient_attention_torch.attention.causal_eva import (
+            CausalEVAttention,
+        )
     except ImportError as err:
         print(f"chip_smoke: run from the root of a checkout ({err})",
               file=sys.stderr)
@@ -231,9 +369,9 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    built = _build.build([k2.NAME, k1.NAME])
+    built = _build.build([k2.NAME, k1.NAME, k3.NAME])
     log(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.2f} s")
-    for name in (k2.NAME, k1.NAME):
+    for name in (k2.NAME, k1.NAME, k3.NAME):
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -245,6 +383,11 @@ def main() -> int:
         lib_smem = k1._lib().eva_packed_smem_bytes(backward, 64, 49, 49)
         if lib_smem != k1.smem_bytes(bool(backward), 64, 49, 49):
             raise AssertionError(f"eva_packed gate's smem layout != kernel's "
+                                 f"{lib_smem} (backward={backward})")
+        qt = 32 if backward else 64
+        lib_smem = k3._lib().causal_packed_smem_bytes(backward, 128, 128, 64, qt)
+        if lib_smem != k3.smem_bytes(bool(backward), 128, 128, 64, qt):
+            raise AssertionError(f"causal_packed gate's smem layout != kernel's "
                                  f"{lib_smem} (backward={backward})")
 
     # ---- 2. kernels against their plain versions
@@ -292,8 +435,88 @@ def main() -> int:
                 raise AssertionError(f"eva_packed {label} {name}: max abs err "
                                      f"{err} > {tol}")
             k1_errors[(label, name)] = err
+    k3_errors = {}
+    for label, (B, T, nh, d, w, cs), dtype_name in K3_CHECKS:
+        ops, grad = k3_inputs(B, T, nh, d, w, cs, getattr(torch, dtype_name),
+                              seed=30 + len(k3_errors))
+        scale = d ** -0.5
+        got = [k3._forward(*ops, scale, nh, w, cs),
+               *k3._backward(*ops, grad, scale, nh, w, cs)]
+        torch.cuda.synchronize()
+        want = [k3.causal_packed_fwd_ref(*ops, scale, nh, w, cs),
+                *k3.causal_packed_bwd_ref(*ops, grad, scale, nh, w, cs)]
+        for name, a, b in zip(("out", "dq", "dk", "dv", "drf", "dbeta", "dbias"),
+                              got, want):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"causal_packed {label} {name}: {a.shape} "
+                                     f"{a.dtype} vs {b.shape} {b.dtype}")
+            err = (a.float() - b.float()).abs().max().item()
+            peak = b.float().abs().max().item()
+            # as eva_packed's: f32 to summation (and atomics) order, bf16 to
+            # one rounding; dbias stays f32 in both
+            tol = K1_TOL[str(ops[0].dtype)] * max(1.0, peak)
+            log(f"[k3 vs plain] {label} {name}: max abs err {err:.3e} "
+                f"(tol {tol:.1e}), max |value| {peak:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"causal_packed {label} {name}: max abs "
+                                     f"err {err} > {tol}")
+            k3_errors[(label, name)] = err
+        del ops, grad, got, want
 
-    # ---- 3. the serving path, counts set to 0 just before and read just after
+    # ---- 3. the LM training path, counts set to 0 just before and read after
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = 0
+    t0 = time.perf_counter()
+    lm_stats = train_lm.cli_main(LM_ARGV + LM_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    lm_launches = {"causal_packed_fwd": k3.LAUNCHES_FWD,
+                   "causal_packed_bwd": k3.LAUNCHES_BWD}
+    lm_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[lm-train] 8 steps + validation {json.dumps(lm_stats)} in "
+        f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(lm_launches)}")
+    log(f"[lm-train] peak device memory {lm_peak_gb:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated, train steps and validation)")
+    for key in ("loss", "gnorm", "valid_loss"):
+        if not math.isfinite(lm_stats[key]):
+            raise AssertionError(f"non-finite {key} in {lm_stats}")
+    if lm_stats["step"] != 8 or lm_launches != {
+            "causal_packed_fwd": 16 * (8 + lm_stats["valid_batches"]),
+            "causal_packed_bwd": 16 * 8}:
+        raise AssertionError(f"launches {lm_launches} for 8 train steps and "
+                             f"{lm_stats['valid_batches']} validation batches "
+                             "of a 16-layer model")
+    # f32 gradients of a 2-layer full-width LM: the kernel path against the
+    # eager path, train mode, zero proposal noise, dropout 0
+    lm_args = train_lm.parse_args(LM_ARGV + ["--decoder-layers", "2"])
+    lm = train_lm.build_model(lm_args, LM_VOCAB, dense_tokens=True).cuda().train()
+    lm_eager = copy.deepcopy(lm)
+    for layer in lm_eager.decoder.layers:
+        layer.self_attn.impl = "xla"
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(4, LM_VOCAB, (4, 513), generator=gen, device="cuda")
+    before = k3.LAUNCHES_BWD
+    with mock.patch.object(CausalEVAttention, "_proposal_noise",
+                           lambda self, shape, like: like.new_zeros(shape)):
+        for m in (lm, lm_eager):
+            m.loss(toks[:, :-1], toks[:, 1:]).mean().backward()
+    torch.cuda.synchronize()
+    if k3.LAUNCHES_BWD - before != 2:
+        raise AssertionError("the kernel path did not run causal_packed twice")
+    gerr, gpeak = 0.0, 0.0
+    for p, pe in zip(lm.parameters(), lm_eager.parameters()):
+        gerr = max(gerr, (p.grad - pe.grad).abs().max().item())
+        gpeak = max(gpeak, pe.grad.abs().max().item())
+    lm_gtol = GRAD_TOL * max(1.0, gpeak)
+    log(f"[lm-train] f32 gradients kernel path vs eager path, 2 layers at full "
+        f"width, all {len(list(lm.parameters()))} parameters: max abs err "
+        f"{gerr:.3e} (tol {lm_gtol:.1e}), max |grad| {gpeak:.3e}")
+    if not gerr <= lm_gtol:
+        raise AssertionError(f"f32 LM gradients differ by {gerr}")
+    del lm, lm_eager
+    torch.cuda.empty_cache()
+
+    # ---- 4. the serving path, counts set to 0 just before and read just after
     k2.LAUNCHES = 0
     t0 = time.perf_counter()
     stats = train_vit.cli_main(MAIN_ARGV + ["--eval", "--bf16"])
@@ -328,7 +551,7 @@ def main() -> int:
     if not lerr <= LOGITS_TOL:
         raise AssertionError(f"f32 logits differ by {lerr}")
 
-    # ---- 4. the training path, counts set to 0 just before and read after
+    # ---- 5. the training path, counts set to 0 just before and read after
     k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
     t0 = time.perf_counter()
     record = train_vit.cli_main(MAIN_ARGV + TRAIN_ARGV)
@@ -381,7 +604,7 @@ def main() -> int:
         raise AssertionError(f"f32 gradients differ by {gerr}")
     del model, eager
 
-    # ---- 5. timings
+    # ---- 6. timings
     args, bias = k2_inputs(128, 28, 7, 4, 3, 64, torch.bfloat16, seed=7)
     out = k2.eva_attention_single(*args, bias=bias)
     k2_ms = cuda_ms(lambda: k2.eva_attention_single(*args, bias=bias), 20)
@@ -474,29 +697,83 @@ def main() -> int:
             128 * 10 / (time.perf_counter() - t0))
     log(f"[time] train step B=128 bf16 images/s: {json.dumps(train_rates)}; "
         f"{card}")
-    prof = train_vit._profiler(device)
-    with prof:
-        t0 = time.perf_counter()
-        steps(states["kernel"], 3)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels_only = [e for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-    self_ms = lambda e: getattr(  # noqa: E731
-        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-    busy = sum(self_ms(e) for e in kernels_only)
-    k1_ms_total = sum(self_ms(e) for e in kernels_only if "eva_packed" in e.key)
+    busy, k1_ms_total, wall_ms, table = profile_steps(
+        torch, train_vit._profiler, lambda: steps(states["kernel"], 3),
+        "eva_packed")
     step_ms = 128e3 / train_rates["kernel path (second)"]
     log(f"[profile] 3 kernel-path train steps: device busy {busy:.3f} ms "
         f"({busy / 3:.3f} ms a step, against {step_ms:.3f} ms a step "
         f"unprofiled: idle share {1 - busy / 3 / step_ms:.3f}; "
         f"{wall_ms:.3f} ms wall while profiled), eva_packed kernels "
         f"{k1_ms_total:.3f} ms ({k1_ms_total / busy:.3f} of busy)")
-    print(events.table(sort_by="self_device_time_total", row_limit=20),
-          flush=True)
+    print(table, flush=True)
+    del states, images
+    torch.cuda.empty_cache()
 
-    # ---- 6. the kernels line, the card line, the result
+    # causal_packed at the LM's shape (B=18, T=512, 8 heads of 128, window
+    # 128, chunk 8, bf16): kernels, plain versions, bounds, SDPA yardstick
+    k3_shape = (18, 512, 8, 128, 128, 8)
+    ops, grad = k3_inputs(*k3_shape, bf16, seed=40)
+    k3_geo = (128 ** -0.5, 8, 128, 8)
+    k3_ms = {
+        "fwd": cuda_ms(lambda: k3._forward(*ops, *k3_geo), 20),
+        "bwd": cuda_ms(lambda: k3._backward(*ops, grad, *k3_geo), 10),
+        "plain_fwd": cuda_ms(lambda: k3.causal_packed_fwd_ref(*ops, *k3_geo), 5),
+        "plain_bwd": cuda_ms(lambda: k3.causal_packed_bwd_ref(*ops, grad, *k3_geo), 3),
+    }
+    k3_bounds = {"fwd": k3_bound(ops[0], ops[3], 128, 8, 8, False),
+                 "bwd": k3_bound(ops[0], ops[3], 128, 8, 8, True)}
+    k3_sdpa_ms = dict(zip(("fwd", "bwd", "fwd+bwd"), k3_sdpa(ops, grad, 8, 128, 8)))
+    log(f"[time] causal_packed main shape bf16: {json.dumps(k3_ms)} ms, bounds "
+        f"{json.dumps(k3_bounds)}, SDPA on pre-partitioned windows "
+        f"{json.dumps(k3_sdpa_ms)} ms; {card}")
+    del ops, grad
+
+    # the LM train step at B=18 x 512 bf16, dropout 0, on one batch held on
+    # the card: kernel path, eager path, eager, kernel; then a profile of 3
+    # kernel-path steps by op
+    from efficient_attention_torch.training.lm_steps import make_lm_train_step
+
+    lm_step = make_lm_train_step(use_adaptive=True, compute_dtype=bf16)
+    lm_args = train_lm.parse_args(LM_ARGV)
+    lm_batch = torch.randint(4, LM_VOCAB, (18, 513), generator=gen, device="cuda")
+    lm_states = {}
+    for path in ("kernel", "eager"):
+        m = train_lm.build_model(lm_args, LM_VOCAB, dense_tokens=True).cuda()
+        if path == "eager":
+            for layer in m.decoder.layers:
+                layer.self_attn.impl = "xla"
+        lm_states[path] = TrainState(m, make_optimizer(
+            "nag", m.named_parameters(), lambda step: 1e-3, weight_decay=0.0,
+            clip_grad=0.1))
+
+    def lm_steps(state, n):
+        for _ in range(n):
+            lm_step(state, lm_batch[:, :-1], lm_batch[:, 1:], gen)
+
+    lm_rates = {}
+    for i, path in enumerate(("kernel", "eager", "eager", "kernel")):
+        lm_steps(lm_states[path], 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm_steps(lm_states[path], 5)
+        torch.cuda.synchronize()
+        lm_rates[f"{path} path ({'first' if i in (0, 1) else 'second'})"] = (
+            18 * 512 * 5 / (time.perf_counter() - t0))
+    log(f"[time] LM train step B=18x512 bf16 tokens/s: {json.dumps(lm_rates)}; "
+        f"{card}")
+    busy, k3_ms_total, wall_ms, table = profile_steps(
+        torch, train_lm._profiler, lambda: lm_steps(lm_states["kernel"], 3),
+        "causal_packed")
+    step_ms = 18 * 512 * 1e3 / lm_rates["kernel path (second)"]
+    log(f"[profile] 3 kernel-path LM train steps: device busy {busy:.3f} ms "
+        f"({busy / 3:.3f} ms a step, against {step_ms:.3f} ms a step "
+        f"unprofiled: idle share {1 - busy / 3 / step_ms:.3f}; "
+        f"{wall_ms:.3f} ms wall while profiled), causal_packed kernels "
+        f"{k3_ms_total:.3f} ms ({k3_ms_total / busy:.3f} of busy)")
+    print(table, flush=True)
+
+    # ---- 7. the kernels line, the card line, the result
     kernels = [{
         "name": k2.NAME, "route": "cuda", "source": k2.SOURCE,
         "replaces": k2.REPLACES, "launches": launches,
@@ -515,6 +792,18 @@ def main() -> int:
             "max_abs_err": err, "ms": k1_ms[part],
             "plain_ms": k1_ms[f"plain_{part}"], "bound_ms": k1_bounds[part][0],
             "bound_by": k1_bounds[part][1], "library_ms": sdpa[part],
+        })
+    for part, replaces, names in (
+            ("fwd", k3.REPLACES_FWD, ("out",)),
+            ("bwd", k3.REPLACES_BWD, ("dq", "dk", "dv", "drf", "dbeta", "dbias"))):
+        name = f"{k3.NAME}_{part}"
+        kernels.append({
+            "name": name, "route": "cuda", "source": k3.SOURCE,
+            "replaces": replaces, "launches": lm_launches[name],
+            "max_abs_err": max(k3_errors[("main bf16", n)] for n in names),
+            "ms": k3_ms[part], "plain_ms": k3_ms[f"plain_{part}"],
+            "bound_ms": k3_bounds[part][0], "bound_by": k3_bounds[part][1],
+            "library_ms": k3_sdpa_ms[part],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

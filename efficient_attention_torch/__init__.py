@@ -17,6 +17,7 @@ import logging
 from typing import Any, Dict
 
 from efficient_attention_torch.attention import EVA, LocalAttention, MultiheadAttention
+from efficient_attention_torch.attention.causal_eva import CausalEVAttention
 from efficient_attention_torch.config import (
     NestedNamespace,
     add_nested_argument,
@@ -32,7 +33,6 @@ _NOT_PORTED = {
     "lara": "ROADMAP.md Queue 1, item 4",
     "ra": "ROADMAP.md Queue 1, item 4",
     "scatterbrain": "ROADMAP.md Queue 1, item 4",
-    "causal_eva": "ROADMAP.md Queue 1, item 5",
 }
 
 
@@ -43,6 +43,7 @@ class AttentionFactory:
         "softmax": MultiheadAttention,
         "local": LocalAttention,
         "eva": EVA,
+        "causal_eva": CausalEVAttention,
     }
 
     @classmethod
@@ -85,4 +86,5 @@ __all__ = [
     "MultiheadAttention",
     "LocalAttention",
     "EVA",
+    "CausalEVAttention",
 ]

@@ -1,0 +1,404 @@
+"""LM training CLI of the port (``fairseq_cli/train.py`` for the LM task).
+
+Counterpart of ``efficient_attention_tpu/cli/train_lm.py``, with its flags:
+causal-EVA or softmax decoder attention chosen by ``--attn-name-decoder``
+with nested ``--decoder-attn-*`` flags, ``--arch`` presets and ``--config``
+YAML, NAG (or AdamW) behind a global-norm clip, the cosine(t-mult)
+schedule, token blocks, the adaptive or full
+softmax loss, ``--update-freq`` accumulation, ``--bf16`` master-copy mixed
+precision, validation every ``--validate-interval-updates`` and at the end.
+``--dummy-data`` trains on tokens drawn from ``--seed`` (the
+``fairseq/benchmark/dummy_lm.py`` analogue).  The model runs on
+``--device`` (default ``cuda``), on one device; the token blocks are dense
+(``dense_tokens``), so causal EVA takes the ``causal_packed`` kernel (K3)
+where its gate holds.  No checkpoint is written yet; flags whose module is
+not ported raise ``NotImplementedError`` naming their ROADMAP.md item.
+
+Example (the wiki103 recipe with causal EVA at full width):
+
+  python -m efficient_attention_torch.cli.train_lm \\
+      --arch transformer_lm_wiki103 --config configs/wikitext103_causal_eva.yaml \\
+      --dummy-data --dummy-vocab 267744 --dropout 0 --bf16 --max-update 8
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("eatorch-train-lm", add_help=False)
+    p.add_argument("--data", default=None, help="binarized data dir")
+    p.add_argument("--dummy-data", action="store_true")
+    p.add_argument("--dummy-vocab", type=int, default=1000)
+    p.add_argument("--attn-name-decoder", default="softmax",
+                   choices=["softmax", "causal_eva"])
+    p.add_argument("--arch", default=None,
+                   help="named architecture preset (transformer_lm, "
+                        "transformer_lm_big, transformer_lm_wiki103, "
+                        "transformer_lm_gpt, transformer_lm_gpt2_"
+                        "{tiny,small,medium,big}); explicit flags win")
+    p.add_argument("--decoder-embed-dim", type=int, default=1024)
+    p.add_argument("--decoder-ffn-embed-dim", type=int, default=4096)
+    p.add_argument("--decoder-layers", type=int, default=16)
+    p.add_argument("--decoder-attention-heads", type=int, default=8)
+    p.add_argument("--dropout", type=float, default=0.1)
+    p.add_argument("--checkpoint-activations", action="store_true")
+    p.add_argument("--decoder-layerdrop", type=float, default=0.0)
+    p.add_argument("--activation-fn", default="relu",
+                   choices=["relu", "gelu", "gelu_fast", "gelu_accurate",
+                            "relu_squared", "tanh", "linear"])
+    p.add_argument("--decoder-learned-pos", action="store_true")
+    p.add_argument("--quant-noise-pq", type=float, default=0.0)
+    p.add_argument("--quant-noise-pq-block-size", type=int, default=8)
+    p.add_argument("--decoder-layers-to-keep", default=None)
+    p.add_argument("--tokens-per-sample", type=int, default=512)
+    p.add_argument("--max-tokens", type=int, default=9216)
+    p.add_argument("--update-freq", type=int, default=1)
+    p.add_argument("--optimizer", default="nag",
+                   choices=["nag", "adamw", "adam", "sgd", "adafactor"])
+    p.add_argument("--lr", type=float, default=1.0)
+    p.add_argument("--lr-scheduler", default="cosine",
+                   choices=["cosine", "inverse_sqrt", "polynomial"])
+    p.add_argument("--lr-period-updates", type=float, default=270000)
+    p.add_argument("--t-mult", type=float, default=2.0)
+    p.add_argument("--lr-shrink", type=float, default=0.75)
+    p.add_argument("--warmup-updates", type=int, default=16000)
+    p.add_argument("--warmup-init-lr", type=float, default=1e-7)
+    p.add_argument("--min-lr", type=float, default=1e-9)
+    p.add_argument("--max-update", type=int, default=286000)
+    p.add_argument("--clip-norm", type=float, default=0.1)
+    p.add_argument("--criterion", default="adaptive_loss",
+                   choices=["adaptive_loss", "cross_entropy"])
+    p.add_argument("--adaptive-cutoffs", default="20000,60000")
+    p.add_argument("--adaptive-input", action="store_true")
+    p.add_argument("--tie-adaptive-weights", action="store_true")
+    p.add_argument("--no-decoder-final-norm", action="store_true")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--save-dir", default="./checkpoints/lm")
+    p.add_argument("--save-interval-updates", type=int, default=1000)
+    p.add_argument("--keep-interval-updates", type=int, default=3)
+    p.add_argument("--finetune-from-model", default=None)
+    p.add_argument("--no-save", action="store_true")
+    p.add_argument("--stop-time-hours", type=float, default=-1)
+    p.add_argument("--profile", nargs="?", const="", default=None,
+                   metavar="LOGDIR",
+                   help="trace train steps 1-3 with torch.profiler, print the "
+                        "ops by device time, and write a Chrome trace to "
+                        "LOGDIR if given")
+    p.add_argument("--log-interval", type=int, default=100)
+    p.add_argument("--max-len", type=int, default=3072)
+    p.add_argument("--base-layers", type=int, default=0)
+    p.add_argument("--base-experts", type=int, default=0)
+    p.add_argument("--base-sublayers", type=int, default=1)
+    p.add_argument("--base-shuffle", action="store_true")
+    p.add_argument("--seq-parallel", type=int, default=1)
+    p.add_argument("--pipeline-stages", type=int, default=1)
+    p.add_argument("--pipeline-chunks", type=int, default=2)
+    p.add_argument("--max-nonfinite-skips", type=int, default=8)
+    p.add_argument("--store-ema", action="store_true")
+    p.add_argument("--ema-decay", type=float, default=0.9999)
+    p.add_argument("--disable-validation", action="store_true")
+    p.add_argument("--validate-interval-updates", type=int, default=0)
+    p.add_argument("--bf16", action="store_true",
+                   help="mixed precision: float32 master parameters, "
+                        "bfloat16 forward and backward")
+    p.add_argument("--heartbeat-timeout", type=float, default=-1)
+    p.add_argument("--patience", type=int, default=-1)
+    p.add_argument("--tensorboard-logdir", default="")
+    p.add_argument("--wandb-project", default=None)
+    p.add_argument("--azureml-logging", action="store_true")
+    dist = p.add_argument_group("distributed")
+    dist.add_argument("--distributed", action="store_true", default=False)
+    dist.add_argument("--coordinator-address", default=None, type=str)
+    dist.add_argument("--num-processes", default=None, type=int)
+    dist.add_argument("--process-id", default=None, type=int)
+    p.add_argument("--device", default="cuda", type=str,
+                   help="torch device to run on ('cuda' or 'cpu')")
+    return p
+
+
+def parse_args(argv=None):
+    """Two-pass parse (the attention's flags are registered once its name is
+    known, from the CLI or the YAML config), then the YAML config and the
+    ``--arch`` preset."""
+    from efficient_attention_torch import AttentionFactory, NestedNamespace
+    from efficient_attention_torch.config_yaml import (
+        add_config_flag,
+        apply_yaml_config,
+        preparse_overrides,
+    )
+    from efficient_attention_torch.models.archs import LM_ARCHS, apply_arch
+
+    parser = build_parser()
+    add_config_flag(parser)
+    names = preparse_overrides(parser, argv, ["attn_name_decoder"])
+    parser = AttentionFactory.add_attn_specific_args(
+        parser, names["attn_name_decoder"], struct_name="attn_args_decoder",
+        prefix="decoder-attn")
+    parser.add_argument("--help", action="help")
+    args = parser.parse_args(argv, namespace=NestedNamespace())
+    args.attn_name_decoder = names["attn_name_decoder"]
+    args = apply_yaml_config(args, parser, argv)
+    return apply_arch(args, parser, argv, LM_ARCHS)
+
+
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` for every flag set to something whose
+    module is not ported yet, naming its ROADMAP.md item."""
+    queued = [
+        (args.data is not None and not args.dummy_data, "--data",
+         "Queue 1, item 5 (data/{dictionary,indexed_dataset}.py)"),
+        (bool(args.finetune_from_model), "--finetune-from-model",
+         "Queue 1, item 8 (training/checkpoint.py)"),
+        (bool(args.decoder_layers_to_keep), "--decoder-layers-to-keep",
+         "Queue 1, item 8 (training/checkpoint.py)"),
+        (args.pipeline_stages > 1, "--pipeline-stages", "Queue 1, item 7"),
+        (args.seq_parallel > 1, "--seq-parallel", "Queue 1, item 7"),
+        (args.base_layers > 0, "--base-layers", "Queue 1, item 7"),
+        (args.optimizer in ("adam", "sgd", "adafactor"),
+         f"--optimizer {args.optimizer}", "Queue 1, items 3 and 6"),
+        (args.lr_scheduler != "cosine", f"--lr-scheduler {args.lr_scheduler}",
+         "Queue 1, item 6"),
+        (args.heartbeat_timeout > 0, "--heartbeat-timeout", "Queue 1, item 8"),
+        (bool(args.tensorboard_logdir), "--tensorboard-logdir", "Queue 1, item 8"),
+        (args.wandb_project is not None, "--wandb-project", "Queue 1, item 8"),
+        (args.azureml_logging, "--azureml-logging", "Queue 1, item 8"),
+        (args.distributed or args.coordinator_address is not None
+         or args.num_processes is not None or args.process_id is not None,
+         "the distributed flags", "Queue 1, item 7"),
+    ]
+    for unported, flag, item in queued:
+        if unported:
+            raise NotImplementedError(f"{flag} is not ported yet; see ROADMAP.md {item}")
+
+
+def load_corpus(args, split: str = "train"):
+    """Dummy tokens from ``--seed`` (the JAX CLI's ``--dummy-data``):
+    ``--max-tokens`` x 64 for training, x 4 for validation, uniform over
+    ``[4, --dummy-vocab)``.  Returns ``(tokens, vocab size)``."""
+    rng = np.random.default_rng(args.seed + (0 if split == "train" else 1))
+    n = args.max_tokens * (64 if split == "train" else 4)
+    return rng.integers(4, args.dummy_vocab, size=n).astype(np.int64), args.dummy_vocab
+
+
+def build_model(args, vocab_size: int, dense_tokens: bool = False):
+    """The LM of ``args`` with weights drawn from ``args.seed``, on the CPU
+    in float32."""
+    from efficient_attention_torch.config import namespace_to_dict
+    from efficient_attention_torch.models.transformer import (
+        TransformerLM,
+        init_lm_weights,
+    )
+
+    attn_args = namespace_to_dict(getattr(args, "attn_args_decoder",
+                                          argparse.Namespace()))
+    cutoffs = None
+    if args.criterion == "adaptive_loss":
+        cutoffs = tuple(c for c in (int(x) for x in args.adaptive_cutoffs.split(","))
+                        if c < vocab_size) or None
+    model = TransformerLM(
+        vocab_size, embed_dim=args.decoder_embed_dim,
+        ffn_dim=args.decoder_ffn_embed_dim, num_layers=args.decoder_layers,
+        num_heads=args.decoder_attention_heads,
+        attn_name=args.attn_name_decoder, attn_args=attn_args,
+        dropout=args.dropout, max_len=args.max_len, adaptive_cutoffs=cutoffs,
+        adaptive_input=bool(args.adaptive_input and cutoffs),
+        tie_adaptive=bool(args.tie_adaptive_weights),
+        final_norm=not args.no_decoder_final_norm,
+        base_layers=args.base_layers,
+        checkpoint_activations=args.checkpoint_activations,
+        layerdrop=args.decoder_layerdrop, quant_noise_pq=args.quant_noise_pq,
+        quant_noise_pq_block_size=args.quant_noise_pq_block_size,
+        activation_fn=args.activation_fn,
+        learned_pos=args.decoder_learned_pos, dense_tokens=dense_tokens)
+    return init_lm_weights(model, torch.Generator().manual_seed(args.seed))
+
+
+def make_schedule(args):
+    from efficient_attention_torch.training.optim import cosine_tmult_schedule
+
+    return cosine_tmult_schedule(
+        args.lr, args.warmup_updates, int(args.lr_period_updates),
+        t_mult=args.t_mult, min_lr=args.min_lr,
+        warmup_init_lr=args.warmup_init_lr, lr_shrink=args.lr_shrink,
+        max_steps=args.max_update)
+
+
+def _profiler(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
+
+
+def _print_profile(prof, device, logdir) -> None:
+    print(prof.key_averages().table(
+        sort_by="self_device_time_total" if device.type == "cuda"
+        else "self_cpu_time_total", row_limit=20))
+    if logdir:
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def main(args) -> dict:
+    from efficient_attention_torch.data.text_data import TokenBlockDataset
+    from efficient_attention_torch.training.lm_steps import (
+        make_lm_eval_step,
+        make_lm_train_step,
+    )
+    from efficient_attention_torch.training.metrics import MetricLogger
+    from efficient_attention_torch.training.optim import make_optimizer
+    from efficient_attention_torch.training.train_state import TrainState
+
+    check_ported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available")
+    # float32 means float32: no TF32 in matmuls or cuDNN convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    tokens, vocab_size = load_corpus(args)
+    # token blocks only ever carry trailing pads (the last block), which
+    # causal attention hides from every real query and the loss masks, so
+    # the model takes no padding mask and causal EVA may take K3
+    model = build_model(args, vocab_size, dense_tokens=True).to(device)
+    blocks = TokenBlockDataset(tokens, args.tokens_per_sample + 1, pad_idx=1)
+    accum = max(1, args.update_freq)
+    batch_size = max(accum, (args.max_tokens // args.tokens_per_sample) * accum)
+    batch_size -= batch_size % accum
+    optimizer = make_optimizer(args.optimizer, model.named_parameters(),
+                               make_schedule(args), weight_decay=0.0,
+                               clip_grad=args.clip_norm)
+    state = TrainState(model, optimizer,
+                       ema_decay=args.ema_decay if args.store_ema else 0.0)
+    use_adaptive = model.decoder.adaptive_softmax is not None
+    train_step = make_lm_train_step(
+        pad_idx=1, accum_steps=accum, use_adaptive=use_adaptive,
+        compute_dtype=torch.bfloat16 if args.bf16 else None)
+    print("| no checkpoint is written: training/checkpoint.py is not ported "
+          "yet (ROADMAP.md Queue 1, item 8)")
+
+    valid_blocks = None
+    if not args.disable_validation:
+        vtokens, _ = load_corpus(args, split="valid")
+        valid_blocks = TokenBlockDataset(vtokens, args.tokens_per_sample + 1,
+                                         pad_idx=1)
+    eval_step = make_lm_eval_step(use_adaptive=use_adaptive, pad_idx=1)
+
+    def validate() -> dict:
+        """Valid-split loss and perplexity, on the float32 parameters (or
+        their EMA)."""
+        if valid_blocks is None:
+            return {}
+        model.eval()
+        params = state.ema_params
+        nll_sum = tok_sum = 0.0
+        vb = max(1, args.max_tokens // args.tokens_per_sample)
+        n = (len(valid_blocks) // vb) * vb
+        for i in range(0, n, vb):
+            batch = torch.from_numpy(np.stack(
+                [valid_blocks[j] for j in range(i, i + vb)])).to(device)
+            t_in, t_tg = batch[:, :-1], batch[:, 1:]
+            mask = torch.ones_like(t_tg, dtype=torch.bool)
+            if params is None:
+                ns, nt = eval_step(model, t_in, t_tg, mask)
+            else:
+                ns, nt = eval_step(
+                    lambda *a: torch.func.functional_call(model, params, a),
+                    t_in, t_tg, mask)
+            nll_sum += float(ns)
+            tok_sum += float(nt)
+        nll = nll_sum / max(tok_sum, 1.0)
+        vm = {"valid_loss": nll, "valid_ppl": math.exp(min(nll, 50.0)),
+              "valid_batches": n // vb}
+        print(f"| valid loss {nll:.3f} ppl {vm['valid_ppl']:.2f}")
+        return vm
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    order_rng = np.random.default_rng(args.seed)
+    order = order_rng.permutation(len(blocks))
+    pos = 0
+    logger = MetricLogger()
+    t0 = time.time()
+    stats: dict = {}
+    consec_skips = 0
+    best_valid, bad_valids = float("inf"), 0
+    validated_at = -1
+    prof = None
+    while state.step < args.max_update:
+        if pos + batch_size > len(blocks):
+            order, pos = order_rng.permutation(len(blocks)), 0
+        idx = order[pos:pos + batch_size]
+        pos += batch_size
+        batch = torch.from_numpy(np.stack([blocks[int(i)] for i in idx])).to(device)
+        if args.profile is not None and state.step == 1 and prof is None:
+            prof = _profiler(device)
+            prof.start()
+        metrics = train_step(state, batch[:, :-1], batch[:, 1:], generator)
+        if prof is not None and state.step == 4:
+            prof.stop()
+            _print_profile(prof, device, args.profile)
+            prof = None
+        if metrics.skipped is not None and bool(metrics.skipped):
+            consec_skips += 1
+            print(f"| WARNING: non-finite loss/grad detected, skipping update "
+                  f"({consec_skips} consecutive)")
+            if consec_skips >= args.max_nonfinite_skips:
+                raise FloatingPointError(
+                    f"{consec_skips} consecutive non-finite updates; aborting")
+            continue
+        consec_skips = 0
+        step = state.step
+        loss = float(metrics.loss)
+        logger.update(loss=loss, ppl=math.exp(min(loss, 20)),
+                      gnorm=float(metrics.grad_norm))
+        if step % args.log_interval == 0:
+            wps = step * batch_size * args.tokens_per_sample / (time.time() - t0)
+            print(f"| step {step} {logger} | wps {wps:.0f}")
+        stats = {"step": step, "loss": loss, "ppl": math.exp(min(loss, 20)),
+                 "gnorm": float(metrics.grad_norm)}
+        if (args.stop_time_hours > 0
+                and time.time() - t0 > args.stop_time_hours * 3600):
+            print(f"| stopping: --stop-time-hours {args.stop_time_hours} reached")
+            break
+        if (args.validate_interval_updates > 0
+                and step % args.validate_interval_updates == 0):
+            vm = validate()
+            validated_at = step
+            stats.update(vm)
+            if args.patience > 0 and "valid_loss" in vm:
+                if vm["valid_loss"] < best_valid - 1e-9:
+                    best_valid, bad_valids = vm["valid_loss"], 0
+                else:
+                    bad_valids += 1
+                    if bad_valids >= args.patience:
+                        print(f"| early stop: valid loss has not improved for "
+                              f"{bad_valids} validations (--patience "
+                              f"{args.patience})")
+                        stats["early_stop"] = True
+                        break
+    if prof is not None:  # training ended inside the traced steps
+        prof.stop()
+        _print_profile(prof, device, args.profile)
+    if validated_at != state.step:
+        stats.update(validate())
+    print(json.dumps(stats))
+    return stats
+
+
+def cli_main(argv=None):
+    return main(parse_args(argv))
+
+
+if __name__ == "__main__":
+    cli_main()

@@ -8,6 +8,11 @@ copy of the flax -> reference name rules of
 ``[in, out]`` becomes Linear ``[out, in]``, conv HWIO becomes OIHW, LayerNorm
 ``scale`` becomes ``weight``.  ``load_jax_params`` loads the result into a
 module and accepts as missing only the buffers the port derives itself.
+
+The language models take ``lm_state_dict_from_jax`` (flax ``TransformerLM``
+params, by the rules of ``interop.py:140-269`` there) and
+``lm_state_dict_from_fairseq`` (a reference checkpoint); both give a state
+dict that ``TransformerLM.load_state_dict(strict=True)`` takes.
 """
 from __future__ import annotations
 
@@ -107,6 +112,98 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to {key!r}")
         out[key] = torch.from_numpy(
             np.ascontiguousarray(_to_torch_layout(val, parts[-1])))
+    return out
+
+
+# ---------------------------------------------------------------- language --
+
+# flax LM component -> fairseq component (the JAX package's
+# ``_LM_COMPONENT_MAP``, plus the untied adaptive softmax's tails)
+_LM_COMPONENT_MAP = {
+    "ln_self": "self_attn_layer_norm",
+    "ln_ffn": "final_layer_norm",
+    "final_ln": "layer_norm",
+    "class_proj": "head.class_proj",
+    "layers_0": "0",
+    "layers_1": "1",
+    "layers_2": "2",
+}
+_LM_PREFIXED = re.compile(r"(layer|emb|proj|tail)_(\d+)")
+_LM_PREFIX_NAME = {"layer": "layers.{}", "emb": "embeddings.{}.0",
+                   "proj": "embeddings.{}.1", "tail": "tail.{}"}
+# raw flax params whose fairseq home is an Embedding's weight
+_LM_TABLES = {"rel_pos_bias": "rel_pos_bias.relative_attention_bias.weight",
+              "embed_positions": "embed_positions.weight"}
+
+
+def lm_flax_path_to_torch_key(parts) -> str:
+    """``['decoder', 'layer_0', 'self_attn', 'q_proj', 'kernel'] ->
+    'decoder.layers.0.self_attn.q_proj.weight'``; the adaptive softmax,
+    beside the decoder in flax, sits inside it in fairseq."""
+    out = ["decoder"] if parts[0] == "adaptive_softmax" else []
+    for p in parts[:-1]:
+        m = _LM_PREFIXED.fullmatch(p)
+        if m:
+            out.append(_LM_PREFIX_NAME[m.group(1)].format(m.group(2)))
+        else:
+            out.append(_LM_COMPONENT_MAP.get(p, p))
+    leaf = parts[-1]
+    if leaf in _LM_TABLES:
+        out.append(_LM_TABLES[leaf])
+    else:
+        out.append("weight" if leaf in ("kernel", "scale", "embedding") else leaf)
+    return ".".join(out)
+
+
+def lm_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``TransformerLM`` state dict from the JAX package's flax
+    params (the direction of JAX ``interop.convert_lang_state_dict``
+    reversed): fairseq names, Dense kernels transposed to Linear layout."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for parts, val in _flatten(params):
+        key = lm_flax_path_to_torch_key(list(parts))
+        if key in out:
+            raise ValueError(f"two flax leaves map to {key!r}")
+        out[key] = torch.from_numpy(
+            np.ascontiguousarray(_to_torch_layout(val, parts[-1])))
+    return out
+
+
+# fairseq buffers the port derives itself
+_FAIRSEQ_BUFFERS = ("._float_tensor", ".version")
+_TIED_TAIL = re.compile(r"adaptive_softmax\.tail\.(\d+)\.(\d+)\.weight$")
+
+
+def lm_state_dict_from_fairseq(state_dict: Mapping[str, Any],
+                               tied: bool = True) -> Dict[str, torch.Tensor]:
+    """A fairseq ``transformer_lm`` state dict for the port's
+    ``TransformerLM``: the buffers the port derives are dropped, and with
+    ``tied`` (``--tie-adaptive-weights --tie-adaptive-proj``) the adaptive
+    softmax's word and tail tensors, which fairseq stores as second names
+    of the adaptive-input bands, are checked to mirror those bands and
+    dropped."""
+    sd = {k: torch.as_tensor(np.asarray(v)) for k, v in state_dict.items()}
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(_FAIRSEQ_BUFFERS):
+            continue
+        band = None
+        if tied and k.endswith("adaptive_softmax.head.word_proj.weight"):
+            band = k.split("adaptive_softmax")[0] + "embed_tokens.embeddings.0.0.weight"
+        elif tied and _TIED_TAIL.search(k):
+            i, j = (int(x) for x in _TIED_TAIL.search(k).groups())
+            # tail i's first Linear is band i+1's projection, its last the
+            # band's embedding
+            band = (k.split("adaptive_softmax")[0]
+                    + f"embed_tokens.embeddings.{i + 1}.{1 if j == 0 else 0}.weight")
+        if band is not None:
+            if band not in sd or not torch.equal(sd[band], v):
+                raise ValueError(f"{k!r} does not mirror {band!r}: the adaptive "
+                                 "softmax is not tied to the adaptive input")
+            continue
+        out[k] = v
     return out
 
 

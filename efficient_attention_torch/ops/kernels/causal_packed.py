@@ -1,0 +1,371 @@
+"""K3 ``causal_packed``: the causal-EVA joint softmax of the LM training step.
+
+Replaces ``efficient_attention_tpu/ops/pallas/causal_packed.py::
+causal_eva_packed``, the kernel that every causal-EVA decoder layer of the
+LM train step (and its validation) goes through, with its fused backward.
+For batch row b, window g of ``w`` tokens and head h, the queries
+``q[b, g*w:(g+1)*w, h]`` attend over ``[k of the window | rf_k_bar[b, :, h]]``
+with values ``[v of the window | beta[b, :, h]]`` in one softmax over
+``w + C`` columns.  The additive table is the ``[w, w]`` ``bias_tab``
+(causal triangle at ``MASK_VAL`` plus the head-shared T5 bias) on the local
+columns; chunk column c is masked to ``MASK_VAL`` unless
+``c < g*(w/cs) + i/cs`` for window row i.
+
+Roundings follow the TPU kernel (``_joint_P``, ``_kernel``, ``_bwd_kernel``):
+the summaries are taken in q's dtype; the scaled logits are rounded to the
+input dtype and back before the table is added; ``P`` is normalised in f32,
+then rounded to the value dtype for the value product; in the backward
+``dS`` is rounded to q's dtype and ``P``'s local and chunk parts to g's
+dtype before the products that use them; dbias sums the unrounded f32
+``dS``; drf and dbeta are summed in f32 and cast to the summaries' dtypes.
+
+``causal_eva_packed`` is a ``torch.autograd.Function``.  For CUDA tensors its
+forward and backward launch the kernels of ``csrc/causal_packed.cu`` or
+raise; for CPU tensors they compute the same function with
+``causal_packed_fwd_ref`` and ``causal_packed_bwd_ref``, the plain PyTorch
+versions (the backward in explicit formulas, not autograd), which are also
+what the kernels are held against on the card.  ``LAUNCHES_FWD`` and
+``LAUNCHES_BWD`` count the kernels' launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from efficient_attention_torch.ops.kernels import _build
+
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+
+NAME = "causal_packed"
+SOURCE = "efficient_attention_torch/csrc/causal_packed.cu"
+REPLACES_FWD = "efficient_attention_tpu/ops/pallas/causal_packed.py:165"
+REPLACES_BWD = "efficient_attention_tpu/ops/pallas/causal_packed.py:284"
+
+MASK_VAL = -5e4
+
+# the kernels' own limits: the head dims they are instantiated for, the
+# shared memory a block may use on Hopper, and the query rows a block takes
+# (the largest that divides the window; the backward holds two more
+# row-tiles in shared memory, so it takes fewer)
+HEAD_DIMS = (64, 128)
+SMEM_LIMIT = 232448
+FWD_ROWS = (64, 32, 16, 8)
+BWD_ROWS = (32, 16, 8)
+_MAX_GRID_YZ = 65535
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def row_stride(d: int) -> int:
+    """Floats between rows of ``d`` in shared memory (``row_stride`` in
+    ``csrc/causal_packed.cu``): a multiple of 4 that is 4 mod 8."""
+    return ((d // 4 + 1) | 1) * 4
+
+
+def smem_bytes(backward: bool, d: int, w: int, C: int, qt: int) -> int:
+    """Dynamic shared memory of one block; the same layout as
+    ``make_layout`` in ``csrc/causal_packed.cu``: the tile's query rows (and
+    g rows in the backward), one buffer of ``w + C`` key or value rows, and
+    the ``qt x (w + C)`` logits (and ``dS`` in the backward), all f32, rows
+    of ``d`` at ``row_stride(d)`` and logit rows padded by one float."""
+    rows = _align16(qt * row_stride(d) * 4)
+    logits = _align16(qt * (w + C + 1) * 4)
+    kv = _align16((w + C) * row_stride(d) * 4)
+    if backward:
+        return 2 * rows + kv + 2 * logits
+    return rows + kv + logits
+
+
+def plan(B: int, T: int, w: int, cs: int, C: int, num_heads: int, d: int,
+         itemsize: int) -> Optional[Tuple[int, int]]:
+    """Query rows a block takes in the forward and the backward, or None
+    where the kernels cannot take the geometry: windows tiling the
+    sequence, chunks tiling a window, a head dim they are built for,
+    float32 or bfloat16, and both blocks within Hopper's shared memory."""
+    if not 1 <= B <= _MAX_GRID_YZ or not 1 <= num_heads <= _MAX_GRID_YZ:
+        return None
+    if w <= 0 or cs <= 0 or C <= 0 or T % w or w % cs or w % 8:
+        return None
+    if d not in HEAD_DIMS or itemsize not in (2, 4):
+        return None
+    fwd = next(q for q in FWD_ROWS if w % q == 0)
+    bwd = next(q for q in BWD_ROWS if w % q == 0)
+    if (smem_bytes(False, d, w, C, fwd) > SMEM_LIMIT
+            or smem_bytes(True, d, w, C, bwd) > SMEM_LIMIT):
+        return None
+    return fwd, bwd
+
+
+def supports_causal_packed(B: int, T: int, w: int, cs: int, num_heads: int,
+                           head_dim: int, itemsize: int = 2) -> bool:
+    """Geometry gate of the kernels (JAX ``supports_causal_packed``, with the
+    head dim and element size that the kernels are built for)."""
+    return plan(B, T, w, cs, T // cs if cs > 0 else 0, num_heads, head_dim,
+                itemsize) is not None
+
+
+def causal_table(w: int, bias: Optional[torch.Tensor] = None,
+                 device=None) -> torch.Tensor:
+    """The ``[w, w]`` f32 additive table: ``MASK_VAL`` above the diagonal,
+    plus ``bias`` (the T5 bias, already scaled) where given."""
+    tab = torch.triu(torch.full((w, w), MASK_VAL, device=device), diagonal=1)
+    return tab if bias is None else tab + bias.float()
+
+
+def _windows(t: torch.Tensor, w: int, nh: int) -> torch.Tensor:
+    """``[B, T, nh*d] -> [B, nh, G, w, d]`` in f32."""
+    B, T, hd = t.shape
+    return t.float().reshape(B, T // w, w, nh, hd // nh).permute(0, 3, 1, 2, 4)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_windows``: ``[B, nh, G, w, d] -> [B, T, nh*d]``."""
+    B, nh, G, w, d = t.shape
+    return t.permute(0, 2, 3, 1, 4).reshape(B, G * w, nh * d)
+
+
+def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:
+    """``[B, C, nh*d] -> [B, nh, C, d]`` in f32."""
+    B, C, hd = t.shape
+    return t.float().reshape(B, C, nh, hd // nh).transpose(1, 2)
+
+
+def _joint_add(bias_tab: torch.Tensor, G: int, w: int, cs: int, C: int
+               ) -> torch.Tensor:
+    """``[G, w, w + C]`` additive table of every window (``_joint_add``)."""
+    dev = bias_tab.device
+    row = torch.arange(w, device=dev)[None, :, None]
+    first = torch.arange(G, device=dev)[:, None, None] * (w // cs)
+    blocked = torch.arange(C, device=dev)[None, None, :] >= first + row // cs
+    chunk = torch.where(blocked, MASK_VAL, 0.0)
+    return torch.cat([bias_tab.float().expand(G, w, w), chunk], dim=-1)
+
+
+def _probs(q, k, rf, bias_tab, scale, nh, w, cs):
+    """Normalised joint probabilities ``[B, nh, G, w, w + C]`` (f32) and the
+    window q, k and head-major rf (``_joint_P``)."""
+    T = q.dtype
+    qw, kw = _windows(q, w, nh), _windows(k, w, nh)
+    rfh = _heads(rf.to(T), nh)
+    logits = torch.cat([torch.einsum("bhgid,bhgjd->bhgij", qw, kw),
+                        torch.einsum("bhgid,bhcd->bhgic", qw, rfh)],
+                       dim=-1) * scale
+    logits = logits.to(T).float() + _joint_add(
+        bias_tab, qw.shape[2], w, cs, rfh.shape[2])
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True), qw, kw, rfh
+
+
+def causal_packed_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          rf_k_bar: torch.Tensor, beta: torch.Tensor,
+                          bias_tab: torch.Tensor, scale: float,
+                          num_heads: int, w: int, cs: int) -> torch.Tensor:
+    """Plain PyTorch forward (the counterpart of ``_kernel``): the same
+    function and roundings as the kernel in f32 tensor ops.  Differentiable
+    by autograd, which the tests hold the explicit backward against."""
+    T = q.dtype
+    P, _, _, _ = _probs(q, k, rf_k_bar, bias_tab, scale, num_heads, w, cs)
+    Pr = P.to(v.dtype).float()
+    out = (torch.einsum("bhgij,bhgjd->bhgid", Pr[..., :w],
+                        _windows(v, w, num_heads))
+           + torch.einsum("bhgic,bhcd->bhgid", Pr[..., w:],
+                          _heads(beta.to(v.dtype), num_heads)))
+    return _merge(out).to(T)
+
+
+def causal_packed_bwd_ref(q, k, v, rf_k_bar, beta, bias_tab, g, scale: float,
+                          num_heads: int, w: int, cs: int):
+    """Plain PyTorch backward in explicit formulas (the counterpart of
+    ``_bwd_kernel``): recompute ``P``, then ``dP = g vals^T``,
+    ``dS = P (dP - sum(P dP))`` and its products.  Returns ``(dq, dk, dv,
+    drf, dbeta, dbias)``: dq, dk, dv in q's dtype, drf/dbeta in the
+    summaries' dtypes (summed in f32), dbias ``[w, w]`` in the table's dtype,
+    summed over batch, windows and heads."""
+    T = q.dtype
+    nh = num_heads
+    P, qw, kw, rfh = _probs(q, k, rf_k_bar, bias_tab, scale, nh, w, cs)
+    gw = _windows(g.to(T), w, nh)
+    vw = _windows(v, w, nh)
+    bth = _heads(beta.to(T), nh)
+    dP = torch.cat([torch.einsum("bhgid,bhgjd->bhgij", gw, vw),
+                    torch.einsum("bhgid,bhcd->bhgic", gw, bth)], dim=-1)
+    dSf = P * (dP - (P * dP).sum(dim=-1, keepdim=True))
+    dS = dSf.to(T).float()
+    Pr = P.to(T).float()
+    dq = scale * (torch.einsum("bhgij,bhgjd->bhgid", dS[..., :w], kw)
+                  + torch.einsum("bhgic,bhcd->bhgid", dS[..., w:], rfh))
+    dk = scale * torch.einsum("bhgij,bhgid->bhgjd", dS[..., :w], qw)
+    dv = torch.einsum("bhgij,bhgid->bhgjd", Pr[..., :w], gw)
+    drf = scale * torch.einsum("bhgic,bhgid->bhcd", dS[..., w:], qw)
+    dbeta = torch.einsum("bhgic,bhgid->bhcd", Pr[..., w:], gw)
+
+    def packed(t):  # [B, nh, C, d] -> [B, C, nh*d]
+        return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+
+    dbias = dSf[..., :w].sum(dim=(0, 1, 2)).to(bias_tab.dtype)
+    return (_merge(dq).to(T), _merge(dk).to(T), _merge(dv).to(T),
+            packed(drf).to(rf_k_bar.dtype), packed(dbeta).to(beta.dtype), dbias)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(NAME)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.causal_packed_fwd_launch.argtypes = ([ptr] * 7 + [i32] * 9
+                                             + [ctypes.c_float, ptr])
+    lib.causal_packed_fwd_launch.restype = i32
+    lib.causal_packed_bwd_launch.argtypes = ([ptr] * 13 + [i32] * 9
+                                             + [ctypes.c_float, ptr])
+    lib.causal_packed_bwd_launch.restype = i32
+    lib.causal_packed_smem_bytes.argtypes = [i32] * 5
+    lib.causal_packed_smem_bytes.restype = i32
+    lib.causal_packed_error_string.argtypes = [i32]
+    lib.causal_packed_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cuda_operands(q, k, v, rf, beta, bias_tab, num_heads, w, cs):
+    """Checked, contiguous kernel operands and the launch geometry."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B, T, H*D], got {tuple(q.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"causal_packed takes float32 or bfloat16, got {q.dtype}")
+    B, T, hd = q.shape
+    nh = num_heads
+    if hd % nh or w <= 0 or T % w:
+        raise ValueError(f"q {tuple(q.shape)} does not split into {nh} heads "
+                         f"and windows of {w}")
+    for t, what in ((k, "k"), (v, "v")):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(f"{what} {tuple(t.shape)} {t.dtype} != q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if rf.dim() != 3 or rf.shape[0] != B or rf.shape[2] != hd:
+        raise ValueError(f"rf_k_bar must be [B, C, H*D], got {tuple(rf.shape)}")
+    C = rf.shape[1]
+    if tuple(beta.shape) != tuple(rf.shape):
+        raise ValueError(f"beta {tuple(beta.shape)} != rf_k_bar {tuple(rf.shape)}")
+    if tuple(bias_tab.shape) != (w, w):
+        raise ValueError(f"bias_tab must be {(w, w)}, got {tuple(bias_tab.shape)}")
+    d = hd // nh
+    rows = plan(B, T, w, cs, C, nh, d, q.element_size())
+    if rows is None:
+        raise ValueError(
+            f"causal_packed cannot take B={B}, T={T}, window {w}, chunk {cs}, "
+            f"{C} chunks, head dim {d}, {q.dtype}; see supports_causal_packed")
+    for t, what in ((k, "k"), (v, "v"), (rf, "rf_k_bar"), (beta, "beta"),
+                    (bias_tab, "bias_tab")):
+        if t.device != q.device:
+            raise ValueError(f"{what} is on {t.device}, q on {q.device}")
+    ops = [t.contiguous() for t in (q, k, v)]
+    ops += [rf.to(q.dtype).contiguous(), beta.to(q.dtype).contiguous(),
+            bias_tab.to(torch.float32).contiguous()]
+    return ops, (B, T, nh, d, C, rows)
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"causal_packed {what} launch failed: "
+                           f"{_lib().causal_packed_error_string(rc).decode()}")
+
+
+def _forward(q, k, v, rf, beta, bias_tab, scale, num_heads, w, cs):
+    if q.device.type == "cpu":
+        return causal_packed_fwd_ref(q, k, v, rf, beta, bias_tab, scale,
+                                     num_heads, w, cs)
+    if q.device.type != "cuda":
+        raise ValueError(f"causal_packed runs on CUDA or CPU tensors, got {q.device}")
+    ops, (B, T, nh, d, C, (qt, _)) = _cuda_operands(
+        q, k, v, rf, beta, bias_tab, num_heads, w, cs)
+    out = torch.empty_like(ops[0])
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.causal_packed_fwd_launch(
+            *(t.data_ptr() for t in ops), out.data_ptr(), B, T, nh, d, w, cs,
+            C, qt, int(q.dtype == torch.bfloat16), float(scale), stream)
+    _check(rc, "forward")
+    global LAUNCHES_FWD
+    LAUNCHES_FWD += 1
+    return out
+
+
+def _backward(q, k, v, rf, beta, bias_tab, g, scale, num_heads, w, cs):
+    if q.device.type == "cpu":
+        return causal_packed_bwd_ref(q, k, v, rf, beta, bias_tab, g, scale,
+                                     num_heads, w, cs)
+    if q.device.type != "cuda":
+        raise ValueError(f"causal_packed runs on CUDA or CPU tensors, got {q.device}")
+    ops, (B, T, nh, d, C, (_, qt)) = _cuda_operands(
+        q, k, v, rf, beta, bias_tab, num_heads, w, cs)
+    if tuple(g.shape) != tuple(q.shape) or g.device != q.device:
+        raise ValueError(f"g must be {tuple(q.shape)} on {q.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    g = g.to(q.dtype).contiguous()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(ops[0])
+    # dk, dv, drf, dbeta sum over query tiles and windows with f32 atomics
+    dk = torch.zeros((B, T, nh * d), **f32)
+    dv = torch.zeros_like(dk)
+    drf = torch.zeros((B, C, nh * d), **f32)
+    dbeta = torch.zeros_like(drf)
+    dbias_part = torch.zeros((B, nh, w, w), **f32)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.causal_packed_bwd_launch(
+            *(t.data_ptr() for t in ops), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), drf.data_ptr(), dbeta.data_ptr(),
+            dbias_part.data_ptr(), B, T, nh, d, w, cs, C, qt,
+            int(q.dtype == torch.bfloat16), float(scale), stream)
+    _check(rc, "backward")
+    global LAUNCHES_BWD
+    LAUNCHES_BWD += 1
+    # the per-(row, head) dbias partials are summed here, as the TPU
+    # kernel's caller sums its batch-group partials
+    return (dq, dk.to(q.dtype), dv.to(q.dtype), drf.to(rf.dtype),
+            dbeta.to(beta.dtype), dbias_part.sum(dim=(0, 1)).to(bias_tab.dtype))
+
+
+class _CausalPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rf_k_bar, beta, bias_tab, scale, num_heads, w, cs):
+        ctx.save_for_backward(q, k, v, rf_k_bar, beta, bias_tab)
+        ctx.geometry = (scale, num_heads, w, cs)
+        return _forward(q, k, v, rf_k_bar, beta, bias_tab, scale, num_heads,
+                        w, cs)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _backward(*ctx.saved_tensors, g, *ctx.geometry)
+        return (*grads, None, None, None, None)
+
+
+def causal_eva_packed(
+    q: torch.Tensor,         # [B, T, H*D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rf_k_bar: torch.Tensor,  # [B, C, H*D]
+    beta: torch.Tensor,      # [B, C, H*D]
+    scale: float,
+    num_heads: int,
+    window: int,
+    chunk: int,
+    bias_tab: Optional[torch.Tensor] = None,  # [w, w] additive (bias + mask)
+) -> torch.Tensor:
+    """Causal-EVA parallel attention; returns ``[B, T, H*D]`` in q's dtype,
+    differentiable in every operand, ``bias_tab`` included.
+
+    ``bias_tab`` must already hold the local causal mask (``MASK_VAL`` above
+    the diagonal) and any T5 bias; without one, the causal mask alone.  CPU
+    tensors take the plain versions; CUDA tensors launch the kernels or
+    raise."""
+    if bias_tab is None:
+        bias_tab = causal_table(window, device=q.device)
+    return _CausalPacked.apply(q, k, v, rf_k_bar, beta, bias_tab, float(scale),
+                               int(num_heads), int(window), int(chunk))

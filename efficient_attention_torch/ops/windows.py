@@ -1,14 +1,66 @@
-"""Non-overlapping 2-D window partitioning for local attention.
+"""Window partitioning for local attention.
 
-Shapes follow the reference (``attn_utils.py:190-234``):
-``[..., H, W, d] -> [..., gh*gw, w*w, d]`` and back.  Halo'd (overlapping)
-windows are not ported yet (ROADMAP.md Queue 1, item 6).
+Shapes follow the reference (``attn_utils.py:155-234``):
+
+* 2-D: ``[..., H, W, d] -> [..., gh*gw, w*w, d]`` and back; halo'd 2-D
+  windows are not ported yet (ROADMAP.md Queue 1, item 6);
+* causal 1-D (``causal_eva.py:102-113``): a backward-only halo,
+  ``[..., n, d] -> [..., g, e + w, d]``, and the plain merge back;
+* right padding of a sequence to a multiple of the window, and its
+  key-padding mask (``attn_utils.py:12-30``).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int, axis: int = -2,
+                    value: float = 0.0) -> torch.Tensor:
+    """Right-pad ``axis`` with ``value`` to a multiple of ``multiple``."""
+    n = x.shape[axis]
+    remainder = (-n) % multiple
+    if remainder == 0:
+        return x
+    axis = axis % x.dim()
+    pad = [0, 0] * (x.dim() - axis - 1) + [0, remainder]
+    return F.pad(x, pad, value=value)
+
+
+def padding_mask_for(batch: int, orig_len: int, padded_len: int,
+                     device=None) -> torch.Tensor:
+    """Boolean key-padding mask (True = padding) ``[batch, padded_len]`` of a
+    right-padded sequence."""
+    mask = torch.arange(padded_len, device=device) >= orig_len
+    return mask.expand(batch, padded_len)
+
+
+def causal_window_1d_partition(x: torch.Tensor, window_size: int,
+                               ext_window_size: int = 0,
+                               pad_val: float = 0.0) -> torch.Tensor:
+    """``[..., n, d] -> [..., g, e + w, d]``: non-overlapping windows, each
+    extended by the ``e`` positions before it (filled with ``pad_val`` in
+    front of the sequence)."""
+    *lead, n, d = x.shape
+    if n % window_size:
+        raise ValueError(f"n={n} not divisible by window {window_size}")
+    g = n // window_size
+    if ext_window_size <= 0:
+        return x.reshape(*lead, g, window_size, d)
+    e = ext_window_size
+    xp = F.pad(x, [0, 0, e, 0], value=pad_val)
+    idx = (torch.arange(g, device=x.device)[:, None] * window_size
+           + torch.arange(window_size + e, device=x.device)[None, :]).reshape(-1)
+    return xp.index_select(-2, idx).reshape(*lead, g, window_size + e, d)
+
+
+def window_1d_merge(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of the halo-free 1-D partition: ``[..., g, w, d] -> [...,
+    g*w, d]``."""
+    *lead, g, w, d = x.shape
+    return x.reshape(*lead, g * w, d)
 
 
 def window_2d_partition(x: torch.Tensor, window_size: int,

@@ -1,0 +1,92 @@
+"""LM train and eval steps.
+
+Counterpart of the LM part of ``efficient_attention_tpu/training/
+lm_steps.py`` (the fairseq Trainer's forward/backward/step,
+``trainer.py:716-1022``): the loss is the token-mean NLL (adaptive softmax
+or full cross entropy) over non-pad targets; ``--update-freq`` accumulation
+is a Python loop over microbatches whose losses and gradients are averaged;
+the update is skipped where loss or gradient norm is non-finite
+(``apply_or_skip``).  ``--bf16`` is the port's master-copy scheme
+(``train_state.cast_params``): the forward runs on a bfloat16 copy of the
+float32 parameters.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+from torch.func import functional_call
+
+from efficient_attention_torch.models.layers import set_generator
+from efficient_attention_torch.training.criterions import (
+    adaptive_loss,
+    label_smoothed_nll_loss,
+)
+from efficient_attention_torch.training.optim import global_norm
+from efficient_attention_torch.training.train_state import (
+    StepMetrics,
+    TrainState,
+    apply_or_skip,
+    cast_params,
+)
+
+
+def make_lm_train_step(pad_idx: int = 1, accum_steps: int = 1,
+                       use_adaptive: bool = False,
+                       compute_dtype: Optional[torch.dtype] = None
+                       ) -> Callable[..., StepMetrics]:
+    """``train_step(state, tokens, targets, generator) -> StepMetrics``,
+    which updates ``state`` in place; the step's random draws (dropout,
+    the causal-EVA proposal noise, quant noise) come from ``generator``."""
+
+    def loss_fn(model, tokens, targets):
+        params = cast_params(dict(model.named_parameters()), compute_dtype)
+        if use_adaptive:
+            nll = functional_call(model, params, (tokens, targets))
+            loss_sum, ntokens = adaptive_loss(nll, targets, pad_idx)
+        else:
+            logits = functional_call(model, params, (tokens,))
+            loss_sum, _, ntokens = label_smoothed_nll_loss(
+                logits, targets, epsilon=0.0, pad_idx=pad_idx)
+        return loss_sum / ntokens.clamp(min=1.0)
+
+    def train_step(state: TrainState, tokens: torch.Tensor,
+                   targets: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> StepMetrics:
+        model = state.model
+        set_generator(model.train(), generator)
+        state.optimizer.zero_grad()
+        if tokens.shape[0] % accum_steps:
+            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                             f"--update-freq {accum_steps}")
+        loss = torch.zeros((), device=tokens.device)
+        for tk, tg in zip(tokens.chunk(accum_steps), targets.chunk(accum_steps)):
+            part = loss_fn(model, tk, tg)
+            (part / accum_steps).backward()
+            loss += part.detach() / accum_steps
+        grad_norm = global_norm(p.grad for p in model.parameters()
+                                if p.grad is not None)
+        return StepMetrics(loss, grad_norm,
+                           apply_or_skip(state, loss, grad_norm))
+
+    return train_step
+
+
+def make_lm_eval_step(use_adaptive: bool = False, pad_idx: int = 1
+                      ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """``eval_step(model, tokens, targets, score_mask) -> (nll sum, tokens
+    scored)`` (``fairseq_cli/eval_lm.py`` scoring); ``model`` is any
+    callable ``(tokens[, targets])`` with the LM's outputs, in eval mode."""
+
+    @torch.no_grad()
+    def eval_step(model, tokens, targets, score_mask):
+        if use_adaptive:
+            nll = model(tokens, targets)
+        else:
+            logits = model(tokens).float()
+            nll = -torch.gather(torch.log_softmax(logits, -1), -1,
+                                targets[..., None])[..., 0]
+        mask = score_mask & (targets != pad_idx)
+        return (nll * mask).sum(), mask.sum()
+
+    return eval_step

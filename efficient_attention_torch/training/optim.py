@@ -1,12 +1,17 @@
-"""Optimizer and learning-rate schedule of the ViT recipe.
+"""Optimizers and learning-rate schedules of the ViT and LM recipes.
 
-Counterpart of ``efficient_attention_tpu/training/optim.py`` for the DeiT
-recipe (``README.md:104-145``): timm's cosine-with-warmup stepped once per
-epoch, and AdamW over timm's weight-decay groups behind a clip of the
-global gradient norm.  ``make_optimizer`` is the optax chain
-``clip_by_global_norm`` + ``adamw(schedule, mask)`` written over
-``torch.optim.AdamW``, whose update is optax's: ``p -= lr * (m_hat /
-(sqrt(v_hat) + eps) + wd * p)`` with ``lr = schedule(updates so far)``.
+Counterpart of ``efficient_attention_tpu/training/optim.py``:
+
+* the DeiT recipe (``README.md:104-145``): timm's cosine-with-warmup
+  stepped once per epoch, and AdamW over timm's weight-decay groups behind a
+  clip of the global gradient norm, the optax chain
+  ``clip_by_global_norm`` + ``adamw(schedule, mask)`` written over
+  ``torch.optim.AdamW``, whose update is optax's: ``p -= lr * (m_hat /
+  (sqrt(v_hat) + eps) + wd * p)`` with ``lr = schedule(updates so far)``;
+* the wiki103 LM recipe (``main.sh:75-124``): fairseq's cosine schedule
+  with period multiplier and ``lr_shrink``, and fairseq's NAG behind the
+  same clip.
+
 The other optimizers and schedules raise ``NotImplementedError`` with
 their ROADMAP.md item.
 """
@@ -22,7 +27,6 @@ Schedule = Callable[[int], float]
 # optimizers of the JAX factory not ported yet, and where they are queued
 _NOT_PORTED = {
     "adam": "ROADMAP.md Queue 1, item 6 (fairseq Adam)",
-    "nag": "ROADMAP.md Queue 1, item 5 (fairseq NAG)",
     "sgd": "ROADMAP.md Queue 1, item 3",
     "adafactor": "ROADMAP.md Queue 1, item 3",
     "adagrad": "ROADMAP.md Queue 1, item 3",
@@ -54,6 +58,38 @@ def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
         progress = min(max(step / max(total_steps, 1), 0.0), 1.0)
         return min_lr + 0.5 * (base_lr - min_lr) * (
             1 + math.cos(math.pi * progress))
+
+    return schedule
+
+
+def cosine_tmult_schedule(base_lr: float, warmup_steps: int, period: int,
+                          t_mult: float = 2.0, min_lr: float = 1e-9,
+                          warmup_init_lr: float = 1e-7, lr_shrink: float = 1.0,
+                          max_steps: int = 1_000_000) -> Schedule:
+    """fairseq ``cosine`` scheduler with period multiplier (LM recipe:
+    ``--lr-scheduler cosine --t-mult 2 --lr-period-updates 270000
+    --lr-shrink 0.75``): linear warmup, then cosines from ``base_lr`` to
+    ``min_lr`` over periods growing by ``t_mult``, both ends shrunk by
+    ``lr_shrink**i`` in period ``i``
+    (``cosine_lr_scheduler.py:137-140``)."""
+    boundaries = []
+    start, length = 0, period
+    while start < max_steps:
+        boundaries.append((start, length))
+        start += length
+        length = int(length * t_mult)
+
+    def schedule(step: int) -> float:
+        step = float(step)
+        if step < warmup_steps:
+            return warmup_init_lr + (base_lr - warmup_init_lr) * (
+                step / max(warmup_steps, 1))
+        t = max(step - warmup_steps, 0.0)
+        idx = min(max(sum(t >= s for s, _ in boundaries) - 1, 0),
+                  len(boundaries) - 1)
+        s, n = boundaries[idx]
+        lo, hi = min_lr * lr_shrink ** idx, base_lr * lr_shrink ** idx
+        return lo + 0.5 * (hi - lo) * (1 + math.cos(math.pi * (t - s) / n))
 
     return schedule
 
@@ -113,13 +149,8 @@ class ClippedAdamW:
     @torch.no_grad()
     def step(self) -> None:
         """Clip the gradients, set this update's lr and apply it."""
-        if self.clip_grad is not None and self.clip_grad > 0:
-            grads = [p.grad for p in self.params if p.grad is not None]
-            norm = global_norm(grads)
-            factor = torch.where(norm < self.clip_grad,
-                                 torch.ones_like(norm), self.clip_grad / norm)
-            for g in grads:
-                g.mul_(factor.to(g.dtype))
+        clip_by_global_norm([p.grad for p in self.params if p.grad is not None],
+                            self.clip_grad)
         lr = self.schedule(self.count)
         for group in self.torch_optimizer.param_groups:
             group["lr"] = lr
@@ -127,16 +158,87 @@ class ClippedAdamW:
         self.count += 1
 
 
+def clip_by_global_norm(grads, clip: Optional[float]) -> None:
+    """optax ``clip_by_global_norm`` in place: scale by ``clip / norm`` only
+    where ``norm >= clip`` (``clip_grad_norm_`` would divide by
+    ``norm + 1e-6``)."""
+    if clip is None or clip <= 0:
+        return
+    norm = global_norm(grads)
+    factor = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
+    for g in grads:
+        g.mul_(factor.to(g.dtype))
+
+
+class ClippedNAG:
+    """optax ``chain(clip_by_global_norm(clip_grad), fairseq NAG)`` over named
+    parameters whose ``.grad`` holds the step's gradient.
+
+    fairseq's NAG (``fairseq/optim/nag.py:72-109``, JAX ``_fairseq_nag``) is
+    not ``torch.optim.SGD(nesterov=True)``: its momentum buffer is kept in
+    parameter units (``buf <- m lr_correct buf - lr g``) and rescaled by
+    ``lr_correct = lr / lr_old`` when the schedule moves, the update is
+    ``m^2 lr_correct buf - (1 + m) lr g`` with the old buffer, and weight
+    decay is decoupled (``- lr wd p``, outside the buffer)."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 schedule: Schedule, momentum: float = 0.99,
+                 weight_decay: float = 0.0, clip_grad: Optional[float] = None):
+        named = [(n, p) for n, p in named_params if p.requires_grad]
+        decay = weight_decay_mask(named)
+        self.params = [p for _, p in named]
+        self.decayed = [p for n, p in named if decay[n]]
+        self.bufs = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.schedule = schedule
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.clip_grad = clip_grad
+        self.count = 0      # updates applied so far
+        self.lr_old = None  # the first update takes lr_correct = 1
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Clip the gradients, then apply this update's NAG step."""
+        params = [p for p in self.params if p.grad is not None]
+        bufs = [b for p, b in zip(self.params, self.bufs) if p.grad is not None]
+        grads = [p.grad.float() for p in params]
+        clip_by_global_norm(grads, self.clip_grad)
+        lr = self.schedule(self.count)
+        m = self.momentum
+        lr_correct = (1.0 if self.lr_old is None
+                      else lr / self.lr_old if self.lr_old > 0 else lr)
+        delta = torch._foreach_mul(bufs, m * m * lr_correct)
+        torch._foreach_add_(delta, grads, alpha=-(1 + m) * lr)
+        if self.weight_decay:
+            decayed = {id(p) for p in self.decayed}
+            for p, d in zip(params, delta):
+                if id(p) in decayed:
+                    d.add_(p.float(), alpha=-lr * self.weight_decay)
+        torch._foreach_mul_(bufs, m * lr_correct)
+        torch._foreach_add_(bufs, grads, alpha=-lr)
+        torch._foreach_add_(params, [d.to(p.dtype) for p, d in zip(params, delta)])
+        self.lr_old = lr
+        self.count += 1
+
+
 def make_optimizer(name: str, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                    schedule: Schedule, weight_decay: float = 0.05,
                    clip_grad: Optional[float] = None,
                    betas: Tuple[float, float] = (0.9, 0.999),
-                   eps: float = 1e-8) -> ClippedAdamW:
-    """Optimizer factory (timm ``create_optimizer``): ``adamw`` is ported;
-    the JAX factory's other names raise with their ROADMAP.md item."""
+                   eps: float = 1e-8, momentum: float = 0.99):
+    """Optimizer factory (timm ``create_optimizer``, fairseq's registry):
+    ``adamw`` and ``nag`` are ported; the JAX factory's other names raise
+    with their ROADMAP.md item."""
     if name == "adamw":
         return ClippedAdamW(named_params, schedule, weight_decay=weight_decay,
                             clip_grad=clip_grad, betas=betas, eps=eps)
+    if name == "nag":
+        return ClippedNAG(named_params, schedule, momentum=momentum,
+                          weight_decay=weight_decay, clip_grad=clip_grad)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet; see {_NOT_PORTED[name]}")

@@ -1,5 +1,6 @@
 """Tests of the PyTorch port that need an NVIDIA GPU (marker ``cuda``): the
-kernels eva_single (K2) and eva_packed (K1) against their plain versions.
+kernels eva_single (K2), eva_packed (K1) and causal_packed (K3) against
+their plain versions.
 
 They skip where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine without them:
@@ -121,3 +122,56 @@ def test_eva_packed_kernel_raises_outside_its_gate(cuda_device):
                                       3, 16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         K1.eva_attention_packed(qkv, rf, beta, 0.25, 3, 8, 4, bias=bias)
+
+
+def _k3_args(device, dtype, B, T, nh, d, w, cs, seed=19):
+    from efficient_attention_torch.ops.kernels import causal_packed as K3
+
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    C = T // cs
+    return ([t(B, T, nh * d).to(dtype) for _ in range(3)]
+            + [t(B, C, nh * d).to(dtype), t(B, C, nh * d).to(dtype),
+               K3.causal_table(w, 0.3 * t(w, w), device=device)],
+            t(B, T, nh * d).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", [(2, 512, 8, 128, 128, 8),
+                                      (2, 64, 2, 64, 16, 4),
+                                      (3, 16, 2, 64, 16, 4)])
+def test_causal_packed_kernels_match_plain(cuda_device, geometry, dtype):
+    """K3 forward and all six backward outputs against the plain versions:
+    f32 to summation order (and the order of the backward's f32 atomics),
+    bf16 to one rounding (_k1_tol)."""
+    from efficient_attention_torch.ops.kernels import causal_packed as K3
+
+    B, T, nh, d, w, cs = geometry
+    ops, grad = _k3_args(cuda_device, dtype, *geometry)
+    scale = d ** -0.5
+    before = (K3.LAUNCHES_FWD, K3.LAUNCHES_BWD)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    out = K3.causal_eva_packed(*leaves[:5], scale, nh, w, cs, bias_tab=leaves[5])
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert (K3.LAUNCHES_FWD, K3.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    ref = K3.causal_packed_fwd_ref(*ops, scale, nh, w, cs)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
+    want = K3.causal_packed_bwd_ref(*ops, grad, scale, nh, w, cs)
+    for leaf, w_ in zip(leaves, want):
+        assert leaf.grad.dtype == w_.dtype and leaf.grad.shape == w_.shape
+        err = (leaf.grad.float() - w_.float()).abs().max().item()
+        assert err <= _k1_tol(dtype, w_)
+
+
+def test_causal_packed_kernel_raises_outside_its_gate(cuda_device):
+    from efficient_attention_torch.ops.kernels import causal_packed as K3
+
+    ops, _ = _k3_args(cuda_device, torch.float32, 1, 64, 2, 48, 16, 4)
+    with pytest.raises(ValueError, match="cannot take"):  # head dim 48
+        K3.causal_eva_packed(*ops[:5], 48 ** -0.5, 2, 16, 4, bias_tab=ops[5])
+    ops, _ = _k3_args(cuda_device, torch.float16, 1, 64, 2, 64, 16, 4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K3.causal_eva_packed(*ops[:5], 0.125, 2, 16, 4, bias_tab=ops[5])

@@ -193,7 +193,7 @@ def test_eva_unported_forwards_raise():
 
 
 @pytest.mark.parametrize("name,match", [("performer", "not ported"),
-                                        ("causal_eva", "not ported"),
+                                        ("lara", "not ported"),
                                         ("flash", "unknown")])
 def test_factory_unported_names(name, match):
     with pytest.raises(KeyError, match=match):

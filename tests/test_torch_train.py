@@ -213,7 +213,7 @@ def test_clipped_adamw_matches_optax(clip):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[k]),
                                    rtol=1e-6, atol=1e-7)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.make_optimizer("nag", named, schedule)
+        optim.make_optimizer("adam", named, schedule)
 
 
 def test_shard_indices_and_metrics_match_jax():
