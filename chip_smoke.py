@@ -11,13 +11,19 @@ Two models, random weights from a seed:
   ``eva_single`` (K2) in every block; its training step runs
   ``eva_packed``'s forward and backward kernels (K1), and the end-of-epoch
   eval K2.
+* the same DeiT-tiny-p8 served with the zoo's other attentions that reach a
+  kernel, each at batch 128 in bf16: LARA (mis-opt, ``pool-mixed``, alpha
+  2.0, 49 landmarks) through ``lara_fused`` (K5), Performer (FAVOR+, 64
+  features) through ``performer_fused`` (K6), exact 2-D local attention
+  (window 7, learned RPE) through ``local_packed`` (K7), one launch a block;
 * ``transformer_lm_wiki103`` (16 decoder layers, d=1024, ffn 4096, 8 heads
   of 128, adaptive input and tied adaptive softmax over 267,744 words) with
   causal EVA (window 128, chunk 8, ``adaptive_proj='qk'``, T5 bias), the
   WikiText-103 recipe at B = 18 x 512 tokens in bf16 with NAG, cosine and
   clip 0.1, on dummy tokens, dropout 0.  Its training step runs
-  ``causal_packed``'s forward and backward kernels (K3) in every layer; its
-  validation (on the float32 parameters) runs the K3 forward.
+  ``causal_packed``'s forward and backward kernels (K3) in every layer (on
+  float32 activations: the adaptive input sums into float32, as in JAX);
+  its validation (on the float32 parameters) runs the K3 forward.
 
 Phases, each raising on failure:
 
@@ -25,8 +31,9 @@ Phases, each raising on failure:
    once) and print the seconds;
 2. kernels against their plain versions on the card: ``eva_single``;
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
-   forward and its six gradients, at the main paths' shapes in bf16 and
-   f32 and at small odd geometries (K3 in both types);
+   forward and its six gradients; ``lara_fused``, ``performer_fused`` and
+   ``local_packed``; at the main paths' shapes in bf16 and f32 and at small
+   odd geometries (K3, K5-K7 in both types);
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
@@ -35,13 +42,17 @@ Phases, each raising on failure:
 4. the ViT serving path: ``cli.train_vit --eval`` in-process at batch 128
    in bf16, with the kernels' launch counts set to 0 just before and read
    just after, then f32 logits of the kernel path against the eager path;
+   the same for the LARA, Performer and local cells (12 launches of the
+   cell's kernel a batch and none of any other);
 5. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
    ``--bf16`` and the DeiT recipe, counts set to 0 just before and read
    just after (12 x 8 launches of each K1 kernel, 12 x 4 of K2), finite
    losses; then f32 gradients, kernel path against eager path;
 6. timings with CUDA events (kernels, plain versions, bounds, SDPA
-   yardsticks, forward and train-step rates of both models) and profiles of
-   3 train steps of each model by op;
+   yardsticks, forward and train-step rates of both models, the forward
+   rates of the three serving cells, K6 against the eager Performer at 784
+   and 3136 tokens) and profiles of 3 train steps of each model and of one
+   LARA-cell forward by op;
 7. the kernels line, the card line, and the result line, last.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -99,6 +110,27 @@ LM_ARGV = [
     "--seed", "0", "--device", "cuda", "--save-dir", "build/smoke_lm",
 ]
 LM_TRAIN_ARGV = ["--max-update", "8", "--log-interval", "1"]
+# the LARA, Performer and local serving cells: the ViT flags with each
+# attention's recipe flags (LARA: SURVEY.md:419, reference README.md:104-145)
+CELL_ARGV = [
+    "--model", "evit_tiny_p8", "--input-size", "224", "--batch-size", "128",
+    "--seed", "0", "--device", "cuda",
+]
+CELLS = {
+    "lara": ["--attn-name", "lara", "--attn-num-landmarks", "49",
+             "--attn-proposal-gen", "pool-mixed", "--attn-mis-type", "mis-opt",
+             "--attn-alpha-coeff", "2.0"],
+    "performer": ["--attn-name", "performer", "--attn-approx-attn-dim", "64",
+                  "--attn-proj-method", "favorp"],
+    "local": ["--attn-name", "local", "--attn-window-size", "7",
+              "--attn-attn-2d", "--attn-use-rpe"],
+}
+# K5-K7 geometries (B, grid side, heads, head dim, landmarks, features,
+# window): the cells' main shape and a small odd one
+LIN_CHECKS = (("main bf16", (128, 28, 3, 64, 49, 64, 7), "bfloat16"),
+              ("main f32", (128, 28, 3, 64, 49, 64, 7), "float32"),
+              ("small bf16", (2, 14, 3, 64, 4, 16, 7), "bfloat16"),
+              ("small f32", (2, 14, 3, 64, 4, 16, 7), "float32"))
 # causal_packed's main shape (B, T, heads, head dim, window, chunk) and the
 # small odd ones: T = w (window 0 alone) and T = 2w, each in bf16 and f32
 K3_CHECKS = (("main bf16", (18, 512, 8, 128, 128, 8), "bfloat16"),
@@ -315,6 +347,82 @@ def k3_sdpa(ops, grad, nh, w, cs):
     return fwd_ms, bwd_ms, both_ms
 
 
+def lin_inputs(B, g, nh, d, C, m, ws, dtype, seed):
+    """qkv and the operands of K5 (landmarks, balance, log proposal), K6
+    (projection) and K7 (RPE bias) at one geometry."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    return {"qkv": r(B, g * g, 3 * nh * d).to(dtype),
+            "k5": (0.5 * r(B, nh, C, d), 0.5 * r(B, nh, C, d),
+                   torch.softmax(r(B, nh, C), -1), r(B, nh, C)),
+            "proj": r(nh, m, d), "bias": 0.5 * r(nh, ws * ws, ws * ws)}
+
+
+def lin_calls(k5, k6, k7, a, nh, g, ws):
+    """{name: (kernel call, plain call)} of K5, K6 and K7 on inputs ``a``."""
+    qkv = a["qkv"]
+    d = qkv.shape[-1] // (3 * nh)
+    scale = d ** -0.5
+    return {
+        k5.NAME: (lambda: k5.lara_attention_fused(qkv, *a["k5"], scale, nh, 2.0),
+                  lambda: k5.lara_fused_ref(qkv, *a["k5"], scale, nh, 2.0)),
+        k6.NAME: (lambda: k6.performer_attention_fused(qkv, a["proj"], nh),
+                  lambda: k6.performer_fused_ref(qkv, a["proj"], nh)),
+        k7.NAME: (lambda: k7.local_attention_packed(qkv, scale, nh, g, ws,
+                                                    bias=a["bias"]),
+                  lambda: k7.local_packed_ref(qkv, scale, nh, g, ws, a["bias"])),
+    }
+
+
+def lin_bound(name, a, nh, ws):
+    """Least time of K5, K6 or K7 at inputs ``a``: qkv and every other
+    operand read once (the landmark operands, projection and bias in f32, as
+    the kernels take them) and the output written once over HBM, or the
+    products at the peak of qkv's type: K5 five of N x C x d per image and
+    head (k.w, q.q_bar, P.v, q.w, the SNIS weights against kv), K6 three of
+    N x m x d (k.w, q.w, k'.v with q'.kv), K7 two of N x S x d."""
+    qkv = a["qkv"]
+    B, N, three_hd = qkv.shape
+    t = qkv.element_size()
+    moved = qkv.numel() * t + B * N * (three_hd // 3) * t
+    d = three_hd // (3 * nh)
+    if name == "lara_fused":
+        moved += sum(x.numel() * 4 for x in a["k5"])
+        flops = 5 * 2 * B * nh * N * a["k5"][0].shape[2] * d
+    elif name == "performer_fused":
+        moved += a["proj"].numel() * 4
+        flops = 3 * 2 * B * nh * N * a["proj"].shape[1] * d
+    else:
+        moved += a["bias"].numel() * 4
+        flops = 2 * 2 * B * nh * N * ws * ws * d
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(qkv.dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k7_sdpa(a, nh, g, ws):
+    """One scaled_dot_product_attention call for K7's function on
+    pre-partitioned windows: q, k, v ``[B*G, H, S, D]`` and the RPE as an
+    additive ``[H, S, S]`` mask; the partition and the merge are excluded."""
+    import torch.nn.functional as F
+
+    qkv = a["qkv"]
+    B, N, three_hd = qkv.shape
+    d = three_hd // (3 * nh)
+    S = ws * ws
+
+    def windows(t):  # [B, N, H*D] -> [B*G, H, S, D]
+        return (t.reshape(B, g // ws, ws, g // ws, ws, nh, d)
+                .permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, nh, S, d).contiguous())
+
+    q, k, v = (windows(t) for t in qkv.chunk(3, dim=-1))
+    mask = a["bias"].to(qkv.dtype)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=d ** -0.5), 20)
+
+
 def profile_steps(torch, prof_factory, run, kernel_tag):
     """Device busy time, its share in kernels named ``kernel_tag``, and the
     op table of ``run()`` (3 train steps) under ``torch.profiler``."""
@@ -351,6 +459,9 @@ def main() -> int:
         from efficient_attention_torch.ops.kernels import eva_packed as k1
         from efficient_attention_torch.ops.kernels import eva_single as k2
         from efficient_attention_torch.ops.kernels import causal_packed as k3
+        from efficient_attention_torch.ops.kernels import lara_fused as k5
+        from efficient_attention_torch.ops.kernels import performer_fused as k6
+        from efficient_attention_torch.ops.kernels import local_packed as k7
         from efficient_attention_torch.cli import train_lm
         from efficient_attention_torch.attention.causal_eva import (
             CausalEVAttention,
@@ -369,9 +480,10 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    built = _build.build([k2.NAME, k1.NAME, k3.NAME])
+    all_kernels = (k2.NAME, k1.NAME, k3.NAME, k5.NAME, k6.NAME, k7.NAME)
+    built = _build.build(all_kernels)
     log(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.2f} s")
-    for name in (k2.NAME, k1.NAME, k3.NAME):
+    for name in all_kernels:
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -389,6 +501,17 @@ def main() -> int:
         if lib_smem != k3.smem_bytes(bool(backward), 128, 128, 64, qt):
             raise AssertionError(f"causal_packed gate's smem layout != kernel's "
                                  f"{lib_smem} (backward={backward})")
+    for k, fn, args, lib_args in (
+            (k5, "lara_fused_smem_bytes", (64, 49, 2), (64, 49, 1)),
+            (k5, "lara_fused_smem_bytes", (64, 49, 4), (64, 49, 0)),
+            (k5, "lara_fused_smem_bytes", (12, 4, 2), (12, 4, 1)),
+            (k6, "performer_fused_smem_bytes", (64, 64, 2), (64, 64, 1)),
+            (k6, "performer_fused_smem_bytes", (64, 64, 4), (64, 64, 0)),
+            (k6, "performer_fused_smem_bytes", (12, 16, 2), (12, 16, 1)),
+            (k7, "local_packed_smem_bytes", (64, 49, 2), (64, 49, 1)),
+            (k7, "local_packed_smem_bytes", (64, 49, 4), (64, 49, 0))):
+        if getattr(k._lib(), fn)(*lib_args) != k.smem_bytes(*args):
+            raise AssertionError(f"{k.NAME} gate's smem layout != kernel's {args}")
 
     # ---- 2. kernels against their plain versions
     errors = {}
@@ -462,6 +585,27 @@ def main() -> int:
                                      f"err {err} > {tol}")
             k3_errors[(label, name)] = err
         del ops, grad, got, want
+    lin_errors = {}
+    for label, (B, g, nh, d, C, m, ws), dtype_name in LIN_CHECKS:
+        a = lin_inputs(B, g, nh, d, C, m, ws, getattr(torch, dtype_name),
+                       seed=50 + len(lin_errors))
+        for name, (kernel, plain) in lin_calls(k5, k6, k7, a, nh, g, ws).items():
+            out = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            if out.shape != ref.shape or out.dtype != ref.dtype:
+                raise AssertionError(f"{name} {label}: {out.shape} {out.dtype} vs "
+                                     f"{ref.shape} {ref.dtype}")
+            err = (out.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            # as eva_packed's: f32 to summation order, bf16 to one rounding
+            tol = K1_TOL[f"torch.{dtype_name}"] * max(1.0, peak)
+            log(f"[{name} vs plain] {label}: max abs err {err:.3e} (tol "
+                f"{tol:.1e}), max |value| {peak:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+            lin_errors[(name, label)] = err
+        del a
 
     # ---- 3. the LM training path, counts set to 0 just before and read after
     torch.cuda.empty_cache()
@@ -550,6 +694,55 @@ def main() -> int:
         f" (tol {LOGITS_TOL:.0e}), max |logit| {lscale:.3e}")
     if not lerr <= LOGITS_TOL:
         raise AssertionError(f"f32 logits differ by {lerr}")
+
+    # the LARA, Performer and local cells: counts set to 0 just before each
+    # eval and read just after, then f32 logits, kernel path against eager
+    counted = {k.NAME: k for k in (k5, k6, k7)}
+    cell_kernel = {"lara": k5.NAME, "performer": k6.NAME, "local": k7.NAME}
+    cell_launches = {}
+    for cell, flags in CELLS.items():
+        for k in counted.values():
+            k.LAUNCHES = 0
+        k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
+        k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = 0
+        t0 = time.perf_counter()
+        stats = train_vit.cli_main(CELL_ARGV + flags + ["--eval", "--bf16"])
+        torch.cuda.synchronize()
+        got = {name: k.LAUNCHES for name, k in counted.items()}
+        others = (k1.LAUNCHES_FWD + k1.LAUNCHES_BWD + k2.LAUNCHES
+                  + k3.LAUNCHES_FWD + k3.LAUNCHES_BWD)
+        log(f"[serve {cell}] eval {json.dumps(stats)} in "
+            f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}, "
+            f"K1-K3 {others}")
+        if not all(math.isfinite(stats[k]) for k in ("acc1", "acc5", "loss")):
+            raise AssertionError(f"non-finite {cell} eval stats {stats}")
+        want = {name: 12 * stats["batches"] if name == cell_kernel[cell] else 0
+                for name in counted}
+        if stats["batches"] != 4 or got != want or others:
+            raise AssertionError(f"{cell}: launches {got} (K1-K3 {others}) for "
+                                 f"{stats['batches']} batches, want {want}")
+        cell_launches[cell_kernel[cell]] = got[cell_kernel[cell]]
+        args = train_vit.parse_args(CELL_ARGV + flags + ["--eval"])
+        model = train_vit.build_model(args).cuda()
+        eager = copy.deepcopy(model)
+        for blk in eager.blocks:
+            blk.attn.impl = "xla"
+        before = counted[cell_kernel[cell]].LAUNCHES
+        with torch.no_grad():
+            logits, logits_eager = model(x), eager(x)
+        torch.cuda.synchronize()
+        if counted[cell_kernel[cell]].LAUNCHES - before != 12:
+            raise AssertionError(f"the {cell} kernel path did not launch "
+                                 f"{cell_kernel[cell]} 12 times")
+        if logits.shape != (8, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad {cell} logits {logits.shape}")
+        lerr = (logits - logits_eager).abs().max().item()
+        log(f"[serve {cell}] f32 logits kernel path vs eager path: max abs err "
+            f"{lerr:.3e} (tol {LOGITS_TOL:.0e}), max |logit| "
+            f"{logits_eager.abs().max().item():.3e}")
+        if not lerr <= LOGITS_TOL:
+            raise AssertionError(f"{cell} f32 logits differ by {lerr}")
+        del model, eager
 
     # ---- 5. the training path, counts set to 0 just before and read after
     k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
@@ -772,6 +965,67 @@ def main() -> int:
         f"{wall_ms:.3f} ms wall while profiled), causal_packed kernels "
         f"{k3_ms_total:.3f} ms ({k3_ms_total / busy:.3f} of busy)")
     print(table, flush=True)
+    del lm_states, lm_batch
+    torch.cuda.empty_cache()
+
+    # K5, K6, K7 at the cells' main shape (B=128, 28x28 tokens, 3 heads of
+    # 64, 49 landmarks, 64 features, window 7, bf16): kernel, plain version,
+    # bound, and for K7 SDPA on pre-partitioned windows
+    a = lin_inputs(128, 28, 3, 64, 49, 64, 7, bf16, seed=60)
+    lin_ms = {}
+    for name, (kernel, plain) in lin_calls(k5, k6, k7, a, 3, 28, 7).items():
+        lin_ms[name] = {"ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
+                        "bound": lin_bound(name, a, 3, 7), "library_ms": None}
+    lin_ms[k7.NAME]["library_ms"] = k7_sdpa(a, 3, 28, 7)
+    log(f"[time] K5-K7 main shape bf16: {json.dumps(lin_ms)}; {card}")
+    del a
+    # K6 against the eager Performer, module level (dim 192, 3 heads, 64
+    # features, B=128, bf16, eval), at 784 and 3136 tokens, in turns
+    from efficient_attention_torch.attention.kernelized import (
+        KernelizedAttention,
+    )
+
+    crossover = {}
+    for side in (28, 56):
+        attn = KernelizedAttention(192, 3, approx_attn_dim=64).to(device, bf16).eval()
+        xs = torch.randn(128, side, side, 192, generator=gen, device="cuda").to(bf16)
+        turns = {}
+        for impl in ("xla", "auto", "auto", "xla"):
+            attn.impl = impl
+            with torch.no_grad():
+                turns.setdefault(impl, []).append(cuda_ms(lambda: attn(xs), 10))
+        crossover[side * side] = {"eager_ms": turns["xla"], "k6_ms": turns["auto"]}
+        del attn, xs
+    log(f"[time] Performer module forward, eager vs K6, B=128 bf16: "
+        f"{json.dumps(crossover)}; {card}")
+    # forward images/s of the three cells, kernel and eager path in turns
+    cell_rates = {}
+    for cell, flags in CELLS.items():
+        cargs = train_vit.parse_args(CELL_ARGV + flags + ["--throughput", "--bf16"])
+        km = train_vit.build_model(cargs).to(device, bf16)
+        em = copy.deepcopy(km)
+        for blk in em.blocks:
+            blk.attn.impl = "xla"
+        for path, m in (("kernel", km), ("eager", em), ("eager again", em),
+                        ("kernel again", km)):
+            cell_rates[f"{cell} {path}"] = train_vit.compute_throughput(
+                m, cargs, device, bf16)["images_per_sec"]
+        if cell == "lara":
+            # one LARA-cell forward by op
+            xb = torch.randn(128, 224, 224, 3, generator=gen, device="cuda").to(bf16)
+            with torch.no_grad():
+                busy, k5_total, wall_ms, table = profile_steps(
+                    torch, train_vit._profiler, lambda: km(xb), "lara_fused")
+            log(f"[profile] one LARA-cell forward at B=128 bf16: device busy "
+                f"{busy:.3f} ms ({wall_ms:.3f} ms wall while profiled, "
+                f"{128e3 / cell_rates['lara kernel']:.3f} ms a forward "
+                f"unprofiled), lara_fused {k5_total:.3f} ms "
+                f"({k5_total / busy:.3f} of busy)")
+            print(table, flush=True)
+            del xb
+        del km, em
+    log(f"[time] serving cells' forward B=128 bf16 images/s: "
+        f"{json.dumps(cell_rates)}; {card}")
 
     # ---- 7. the kernels line, the card line, the result
     kernels = [{
@@ -804,6 +1058,15 @@ def main() -> int:
             "ms": k3_ms[part], "plain_ms": k3_ms[f"plain_{part}"],
             "bound_ms": k3_bounds[part][0], "bound_by": k3_bounds[part][1],
             "library_ms": k3_sdpa_ms[part],
+        })
+    for k in (k5, k6, k7):
+        t = lin_ms[k.NAME]
+        kernels.append({
+            "name": k.NAME, "route": "cuda", "source": k.SOURCE,
+            "replaces": k.REPLACES, "launches": cell_launches[k.NAME],
+            "max_abs_err": lin_errors[(k.NAME, "main bf16")], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -18,6 +18,8 @@ from typing import Any, Dict
 
 from efficient_attention_torch.attention import EVA, LocalAttention, MultiheadAttention
 from efficient_attention_torch.attention.causal_eva import CausalEVAttention
+from efficient_attention_torch.attention.kernelized import KernelizedAttention
+from efficient_attention_torch.attention.lara import LinearRA
 from efficient_attention_torch.config import (
     NestedNamespace,
     add_nested_argument,
@@ -29,8 +31,6 @@ __version__ = "0.1.0"
 
 # names the JAX package registers whose modules are not ported yet
 _NOT_PORTED = {
-    "performer": "ROADMAP.md Queue 1, item 4",
-    "lara": "ROADMAP.md Queue 1, item 4",
     "ra": "ROADMAP.md Queue 1, item 4",
     "scatterbrain": "ROADMAP.md Queue 1, item 4",
 }
@@ -44,6 +44,8 @@ class AttentionFactory:
         "local": LocalAttention,
         "eva": EVA,
         "causal_eva": CausalEVAttention,
+        "performer": KernelizedAttention,
+        "lara": LinearRA,
     }
 
     @classmethod
@@ -87,4 +89,6 @@ __all__ = [
     "LocalAttention",
     "EVA",
     "CausalEVAttention",
+    "KernelizedAttention",
+    "LinearRA",
 ]

@@ -37,6 +37,7 @@ from efficient_attention_torch.ops.kernels.causal_packed import (
     causal_table,
     supports_causal_packed,
 )
+from efficient_attention_torch.ops.promote import LayerNorm, Linear
 from efficient_attention_torch.ops.random_features import prm_projection
 from efficient_attention_torch.ops.rpe import t5_bucket_table
 
@@ -109,9 +110,9 @@ class CausalEVAttention(nn.Module):
         d = self.head_dim
 
         def mu_proj():
-            layers = [nn.Linear(d, d)]
+            layers = [Linear(d, d)]
             if adaptive_proj == "qk":
-                layers.append(nn.LayerNorm(d, eps=1e-6))
+                layers.append(LayerNorm(d, eps=1e-6))
             return nn.Sequential(*layers)
 
         self.adaptive_mu_q = mu_proj()

@@ -1,9 +1,13 @@
 """Blocked 2-D local (window) attention with learned relative-position bias.
 
 PyTorch counterpart of ``efficient_attention_tpu/attention/local.py``
-(reference ``local_attention.py:25-182``).  Only the eager 2-D path without
-halo is ported; the 1-D and halo'd variants are ROADMAP.md Queue 1, item 6,
-and the packed window kernel (K7) is ROADMAP.md Queue 2.
+(reference ``local_attention.py:25-182``).  Only the 2-D path without halo
+is ported; the 1-D and halo'd variants are ROADMAP.md Queue 1, item 6.
+Without a padding mask or attention dropout, ``impl='auto'`` takes the
+packed window kernel K7 (``ops/kernels/local_packed.py``) where its
+geometry gate holds, in training too (JAX ``local.py:145-170``, there on the
+TPU only; here the CPU takes the kernel's plain version); ``impl='xla'``
+keeps the eager windowed einsums.
 """
 from __future__ import annotations
 
@@ -16,6 +20,10 @@ from torch import nn
 
 from efficient_attention_torch.attention.base import MASK_VAL, MultiheadAttention
 from efficient_attention_torch.ops import windows as W
+from efficient_attention_torch.ops.kernels.local_packed import (
+    local_attention_packed,
+    supports_packed,
+)
 from efficient_attention_torch.ops.rpe import local_2d_rpe_index
 
 
@@ -26,9 +34,12 @@ class LocalAttention(MultiheadAttention):
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
                  fp32: bool = False, use_rpe: bool = False,
                  window_size: int = 2, attn_2d: bool = False,
-                 overlap_window: bool = False):
+                 overlap_window: bool = False, impl: str = "auto"):
         super().__init__(dim, num_heads, qkv_bias=qkv_bias,
                          attn_drop=attn_drop, proj_drop=proj_drop, fp32=fp32)
+        if impl not in ("auto", "xla"):
+            raise ValueError(f"unknown local impl {impl!r}; use 'auto' or 'xla'")
+        self.impl = impl
         if not attn_2d:
             raise NotImplementedError(
                 "1-D local windows are not ported yet; see ROADMAP.md "
@@ -76,6 +87,24 @@ class LocalAttention(MultiheadAttention):
         out = W.window_2d_merge(x, self.window_size, tuple(shape))
         *lead, H, W_, d = out.shape
         return out.reshape(*lead, H * W_, d)
+
+    def forward(self, x: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The packed K7 route for a ``[B, H, W, C]`` grid without padding
+        mask or attention dropout (JAX ``local.py:140-170``), else the
+        windowed einsums."""
+        if (self.impl == "auto" and key_padding_mask is None
+                and self.attn_dropout.p == 0.0 and x.dim() == 4):
+            B, gh, gw, C = x.shape
+            ws = self.window_size
+            if (ws > 0 and gh % ws == 0 and gw % ws == 0
+                    and supports_packed(B, gh * gw, gw, ws, self.head_dim,
+                                        x.element_size(), self.num_heads)):
+                qkv = self.qkv(x.reshape(B, gh * gw, C))
+                out = local_attention_packed(qkv, self.scale, self.num_heads,
+                                             gw, ws, bias=self.window_bias())
+                return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+        return super().forward(x, key_padding_mask)
 
     def _apply_attention(self, q, k, v, key_padding_mask):
         """Windowed attention core over a square grid

@@ -8,6 +8,9 @@ copy of the flax -> reference name rules of
 ``[in, out]`` becomes Linear ``[out, in]``, conv HWIO becomes OIHW, LayerNorm
 ``scale`` becomes ``weight``.  ``load_jax_params`` loads the result into a
 module and accepts as missing only the buffers the port derives itself.
+Performer's eval projection, which the JAX package recomputes on every call
+and keeps out of its params, is the port's ``random_proj`` buffer:
+``load_jax_params`` takes the JAX matrix for it as a numpy array.
 
 The language models take ``lm_state_dict_from_jax`` (flax ``TransformerLM``
 params, by the rules of ``interop.py:140-269`` there) and
@@ -17,7 +20,7 @@ dict that ``TransformerLM.load_state_dict(strict=True)`` takes.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -41,6 +44,16 @@ _COMPONENT_MAP = {
     "LayerNorm_1": "norm2",
     "layers_0": "0",
     "layers_1": "1",
+}
+
+# (parent, flax child) -> reference child, where the child's name depends on
+# its parent: LARA's landmark generators hold Linear+LayerNorm as items 2
+# and 3 of a Sequential (the reference's items 0 and 1 are parameter-free
+# pooling steps), and the learned Fourier features' Dense is ``dense``
+_CHILD_MAP = {
+    ("q_bar_gen", "layers_0"): "2", ("q_bar_gen", "layers_1"): "3",
+    ("k_bar_gen", "layers_0"): "2", ("k_bar_gen", "layers_1"): "3",
+    ("feature_proj_module", "Dense_0"): "dense",
 }
 
 # buffers the port derives from its configuration
@@ -69,6 +82,8 @@ def flax_path_to_torch_key(parts) -> str:
             out.append(p + (".norm" if child == "LayerNorm_0" else ".proj"))
             i += 2
             continue
+        elif i > 0 and (body[i - 1], p) in _CHILD_MAP:
+            out.append(_CHILD_MAP[(body[i - 1], p)])
         elif p in _COMPONENT_MAP:
             out.append(_COMPONENT_MAP[p])
         else:
@@ -207,13 +222,27 @@ def lm_state_dict_from_fairseq(state_dict: Mapping[str, Any],
     return out
 
 
-def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Load flax params into ``module``; every parameter must be matched,
-    and only the derived buffers may be missing."""
-    missing, unexpected = module.load_state_dict(
-        state_dict_from_jax(params), strict=False)
-    missing = [k for k in missing if not k.endswith(DERIVED_BUFFERS)]
+def load_jax_params(module: nn.Module, params: Mapping[str, Any],
+                    random_proj: Optional[np.ndarray] = None) -> nn.Module:
+    """Load flax params into ``module`` with ``load_state_dict(strict=True)``.
+    The buffers the port derives are kept as the module made them.  Every
+    ``random_proj`` buffer (Performer's eval projection ``[H, m, d]``, which
+    the JAX package recomputes on every call instead of storing) takes
+    ``random_proj``, the JAX matrix as a numpy array; a module that has such
+    a buffer needs it."""
+    sd = state_dict_from_jax(params)
+    own = module.state_dict()
+    for name, value in own.items():
+        if name in sd:
+            continue
+        if name.endswith(DERIVED_BUFFERS):
+            sd[name] = value
+        elif name.endswith("random_proj") and random_proj is not None:
+            sd[name] = torch.from_numpy(np.array(random_proj, np.float32))
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
     if missing or unexpected:
         raise ValueError(f"flax params do not fit the module: missing "
                          f"{missing}, unexpected {unexpected}")
+    module.load_state_dict(sd, strict=True)
     return module

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from efficient_attention_torch.ops.promote import Linear
+
 CHUNK = 16384
 
 
@@ -132,15 +134,15 @@ class AdaptiveSoftmax(nn.Module):
         super().__init__()
         self.bounds = _bounds(cutoffs, vocab_size)
         n = len(self.bounds) - 1
-        self.head = nn.Linear(input_dim, self.bounds[0] + n, bias=False)
+        self.head = Linear(input_dim, self.bounds[0] + n, bias=False)
         # fairseq's tail is (Linear, Dropout, Linear); the dropout is 0 here
         self.tail = nn.ModuleList(
             nn.Sequential(
-                nn.Linear(input_dim, max(1, int(input_dim // factor ** (i + 1))),
-                          bias=False),
+                Linear(input_dim, max(1, int(input_dim // factor ** (i + 1))),
+                       bias=False),
                 nn.Identity(),
-                nn.Linear(max(1, int(input_dim // factor ** (i + 1))),
-                          self.bounds[i + 1] - self.bounds[i], bias=False))
+                Linear(max(1, int(input_dim // factor ** (i + 1))),
+                       self.bounds[i + 1] - self.bounds[i], bias=False))
             for i in range(n))
 
     def nll(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -163,7 +165,7 @@ class AdaptiveSoftmax(nn.Module):
 class _TiedHead(nn.Module):
     def __init__(self, input_dim: int, n_clusters: int):
         super().__init__()
-        self.class_proj = nn.Linear(input_dim, n_clusters, bias=False)
+        self.class_proj = Linear(input_dim, n_clusters, bias=False)
 
 
 class TiedAdaptiveSoftmax(nn.Module):
@@ -211,9 +213,10 @@ class AdaptiveInput(nn.Module):
     ``modules/adaptive_input.py``): band i of the vocabulary has
     ``D / 4^i``-wide embeddings projected up to ``D``.
 
-    The sum is taken in the weights' dtype.  (The JAX module sums into an
-    f32 buffer, which under ``--bf16`` promotes every later activation of
-    the model to f32; here ``--bf16`` keeps the model in bf16.)"""
+    The bands are summed into a float32 buffer, as the JAX module's are
+    (``models/adaptive_softmax.py:277``): under ``--bf16`` every later
+    activation of the model is float32, and its layers compute in float32
+    with their bfloat16 weights cast up (``ops/promote.py``)."""
 
     def __init__(self, vocab_size: int, embed_dim: int,
                  cutoffs: Sequence[int], factor: float = 4.0):
@@ -235,15 +238,15 @@ class AdaptiveInput(nn.Module):
                 [e[1].weight for e in self.embeddings])
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        dtype = self.embeddings[0][1].weight.dtype
-        out = torch.zeros(tokens.shape + (self.embed_dim,), dtype=dtype,
+        out = torch.zeros(tokens.shape + (self.embed_dim,), dtype=torch.float32,
                           device=tokens.device)
         prev = 0
         for band, hi in zip(self.embeddings, self.bounds):
             in_band = (tokens >= prev) & (tokens < hi)
             tok = torch.where(in_band, tokens - prev, torch.zeros_like(tokens))
-            out = out + torch.where(in_band[..., None], band(tok),
-                                    torch.zeros((), dtype=dtype,
+            emb = band(tok)
+            out = out + torch.where(in_band[..., None], emb,
+                                    torch.zeros((), dtype=emb.dtype,
                                                 device=tokens.device))
             prev = hi
         return out

@@ -103,13 +103,23 @@ class PatchEmbed(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every parameter from ``generator`` as the JAX package
     initialises its modules: truncated-normal(0.02) Linear weights, learned
-    tables and embeddings, zero biases, unit LayerNorms, and convolutions
-    normal(0, sqrt(2/fan_out)).  Draws on the CPU, so one seed gives the
-    same weights on every device."""
+    tables and embeddings, zero biases, unit LayerNorms, convolutions
+    normal(0, sqrt(2/fan_out)) and learned Fourier projections normal(0,
+    0.02); a Performer's learnable projection keeps the orthogonal matrix it
+    was made with.  Draws on the CPU, so one seed gives the same weights on
+    every device."""
+    from efficient_attention_torch.attention.kernelized import (
+        KernelizedAttention,
+    )
+
     for module in model.modules():
         for name, param in module.named_parameters(recurse=False):
             cpu = torch.empty(param.shape, dtype=torch.float32)
-            if isinstance(module, nn.LayerNorm):
+            if name == "random_proj" and isinstance(module, KernelizedAttention):
+                continue
+            if name == "random_proj":
+                cpu.normal_(0.0, 0.02, generator=generator)
+            elif isinstance(module, nn.LayerNorm):
                 cpu.fill_(1.0 if name == "weight" else 0.0)
             elif name == "bias":
                 cpu.zero_()

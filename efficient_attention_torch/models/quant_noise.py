@@ -15,11 +15,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch import nn
+
+from efficient_attention_torch.ops.promote import Linear
 
 
-class QuantNoiseDense(nn.Linear):
-    """``nn.Linear`` with iPQ noise on its weight in training."""
+class QuantNoiseDense(Linear):
+    """``Linear`` with iPQ noise on its weight in training."""
 
     def __init__(self, in_features: int, out_features: int, p: float = 0.0,
                  block_size: int = 8, bias: bool = True):
@@ -39,15 +40,18 @@ class QuantNoiseDense(nn.Linear):
                               device=weight.device) < self.p
             mask = drop.repeat_interleave(self.block_size, dim=1)
             weight = weight.masked_fill(mask, 0.0) / (1.0 - self.p)
-        return F.linear(x, weight, self.bias)
+        dtype = torch.promote_types(x.dtype, weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), weight.to(dtype), bias)
 
 
 def dense(in_features: int, out_features: int, p: float = 0.0,
-          block_size: int = 8, bias: bool = True) -> nn.Linear:
-    """``nn.Linear`` when ``p == 0``, else :class:`QuantNoiseDense`; both
+          block_size: int = 8, bias: bool = True) -> Linear:
+    """:class:`~efficient_attention_torch.ops.promote.Linear` (which computes
+    in the promoted dtype of input and weight, as flax's Dense) when ``p == 0``, else :class:`QuantNoiseDense`; both
     hold ``weight`` and ``bias``, so the noise never changes the parameter
     names."""
     if p <= 0.0:
-        return nn.Linear(in_features, out_features, bias=bias)
+        return Linear(in_features, out_features, bias=bias)
     return QuantNoiseDense(in_features, out_features, p=p,
                            block_size=block_size, bias=bias)

@@ -34,6 +34,7 @@ from efficient_attention_torch.models.adaptive_softmax import (
     TiedAdaptiveSoftmax,
 )
 from efficient_attention_torch.models.quant_noise import dense
+from efficient_attention_torch.ops.promote import LayerNorm, Linear
 
 _CAUSAL_EVA_KEYS = ("window_size", "overlap_window", "num_chunks",
                     "chunk_size", "adaptive_proj", "use_t5_rpe", "impl")
@@ -143,10 +144,10 @@ class DecoderLayer(nn.Module):
                 "causal_eva and softmax, transformer_layer.py:295-321)")
         self.normalize_before = normalize_before
         self.activation = get_activation_fn(activation_fn)
-        self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.self_attn_layer_norm = LayerNorm(embed_dim, eps=1e-5)
         self.fc1 = dense(embed_dim, ffn_dim, *qn)
         self.fc2 = dense(ffn_dim, embed_dim, *qn)
-        self.final_layer_norm = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.final_layer_norm = LayerNorm(embed_dim, eps=1e-5)
         self.drop = Dropout(dropout)
         self.act_drop = Dropout(activation_dropout)
 
@@ -217,7 +218,7 @@ class TransformerDecoder(nn.Module):
                          quant_noise_pq=quant_noise_pq,
                          quant_noise_pq_block_size=quant_noise_pq_block_size)
             for _ in range(num_layers))
-        self.layer_norm = (nn.LayerNorm(embed_dim, eps=1e-5)
+        self.layer_norm = (LayerNorm(embed_dim, eps=1e-5)
                            if normalize_before and final_norm else None)
         self.adaptive_softmax = None
         if adaptive_softmax_cutoffs:
@@ -228,7 +229,7 @@ class TransformerDecoder(nn.Module):
                 self.adaptive_softmax = AdaptiveSoftmax(
                     vocab_size, embed_dim, adaptive_softmax_cutoffs)
         elif not share_input_output_embed and adaptive_input_cutoffs is None:
-            self.output_projection = nn.Linear(embed_dim, vocab_size, bias=False)
+            self.output_projection = Linear(embed_dim, vocab_size, bias=False)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embed_tokens(tokens) * self.embed_scale

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so a
 build takes seconds.  The shared library goes to ``build/kernels/`` at the
-root of the checkout, named by a hash of its source and flags, so an edited
-source never loads a stale library.  Nothing here runs at import time: a
+root of the checkout, named by a hash of its source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source never loads a stale
+library.  Nothing here runs at import time: a
 CPU-only machine without ``nvcc`` imports the package and never builds.
 """
 from __future__ import annotations
@@ -41,9 +42,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC_DIR / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

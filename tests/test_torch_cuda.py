@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU (marker ``cuda``): the
-kernels eva_single (K2), eva_packed (K1) and causal_packed (K3) against
-their plain versions.
+kernels eva_single (K2), eva_packed (K1), causal_packed (K3), lara_fused
+(K5), performer_fused (K6) and local_packed (K7) against their plain
+versions, and the wrappers' refusal to fall back when a library is missing.
 
 They skip where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine without them:
@@ -175,3 +176,94 @@ def test_causal_packed_kernel_raises_outside_its_gate(cuda_device):
     ops, _ = _k3_args(cuda_device, torch.float16, 1, 64, 2, 64, 16, 4)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         K3.causal_eva_packed(*ops[:5], 0.125, 2, 16, 4, bias_tab=ops[5])
+
+
+# ---- K5 lara_fused, K6 performer_fused, K7 local_packed ----
+
+def _lin_args(device, dtype, B, g, nh, d, C, m, ws, seed=23):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    logits = t(B, nh, C)
+    return dict(qkv=t(B, g * g, 3 * nh * d).to(dtype), w=0.5 * t(B, nh, C, d),
+                qb=0.5 * t(B, nh, C, d), bal=torch.softmax(logits, -1),
+                lp=t(B, nh, C), proj=t(nh, m, d),
+                bias=0.5 * t(nh, ws * ws, ws * ws))
+
+
+LIN_GEOMETRIES = [(2, 28, 3, 64, 49, 64, 7), (2, 14, 4, 12, 4, 16, 7)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", LIN_GEOMETRIES)
+def test_linear_attention_kernels_match_plain(cuda_device, geometry, dtype):
+    """K5, K6 and K7 against their plain versions on the same card inputs
+    (_k1_tol: f32 to summation order, bf16 to one rounding), one launch
+    each; K7's backward (autograd over its plain version) runs on the
+    card."""
+    from efficient_attention_torch.ops.kernels import lara_fused as K5
+    from efficient_attention_torch.ops.kernels import local_packed as K7
+    from efficient_attention_torch.ops.kernels import performer_fused as K6
+
+    B, g, nh, d, C, m, ws = geometry
+    a = _lin_args(cuda_device, dtype, *geometry)
+    scale = d ** -0.5
+    before = (K5.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES)
+    pairs = [
+        (K5.lara_attention_fused(a["qkv"], a["w"], a["qb"], a["bal"], a["lp"],
+                                 scale, nh, alpha_coeff=2.0),
+         K5.lara_fused_ref(a["qkv"], a["w"], a["qb"], a["bal"], a["lp"], scale,
+                           nh, 2.0)),
+        (K6.performer_attention_fused(a["qkv"], a["proj"], nh),
+         K6.performer_fused_ref(a["qkv"], a["proj"], nh)),
+    ]
+    if d in K7.HEAD_DIMS:
+        qkv = a["qkv"].clone().requires_grad_()
+        out = K7.local_attention_packed(qkv, scale, nh, g, ws, bias=a["bias"])
+        out.float().sum().backward()
+        assert qkv.grad is not None and torch.isfinite(qkv.grad.float()).all()
+        pairs.append((out.detach(), K7.local_packed_ref(a["qkv"], scale, nh, g,
+                                                        ws, a["bias"])))
+    torch.cuda.synchronize()
+    assert (K5.LAUNCHES, K6.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert K7.LAUNCHES == before[2] + (d in K7.HEAD_DIMS)
+    for out, ref in pairs:
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
+
+
+def test_linear_attention_wrappers_raise_without_their_library(
+        cuda_device, monkeypatch, tmp_path):
+    """Where a kernel's library cannot be built, its wrapper raises for a
+    CUDA tensor; it never takes the plain version."""
+    from efficient_attention_torch.ops.kernels import _build
+    from efficient_attention_torch.ops.kernels import lara_fused as K5
+    from efficient_attention_torch.ops.kernels import local_packed as K7
+    from efficient_attention_torch.ops.kernels import performer_fused as K6
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    kernels = (K5, K6, K7)
+    for k in kernels:
+        k._lib.cache_clear()
+    try:
+        a = _lin_args(cuda_device, torch.float32, *LIN_GEOMETRIES[0])
+        before = [k.LAUNCHES for k in kernels]
+        calls = [
+            lambda: K5.lara_attention_fused(a["qkv"], a["w"], a["qb"], a["bal"],
+                                            a["lp"], 0.125, 3),
+            lambda: K6.performer_attention_fused(a["qkv"], a["proj"], 3),
+            lambda: K7.local_attention_packed(a["qkv"], 0.125, 3, 28, 7,
+                                              bias=a["bias"]),
+        ]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="nvcc"):
+                call()
+        assert [k.LAUNCHES for k in kernels] == before
+    finally:
+        for k in kernels:
+            k._lib.cache_clear()

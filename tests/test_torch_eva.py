@@ -192,8 +192,8 @@ def test_eva_unported_forwards_raise():
             mode()(x, torch.zeros(1, 64, dtype=torch.bool))
 
 
-@pytest.mark.parametrize("name,match", [("performer", "not ported"),
-                                        ("lara", "not ported"),
+@pytest.mark.parametrize("name,match", [("ra", "not ported"),
+                                        ("scatterbrain", "not ported"),
                                         ("flash", "unknown")])
 def test_factory_unported_names(name, match):
     with pytest.raises(KeyError, match=match):

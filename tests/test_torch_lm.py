@@ -242,12 +242,15 @@ def test_transformer_lm_matches_reference_golden(name, attn, attn_args):
         np.testing.assert_allclose(m(toks).numpy(), data["logprobs"], **LM_TOL)
 
 
-def test_bf16_forward_stays_bf16_where_jax_promotes_to_f32():
-    """Under ``--bf16`` (parameters cast to bfloat16) the JAX adaptive input
-    sums into a float32 buffer, which promotes the residual stream and every
-    attention's q/k/v to float32; the port keeps them in bfloat16, as
-    fairseq's --bf16 does.  The two agree to bf16 roundings: features within
-    2^-5 of their largest value, the mean NLL within 1%."""
+def test_bf16_forward_promotes_to_f32_as_jax_does():
+    """Under ``--bf16`` (parameters cast to bfloat16) the adaptive input sums
+    into a float32 buffer in both packages, so the residual stream and every
+    attention's q/k/v are float32, each layer computing in float32 with its
+    bfloat16 weights cast up.  Features match JAX in float32: 99.5% of them
+    to 1e-4 abs / 1e-4 rel (float32 arithmetic on the same bfloat16-rounded
+    weights), and all to 1e-2 abs, for the adaptive input's band
+    projections are bfloat16 products that the two packages may round one
+    bfloat16 spacing apart; the mean NLL to 1e-4 rel."""
     from efficient_attention_tpu.training.train_state import (
         cast_params as jax_cast,
     )
@@ -271,14 +274,16 @@ def test_bf16_forward_stays_bf16_where_jax_promotes_to_f32():
     tm.decoder.layers[0].self_attn.q_proj.register_forward_hook(
         lambda m, i, o: seen.update(q=o.dtype))
     tp, tt = cast_params(dict(tm.named_parameters()), torch.bfloat16), torch.from_numpy(toks)
+    assert all(p.dtype == torch.bfloat16 for p in tp.values())
     with torch.no_grad():
         got = torch.func.functional_call(tm.eval(), tp, (tt,), {"features_only": True})
         got_nll = torch.func.functional_call(tm, tp, (tt, tt))
-    assert got.dtype == torch.bfloat16 and seen["q"] == torch.bfloat16
+    assert got.dtype == torch.float32 and seen["q"] == torch.float32
     feats = np.asarray(feats)
-    np.testing.assert_allclose(got.float().numpy(), feats,
-                               atol=2 ** -5 * np.abs(feats).max(), rtol=0)
-    np.testing.assert_allclose(got_nll.mean().item(), nll.mean(), rtol=1e-2)
+    close = np.abs(got.numpy() - feats) <= 1e-4 + 1e-4 * np.abs(feats)
+    assert close.mean() >= 0.995, close.mean()
+    np.testing.assert_allclose(got.numpy(), feats, atol=1e-2, rtol=0)
+    np.testing.assert_allclose(got_nll.mean().item(), nll.mean(), rtol=1e-4)
 
 
 def test_lm_init_matches_jax_in_distribution():

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import exact_float32, jax_apply, randomize, torch_apply
+from _torch_port import exact_float32, jax_apply, randomize, to_jax, torch_apply
 from efficient_attention_tpu.models.efficient_vit import (
     EfficientTransformer as JaxViT,
 )
@@ -30,6 +30,15 @@ GOLDEN_ATOL = 3e-5
 REPO = pathlib.Path(__file__).resolve().parents[1]
 EVA_ARGS = {"window_size": 7, "num_landmarks": 49, "attn_2d": True,
             "use_rpe": True, "adaptive_proj": "default"}
+# the serving cells' attentions (the recipes' flags at the golden widths)
+ATTN_ARGS = {
+    "eva": EVA_ARGS,
+    "lara": {"num_landmarks": 49, "proposal_gen": "pool-mixed",
+             "mis_type": "mis-opt", "alpha_coeff": 2.0},
+    "performer": {"approx_attn_dim": 16, "proj_method": "favorp"},
+    "local": {"window_size": 7, "attn_2d": True, "use_rpe": True},
+    "softmax": {},
+}
 # the golden geometry: 112 px, patch 8 (14x14 tokens), dim 48, 4 heads
 GOLDEN_VIT = dict(img_size=112, patch_size=8, embed_dim=48, depth=2,
                   num_heads=4, num_classes=10)
@@ -48,20 +57,37 @@ def _f32():
 @functools.lru_cache(maxsize=None)
 def _jax_vit(attn_name, geometry):
     cfg = dict(GOLDEN_VIT if geometry == "golden" else REAL_VIT)
-    attn_args = dict(EVA_ARGS, impl="xla") if attn_name == "eva" else {}
+    attn_args = dict(ATTN_ARGS[attn_name])
+    if attn_name != "softmax":
+        attn_args["impl"] = "xla"
     batch = 2 if geometry == "golden" else 1
     x = np.random.default_rng(11).standard_normal(
         (batch, cfg["img_size"], cfg["img_size"], 3)).astype(np.float32)
     m = JaxViT(attn_name=attn_name, attn_args=attn_args, **cfg)
-    params = randomize(m.init(jax.random.PRNGKey(0), jnp.asarray(x[:1])),
+    params = randomize(jax.jit(m.init)(jax.random.PRNGKey(0), jnp.asarray(x[:1])),
                        seed=12)
-    return x, params, jax_apply(m, params, x)
+    return x, params, np.asarray(jax.jit(
+        lambda p, xx: m.apply(p, xx, deterministic=True))(to_jax(params),
+                                                          jnp.asarray(x)))
 
 
 def _port_vit(attn_name, geometry, impl="auto"):
     cfg = dict(GOLDEN_VIT if geometry == "golden" else REAL_VIT)
-    attn_args = dict(EVA_ARGS, impl=impl) if attn_name == "eva" else {}
+    attn_args = dict(ATTN_ARGS[attn_name])
+    if impl is not None:
+        attn_args["impl"] = impl
     return EfficientTransformer(attn_name=attn_name, attn_args=attn_args, **cfg)
+
+
+def _jax_eval_projection(cfg):
+    """The JAX Performer's eval matrix at ``cfg``'s heads, for the port's
+    ``random_proj`` buffers."""
+    from efficient_attention_tpu.ops.random_features import create_proj_matrix
+
+    nh = cfg["num_heads"]
+    return np.asarray(create_proj_matrix(
+        jax.random.PRNGKey(0), nh, ATTN_ARGS["performer"]["approx_attn_dim"],
+        cfg["embed_dim"] // nh, ortho=True))
 
 
 @pytest.mark.parametrize("attn_name,geometry,impl", [
@@ -70,10 +96,21 @@ def _port_vit(attn_name, geometry, impl="auto"):
     ("softmax", "golden", None),
     ("eva", "real", "auto"),
     ("eva", "real", "xla"),
+    ("lara", "golden", "fused"),
+    ("lara", "golden", "xla"),
+    ("performer", "golden", "fused"),
+    ("performer", "golden", "xla"),
+    ("local", "golden", "auto"),
+    ("local", "golden", "xla"),
 ])
 def test_vit_matches_jax(attn_name, geometry, impl):
+    """Full-model logits, weights carried from JAX with strict=True; for
+    lara and performer 'fused' runs K5/K6's plain versions in every block,
+    for local 'auto' runs K7's."""
     x, params, ref = _jax_vit(attn_name, geometry)
-    m = load_jax_params(_port_vit(attn_name, geometry, impl), params)
+    proj = _jax_eval_projection(GOLDEN_VIT) if attn_name == "performer" else None
+    m = load_jax_params(_port_vit(attn_name, geometry, impl), params,
+                        random_proj=proj)
     np.testing.assert_allclose(torch_apply(m, x), ref, atol=ATOL, rtol=RTOL)
 
 
@@ -162,10 +199,22 @@ def test_synthetic_dataset_matches_jax():
     assert len(batches) == 1 and batches[0][0].shape == (4, 16, 16, 3)
 
 
-def _eval_argv(*extra):
-    return ["--model", "evit_tiny_p8", "--attn-name", "eva",
-            "--attn-window-size", "7", "--attn-num-landmarks", "49",
-            "--attn-attn-2d", "--attn-use-rpe", "--depth", "1",
+# each cell's attention flags (the serving cells of PERF.md)
+CELL_FLAGS = {
+    "eva": ["--attn-name", "eva", "--attn-window-size", "7",
+            "--attn-num-landmarks", "49", "--attn-attn-2d", "--attn-use-rpe"],
+    "lara": ["--attn-name", "lara", "--attn-num-landmarks", "49",
+             "--attn-proposal-gen", "pool-mixed", "--attn-mis-type", "mis-opt",
+             "--attn-alpha-coeff", "2.0"],
+    "performer": ["--attn-name", "performer", "--attn-approx-attn-dim", "64",
+                  "--attn-proj-method", "favorp"],
+    "local": ["--attn-name", "local", "--attn-window-size", "7",
+              "--attn-attn-2d", "--attn-use-rpe"],
+}
+
+
+def _eval_argv(*extra, cell="eva"):
+    return ["--model", "evit_tiny_p8", *CELL_FLAGS[cell], "--depth", "1",
             "--input-size", "112", "--num-classes", "10", "--batch-size", "2",
             "--device", "cpu", *extra]
 
@@ -181,6 +230,31 @@ def test_cli_eval_on_cpu(capsys):
     assert all(np.isfinite(stats[k]) for k in ("acc1", "acc5", "loss"))
     assert 0.0 <= stats["acc1"] <= stats["acc5"] <= 1.0
     assert '"acc1"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cell", ["lara", "performer", "local"])
+def test_cli_eval_serving_cells_on_cpu(cell):
+    """The three serving cells through ``cli.train_vit --eval --device cpu``:
+    finite scores, and no kernel launch (the CPU takes the eager path for
+    lara and performer, K7's plain version for local)."""
+    from efficient_attention_torch.cli import train_vit
+    from efficient_attention_torch.ops.kernels import (
+        lara_fused,
+        local_packed,
+        performer_fused,
+    )
+
+    kernels = (lara_fused, performer_fused, local_packed)
+    before = [k.LAUNCHES for k in kernels]
+    args = train_vit.parse_args(_eval_argv("--eval", cell=cell))
+    attn = train_vit.build_model(args).blocks[0].attn
+    assert type(attn).__name__ == {"lara": "LinearRA",
+                                   "performer": "KernelizedAttention",
+                                   "local": "LocalAttention"}[cell]
+    stats = train_vit.cli_main(_eval_argv("--eval", cell=cell))
+    assert [k.LAUNCHES for k in kernels] == before
+    assert stats["batches"] == 4
+    assert all(np.isfinite(stats[k]) for k in ("acc1", "acc5", "loss"))
 
 
 def test_cli_throughput_with_profile_on_cpu(capsys):
