@@ -23,7 +23,15 @@ Two models, random weights from a seed:
   clip 0.1, on dummy tokens, dropout 0.  Its training step runs
   ``causal_packed``'s forward and backward kernels (K3) in every layer (on
   float32 activations: the adaptive input sums into float32, as in JAX);
-  its validation (on the float32 parameters) runs the K3 forward.
+  its validation (on the float32 parameters) runs the K3 forward;
+* ``transformer_wmt_en_de`` (6 + 6 layers, d=512, ffn 2048, 8 heads of 64,
+  post-LN, shared embeddings over a joint vocabulary of 32,768 types) with
+  1-D EVA in the encoder (window 8 with a halo of 4, 8 landmarks, T5 bias,
+  ``adaptive_proj='no-ln'``) and causal EVA in the decoder (window 16,
+  chunk 8, ``qk``), the WMT14 EN-DE recipe, served in f32 by
+  ``cli.generate`` (beam 4, lenpen 0.6) on 256 dummy sentences in batches
+  of 64.  Every encoder layer runs ``eva_1d`` (K4); the decoder steps one
+  token at a time with no kernel.
 
 Phases, each raising on failure:
 
@@ -32,8 +40,9 @@ Phases, each raising on failure:
 2. kernels against their plain versions on the card: ``eva_single``;
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
-   ``local_packed``; at the main paths' shapes in bf16 and f32 and at small
-   odd geometries (K3, K5-K7 in both types);
+   ``local_packed``; ``eva_1d`` at non-pad rows of random-length
+   sentences; at the main paths' shapes in bf16 and f32 and at small odd
+   geometries (K3-K7 in both types);
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
@@ -44,16 +53,23 @@ Phases, each raising on failure:
    just after, then f32 logits of the kernel path against the eager path;
    the same for the LARA, Performer and local cells (12 launches of the
    cell's kernel a batch and none of any other);
-5. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
+5. the MT serving path: ``cli.generate`` in-process with the recipe's
+   flags, counts set to 0 just before and read just after (6 K4 launches a
+   batch, 4 batches, none of any other kernel), a finite BLEU; then f32
+   encoder states of the kernel path against the eager path at non-pad
+   positions, and the share of identical 1-best hypotheses of the two;
+6. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
    ``--bf16`` and the DeiT recipe, counts set to 0 just before and read
    just after (12 x 8 launches of each K1 kernel, 12 x 4 of K2), finite
    losses; then f32 gradients, kernel path against eager path;
-6. timings with CUDA events (kernels, plain versions, bounds, SDPA
+7. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks, forward and train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
-   and 3136 tokens) and profiles of 3 train steps of each model and of one
-   LARA-cell forward by op;
-7. the kernels line, the card line, and the result line, last.
+   and 3136 tokens, K4 and the MT encoder, the MT cell's sentences/s and
+   hypothesis tokens/s with the kernel and the eager encoder in turns) and
+   profiles of 3 train steps of each model, of one LARA-cell forward and of
+   one MT batch by op;
+8. the kernels line, the card line, and the result line, last.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -131,6 +147,29 @@ LIN_CHECKS = (("main bf16", (128, 28, 3, 64, 49, 64, 7), "bfloat16"),
               ("main f32", (128, 28, 3, 64, 49, 64, 7), "float32"),
               ("small bf16", (2, 14, 3, 64, 4, 16, 7), "bfloat16"),
               ("small f32", (2, 14, 3, 64, 4, 16, 7), "float32"))
+# the WMT14 EN-DE recipe (reference main.sh:87-123) served by cli.generate
+# on 256 dummy sentences over the BPE-32k joint vocabulary's size
+MT_VOCAB = 32768
+MT_ARGV = [
+    "--dummy-data", "--dummy-vocab", str(MT_VOCAB), "--attn-name-encoder", "eva",
+    "--encoder-attn-window-size", "8", "--encoder-attn-num-landmarks", "8",
+    "--encoder-attn-overlap-window", "--encoder-attn-use-t5-rpe",
+    "--encoder-attn-adaptive-proj", "no-ln", "--attn-name-decoder", "causal_eva",
+    "--decoder-attn-window-size", "16", "--decoder-attn-chunk-size", "8",
+    "--decoder-attn-adaptive-proj", "qk", "--decoder-attn-causal",
+    "--share-all-embeddings", "--beam", "4", "--lenpen", "0.6",
+    "--gen-batch", "64", "--gen-subset-size", "256", "--device", "cuda",
+]
+# eva_1d geometries (B, N, heads, head dim, window, halo, chunks, bias):
+# the WMT encoder's batch, long sentences (8 chunks of 32), a small odd one
+K4_CHECKS = (("recipe", (64, 32, 8, 64, 8, 4, 8, "t5")),
+             ("long", (16, 256, 8, 64, 8, 4, 8, "t5")),
+             ("small", (3, 40, 3, 16, 8, 4, 5, "learned")))
+# eva_1d vs its plain version at non-pad rows, relative to the largest
+# |value| (at least 1): f32 to summation order, bf16 to one rounding
+K4_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2 ** -7}
+# f32 encoder states, kernel path vs eager path, through 6 layers
+ENC_TOL = 1e-4
 # causal_packed's main shape (B, T, heads, head dim, window, chunk) and the
 # small odd ones: T = w (window 0 alone) and T = 2w, each in bf16 and f32
 K3_CHECKS = (("main bf16", (18, 512, 8, 128, 128, 8), "bfloat16"),
@@ -423,6 +462,108 @@ def k7_sdpa(a, nh, g, ws):
         q, k, v, attn_mask=mask, scale=d ** -0.5), 20)
 
 
+def k4_inputs(B, N, nh, d, ws, ext, C, bias_kind, dtype, seed):
+    """qkv, rf_k_bar, beta, a key-padding mask of random sentence lengths
+    (the first sentence full) and the [H, ws, ws + 2 ext] bias (a T5 table
+    gathered by the bidirectional buckets times the scale, or a learned
+    one) at one geometry."""
+    import torch
+    from efficient_attention_torch.ops.rpe import t5_bucket_table
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    lens = torch.randint(1, N + 1, (B,), generator=gen, device="cuda")
+    lens[0] = N
+    mask = torch.arange(N, device="cuda")[None] >= lens[:, None]
+    L = ws + 2 * ext
+    if bias_kind == "t5":
+        nb = max(min((ws + ext) // 2, 64), 16)
+        buckets = torch.from_numpy(t5_bucket_table(
+            ws, L, causal=False, num_buckets=nb, max_distance=ws + ext)).cuda()
+        bias = r(nb, nh)[buckets].permute(2, 0, 1) * d ** -0.5
+    else:
+        bias = 0.5 * r(nh, ws, L)
+    return (r(B, N, 3 * nh * d).to(dtype), r(B, C, nh * d).to(dtype),
+            r(B, C, nh * d).to(dtype), mask, bias.contiguous())
+
+
+def k4_bound(qkv, rf, beta, mask, bias, nh, ws, ext):
+    """Least time of eva_1d at these inputs: qkv, the chunk keys and values,
+    the mask (a byte a token) and the bias (f32) read once and the output
+    written once over HBM, or its two products (q.k and p.v, 2 d operations
+    a column each) over the columns this run's data needs, the in-range
+    local keys that are not padding and the C chunks, at the peak of the
+    inputs' type; whichever is larger."""
+    import torch
+
+    B, N, three_hd = qkv.shape
+    d = three_hd // (3 * nh)
+    t = qkv.element_size()
+    moved = ((qkv.numel() + rf.numel() + beta.numel() + B * N * nh * d) * t
+             + mask.numel() + bias.numel() * 4)
+    L = ws + 2 * ext
+    pos = (torch.arange(N, device=qkv.device)[:, None] // ws * ws - ext
+           + torch.arange(L, device=qkv.device)[None])  # [N, L]
+    inside = (pos >= 0) & (pos < N)
+    keep = inside[None] & ~mask[:, pos.clamp(0, N - 1)]  # [B, N, L]
+    cols = keep.sum().item() + B * N * rf.shape[1]
+    flops = 2 * 2 * nh * d * cols
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(qkv.dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k4_sdpa(qkv, rf, beta, mask, bias, nh, ws, ext):
+    """One scaled_dot_product_attention call for eva_1d's function on
+    pre-partitioned halo'd windows: q [B*G, H, ws, D], keys and values
+    [halo'd window | C chunks] of ws + 2 ext + C, and an additive
+    [B*G, H, ws, ws + 2 ext + C] mask holding the bias, the padding and the
+    out-of-range halo; the partition is excluded.  Returns (ms, its output
+    merged back to [B, N, H*D])."""
+    import torch
+    import torch.nn.functional as F
+    from efficient_attention_torch.ops import windows as W
+
+    B, N, three_hd = qkv.shape
+    d, G, C, L = three_hd // (3 * nh), N // ws, rf.shape[1], ws + 2 * ext
+
+    def heads(t):  # [B, n, H*D] -> [B, H, n, D]
+        return t.reshape(B, -1, nh, d).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
+    wq = q.reshape(B, nh, G, ws, d).transpose(1, 2).reshape(B * G, nh, ws, d)
+
+    def with_chunks(t, c):  # halo'd windows then the chunks
+        w = W.window_1d_partition(t, ws, ext).transpose(1, 2)  # [B, G, H, L, D]
+        c = heads(c)[:, None].expand(B, G, nh, C, d)
+        return torch.cat([w, c], dim=3).reshape(B * G, nh, L + C, d).contiguous()
+
+    wk, wv = with_chunks(k, rf), with_chunks(v, beta)
+    pad = W.window_1d_partition(mask.float()[:, :, None], ws, ext, pad_val=1.0)
+    add = torch.cat([bias[None, None].expand(B, G, nh, ws, L)
+                     + -5e4 * pad[..., 0][:, :, None, None, :],
+                     torch.zeros(B, G, nh, ws, C, device=qkv.device)], dim=-1)
+    add = add.reshape(B * G, nh, ws, L + C).to(qkv.dtype)
+    wq = wq.contiguous()
+    fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        wq, wk, wv, attn_mask=add, scale=d ** -0.5)
+    out = fwd().reshape(B, G, nh, ws, d).permute(0, 1, 3, 2, 4).reshape(B, N, nh * d)
+    return cuda_ms(fwd, 20), out
+
+
+def k4_device_ms(torch, call, n=20):
+    """Mean device time of the eva_1d kernel over ``n`` calls, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+               if "eva_1d_kernel" in e.key) / n / 1e3
+
+
 def profile_steps(torch, prof_factory, run, kernel_tag):
     """Device busy time, its share in kernels named ``kernel_tag``, and the
     op table of ``run()`` (3 train steps) under ``torch.profiler``."""
@@ -462,7 +603,8 @@ def main() -> int:
         from efficient_attention_torch.ops.kernels import lara_fused as k5
         from efficient_attention_torch.ops.kernels import performer_fused as k6
         from efficient_attention_torch.ops.kernels import local_packed as k7
-        from efficient_attention_torch.cli import train_lm
+        from efficient_attention_torch.ops.kernels import eva_1d as k4
+        from efficient_attention_torch.cli import generate, train_lm
         from efficient_attention_torch.attention.causal_eva import (
             CausalEVAttention,
         )
@@ -480,7 +622,7 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    all_kernels = (k2.NAME, k1.NAME, k3.NAME, k5.NAME, k6.NAME, k7.NAME)
+    all_kernels = (k2.NAME, k1.NAME, k3.NAME, k4.NAME, k5.NAME, k6.NAME, k7.NAME)
     built = _build.build(all_kernels)
     log(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.2f} s")
     for name in all_kernels:
@@ -512,6 +654,9 @@ def main() -> int:
             (k7, "local_packed_smem_bytes", (64, 49, 4), (64, 49, 0))):
         if getattr(k._lib(), fn)(*lib_args) != k.smem_bytes(*args):
             raise AssertionError(f"{k.NAME} gate's smem layout != kernel's {args}")
+    for args in ((64, 8, 4, 8, 4), (16, 8, 4, 5, 5), (128, 32, 16, 8, 1)):
+        if k4._lib().eva_1d_smem_bytes(*args) != k4.smem_bytes(*args):
+            raise AssertionError(f"eva_1d gate's smem layout != kernel's {args}")
 
     # ---- 2. kernels against their plain versions
     errors = {}
@@ -606,6 +751,32 @@ def main() -> int:
                 raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
             lin_errors[(name, label)] = err
         del a
+
+    k4_errors = {}
+    for label, (B, N, nh, d, ws, ext, C, bias_kind) in K4_CHECKS:
+        for dtype_name in ("float32", "bfloat16"):
+            qkv, rf, beta, mask, bias = k4_inputs(
+                B, N, nh, d, ws, ext, C, bias_kind, getattr(torch, dtype_name),
+                seed=70 + len(k4_errors))
+            with torch.no_grad():
+                out = k4.eva_attention_1d(qkv, rf, beta, mask, d ** -0.5, nh, ws,
+                                          ext, bias=bias)
+                torch.cuda.synchronize()
+                ref = k4.eva_1d_ref(qkv, rf, beta, mask, d ** -0.5, nh, ws, ext, bias)
+            if out.shape != ref.shape or out.dtype != ref.dtype:
+                raise AssertionError(f"eva_1d {label}: {out.shape} {out.dtype} vs "
+                                     f"{ref.shape} {ref.dtype}")
+            keep = ~mask  # query rows that are not padding
+            err = (out.float() - ref.float())[keep].abs().max().item()
+            peak = ref.float()[keep].abs().max().item()
+            tol = K4_TOL[f"torch.{dtype_name}"] * max(1.0, peak)
+            log(f"[eva_1d vs plain] {label} {dtype_name}: max abs err {err:.3e} "
+                f"(tol {tol:.1e}) at {int(keep.sum())} non-pad rows, max |value| "
+                f"{peak:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"eva_1d {label} {dtype_name}: max abs err "
+                                     f"{err} > {tol}")
+            k4_errors[(label, dtype_name)] = err
 
     # ---- 3. the LM training path, counts set to 0 just before and read after
     torch.cuda.empty_cache()
@@ -744,7 +915,68 @@ def main() -> int:
             raise AssertionError(f"{cell} f32 logits differ by {lerr}")
         del model, eager
 
-    # ---- 5. the training path, counts set to 0 just before and read after
+    # ---- 5. the MT serving path, counts set to 0 just before and read after
+    for k in (k2, k4, k5, k6, k7):
+        k.LAUNCHES = 0
+    k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = 0
+    t0 = time.perf_counter()
+    mt_result = generate.cli_main(MT_ARGV)
+    torch.cuda.synchronize()
+    mt_wall = time.perf_counter() - t0
+    mt_launches = k4.LAUNCHES
+    others = (k1.LAUNCHES_FWD + k1.LAUNCHES_BWD + k2.LAUNCHES + k3.LAUNCHES_FWD
+              + k3.LAUNCHES_BWD + k5.LAUNCHES + k6.LAUNCHES + k7.LAUNCHES)
+    mt_batches = -(-mt_result["sentences"] // 64)
+    log(f"[mt-serve] generate {mt_result['sentences']} sentences in {mt_wall:.2f} s "
+        f"(bleu {mt_result['bleu']}, {mt_result['hypothesis_tokens']} hypothesis "
+        f"tokens, encode {mt_result['encode_s']:.3f} s, beam loop "
+        f"{mt_result['beam_s']:.3f} s); eva_1d launches {mt_launches}, other "
+        f"kernels {others}")
+    if not math.isfinite(mt_result["bleu"]) or mt_result["sentences"] != 256:
+        raise AssertionError(f"bad generate result {mt_result['bleu']}, "
+                             f"{mt_result['sentences']} sentences")
+    if mt_batches != 4 or mt_launches != 6 * mt_batches or others:
+        raise AssertionError(f"{mt_launches} eva_1d launches (others {others}) "
+                             f"for {mt_batches} batches of a 6-layer encoder")
+    # f32 encoder states and 1-best hypotheses: kernel path against eager
+    mt_args = generate.parse_args(MT_ARGV)
+    mt_model = generate.build_model(mt_args, MT_VOCAB, MT_VOCAB).cuda().eval()
+    mt_eager = copy.deepcopy(mt_model)
+    for layer in mt_eager.encoder.layers:
+        layer.self_attn.attn.impl = "xla"
+    src, _, _, _ = generate.load_pairs(mt_args)
+    _, src_b, _, _, _ = next(generate.generation_batches(mt_args, src))
+    src_t = torch.from_numpy(src_b).cuda()
+    before = k4.LAUNCHES
+    with torch.no_grad():
+        (enc, pad), (enc_eager, _) = mt_model.encode(src_t), mt_eager.encode(src_t)
+    torch.cuda.synchronize()
+    if k4.LAUNCHES - before != 6:
+        raise AssertionError("the kernel path did not launch eva_1d 6 times")
+    keep = ~pad
+    eerr = (enc - enc_eager)[keep].abs().max().item()
+    log(f"[mt-serve] f32 encoder states kernel path vs eager path, batch "
+        f"{tuple(src_b.shape)}, {int(keep.sum())} non-pad positions: max abs "
+        f"err {eerr:.3e} (tol {ENC_TOL:.0e}), max |value| "
+        f"{enc_eager[keep].abs().max().item():.3e}")
+    if not eerr <= ENC_TOL:
+        raise AssertionError(f"f32 encoder states differ by {eerr}")
+    mt_runs = {}
+    for path, m in (("kernel", mt_model), ("eager", mt_eager), ("eager again", mt_eager),
+                    ("kernel again", mt_model)):
+        t0 = time.perf_counter()
+        res = generate.translate(mt_args, m, torch.device("cuda"))
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+        mt_runs[path] = res
+    same = sum(a == b for a, b in zip(mt_runs["kernel"]["hypotheses"],
+                                      mt_runs["eager"]["hypotheses"]))
+    log(f"[mt-serve] 1-best hypotheses identical between the kernel and the "
+        f"eager encoder: {same} of {len(mt_runs['kernel']['hypotheses'])} "
+        f"({same / len(mt_runs['kernel']['hypotheses']):.3f}); BLEU kernel "
+        f"{mt_runs['kernel']['bleu']}, eager {mt_runs['eager']['bleu']}")
+
+    # ---- 6. the training path, counts set to 0 just before and read after
     k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
     t0 = time.perf_counter()
     record = train_vit.cli_main(MAIN_ARGV + TRAIN_ARGV)
@@ -797,7 +1029,7 @@ def main() -> int:
         raise AssertionError(f"f32 gradients differ by {gerr}")
     del model, eager
 
-    # ---- 6. timings
+    # ---- 7. timings
     args, bias = k2_inputs(128, 28, 7, 4, 3, 64, torch.bfloat16, seed=7)
     out = k2.eva_attention_single(*args, bias=bias)
     k2_ms = cuda_ms(lambda: k2.eva_attention_single(*args, bias=bias), 20)
@@ -1027,7 +1259,71 @@ def main() -> int:
     log(f"[time] serving cells' forward B=128 bf16 images/s: "
         f"{json.dumps(cell_rates)}; {card}")
 
-    # ---- 7. the kernels line, the card line, the result
+    # eva_1d at the WMT encoder's shape (B=64 sentences of 32 tokens, 8 heads
+    # of 64, window 8, halo 4, 8 chunks) and at long sentences (B=16, 256
+    # tokens): kernel, plain version, bound, SDPA on pre-partitioned windows
+    k4_ms = {}
+    for label, (B, N, nh, d, ws, ext, C, bias_kind) in K4_CHECKS[:2]:
+        for dtype_name in ("float32", "bfloat16"):
+            qkv, rf, beta, mask, bias = k4_inputs(
+                B, N, nh, d, ws, ext, C, bias_kind, getattr(torch, dtype_name),
+                seed=80)
+            geo = (d ** -0.5, nh, ws, ext)
+            with torch.no_grad():
+                sdpa_ms, sdpa_out = k4_sdpa(qkv, rf, beta, mask, bias, nh, ws, ext)
+                ref = k4.eva_1d_ref(qkv, rf, beta, mask, *geo, bias)
+                k4_ms[f"{label} {dtype_name}"] = {
+                    "ms": cuda_ms(lambda: k4.eva_attention_1d(
+                        qkv, rf, beta, mask, *geo, bias=bias), 50),
+                    "plain_ms": cuda_ms(lambda: k4.eva_1d_ref(
+                        qkv, rf, beta, mask, *geo, bias), 10),
+                    "bound": k4_bound(qkv, rf, beta, mask, bias, nh, ws, ext),
+                    "library_ms": sdpa_ms,
+                    # the yardstick computes the same function
+                    "library_max_abs_err": (sdpa_out.float() - ref.float())[
+                        ~mask].abs().max().item(),
+                    # the kernel's own device time (the call's CUDA-event time
+                    # above includes the wrapper's host work where the host
+                    # is slower than the device)
+                    "device_ms": k4_device_ms(
+                        torch, lambda: k4.eva_attention_1d(
+                            qkv, rf, beta, mask, *geo, bias=bias))}
+    log(f"[time] eva_1d: {json.dumps(k4_ms)}; {card}")
+    # the f32 encoder forward of one batch (64 x 32 tokens), kernel and
+    # eager path in turns, and the generation rates of phase 5's runs
+    enc_ms = {}
+    with torch.no_grad():
+        for path, m in (("kernel", mt_model), ("eager", mt_eager),
+                        ("eager again", mt_eager), ("kernel again", mt_model)):
+            enc_ms[path] = cuda_ms(lambda: m.encode(src_t), 20)
+    log(f"[time] MT encoder forward f32 B={tuple(src_b.shape)} ms: "
+        f"{json.dumps(enc_ms)}; {card}")
+    mt_rates = {path: {
+        "sentences_per_s": r["sentences"] / r["wall_s"],
+        "hypothesis_tokens_per_s": r["hypothesis_tokens"] / r["wall_s"],
+        "decode_steps": r["decode_steps"],
+        "beam_rows_per_s": 4 * 64 * r["decode_steps"] / r["beam_s"],
+        "encode_s": r["encode_s"], "beam_s": r["beam_s"], "wall_s": r["wall_s"],
+        "bleu": r["bleu"]} for path, r in mt_runs.items()}
+    log(f"[time] MT generation f32, 256 sentences, beam 4: "
+        f"{json.dumps(mt_rates)}; {card}")
+    # one batch of 64 sentences by op, with the device's idle share
+    one_batch = generate.parse_args(MT_ARGV[:-4] + ["--gen-subset-size", "64",
+                                                    "--device", "cuda"])
+    generate.translate(one_batch, mt_model, torch.device("cuda"))  # warm
+    busy, k4_total, wall_ms, table = profile_steps(
+        torch, train_lm._profiler,
+        lambda: generate.translate(one_batch, mt_model, torch.device("cuda")),
+        "eva_1d")
+    log(f"[profile] one MT batch (64 sentences, beam 4, f32): device busy "
+        f"{busy:.3f} ms of {wall_ms:.3f} ms wall (idle share "
+        f"{1 - busy / wall_ms:.3f}: the Python-stepped beam loop is bound by "
+        f"the host), eva_1d {k4_total:.3f} ms ({k4_total / busy:.4f} of busy)")
+    print(table, flush=True)
+    del mt_model, mt_eager
+    torch.cuda.empty_cache()
+
+    # ---- 8. the kernels line, the card line, the result
     kernels = [{
         "name": k2.NAME, "route": "cuda", "source": k2.SOURCE,
         "replaces": k2.REPLACES, "launches": launches,
@@ -1059,6 +1355,14 @@ def main() -> int:
             "bound_ms": k3_bounds[part][0], "bound_by": k3_bounds[part][1],
             "library_ms": k3_sdpa_ms[part],
         })
+    t = k4_ms["recipe float32"]
+    kernels.append({
+        "name": k4.NAME, "route": "cuda", "source": k4.SOURCE,
+        "replaces": k4.REPLACES, "launches": mt_launches,
+        "max_abs_err": k4_errors[("recipe", "float32")], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+    })
     for k in (k5, k6, k7):
         t = lin_ms[k.NAME]
         kernels.append({

@@ -1,9 +1,9 @@
-"""Causal EVA: the decoder-side EVA of the language models.
+"""Causal EVA: the decoder-side EVA of the language and translation models.
 
 PyTorch counterpart of ``efficient_attention_tpu/attention/causal_eva.py``
-(reference ``efficient-attention/efficient_attention/causal_eva.py``): the
-parallel (training and full-sequence scoring) path, batch-first
-``[B, T, C]``.  Blocked local attention over windows of ``window_size``
+(reference ``efficient-attention/efficient_attention/causal_eva.py``), with
+its two paths.  The parallel (training and full-sequence scoring) path,
+batch-first ``[B, T, C]``: blocked local attention over windows of ``window_size``
 tokens (with an optional backward halo), and a per-chunk random-feature
 branch whose chunk summaries are seen only by strictly later chunks, fused
 in one softmax.
@@ -18,16 +18,22 @@ path runs, which is the twin the kernel path is held against.
 ``impl='xla'`` (the JAX package's name for the plain path) never uses the
 kernel, and ``impl='packed'`` raises ``ValueError`` outside the gate.  The
 proposal noise is drawn from ``self.generator``, which the train step sets.
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: incremental decoding (``EvaDecodeState``) and sequence parallelism.
+
+The incremental path decodes one token a step (``init_decode_state``,
+``decode_step``, ``reorder_decode_state``; JAX ``causal_eva.py:61-81,
+477-618``): block-wise local attention over the current window (and the
+previous one with ``overlap_window``), and the summaries of the chunks
+completed before the query's own chunk, so that it reproduces the parallel
+path.  ``pos`` is a Python int; ``decode_step`` writes the state's buffers
+in place (the beam search gathers new ones every step).  Sequence
+parallelism is not ported yet (ROADMAP.md Queue 1, item 7) and raises.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from efficient_attention_torch.attention.base import MASK_VAL, Dropout
@@ -42,13 +48,37 @@ from efficient_attention_torch.ops.random_features import prm_projection
 from efficient_attention_torch.ops.rpe import t5_bucket_table
 
 
-class T5RelativePositionBias(nn.Module):
-    """The scalar (head-shared) T5 bias table of causal EVA
-    (``causal_eva.py:47-97``), named as the reference stores it."""
+class EvaDecodeState(NamedTuple):
+    """Fixed-shape incremental state (JAX ``causal_eva.py:61-74``)."""
 
-    def __init__(self, num_buckets: int):
+    pos: int                      # tokens already processed
+    prev_window_k: torch.Tensor   # [b, h, w, d] previous block (overlap halo)
+    prev_window_v: torch.Tensor
+    cur_window_k: torch.Tensor    # [b, h, w, d] current block, slots < pos % w
+    cur_window_v: torch.Tensor
+    chunk_q: torch.Tensor         # [b, h, cs, d] current chunk accumulator
+    chunk_k: torch.Tensor
+    chunk_v: torch.Tensor
+    rf_k_bar: torch.Tensor        # [b, h, max_chunks, d] completed chunks
+    beta: torch.Tensor
+
+
+def reorder_decode_state(state: EvaDecodeState,
+                         order: torch.Tensor) -> EvaDecodeState:
+    """Beam reordering (``causal_eva.py:835-849``): every buffer gathered
+    along the batch, ``pos`` left alone."""
+    return EvaDecodeState(state.pos, *(x.index_select(0, order)
+                                       for x in state[1:]))
+
+
+class T5RelativePositionBias(nn.Module):
+    """A T5 bias table ``[num_buckets, num_heads]``, named as the reference
+    stores it: causal EVA's is scalar (head-shared, ``causal_eva.py:47-97``),
+    1-D EVA's has one column a head (``eva.py:15-65``)."""
+
+    def __init__(self, num_buckets: int, num_heads: int = 1):
         super().__init__()
-        self.relative_attention_bias = nn.Embedding(num_buckets, 1)
+        self.relative_attention_bias = nn.Embedding(num_buckets, num_heads)
 
 
 class CausalEVAttention(nn.Module):
@@ -305,12 +335,92 @@ class CausalEVAttention(nn.Module):
         x = W.window_1d_merge(out).transpose(1, 2).reshape(B, N, C)
         return self.out_proj(x)
 
-    def init_decode_state(self, *args, **kwargs):
-        raise NotImplementedError(
-            "incremental causal-EVA decoding (EvaDecodeState, decode_step) is "
-            "not ported yet; see ROADMAP.md Queue 1, item 5")
+    def init_decode_state(self, batch_size: int, max_len: int,
+                          dtype: torch.dtype = torch.float32,
+                          device=None) -> EvaDecodeState:
+        """Zeroed decode buffers for up to ``max_len`` tokens."""
+        if self.chunk_size is None:
+            raise ValueError("decoding requires a fixed chunk_size")
+        b, h, d = batch_size, self.num_heads, self.head_dim
+        w, cs = self.window_size, self.chunk_size
+        max_chunks = max(1, max_len // cs)
 
-    decode_step = init_decode_state
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return EvaDecodeState(0, zeros(b, h, w, d), zeros(b, h, w, d),
+                              zeros(b, h, w, d), zeros(b, h, w, d),
+                              zeros(b, h, cs, d), zeros(b, h, cs, d),
+                              zeros(b, h, cs, d), zeros(b, h, max_chunks, d),
+                              zeros(b, h, max_chunks, d))
+
+    def decode_step(self, state: EvaDecodeState, query: torch.Tensor,
+                    key: Optional[torch.Tensor] = None,
+                    value: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, EvaDecodeState]:
+        """One token ``[B, 1, C]`` -> ``(output [B, 1, C], new state)``
+        (``causal_eva.py:499-618``): ``mu = q_bar + k_bar``; the query sees
+        the chunks before ``t // cs``; at ``t % w == 0`` the current block
+        becomes the previous one; a chunk's accumulators are reset once it is
+        summarised."""
+        B, one, C = query.shape
+        if one != 1:
+            raise ValueError(f"decode_step takes one token, got {one}")
+        key = query if key is None else key
+        value = query if value is None else value
+        w, cs, H, d = self.window_size, self.chunk_size, self.num_heads, self.head_dim
+        t = state.pos
+
+        def split(x):  # [B, 1, C] -> [B, H, 1, d]
+            return x.reshape(B, 1, H, d).transpose(1, 2)
+
+        q, k, v = split(self.q_proj(query)), split(self.k_proj(key)), split(self.v_proj(value))
+        i, c_fill = t % w, t % cs
+        prev_k, prev_v = state.prev_window_k, state.prev_window_v
+        cur_k, cur_v = state.cur_window_k, state.cur_window_v
+        if i == 0:  # the finished block becomes the halo; its buffer is reused
+            prev_k, prev_v, cur_k, cur_v = cur_k, cur_v, prev_k, prev_v
+        cur_k[:, :, i] = k[:, :, 0]
+        cur_v[:, :, i] = v[:, :, 0]
+        chunk_q, chunk_k, chunk_v = state.chunk_q, state.chunk_k, state.chunk_v
+        chunk_q[:, :, c_fill] = q[:, :, 0]
+        chunk_k[:, :, c_fill] = k[:, :, 0]
+        chunk_v[:, :, c_fill] = v[:, :, 0]
+        rf_k_bar, beta = state.rf_k_bar, state.beta
+        if c_fill == cs - 1:  # the chunk is complete: summarise it
+            cur_rf_k_bar = self.adaptive_mu_k(chunk_k.mean(dim=-2, keepdim=True))
+            mu = self.adaptive_mu_q(chunk_q.mean(dim=-2, keepdim=True)) + cur_rf_k_bar
+            log_proj = prm_projection(chunk_k, mu, normalize=False)  # [b, h, 1, cs]
+            rf_k_bar[:, :, t // cs] = cur_rf_k_bar[:, :, 0]
+            beta[:, :, t // cs] = torch.einsum(
+                "...nj,...jd->...nd", torch.softmax(log_proj, dim=-1), chunk_v)[:, :, 0]
+        # local keys: [previous block (halo) | current block]
+        if self.ext_size > 0:
+            keys, vals = torch.cat([prev_k, cur_k], dim=2), torch.cat([prev_v, cur_v], dim=2)
+            slot = torch.arange(-w, w, device=q.device)
+        else:
+            keys, vals = cur_k, cur_v
+            slot = torch.arange(0, w, device=q.device)
+        global_pos = t - i + slot
+        valid = (global_pos >= 0) & (global_pos <= t)
+        local = (torch.einsum("bhod,bhjd->bhoj", q, keys) * self.scaling).to(q.dtype)
+        bias = self._t5_bias()
+        if bias is not None:
+            local = local + bias[i].to(local.dtype)
+        local = local.masked_fill(~valid, MASK_VAL)
+        chunk = torch.einsum("bhod,bhcd->bhoc", q, self.scaling * rf_k_bar)
+        chunk_valid = torch.arange(chunk.shape[-1], device=q.device) < t // cs
+        chunk = chunk.masked_fill(~chunk_valid, MASK_VAL)
+        attn = torch.softmax(torch.cat([local, chunk.to(local.dtype)], dim=-1), dim=-1)
+        J = local.shape[-1]
+        out = (torch.einsum("bhoj,bhjd->bhod", attn[..., :J], vals)
+               + torch.einsum("bhoc,bhcd->bhod", attn[..., J:], beta))
+        x = self.out_proj(out.transpose(1, 2).reshape(B, 1, C))
+        if c_fill == cs - 1:  # reset the accumulators once dumped
+            for acc in (chunk_q, chunk_k, chunk_v):
+                acc.zero_()
+        return x, EvaDecodeState(t + 1, prev_k, prev_v, cur_k, cur_v, chunk_q,
+                                 chunk_k, chunk_v, rf_k_bar, beta)
 
     @staticmethod
     def add_attn_specific_args(parent_parser, struct_name="attn_args", prefix=""):

@@ -18,20 +18,37 @@ summaries, else the eager tensor-op path; in training, K1 where its gate
 holds, else eager.  ``impl='xla'`` (the JAX package's name for the plain
 path) forces the eager path, and ``impl='packed'`` raises ``ValueError``
 where K1's gate fails.  The RF noise is drawn from ``self.generator``, which
-the train step sets.  Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP.md item: 1-D windows, halos, padding masks, T5 RPE,
-sequence parallelism, and the other TPU-only ``impl`` choices.
+the train step sets.
+
+The 1-D forward (the WMT encoder's) is ported too: the sequence is padded to
+a window multiple, the chunk summaries come from chunks halo'd by ``ext`` on
+both sides with their padded slots zeroed (``eva.py:649-688``), the local
+windows carry the same halo, a key-padding mask and a T5 (non-causal,
+``T5RelativePositionBias``) or learned bias.  In eval, ``impl='auto'`` (or
+``'packed'``) takes the ``eva_1d`` kernel (K4) where its gate holds,
+whatever ``attn_drop`` is (attention dropout is off at eval; the JAX gate's
+``attn_drop == 0`` test keeps the WMT recipe's encoder off its kernel,
+ROADMAP.md Queue 3); ``impl='packed'`` raises ``ValueError`` where that gate
+fails; otherwise the eager twin runs.  Not ported yet, each raising
+``NotImplementedError`` with its ROADMAP.md item: 2-D halos, 2-D padding
+masks and 2-D T5 RPE (Queue 1, item 4), sequence parallelism (item 7), and
+the other TPU-only ``impl`` choices (Queue 2).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from efficient_attention_torch.attention.base import MASK_VAL
+from efficient_attention_torch.attention.causal_eva import T5RelativePositionBias
 from efficient_attention_torch.attention.local import LocalAttention
+from efficient_attention_torch.ops.kernels.eva_1d import eva_attention_1d, supports_1d
 from efficient_attention_torch.ops.kernels.eva_packed import (
     eva_attention_packed,
     supports_packed,
@@ -40,6 +57,8 @@ from efficient_attention_torch.ops.kernels.eva_single import (
     eva_attention_single,
     supports_single,
 )
+from efficient_attention_torch.ops.random_features import prm_projection
+from efficient_attention_torch.ops.rpe import t5_bucket_table
 
 _TPU_IMPLS = {"pallas": "K11", "rowmajor": "K12"}
 
@@ -57,9 +76,11 @@ class EVA(LocalAttention):
     Extra args over :class:`LocalAttention`:
       * ``adaptive_proj``: ``default`` (Linear+LN) / ``no-ln`` / ``none``
       * ``num_landmarks``: number of global RF chunks
+      * ``use_t5_rpe``: the T5-style local bias instead of the learned
+        table (1-D)
       * ``impl``: ``auto`` (the kernels where their gates allow, else
-        eager), ``packed`` (the kernels, raising where K1's gate fails) or
-        ``xla`` (eager)
+        eager), ``packed`` (the kernels, raising where the gate of K1, or
+        in 1-D of K4, fails) or ``xla`` (eager)
 
     ``generator`` (None: torch's default one) draws the RF noise in
     training.
@@ -76,10 +97,13 @@ class EVA(LocalAttention):
                          attn_drop=attn_drop, proj_drop=proj_drop, fp32=fp32,
                          use_rpe=use_rpe, window_size=window_size,
                          attn_2d=attn_2d, overlap_window=overlap_window)
-        if use_t5_rpe:
+        if use_t5_rpe and attn_2d:
             raise NotImplementedError(
-                "EVA with T5 RPE is not ported yet; see ROADMAP.md Queue 1, "
-                "item 6")
+                "2-D EVA with T5 RPE is not ported yet; see ROADMAP.md Queue 1, "
+                "item 4")
+        if use_rpe and use_t5_rpe:
+            raise NotImplementedError(
+                "Default RPE and T5-style RPE cannot be enabled simultaneously.")
         if seq_axis is not None:
             raise NotImplementedError(
                 "sequence-parallel EVA is not ported yet; see ROADMAP.md "
@@ -93,6 +117,7 @@ class EVA(LocalAttention):
                 f"unknown EVA impl {impl!r}; use 'auto', 'packed' or 'xla'")
         self.adaptive_proj = adaptive_proj
         self.num_landmarks = num_landmarks
+        self.use_t5_rpe = use_t5_rpe
         self.impl = impl
         self.generator: Optional[torch.Generator] = None
         d = self.head_dim
@@ -103,15 +128,38 @@ class EVA(LocalAttention):
             self.adaptive_mu_k = _adaptive_proj(d, True)
         else:
             raise NotImplementedError(f"adaptive_proj={adaptive_proj}")
+        if use_t5_rpe:
+            span = window_size + self.ext_size
+            num_buckets = max(min(span // 2, 64), 16)
+            self.rel_pos_bias = T5RelativePositionBias(num_buckets, num_heads)
+            # bidirectional buckets of each (window row, halo'd key slot),
+            # not shifted by the halo (``eva.py:753-755, 805-806``)
+            self.register_buffer("t5_buckets", torch.from_numpy(t5_bucket_table(
+                window_size, window_size + 2 * self.ext_size, causal=False,
+                num_buckets=num_buckets, max_distance=span).astype(np.int64)),
+                persistent=False)
+
+    def window_bias(self) -> Optional[torch.Tensor]:
+        """The local bias of a window, or None: in 1-D ``[H, ws, ws + 2*ext]``
+        (the T5 table times ``scale``, or the learned table), in 2-D
+        ``[H, S, S]``."""
+        if not self.use_t5_rpe:
+            return super().window_bias()
+        table = self.rel_pos_bias.relative_attention_bias.weight
+        return table[self.t5_buckets].permute(2, 0, 1) * self.scale
 
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """EVA forward over a ``[B, H, W, C]`` token grid
-        (``eva.py:138-233``); training mode samples the RF weights."""
+        """EVA forward (``eva.py:490-840``) over a ``[B, H, W, C]`` token grid
+        or, in 1-D, a ``[B, N, C]`` sequence with an optional ``[B, N]``
+        key-padding mask (True = pad); training mode samples the RF
+        weights."""
+        if not self.attn_2d:
+            return self._forward_1d(x, key_padding_mask)
         if key_padding_mask is not None:
             raise NotImplementedError(
-                "EVA with a key-padding mask is not ported yet; see "
-                "ROADMAP.md Queue 1, item 6")
+                "2-D EVA with a key-padding mask is not ported yet; see "
+                "ROADMAP.md Queue 1, item 4")
         if x.dim() != 4:
             raise ValueError(f"2-D EVA takes [B, H, W, C], got {tuple(x.shape)}")
         B, gh, gw, C = x.shape
@@ -289,6 +337,101 @@ class EVA(LocalAttention):
         output = self.window_merge(output, seq_shape)
         x = output.transpose(1, 2).reshape(B, gh, gw, C)
         return self.proj_dropout(self.proj(x))
+
+    def _forward_1d(self, x: torch.Tensor,
+                    key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """1-D forward of a ``[B, N, C]`` sequence: padded to a window
+        multiple with its mask (``eva.py:506-520``), chunk summaries over
+        halo'd, masked chunks, then K4 at eval where its gate holds, else the
+        eager twin."""
+        B, orig_n, C = x.shape
+        ws, ext = self.window_size, self.ext_size
+        if ws <= 0:
+            raise ValueError("1-D EVA needs a window_size > 0")
+        # an all-False mask where there was none: the same function as the
+        # JAX module's mask-free forms (eva.py:469-488, 809)
+        x, key_padding_mask, (N,) = self._process_input(x, key_padding_mask)
+        j = N // self.num_landmarks
+        if j == 0:
+            raise ValueError(
+                f"num_landmarks={self.num_landmarks} exceeds the (padded) "
+                f"sequence length {N}; the RF chunk size would be 0")
+        H, d = self.num_heads, self.head_dim
+        qkv = self.qkv(x)  # [B, N, 3*H*D]
+        q, k, v = qkv.reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+        rf_k_bar, beta = self._chunk_summaries_1d(q, k, v, key_padding_mask, j)
+        if (self.impl in ("auto", "packed") and not self.training
+                and supports_1d(B, N, ws, ext, rf_k_bar.shape[2], H, d,
+                                x.element_size())):
+            def pack(t):  # [B, H, n, d] -> [B, n, H*d]
+                return t.transpose(1, 2).reshape(B, -1, H * d)
+
+            out = eva_attention_1d(qkv, pack(rf_k_bar), pack(beta),
+                                   key_padding_mask, self.scale, H, ws, ext,
+                                   bias=self.window_bias())
+            return self.proj_dropout(self.proj(out)[:, :orig_n])
+        if self.impl == "packed":
+            raise ValueError(
+                "impl='packed' requires eval mode and a geometry within the "
+                "eva_1d kernel's gate (supports_1d)")
+        return self._forward_eager_1d(q, k, v, rf_k_bar, beta,
+                                      key_padding_mask, orig_n)
+
+    def _chunk_summaries_1d(self, q, k, v, key_padding_mask, j: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Chunk summaries ``(rf_k_bar, beta)``, each ``[B, H, C, d]``, of
+        chunks of ``j`` tokens halo'd by ``ext`` on both sides
+        (``eva.py:649-688``): padded and out-of-range slots are zeroed but
+        still count in the means' denominators, and their prm log-densities
+        are ``MASK_VAL`` before the softmax."""
+        part = functools.partial(self.window_partition, shape=None,
+                                 window_size=j, ext_window_size=self.ext_size)
+        kpm = key_padding_mask.to(q.dtype)[:, None, :, None]
+        mask = part(kpm, pad_val=1.0).bool()  # [B, 1, C, j+2e, 1]
+        rf_q, rf_k, rf_v = (part(t).masked_fill(mask, 0.0)  # [B, H, C, j+2e, d]
+                            for t in (q, k, v))
+        rf_k_bar = self.adaptive_mu_k(rf_k.mean(dim=-2))
+        if self.adaptive_proj in ("default", "no-ln"):
+            mu = 0.5 * (self.adaptive_mu_q(rf_q.mean(dim=-2)) + rf_k_bar)
+        else:
+            mu = torch.zeros_like(rf_k_bar)
+        weights = self._sample_weights(mu)
+        log_proj = prm_projection(rf_k, weights[..., None, :],
+                                  normalize=False)[..., 0, :]  # [B, H, C, j+2e]
+        log_proj = log_proj.masked_fill(mask[..., 0], MASK_VAL)
+        beta = torch.einsum("...cj,...cjd->...cd", torch.softmax(log_proj, dim=-1),
+                            rf_v)
+        return rf_k_bar, beta
+
+    def _forward_eager_1d(self, q, k, v, rf_k_bar, beta, key_padding_mask,
+                          orig_n: int) -> torch.Tensor:
+        """Eager 1-D path (``eva.py:767-840``): the joint softmax over
+        ``[halo'd window keys | chunk keys]``, masked local logits replaced
+        by ``MASK_VAL``."""
+        B, H, N, d = q.shape
+        ext = self.ext_size
+        w_q = self.window_partition(q, None)
+        w_k = self.window_partition(k, None, ext_window_size=ext)
+        w_v = self.window_partition(v, None, ext_window_size=ext)
+        rfa_chunk = torch.einsum("bhwid,bhcd->bhwic", w_q,
+                                 (self.scale * rf_k_bar).to(w_q.dtype))
+        local = (torch.einsum("bhwie,bhwje->bhwij", w_q, w_k)
+                 * self.scale).to(q.dtype)
+        bias = self.window_bias()
+        if bias is not None:
+            local = local + bias.to(local.dtype)[None, :, None]
+        kpm = key_padding_mask.to(q.dtype)[:, None, :, None]
+        mask = self.window_partition(kpm, None, ext_window_size=ext,
+                                     pad_val=1.0).bool().transpose(-1, -2)
+        local = local.masked_fill(mask, MASK_VAL)
+        local_len = local.shape[-1]
+        attn = F.softmax(torch.cat([local, rfa_chunk.to(local.dtype)], dim=-1),
+                         dim=-1).to(w_v.dtype)
+        output = (torch.einsum("bhwij,bhwjd->bhwid", attn[..., :local_len], w_v)
+                  + torch.einsum("bhwic,bhcd->bhwid", attn[..., local_len:],
+                                 beta.to(w_v.dtype)))
+        x = self.window_merge(output, None).transpose(1, 2).reshape(B, N, H * d)
+        return self.proj_dropout(self.proj(x)[:, :orig_n])
 
     @staticmethod
     def add_attn_specific_args(parent_parser, struct_name="attn_args", prefix=""):

@@ -1,9 +1,13 @@
-"""Blocked 2-D local (window) attention with learned relative-position bias.
+"""Blocked local (window) attention with learned relative-position bias.
 
 PyTorch counterpart of ``efficient_attention_tpu/attention/local.py``
-(reference ``local_attention.py:25-182``).  Only the 2-D path without halo
-is ported; the 1-D and halo'd variants are ROADMAP.md Queue 1, item 6.
-Without a padding mask or attention dropout, ``impl='auto'`` takes the
+(reference ``local_attention.py:25-182``).  The 2-D forward without halo is
+ported.  So is the 1-D base that 1-D EVA builds on: the symmetric halo
+``ext_size`` of ``overlap_window``, the 1-D learned table
+``[H, ws, ws + 2*ext]``, 1-D window partition and merge, and the padding of
+a sequence to a window multiple (``_process_input``).  The 1-D local forward
+itself and halo'd 2-D windows are not ported yet (ROADMAP.md Queue 1, item
+4) and raise.  Without a padding mask or attention dropout, ``impl='auto'`` takes the
 packed window kernel K7 (``ops/kernels/local_packed.py``) where its
 geometry gate holds, in training too (JAX ``local.py:145-170``, there on the
 TPU only; here the CPU takes the kernel's plain version); ``impl='xla'``
@@ -40,33 +44,42 @@ class LocalAttention(MultiheadAttention):
         if impl not in ("auto", "xla"):
             raise ValueError(f"unknown local impl {impl!r}; use 'auto' or 'xla'")
         self.impl = impl
-        if not attn_2d:
+        if attn_2d and overlap_window:
             raise NotImplementedError(
-                "1-D local windows are not ported yet; see ROADMAP.md "
-                "Queue 1, item 6")
-        if overlap_window:
-            raise NotImplementedError(
-                "overlapping (halo'd) windows are not ported yet; see "
-                "ROADMAP.md Queue 1, item 6")
+                "overlapping (halo'd) 2-D windows are not ported yet; see "
+                "ROADMAP.md Queue 1, item 4")
         self.use_rpe = use_rpe
         self.window_size = window_size
+        self.attn_2d = attn_2d
+        self.overlap_window = overlap_window
         if self.rpe_enabled:
-            index, table_size = local_2d_rpe_index(window_size, 0)
-            self.register_buffer("relative_position_index",
-                                 torch.from_numpy(index).long())
-            self.local_relative_position_bias_table = nn.Parameter(
-                torch.zeros(table_size, num_heads))
+            if attn_2d:
+                index, table_size = local_2d_rpe_index(window_size, 0)
+                self.register_buffer("relative_position_index",
+                                     torch.from_numpy(index).long())
+                shape = (table_size, num_heads)
+            else:
+                shape = (num_heads, window_size, window_size + 2 * self.ext_size)
+            self.local_relative_position_bias_table = nn.Parameter(torch.zeros(shape))
             nn.init.trunc_normal_(self.local_relative_position_bias_table,
                                   std=0.02)
+
+    @property
+    def ext_size(self) -> int:
+        # ``local_attention.py:38-41``
+        return max(1, self.window_size // 2) if self.overlap_window else 0
 
     @property
     def rpe_enabled(self) -> bool:
         return self.use_rpe and self.window_size > 0
 
     def window_bias(self) -> Optional[torch.Tensor]:
-        """Per-window additive bias ``[H, S, S]`` (``S = w*w``), or None."""
+        """Per-window additive bias, or None: ``[H, S, S]`` (``S = w*w``) in
+        2-D, the learned table ``[H, w, w + 2*ext]`` itself in 1-D."""
         if not self.rpe_enabled:
             return None
+        if not self.attn_2d:
+            return self.local_relative_position_bias_table
         S = self.window_size ** 2
         bias = self.local_relative_position_bias_table[
             self.relative_position_index.reshape(-1)]
@@ -77,22 +90,59 @@ class LocalAttention(MultiheadAttention):
         (``local_attention.py:70-79``)."""
         return local_dots + self.window_bias()[None, :, None]
 
-    def window_partition(self, x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-        """``[..., n, d] -> [..., g, w*w, d]`` over the ``(H, W)`` grid."""
+    def window_partition(self, x: torch.Tensor, shape: Sequence[int],
+                         ext_window_size: int = 0, pad_val: float = 0.0,
+                         window_size: Optional[int] = None) -> torch.Tensor:
+        """``[..., n, d] -> [..., g, w*w, d]`` over the ``(H, W)`` grid in 2-D,
+        ``[..., g, w + 2e, d]`` in 1-D (``local_attention.py:81-107``)."""
+        window_size = self.window_size if window_size is None else window_size
+        if not self.attn_2d:
+            return W.window_1d_partition(x, window_size, ext_window_size, pad_val)
         H, W_ = shape
         *lead, n, d = x.shape
-        return W.window_2d_partition(x.reshape(*lead, H, W_, d), self.window_size)
+        return W.window_2d_partition(x.reshape(*lead, H, W_, d), window_size,
+                                     ext_window_size)
 
     def window_merge(self, x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+        if not self.attn_2d:
+            return W.window_1d_merge(x)
         out = W.window_2d_merge(x, self.window_size, tuple(shape))
         *lead, H, W_, d = out.shape
         return out.reshape(*lead, H * W_, d)
+
+    def _process_input(self, x: torch.Tensor,
+                       key_padding_mask: Optional[torch.Tensor]):
+        """``(x [B, N, C], key_padding_mask, seq_shape)``: a 1-D sequence
+        right-padded to a window multiple, with its mask (built where there
+        was none, padded with True where there was one); a 2-D grid
+        flattened (``local_attention.py:109-131``)."""
+        B, C = x.shape[0], x.shape[-1]
+        seq_shape = tuple(x.shape[1:-1])
+        N = math.prod(seq_shape)
+        x = x.reshape(B, N, C)
+        ws = self.window_size
+        if self.attn_2d:
+            if ws > 0 and (seq_shape[0] % ws or seq_shape[1] % ws):
+                raise ValueError(f"grid {seq_shape} is not divisible by window {ws}")
+        elif ws > 0:
+            x = W.pad_to_multiple(x, ws, axis=-2)
+            if key_padding_mask is None:
+                key_padding_mask = W.padding_mask_for(B, N, x.shape[-2], x.device)
+            else:
+                key_padding_mask = W.pad_to_multiple(key_padding_mask, ws,
+                                                     axis=-1, value=True)
+            seq_shape = (x.shape[-2],)
+        return x, key_padding_mask, seq_shape
 
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The packed K7 route for a ``[B, H, W, C]`` grid without padding
         mask or attention dropout (JAX ``local.py:140-170``), else the
         windowed einsums."""
+        if not self.attn_2d:
+            raise NotImplementedError(
+                "the 1-D local attention forward is not ported yet; see "
+                "ROADMAP.md Queue 1, item 4")
         if (self.impl == "auto" and key_padding_mask is None
                 and self.attn_dropout.p == 0.0 and x.dim() == 4):
             B, gh, gw, C = x.shape

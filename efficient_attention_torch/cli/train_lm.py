@@ -194,7 +194,7 @@ def build_model(args, vocab_size: int, dense_tokens: bool = False):
     from efficient_attention_torch.config import namespace_to_dict
     from efficient_attention_torch.models.transformer import (
         TransformerLM,
-        init_lm_weights,
+        init_weights,
     )
 
     attn_args = namespace_to_dict(getattr(args, "attn_args_decoder",
@@ -218,7 +218,7 @@ def build_model(args, vocab_size: int, dense_tokens: bool = False):
         quant_noise_pq_block_size=args.quant_noise_pq_block_size,
         activation_fn=args.activation_fn,
         learned_pos=args.decoder_learned_pos, dense_tokens=dense_tokens)
-    return init_lm_weights(model, torch.Generator().manual_seed(args.seed))
+    return init_weights(model, torch.Generator().manual_seed(args.seed))
 
 
 def make_schedule(args):

@@ -15,7 +15,11 @@ and keeps out of its params, is the port's ``random_proj`` buffer:
 The language models take ``lm_state_dict_from_jax`` (flax ``TransformerLM``
 params, by the rules of ``interop.py:140-269`` there) and
 ``lm_state_dict_from_fairseq`` (a reference checkpoint); both give a state
-dict that ``TransformerLM.load_state_dict(strict=True)`` takes.
+dict that ``TransformerLM.load_state_dict(strict=True)`` takes.  The
+translation model takes ``mt_state_dict_from_jax`` (flax
+``TransformerModel`` params) and ``mt_state_dict_from_fairseq`` (a
+reference ``transformer`` checkpoint), for
+``TransformerModel.load_state_dict(strict=True)``.
 """
 from __future__ import annotations
 
@@ -92,6 +96,8 @@ def flax_path_to_torch_key(parts) -> str:
     leaf = parts[-1]
     if leaf in ("kernel", "scale"):
         out.append("weight")
+    elif leaf == "relative_attention_bias":  # the T5 table, an Embedding
+        out.append("relative_attention_bias.weight")
     else:
         out.append(leaf)  # bias and named tables
     return ".".join(out)
@@ -132,16 +138,26 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 # ---------------------------------------------------------------- language --
 
-# flax LM component -> fairseq component (the JAX package's
+# flax LM/MT component -> fairseq component (the JAX package's
 # ``_LM_COMPONENT_MAP``, plus the untied adaptive softmax's tails)
 _LM_COMPONENT_MAP = {
     "ln_self": "self_attn_layer_norm",
+    "ln_cross": "encoder_attn_layer_norm",
     "ln_ffn": "final_layer_norm",
+    "cross_attn": "encoder_attn",
     "final_ln": "layer_norm",
     "class_proj": "head.class_proj",
+    "shared_embed": "encoder.embed_tokens",
     "layers_0": "0",
     "layers_1": "1",
     "layers_2": "2",
+}
+# the MT encoder layer's components, which flax auto-names (``@nn.compact``)
+_ENCODER_COMPONENT_MAP = {
+    "LayerNorm_0": "self_attn_layer_norm",
+    "LayerNorm_1": "final_layer_norm",
+    "Dense_0": "fc1",
+    "Dense_1": "fc2",
 }
 _LM_PREFIXED = re.compile(r"(layer|emb|proj|tail)_(\d+)")
 _LM_PREFIX_NAME = {"layer": "layers.{}", "emb": "embeddings.{}.0",
@@ -151,20 +167,30 @@ _LM_TABLES = {"rel_pos_bias": "rel_pos_bias.relative_attention_bias.weight",
               "embed_positions": "embed_positions.weight"}
 
 
-def lm_flax_path_to_torch_key(parts) -> str:
+def lang_flax_path_to_torch_key(parts) -> str:
     """``['decoder', 'layer_0', 'self_attn', 'q_proj', 'kernel'] ->
     'decoder.layers.0.self_attn.q_proj.weight'``; the adaptive softmax,
-    beside the decoder in flax, sits inside it in fairseq."""
+    beside the decoder in flax, sits inside it in fairseq; the MT encoder's
+    factory-built attention (``['encoder', 'layer_0', 'EVA_0', ...]``) sits
+    behind the fork's ``EfficientAttention`` bridge as
+    ``self_attn.attn``."""
     out = ["decoder"] if parts[0] == "adaptive_softmax" else []
+    cmap = dict(_LM_COMPONENT_MAP)
+    if parts[0] == "encoder":
+        cmap.update(_ENCODER_COMPONENT_MAP)
     for p in parts[:-1]:
         m = _LM_PREFIXED.fullmatch(p)
         if m:
             out.append(_LM_PREFIX_NAME[m.group(1)].format(m.group(2)))
+        elif any(p == f"{c}_0" for c in _ATTN_CLASSES):
+            out.append("self_attn.attn")
         else:
-            out.append(_LM_COMPONENT_MAP.get(p, p))
+            out.append(cmap.get(p, p))
     leaf = parts[-1]
     if leaf in _LM_TABLES:
         out.append(_LM_TABLES[leaf])
+    elif leaf == "relative_attention_bias":  # 1-D EVA's T5 table
+        out.append("relative_attention_bias.weight")
     else:
         out.append("weight" if leaf in ("kernel", "scale", "embedding") else leaf)
     return ".".join(out)
@@ -178,7 +204,7 @@ def lm_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
     for parts, val in _flatten(params):
-        key = lm_flax_path_to_torch_key(list(parts))
+        key = lang_flax_path_to_torch_key(list(parts))
         if key in out:
             raise ValueError(f"two flax leaves map to {key!r}")
         out[key] = torch.from_numpy(
@@ -220,6 +246,40 @@ def lm_state_dict_from_fairseq(state_dict: Mapping[str, Any],
             continue
         out[k] = v
     return out
+
+
+# ------------------------------------------------------------- translation --
+def mt_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``TransformerModel`` state dict from the JAX package's
+    flax params (the names of ``lm_state_dict_from_jax``); a shared
+    embedding table (``share_all_embeddings``) under both the encoder's and
+    the decoder's name."""
+    out = lm_state_dict_from_jax(params)
+    if "encoder.embed_tokens.weight" in out and "decoder.embed_tokens.weight" not in out:
+        out["decoder.embed_tokens.weight"] = out["encoder.embed_tokens.weight"]
+    return out
+
+
+def mt_state_dict_from_fairseq(state_dict: Mapping[str, Any],
+                               share_all_embeddings: bool = True
+                               ) -> Dict[str, torch.Tensor]:
+    """A fairseq ``transformer`` state dict for the port's
+    ``TransformerModel``: the buffers the port derives are dropped, and so
+    is ``decoder.output_projection.weight``, which the port ties to the
+    decoder's input embedding (as the JAX model does) and which must mirror
+    it; with ``share_all_embeddings`` the decoder's embedding must mirror
+    the encoder's."""
+    sd = {k: torch.as_tensor(np.asarray(v)) for k, v in state_dict.items()}
+    mirrors = {"decoder.output_projection.weight": "decoder.embed_tokens.weight"}
+    if share_all_embeddings:
+        mirrors["decoder.embed_tokens.weight"] = "encoder.embed_tokens.weight"
+    for tied, source in mirrors.items():
+        if tied in sd and (source not in sd or not torch.equal(sd[tied], sd[source])):
+            raise ValueError(f"{tied!r} does not mirror {source!r}: the "
+                             "checkpoint's embeddings are not tied")
+    return {k: v for k, v in sd.items()
+            if not k.endswith(_FAIRSEQ_BUFFERS)
+            and k != "decoder.output_projection.weight"}
 
 
 def load_jax_params(module: nn.Module, params: Mapping[str, Any],

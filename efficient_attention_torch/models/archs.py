@@ -1,16 +1,43 @@
-"""Named LM architecture presets: the ``--arch`` registry.
+"""Named architecture presets: the ``--arch`` registry.
 
 Counterpart of ``efficient_attention_tpu/models/archs.py`` (fairseq
-``register_model_architecture``, ``transformer_lm.py:330-500``): a preset
-dict per name, applied to exactly the dests the user did not pin on the
-command line or in the YAML config (explicit > config > arch > parser
-default).  The MT presets come with the MT model (ROADMAP.md Queue 1,
-item 6).
+``register_model_architecture``, ``transformer_legacy.py:225-330`` and
+``transformer_lm.py:330-500``): a preset dict per name, applied to exactly
+the dests the user did not pin on the command line or in the YAML config
+(explicit > config > arch > parser default).  MT dims map onto the MT CLI's
+flags (one ``encoder-embed-dim`` feeds both sides of the model).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+# --- MT (``fairseq/models/transformer/transformer_legacy.py``) ---
+_MT_BIG = {
+    "encoder_embed_dim": 1024,
+    "encoder_ffn_embed_dim": 4096,
+    "encoder_attention_heads": 16,
+    "dropout": 0.3,
+}
+MT_ARCHS: Dict[str, Dict[str, Any]] = {
+    # base (``transformer_legacy.py:238``): the CLI defaults
+    "transformer": {},
+    "transformer_wmt_en_de": {},
+    # ``transformer_legacy.py:225-234``
+    "transformer_iwslt_de_en": {
+        "encoder_embed_dim": 512,
+        "encoder_ffn_embed_dim": 1024,
+        "encoder_attention_heads": 4,
+        "encoder_layers": 6,
+        "decoder_layers": 6,
+    },
+    # ``transformer_legacy.py:309-318``
+    "transformer_vaswani_wmt_en_de_big": dict(_MT_BIG),
+    "transformer_wmt_en_de_big": dict(_MT_BIG),
+    # ``transformer_legacy.py:322-323`` (big with dropout 0.1)
+    "transformer_vaswani_wmt_en_fr_big": {**_MT_BIG, "dropout": 0.1},
+}
+
+# --- LM (``fairseq/models/transformer_lm.py``) ---
 _LM_WIKI103 = {
     # ``transformer_lm_baevski_wiki103`` (:408-426) + transformer_lm_big: the
     # published checkpoint configuration

@@ -3,7 +3,10 @@
 Shapes follow the reference (``attn_utils.py:155-234``):
 
 * 2-D: ``[..., H, W, d] -> [..., gh*gw, w*w, d]`` and back; halo'd 2-D
-  windows are not ported yet (ROADMAP.md Queue 1, item 6);
+  windows are not ported yet (ROADMAP.md Queue 1, item 4);
+* 1-D (``attn_utils.py:155-166``): ``[..., n, d] -> [..., g, w + 2e, d]``,
+  each window extended by a symmetric halo of ``e`` positions filled with
+  ``pad_val`` outside the sequence;
 * causal 1-D (``causal_eva.py:102-113``): a backward-only halo,
   ``[..., n, d] -> [..., g, e + w, d]``, and the plain merge back;
 * right padding of a sequence to a multiple of the window, and its
@@ -35,6 +38,25 @@ def padding_mask_for(batch: int, orig_len: int, padded_len: int,
     right-padded sequence."""
     mask = torch.arange(padded_len, device=device) >= orig_len
     return mask.expand(batch, padded_len)
+
+
+def window_1d_partition(x: torch.Tensor, window_size: int,
+                        ext_window_size: int = 0,
+                        pad_val: float = 0.0) -> torch.Tensor:
+    """``[..., n, d] -> [..., g, w + 2e, d]``: non-overlapping windows, each
+    extended by ``e`` positions on both sides (filled with ``pad_val``
+    outside the sequence)."""
+    *lead, n, d = x.shape
+    if n % window_size:
+        raise ValueError(f"n={n} not divisible by window {window_size}")
+    g = n // window_size
+    if ext_window_size <= 0:
+        return x.reshape(*lead, g, window_size, d)
+    e = ext_window_size
+    xp = F.pad(x, [0, 0, e, e], value=pad_val)
+    idx = (torch.arange(g, device=x.device)[:, None] * window_size
+           + torch.arange(window_size + 2 * e, device=x.device)[None, :]).reshape(-1)
+    return xp.index_select(-2, idx).reshape(*lead, g, window_size + 2 * e, d)
 
 
 def causal_window_1d_partition(x: torch.Tensor, window_size: int,
@@ -69,7 +91,7 @@ def window_2d_partition(x: torch.Tensor, window_size: int,
     if ext_window_size > 0:
         raise NotImplementedError(
             "halo'd 2-D windows (overlap_window) are not ported yet; "
-            "see ROADMAP.md Queue 1, item 6")
+            "see ROADMAP.md Queue 1, item 4")
     *lead, H, W, d = x.shape
     w = window_size
     if H % w or W % w:

@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need an NVIDIA GPU (marker ``cuda``): the
-kernels eva_single (K2), eva_packed (K1), causal_packed (K3), lara_fused
-(K5), performer_fused (K6) and local_packed (K7) against their plain
-versions, and the wrappers' refusal to fall back when a library is missing.
+kernels eva_single (K2), eva_packed (K1), causal_packed (K3), eva_1d (K4),
+lara_fused (K5), performer_fused (K6) and local_packed (K7) against their
+plain versions, the wrappers' refusal to fall back when a library is
+missing, and a small generation whose encoder runs K4.
 
 They skip where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine without them:
@@ -267,3 +268,108 @@ def test_linear_attention_wrappers_raise_without_their_library(
     finally:
         for k in kernels:
             k._lib.cache_clear()
+
+
+# ---- K4 eva_1d ----
+
+def _k4_args(device, dtype, B, N, nh, d, ws, ext, C, seed=29):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    lens = np.maximum(1, N - rng.integers(0, N, B))
+    lens[0] = N
+    mask = torch.from_numpy(np.arange(N)[None] >= lens[:, None]).to(device)
+    return (t(B, N, 3 * nh * d).to(dtype), t(B, C, nh * d).to(dtype),
+            t(B, C, nh * d).to(dtype), mask, 0.5 * t(nh, ws, ws + 2 * ext))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", [(8, 32, 8, 64, 8, 4, 8),
+                                      (2, 256, 8, 64, 8, 4, 8),
+                                      (3, 40, 3, 16, 8, 4, 5),
+                                      (2, 24, 2, 32, 4, 2, 6)])
+def test_eva_1d_kernel_matches_plain(cuda_device, geometry, dtype):
+    """K4 against its plain version at non-pad rows of random-length
+    sentences (_k1_tol: f32 to summation order, bf16 to one rounding)."""
+    from efficient_attention_torch.ops.kernels import eva_1d as K4
+
+    B, N, nh, d, ws, ext, C = geometry
+    qkv, rf, beta, mask, bias = _k4_args(cuda_device, dtype, *geometry)
+    before = K4.LAUNCHES
+    with torch.no_grad():
+        out = K4.eva_attention_1d(qkv, rf, beta, mask, d ** -0.5, nh, ws, ext,
+                                  bias=bias)
+        torch.cuda.synchronize()
+        ref = K4.eva_1d_ref(qkv, rf, beta, mask, d ** -0.5, nh, ws, ext, bias)
+    assert K4.LAUNCHES == before + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    keep = ~mask
+    err = (out.float() - ref.float())[keep].abs().max().item()
+    assert err <= _k1_tol(dtype, ref[keep])
+
+
+def test_eva_1d_kernel_raises_outside_its_gate_or_without_its_library(
+        cuda_device, monkeypatch, tmp_path):
+    from efficient_attention_torch.ops.kernels import _build
+    from efficient_attention_torch.ops.kernels import eva_1d as K4
+
+    args = _k4_args(cuda_device, torch.float32, 1, 16, 2, 24, 8, 4, 2)
+    with torch.no_grad(), pytest.raises(ValueError, match="cannot take"):
+        K4.eva_attention_1d(*args[:4], 24 ** -0.5, 2, 8, 4, bias=args[4])  # head dim 24
+    args = _k4_args(cuda_device, torch.float16, 1, 16, 2, 16, 8, 4, 2)
+    with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
+        K4.eva_attention_1d(*args[:4], 0.25, 2, 8, 4, bias=args[4])
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    K4._lib.cache_clear()
+    try:
+        args = _k4_args(cuda_device, torch.float32, 2, 32, 2, 16, 8, 4, 4)
+        before = K4.LAUNCHES
+        with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc"):
+            K4.eva_attention_1d(*args[:4], 0.25, 2, 8, 4, bias=args[4])
+        assert K4.LAUNCHES == before
+    finally:
+        K4._lib.cache_clear()
+
+
+def test_small_generation_runs_k4_in_every_encoder_layer(cuda_device, capsys):
+    """``cli.generate`` on the card at a small width: 2 encoder layers, one
+    batch, so 2 K4 launches; its f32 encoder states match the eager path."""
+    import copy
+    import json
+
+    from efficient_attention_torch.cli import generate
+    from efficient_attention_torch.ops.kernels import eva_1d as K4
+
+    argv = ["--dummy-data", "--dummy-vocab", "120", "--encoder-embed-dim", "64",
+            "--encoder-ffn-embed-dim", "128", "--encoder-layers", "2",
+            "--encoder-attention-heads", "4", "--attn-name-encoder", "eva",
+            "--encoder-attn-window-size", "8", "--encoder-attn-num-landmarks", "8",
+            "--encoder-attn-overlap-window", "--encoder-attn-use-t5-rpe",
+            "--encoder-attn-adaptive-proj", "no-ln",
+            "--attn-name-decoder", "causal_eva", "--decoder-attn-window-size", "16",
+            "--decoder-attn-chunk-size", "8", "--decoder-attn-adaptive-proj", "qk",
+            "--decoder-attn-causal", "--share-all-embeddings", "--beam", "4",
+            "--gen-batch", "8", "--gen-subset-size", "8", "--max-len-b", "16"]
+    before = K4.LAUNCHES
+    result = generate.cli_main(argv)
+    assert K4.LAUNCHES == before + 2
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["sentences"] == 8 and np.isfinite(line["bleu"])
+    args = generate.parse_args(argv)
+    model = generate.build_model(args, 120, 120).to(cuda_device).eval()
+    eager = copy.deepcopy(model)
+    for layer in eager.encoder.layers:
+        layer.self_attn.attn.impl = "xla"
+    src, _, _, _ = generate.load_pairs(args)
+    _, src_b, _, _, _ = next(generate.generation_batches(args, src))
+    with torch.no_grad():
+        (enc, pad), (want, _) = (m.encode(torch.from_numpy(src_b).to(cuda_device))
+                                 for m in (model, eager))
+    assert (enc - want)[~pad].abs().max().item() <= 1e-4
+    assert result["sentences"] == 8

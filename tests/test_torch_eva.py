@@ -169,8 +169,8 @@ _EVA = {"dim": 48, "num_heads": 4, "window_size": 4, "num_landmarks": 4,
 
 
 @pytest.mark.parametrize("args,error", [
-    (dict(_EVA, attn_2d=False), NotImplementedError),       # 1-D EVA
-    (dict(_EVA, overlap_window=True), NotImplementedError),  # halo
+    (dict(_EVA, attn_2d=False, impl="pallas"), NotImplementedError),  # 1-D K11
+    (dict(_EVA, overlap_window=True), NotImplementedError),  # 2-D halo
     (dict(_EVA, use_rpe=False, use_t5_rpe=True), NotImplementedError),
     (dict(_EVA, seq_axis="seq"), NotImplementedError),      # seq-parallel
     (dict(_EVA, impl="pallas"), NotImplementedError),        # TPU kernel K11
@@ -184,7 +184,7 @@ def test_eva_unported_configurations_raise(args, error):
 
 
 def test_eva_unported_forwards_raise():
-    """A key-padding mask is not ported, in training or at eval."""
+    """A 2-D key-padding mask is not ported, in training or at eval."""
     m = AttentionFactory.build_attention("eva", _EVA)
     x = torch.zeros(1, 8, 8, 48)
     for mode in (m.train, m.eval):
