@@ -10,7 +10,12 @@ Two models, random weights from a seed:
   ``adaptive_proj='default'``).  Its eval forward (serving) runs
   ``eva_single`` (K2) in every block; its training step runs
   ``eva_packed``'s forward and backward kernels (K1), and the end-of-epoch
-  eval K2.
+  eval K2.  The same cell is also served through each of EVA's eval routes
+  (the attention args ``use_single_kernel``, ``use_megakernel``,
+  ``use_pallas_summaries``, ``fuse_output_proj``; ``EVA_ROUTES``): K1's
+  forward, ``eva_summaries`` (K8) + K1, ``eva_packed_out`` (K9), K8 + K9,
+  the two ``eva_mega`` kernels (K10), and K2 again where only the megakernel
+  toggle is set (K2 is tried first);
 * the same DeiT-tiny-p8 served with the zoo's other attentions that reach a
   kernel, each at batch 128 in bf16: LARA (mis-opt, ``pool-mixed``, alpha
   2.0, 49 landmarks) through ``lara_fused`` (K5), Performer (FAVOR+, 64
@@ -41,8 +46,9 @@ Phases, each raising on failure:
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
    ``local_packed``; ``eva_1d`` at non-pad rows of random-length
-   sentences; at the main paths' shapes in bf16 and f32 and at small odd
-   geometries (K3-K7 in both types);
+   sentences; ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
+   entry points; at the main paths' shapes in bf16 and f32 and at small odd
+   geometries (K3-K10 in both types), and K8 at large-norm keys;
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
@@ -52,7 +58,9 @@ Phases, each raising on failure:
    in bf16, with the kernels' launch counts set to 0 just before and read
    just after, then f32 logits of the kernel path against the eager path;
    the same for the LARA, Performer and local cells (12 launches of the
-   cell's kernel a batch and none of any other);
+   cell's kernel a batch and none of any other), and for each of EVA's eval
+   routes (12 launches of each of the route's kernels a batch and none of
+   any other);
 5. the MT serving path: ``cli.generate`` in-process with the recipe's
    flags, counts set to 0 just before and read just after (6 K4 launches a
    batch, 4 batches, none of any other kernel), a finite BLEU; then f32
@@ -65,10 +73,12 @@ Phases, each raising on failure:
 7. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks, forward and train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
-   and 3136 tokens, K4 and the MT encoder, the MT cell's sentences/s and
-   hypothesis tokens/s with the kernel and the eager encoder in turns) and
-   profiles of 3 train steps of each model, of one LARA-cell forward and of
-   one MT batch by op;
+   and 3136 tokens, K8-K10 and the forward rates of EVA's eval routes in
+   turns with the default route and the eager path, K4 and the MT encoder,
+   the MT cell's sentences/s and hypothesis tokens/s with the kernel and the
+   eager encoder in turns) and profiles of 3 train steps of each model, of
+   one LARA-cell forward, one megakernel-route forward and one MT batch by
+   op;
 8. the kernels line, the card line, and the result line, last.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -141,6 +151,27 @@ CELLS = {
     "local": ["--attn-name", "local", "--attn-window-size", "7",
               "--attn-attn-2d", "--attn-use-rpe"],
 }
+# EVA's eval routes on the serving cell (JAX attention/eva.py:567-585): the
+# attention args that select each, the others at their defaults, and the
+# kernels each launches in every block.  K2 is tried before K10, so the
+# megakernel toggle alone still runs K2.
+EVA_ROUTES = {
+    "megakernel alone": ({"use_megakernel": True}, ("eva_single",)),
+    "two-kernel": ({"use_single_kernel": False}, ("eva_packed_fwd",)),
+    "summaries": ({"use_single_kernel": False, "use_pallas_summaries": True},
+                  ("eva_summaries", "eva_packed_fwd")),
+    "fused-out": ({"use_single_kernel": False, "fuse_output_proj": True},
+                  ("eva_packed_out",)),
+    "summaries+fused-out": ({"use_single_kernel": False,
+                             "use_pallas_summaries": True,
+                             "fuse_output_proj": True},
+                            ("eva_summaries", "eva_packed_out")),
+    "megakernel": ({"use_single_kernel": False, "use_megakernel": True},
+                   ("eva_summaries_from_x", "eva_attention_from_x")),
+}
+# K8's check at large-norm keys (keys x40, zero queries): the geometry of
+# tests/test_torch_eva_single.py::test_large_norm_keys_stay_finite_and_match_eager
+LARGE_KEYS = (1, 8, 4, 4, 2, 16)
 # K5-K7 geometries (B, grid side, heads, head dim, landmarks, features,
 # window): the cells' main shape and a small odd one
 LIN_CHECKS = (("main bf16", (128, 28, 3, 64, 49, 64, 7), "bfloat16"),
@@ -564,6 +595,75 @@ def k4_device_ms(torch, call, n=20):
                if "eva_1d_kernel" in e.key) / n / 1e3
 
 
+def eval_inputs(B, g, ws, j, nh, d, dtype, seed):
+    """qkv, the tokens x and the other operands of K8-K10 at one geometry:
+    Wqkv and Wo at 1/sqrt(fan-in), the adaptive Dense and LN as k2_inputs
+    draws them, chunk summaries and an RPE bias."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    dim, C = nh * d, (g // j) ** 2
+    return {"qkv": r(B, g * g, 3 * dim).to(dtype), "x": r(B, g * g, dim).to(dtype),
+            "wqkv": r(dim, 3 * dim) / dim ** 0.5, "bqkv": 0.1 * r(3 * dim),
+            "adaptive": [0.2 * r(d, d), 0.1 * r(d), 0.2 * r(d, d), 0.1 * r(d),
+                         1 + 0.1 * r(d), 0.1 * r(d), 1 + 0.1 * r(d), 0.1 * r(d)],
+            "rf": r(B, C, dim).to(dtype), "beta": r(B, C, dim).to(dtype),
+            "wo": r(dim, dim) / dim ** 0.5, "bo": 0.1 * r(dim),
+            "bias": 0.5 * r(nh, ws * ws, ws * ws)}
+
+
+def eval_calls(k8, k9, k10, a, nh, g, ws, j):
+    """{name: (kernel call, plain call)} of K8, K9 and K10's two entry points
+    on inputs ``a``; K8 and K10's summaries return (rf_k_bar, beta)."""
+    d = a["qkv"].shape[-1] // (3 * nh)
+    att = (a["rf"], a["beta"], a["wo"], a["bo"], d ** -0.5, nh, g, ws, a["bias"])
+    summ = (*a["adaptive"], nh, g, j, True)
+    tok = (a["x"], a["wqkv"], a["bqkv"])
+    return {
+        k8.NAME: (lambda: k8.eva_summaries_packed(a["qkv"], *summ),
+                  lambda: k8.eva_summaries_packed_ref(a["qkv"], *summ)),
+        k9.NAME_OUT: (lambda: k9.eva_attention_packed_out(a["qkv"], *att),
+                      lambda: k9.eva_packed_out_ref(a["qkv"], *att)),
+        k10.NAME_SUMMARIES: (lambda: k10.eva_summaries_from_x(*tok, *summ),
+                             lambda: k10.eva_summaries_from_x_ref(*tok, *summ)),
+        k10.NAME_ATTENTION: (lambda: k10.eva_attention_from_x(*tok, *att),
+                             lambda: k10.eva_attention_from_x_ref(*tok, *att)),
+    }
+
+
+def eval_bound(name, a, nh, ws):
+    """Least time of K8, K9 or a K10 entry point at inputs ``a``: every input
+    read once (the adaptive weights, the biases and the RPE in f32, Wqkv and
+    Wo in the inputs' type, as the kernels take them) and every output
+    written once over HBM, or the operations at the peak of the inputs'
+    type: K8 the chunk sums of q and k, the two adaptive Dense and <mu,k>,
+    |k|^2 and p.v over the members; K9 the two products over S + C columns
+    and the output projection; K10 adds the qkv projection to K8's or
+    K9's."""
+    qkv, x = a["qkv"], a["x"]
+    B, N, three_hd = qkv.shape
+    hd, t, xd = three_hd // 3, qkv.element_size(), x.shape[-1]
+    d, S, C = hd // nh, ws * ws, a["rf"].shape[1]
+    summaries = 2 * B * C * hd * t
+    adaptive = sum(w.numel() for w in a["adaptive"]) * 4 + summaries
+    attention = (summaries + a["bias"].numel() * 4 + hd * hd * t + hd * 4
+                 + B * N * hd * t)
+    tokens = B * N * xd * t + xd * three_hd * t + three_hd * 4
+    ops_sum = B * nh * (4 * N * d + 4 * C * d * d + 6 * N * d)
+    ops_att = 2 * 2 * B * nh * N * (S + C) * d + 2 * B * N * hd * hd
+    ops_proj = 2 * B * N * xd * three_hd
+    moved, flops = {
+        "eva_summaries": (qkv.numel() * t + adaptive, ops_sum),
+        "eva_packed_out": (qkv.numel() * t + attention, ops_att),
+        "eva_summaries_from_x": (tokens + adaptive, ops_proj + ops_sum),
+        "eva_attention_from_x": (tokens + attention, ops_proj + ops_att),
+    }[name]
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(qkv.dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def profile_steps(torch, prof_factory, run, kernel_tag):
     """Device busy time, its share in kernels named ``kernel_tag``, and the
     op table of ``run()`` (3 train steps) under ``torch.profiler``."""
@@ -604,6 +704,8 @@ def main() -> int:
         from efficient_attention_torch.ops.kernels import performer_fused as k6
         from efficient_attention_torch.ops.kernels import local_packed as k7
         from efficient_attention_torch.ops.kernels import eva_1d as k4
+        from efficient_attention_torch.ops.kernels import eva_summaries as k8
+        from efficient_attention_torch.ops.kernels import eva_mega as k10
         from efficient_attention_torch.cli import generate, train_lm
         from efficient_attention_torch.attention.causal_eva import (
             CausalEVAttention,
@@ -622,7 +724,8 @@ def main() -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    all_kernels = (k2.NAME, k1.NAME, k3.NAME, k4.NAME, k5.NAME, k6.NAME, k7.NAME)
+    all_kernels = (k2.NAME, k1.NAME, k3.NAME, k4.NAME, k5.NAME, k6.NAME, k7.NAME,
+                   k8.NAME, k1.NAME_OUT, k10.NAME)
     built = _build.build(all_kernels)
     log(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.2f} s")
     for name in all_kernels:
@@ -657,6 +760,22 @@ def main() -> int:
     for args in ((64, 8, 4, 8, 4), (16, 8, 4, 5, 5), (128, 32, 16, 8, 1)):
         if k4._lib().eva_1d_smem_bytes(*args) != k4.smem_bytes(*args):
             raise AssertionError(f"eva_1d gate's smem layout != kernel's {args}")
+    for fn, py, args in (
+            (k8._lib().eva_summaries_smem_bytes, k8.smem_bytes, (112, 64, 2, 0)),
+            (k8._lib().eva_summaries_smem_bytes, k8.smem_bytes, (28, 12, 4, 0)),
+            (k10._lib().eva_mega_summaries_smem_bytes, k8.smem_bytes, (112, 64, 2, 192)),
+            (k10._lib().eva_mega_summaries_smem_bytes, k8.smem_bytes, (28, 12, 4, 48)),
+            (k1._lib_out().eva_packed_out_smem_bytes, k1.smem_bytes_out,
+             (64, 49, 49, 3, 2, 0)),
+            (k1._lib_out().eva_packed_out_smem_bytes, k1.smem_bytes_out,
+             (12, 49, 49, 4, 4, 0)),
+            (k10._lib().eva_mega_attention_smem_bytes, k1.smem_bytes_out,
+             (64, 49, 49, 3, 4, 192)),
+            (k10._lib().eva_mega_attention_smem_bytes, k1.smem_bytes_out,
+             (12, 49, 49, 4, 2, 48))):
+        if fn(*args) != py(*args):
+            raise AssertionError(f"{py.__name__}{args} {py(*args)} != the "
+                                 f"kernel's {fn(*args)}")
 
     # ---- 2. kernels against their plain versions
     errors = {}
@@ -777,6 +896,54 @@ def main() -> int:
                 raise AssertionError(f"eva_1d {label} {dtype_name}: max abs err "
                                      f"{err} > {tol}")
             k4_errors[(label, dtype_name)] = err
+
+    # K8, K9 and K10's two entry points at the three shapes, in K1's terms
+    eval_errors = {}
+    for label, (B, g, ws, j, nh, d), dtype_name in CHECKS:
+        a = eval_inputs(B, g, ws, j, nh, d, getattr(torch, dtype_name),
+                        seed=90 + len(eval_errors))
+        for name, (kernel, plain) in eval_calls(k8, k1, k10, a, nh, g, ws,
+                                                j).items():
+            with torch.no_grad():
+                out = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            for o, r in zip(outs, refs):
+                if o.shape != r.shape or o.dtype != r.dtype:
+                    raise AssertionError(f"{name} {label}: {o.shape} {o.dtype} vs "
+                                         f"{r.shape} {r.dtype}")
+            err = max((o.float() - r.float()).abs().max().item()
+                      for o, r in zip(outs, refs))
+            peak = max(r.float().abs().max().item() for r in refs)
+            tol = K1_TOL[f"torch.{dtype_name}"] * max(1.0, peak)
+            log(f"[{name} vs plain] {label}: max abs err {err:.3e} (tol "
+                f"{tol:.1e}), max |value| {peak:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+            eval_errors[(name, label)] = err
+        del a
+    # K8 where the TPU kernel's bound-shifted chunk softmax underflows: keys
+    # x40 and zero queries; the true-max shift stays finite
+    for dtype_name in ("float32", "bfloat16"):
+        B, g, ws, j, nh, d = LARGE_KEYS
+        a = eval_inputs(B, g, ws, j, nh, d, torch.float32, seed=99)
+        qkv = a["qkv"]
+        qkv[..., :nh * d] = 0.0
+        qkv[..., nh * d:2 * nh * d] *= 40.0
+        qkv = qkv.to(getattr(torch, dtype_name))
+        out = k8.eva_summaries_packed(qkv, *a["adaptive"], nh, g, j, True)
+        torch.cuda.synchronize()
+        ref = k8.eva_summaries_packed_ref(qkv, *a["adaptive"], nh, g, j, True)
+        err = max((o.float() - r.float()).abs().max().item()
+                  for o, r in zip(out, ref))
+        peak = max(r.float().abs().max().item() for r in ref)
+        tol = K1_TOL[f"torch.{dtype_name}"] * max(1.0, peak)
+        log(f"[eva_summaries vs plain] large-norm keys {dtype_name}: max abs err "
+            f"{err:.3e} (tol {tol:.1e}), max |value| {peak:.3e}")
+        if not (all(torch.isfinite(o.float()).all() for o in out) and err <= tol):
+            raise AssertionError(f"eva_summaries at large-norm keys: err {err}")
 
     # ---- 3. the LM training path, counts set to 0 just before and read after
     torch.cuda.empty_cache()
@@ -913,6 +1080,69 @@ def main() -> int:
             f"{logits_eager.abs().max().item():.3e}")
         if not lerr <= LOGITS_TOL:
             raise AssertionError(f"{cell} f32 logits differ by {lerr}")
+        del model, eager
+
+    # EVA's eval routes on the serving cell, each selected by its attention
+    # args on the namespace that build_model reads: every kernel's count set
+    # to 0 just before the 4-batch eval and read just after; then f32 logits
+    # of the route against the eager path
+    counters = ((k2, "LAUNCHES", k2.NAME), (k1, "LAUNCHES_FWD", "eva_packed_fwd"),
+                (k1, "LAUNCHES_BWD", "eva_packed_bwd"),
+                (k3, "LAUNCHES_FWD", "causal_packed_fwd"),
+                (k3, "LAUNCHES_BWD", "causal_packed_bwd"), (k4, "LAUNCHES", k4.NAME),
+                (k5, "LAUNCHES", k5.NAME), (k6, "LAUNCHES", k6.NAME),
+                (k7, "LAUNCHES", k7.NAME), (k8, "LAUNCHES", k8.NAME),
+                (k1, "LAUNCHES_OUT", k1.NAME_OUT),
+                (k10, "LAUNCHES_SUMMARIES", k10.NAME_SUMMARIES),
+                (k10, "LAUNCHES_ATTENTION", k10.NAME_ATTENTION))
+
+    def launched():
+        return {name: getattr(k, attr) for k, attr, name in counters
+                if getattr(k, attr)}
+
+    def route_args(extra, toggles):
+        rargs = train_vit.parse_args(MAIN_ARGV + extra)
+        for key, value in toggles.items():
+            setattr(rargs.attn_specific_args, key, value)
+        return rargs
+
+    route_launches = {}
+    for route, (toggles, route_kernels) in EVA_ROUTES.items():
+        for k, attr, _ in counters:
+            setattr(k, attr, 0)
+        t0 = time.perf_counter()
+        stats = train_vit.main(route_args(["--eval", "--bf16"], toggles))
+        torch.cuda.synchronize()
+        got = launched()
+        log(f"[serve eva {route}] {json.dumps(toggles)}: eval {json.dumps(stats)} "
+            f"in {time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}")
+        if not all(math.isfinite(stats[k]) for k in ("acc1", "acc5", "loss")):
+            raise AssertionError(f"non-finite eva {route} eval stats {stats}")
+        want = {name: 12 * stats["batches"] for name in route_kernels}
+        if stats["batches"] != 4 or got != want:
+            raise AssertionError(f"eva {route}: launches {got} for "
+                                 f"{stats['batches']} batches, want {want}")
+        route_launches[route] = got
+        model = train_vit.build_model(route_args(["--eval"], toggles)).cuda()
+        eager = copy.deepcopy(model)
+        for blk in eager.blocks:
+            blk.attn.impl = "xla"
+        before = dict(launched())
+        with torch.no_grad():
+            logits, logits_eager = model(x), eager(x)
+        torch.cuda.synchronize()
+        delta = {n: c - before.get(n, 0) for n, c in launched().items()
+                 if c != before.get(n, 0)}
+        if delta != {name: 12 for name in route_kernels}:
+            raise AssertionError(f"eva {route} f32 forward launched {delta}")
+        if logits.shape != (8, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad eva {route} logits {logits.shape}")
+        lerr = (logits - logits_eager).abs().max().item()
+        log(f"[serve eva {route}] f32 logits vs eager path: max abs err "
+            f"{lerr:.3e} (tol {LOGITS_TOL:.0e}), max |logit| "
+            f"{logits_eager.abs().max().item():.3e}")
+        if not lerr <= LOGITS_TOL:
+            raise AssertionError(f"eva {route} f32 logits differ by {lerr}")
         del model, eager
 
     # ---- 5. the MT serving path, counts set to 0 just before and read after
@@ -1259,6 +1489,49 @@ def main() -> int:
     log(f"[time] serving cells' forward B=128 bf16 images/s: "
         f"{json.dumps(cell_rates)}; {card}")
 
+    # K8, K9 and K10's entry points at the EVA cell's shape in bf16: kernel,
+    # plain version, bound; then the forward images/s of EVA's eval routes in
+    # turns with the default K2 route and the eager path, and one
+    # megakernel-route forward by op
+    a = eval_inputs(128, 28, 7, 4, 3, 64, bf16, seed=95)
+    eval_ms = {}
+    with torch.no_grad():
+        for name, (kernel, plain) in eval_calls(k8, k1, k10, a, 3, 28, 7,
+                                                4).items():
+            eval_ms[name] = {"ms": cuda_ms(kernel, 20),
+                             "plain_ms": cuda_ms(plain, 5),
+                             "bound": eval_bound(name, a, 3, 7),
+                             "library_ms": None}
+    log(f"[time] K8-K10 main shape bf16: {json.dumps(eval_ms)}; {card}")
+    del a
+    route_models = {
+        route: train_vit.build_model(route_args(["--throughput", "--bf16"],
+                                                toggles)).to(device, bf16)
+        for route, toggles in [("default K2", {})] + [
+            (r, t) for r, (t, _) in EVA_ROUTES.items()]}
+    route_models["eager"] = copy.deepcopy(route_models["default K2"])
+    for blk in route_models["eager"].blocks:
+        blk.attn.impl = "xla"
+    route_rates = {}
+    for route in ["default K2", "eager", *EVA_ROUTES, *reversed(list(EVA_ROUTES)),
+                  "eager", "default K2"]:
+        route_rates.setdefault(route, []).append(train_vit.compute_throughput(
+            route_models[route], tp_args, device, bf16)["images_per_sec"])
+    log(f"[time] EVA eval routes' forward B=128 bf16 images/s, in turns: "
+        f"{json.dumps(route_rates)}; {card}")
+    xb = torch.randn(128, 224, 224, 3, generator=gen, device="cuda").to(bf16)
+    with torch.no_grad():
+        busy, k10_total, wall_ms, table = profile_steps(
+            torch, train_vit._profiler, lambda: route_models["megakernel"](xb),
+            "eva_eval::")
+    log(f"[profile] one megakernel-route forward at B=128 bf16: device busy "
+        f"{busy:.3f} ms ({wall_ms:.3f} ms wall while profiled, "
+        f"{128e3 / route_rates['megakernel'][0]:.3f} ms a forward unprofiled), "
+        f"the two eva_mega kernels {k10_total:.3f} ms ({k10_total / busy:.3f} "
+        f"of busy)")
+    print(table, flush=True)
+    del route_models, xb
+
     # eva_1d at the WMT encoder's shape (B=64 sentences of 32 tokens, 8 heads
     # of 64, window 8, halo 4, 8 chunks) and at long sentences (B=16, 256
     # tokens): kernel, plain version, bound, SDPA on pre-partitioned windows
@@ -1369,6 +1642,19 @@ def main() -> int:
             "name": k.NAME, "route": "cuda", "source": k.SOURCE,
             "replaces": k.REPLACES, "launches": cell_launches[k.NAME],
             "max_abs_err": lin_errors[(k.NAME, "main bf16")], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+        })
+    for name, source, replaces, route in (
+            (k8.NAME, k8.SOURCE, k8.REPLACES, "summaries"),
+            (k1.NAME_OUT, k1.SOURCE_OUT, k1.REPLACES_OUT, "fused-out"),
+            (k10.NAME_SUMMARIES, k10.SOURCE, k10.REPLACES_SUMMARIES, "megakernel"),
+            (k10.NAME_ATTENTION, k10.SOURCE, k10.REPLACES_ATTENTION, "megakernel")):
+        t = eval_ms[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": route_launches[route][name],
+            "max_abs_err": eval_errors[(name, "main bf16")], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
         })

@@ -11,14 +11,26 @@ PyTorch counterpart of ``efficient_attention_tpu/attention/eva.py``
   3. one softmax over ``[local logits | chunk logits]`` (``eva.py:222-227``).
 
 Ported: the 2-D forward without halo or padding mask, in training and eval,
-by the JAX dispatch order (``eva.py:542-593``).  In eval, ``impl='auto'``
-(or ``'packed'``) takes the single-pass ``eva_single`` kernel (K2) where its
-gate holds, else the ``eva_packed`` kernel (K1) on the packed chunk
-summaries, else the eager tensor-op path; in training, K1 where its gate
-holds, else eager.  ``impl='xla'`` (the JAX package's name for the plain
-path) forces the eager path, and ``impl='packed'`` raises ``ValueError``
-where K1's gate fails.  The RF noise is drawn from ``self.generator``, which
-the train step sets.
+by the JAX dispatch order (``eva.py:542-593``), with JAX's four eval toggles
+(``eva.py:88-122``).  In eval, ``impl='auto'`` (or ``'packed'``) takes, in
+this order, where each route's gate holds:
+
+1. with ``use_single_kernel`` (default True), the single-pass
+   ``eva_single`` kernel (K2);
+2. with ``use_megakernel``, the two ``eva_mega`` kernels (K10), which read
+   the tokens and project qkv inside (``_forward_mega``).  K2 is tried first,
+   so ``use_megakernel`` alone still runs K2 where K2's gate holds;
+3. the packed path: the chunk summaries by the ``eva_summaries`` kernel (K8)
+   with ``use_pallas_summaries``, else by tensor ops; then, with
+   ``fuse_output_proj``, the ``eva_packed_out`` kernel (K9, the output
+   projection inside), else ``eva_packed`` (K1) and the projection;
+4. the eager tensor-op path.
+
+In training every toggle is ignored, as in JAX: K1 where its gate holds,
+else eager.  ``impl='xla'`` (the JAX package's name for the plain path)
+forces the eager path, and ``impl='packed'`` raises ``ValueError`` where K1's
+gate fails.  The RF noise is drawn from ``self.generator``, which the train
+step sets.
 
 The 1-D forward (the WMT encoder's) is ported too: the sequence is padded to
 a window multiple, the chunk summaries come from chunks halo'd by ``ext`` on
@@ -49,13 +61,24 @@ from efficient_attention_torch.attention.base import MASK_VAL
 from efficient_attention_torch.attention.causal_eva import T5RelativePositionBias
 from efficient_attention_torch.attention.local import LocalAttention
 from efficient_attention_torch.ops.kernels.eva_1d import eva_attention_1d, supports_1d
+from efficient_attention_torch.ops.kernels.eva_mega import (
+    eva_attention_from_x,
+    eva_summaries_from_x,
+    supports_mega,
+)
 from efficient_attention_torch.ops.kernels.eva_packed import (
     eva_attention_packed,
+    eva_attention_packed_out,
     supports_packed,
+    supports_packed_out,
 )
 from efficient_attention_torch.ops.kernels.eva_single import (
     eva_attention_single,
     supports_single,
+)
+from efficient_attention_torch.ops.kernels.eva_summaries import (
+    eva_summaries_packed,
+    supports_summaries,
 )
 from efficient_attention_torch.ops.random_features import prm_projection
 from efficient_attention_torch.ops.rpe import t5_bucket_table
@@ -81,6 +104,9 @@ class EVA(LocalAttention):
       * ``impl``: ``auto`` (the kernels where their gates allow, else
         eager), ``packed`` (the kernels, raising where the gate of K1, or
         in 1-D of K4, fails) or ``xla`` (eager)
+      * the 2-D eval routes, JAX's defaults (``eva.py:88-122``):
+        ``use_single_kernel`` (True: K2), ``use_megakernel`` (K10),
+        ``use_pallas_summaries`` (K8), ``fuse_output_proj`` (K9)
 
     ``generator`` (None: torch's default one) draws the RF noise in
     training.
@@ -92,7 +118,10 @@ class EVA(LocalAttention):
                  window_size: int = 2, attn_2d: bool = False,
                  overlap_window: bool = False, adaptive_proj: str = "default",
                  num_landmarks: int = 49, use_t5_rpe: bool = False,
-                 impl: str = "auto", seq_axis: Optional[str] = None):
+                 impl: str = "auto", seq_axis: Optional[str] = None,
+                 use_pallas_summaries: bool = False,
+                 fuse_output_proj: bool = False, use_megakernel: bool = False,
+                 use_single_kernel: bool = True):
         super().__init__(dim, num_heads, qkv_bias=qkv_bias,
                          attn_drop=attn_drop, proj_drop=proj_drop, fp32=fp32,
                          use_rpe=use_rpe, window_size=window_size,
@@ -119,6 +148,10 @@ class EVA(LocalAttention):
         self.num_landmarks = num_landmarks
         self.use_t5_rpe = use_t5_rpe
         self.impl = impl
+        self.use_pallas_summaries = use_pallas_summaries
+        self.fuse_output_proj = fuse_output_proj
+        self.use_megakernel = use_megakernel
+        self.use_single_kernel = use_single_kernel
         self.generator: Optional[torch.Generator] = None
         d = self.head_dim
         if adaptive_proj in ("default", "no-ln"):
@@ -176,10 +209,16 @@ class EVA(LocalAttention):
             raise ValueError(f"grid {gh}x{gw} is not divisible by chunk {j}")
         kernels = self.impl in ("auto", "packed")
         chunk_ok = j * j * self.num_landmarks == N
-        if (kernels and chunk_ok and not self.training
+        at_eval = kernels and chunk_ok and not self.training
+        if (at_eval and self.use_single_kernel
                 and supports_single(B, gh, gw, ws, j, self.adaptive_proj,
                                     3 * C, self.num_heads, x.element_size())):
             return self._forward_single(x, j)
+        if (at_eval and self.use_megakernel
+                and supports_mega(B, gh, gw, ws, j, self.num_landmarks,
+                                  self.adaptive_proj, C, self.num_heads,
+                                  x.element_size())):
+            return self._forward_mega(x, j)
         if (kernels and chunk_ok and self.attn_dropout.p == 0.0
                 and supports_packed(B, N, gw, ws, self.num_landmarks,
                                     self.head_dim, x.element_size(),
@@ -197,15 +236,41 @@ class EVA(LocalAttention):
         chunk summaries and the joint softmax from the packed qkv."""
         B, gh, gw, C = x.shape
         qkv = self.qkv(x.reshape(B, gh * gw, C))  # [B, N, 3*H*D]
-        mq, mk = self.adaptive_mu_q, self.adaptive_mu_k
-        use_ln = self.adaptive_proj == "default"
         out = eva_attention_single(
-            qkv, mq[0].weight.t(), mq[0].bias, mk[0].weight.t(), mk[0].bias,
-            mq[1].weight if use_ln else None, mq[1].bias if use_ln else None,
-            mk[1].weight if use_ln else None, mk[1].bias if use_ln else None,
-            self.scale, self.num_heads, gw, self.window_size, j, use_ln,
+            qkv, *self._adaptive_weights(), self.scale, self.num_heads, gw,
+            self.window_size, j, self.adaptive_proj == "default",
             bias=self.window_bias())
         return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+
+    def _adaptive_weights(self):
+        """``(wq, bq, wk, bk, lnq_scale, lnq_bias, lnk_scale, lnk_bias)`` of
+        the adaptive Dense (``[in, out]``, JAX's layout) and LN, as the eval
+        kernels take them; the LN four None for ``adaptive_proj='no-ln'``."""
+        mq, mk = self.adaptive_mu_q, self.adaptive_mu_k
+        use_ln = self.adaptive_proj == "default"
+        return (mq[0].weight.t(), mq[0].bias, mk[0].weight.t(), mk[0].bias,
+                mq[1].weight if use_ln else None, mq[1].bias if use_ln else None,
+                mk[1].weight if use_ln else None, mk[1].bias if use_ln else None)
+
+    def _forward_mega(self, x: torch.Tensor, j: int) -> torch.Tensor:
+        """Megakernel eval path (``eva.py:298-331``): the summaries and the
+        attention (with the output projection) both read the tokens and
+        project qkv inside the two ``eva_mega`` kernels; qkv never reaches
+        device memory."""
+        B, gh, gw, C = x.shape
+        xf = x.reshape(B, gh * gw, C)
+        w_qkv, b_qkv = self.qkv.weight.t(), self.qkv.bias
+        if b_qkv is None:  # qkv_bias=False: a zero bias (eva.py:312-314)
+            b_qkv = torch.zeros(w_qkv.shape[1], dtype=torch.float32,
+                                device=x.device)
+        rf_k_bar, beta = eva_summaries_from_x(
+            xf, w_qkv, b_qkv, *self._adaptive_weights(), self.num_heads, gw, j,
+            self.adaptive_proj == "default")
+        out = eva_attention_from_x(
+            xf, w_qkv, b_qkv, rf_k_bar, beta, self.proj.weight.t(),
+            self.proj.bias, self.scale, self.num_heads, gw, self.window_size,
+            bias=self.window_bias())
+        return self.proj_dropout(out.reshape(B, gh, gw, C))
 
     def _sample_weights(self, mu: torch.Tensor) -> torch.Tensor:
         """One RF sample ``w ~ N(mu, I)`` in training, drawn from
@@ -219,14 +284,39 @@ class EVA(LocalAttention):
         """Packed path (``eva.py:359-393``): the fused qkv projection, the
         chunk summaries read from its packed output, the ``eva_packed``
         kernel, the output projection; no head transpose or window
-        partition in between."""
+        partition in between.  At eval with ``fuse_output_proj`` the
+        ``eva_packed_out`` kernel does the last two where its gate holds."""
         B, gh, gw, C = x.shape
         qkv = self.qkv(x.reshape(B, gh * gw, C))  # [B, N, 3*H*D]
-        rf_k_bar, beta = self._chunk_summaries_packed(qkv, (gh, gw), j)
+        rf_k_bar, beta = self._summaries_dispatch(qkv, (gh, gw), j)
+        if (not self.training and self.fuse_output_proj
+                and supports_packed_out(B, gh * gw, gw, self.window_size,
+                                        self.num_landmarks, self.head_dim,
+                                        x.element_size(), self.num_heads)):
+            out = eva_attention_packed_out(
+                qkv, rf_k_bar, beta, self.proj.weight.t(), self.proj.bias,
+                self.scale, self.num_heads, gw, self.window_size,
+                bias=self.window_bias())
+            return self.proj_dropout(out.reshape(B, gh, gw, C))
         out = eva_attention_packed(qkv, rf_k_bar, beta, self.scale,
                                    self.num_heads, gw, self.window_size,
                                    bias=self.window_bias())
         return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+
+    def _summaries_dispatch(self, qkv: torch.Tensor, seq_shape: Tuple[int, int],
+                            j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The packed chunk summaries (``eva.py:159-194``): at eval with
+        ``use_pallas_summaries`` the ``eva_summaries`` kernel where its gate
+        holds, else ``_chunk_summaries_packed``."""
+        gh, gw = seq_shape
+        if (not self.training and self.use_pallas_summaries
+                and supports_summaries(qkv.shape[0], gh, gw, j,
+                                       self.adaptive_proj, qkv.shape[-1],
+                                       self.num_heads, qkv.element_size())):
+            return eva_summaries_packed(qkv, *self._adaptive_weights(),
+                                        self.num_heads, gw, j,
+                                        self.adaptive_proj == "default")
+        return self._chunk_summaries_packed(qkv, seq_shape, j)
 
     def _chunk_summaries_packed(self, qkv: torch.Tensor,
                                 seq_shape: Tuple[int, int], j: int

@@ -1,0 +1,91 @@
+// K10 eva_mega: the 2-D EVA eval kernels that read the tokens x, not qkv.
+//
+// Replaces efficient_attention_tpu/ops/pallas/eva_mega.py, two entry points
+// (the eval path behind EVA's use_megakernel):
+//   eva_summaries_from_x (_sum_kernel)   K8's chunk summaries, with the qkv
+//                                        projection x Wqkv + bqkv inside;
+//   eva_attention_from_x (_attn_kernel)  K9's joint softmax and output
+//                                        projection, with the qkv projection
+//                                        inside.
+// Plain versions and wrappers: efficient_attention_torch/ops/kernels/eva_mega.py.
+// Device code: eva_summaries_kernel and eva_out_kernel in eva_eval.cuh, in
+// their FROM_X forms.
+//
+// Function.  As K8 and K9, on qkv = x Wqkv + bqkv rounded to x's type (JAX's
+// order: project, round, then the means and the softmax).  Wqkv [XD, 3*H*D]
+// is in [in, out] layout.
+//
+// What bounds it: operations.  qkv (115.6 MB at the DeiT-tiny-p8 cell, B=128,
+// 28x28 tokens, dim 192, bf16) never reaches device memory: the summaries
+// read x (38.5 MB, ~12 us at 3.35 TB/s) against 22 GFLOP of projection (~22 us
+// at the bf16 tensor-core peak); the attention reads x and writes the output
+// (77 MB, ~24 us) against 37 GFLOP (~38 us).  That is ~77 MB fewer bytes a
+// layer than K8 + K9 after a separate projection, worth having only if the
+// projections run on tensor cores.
+//
+// Design.  The summaries block (one chunk-row strip of one head and image)
+// stages the strip's 112 x rows, projects them to the head's q, k, v in the
+// block (112 x 192 outputs, K = 192), rounds them to the input type into K8's
+// staged strip, and runs K8's per-chunk body.  The attention block (one
+// window of one image) stages the window's 49 x rows once and, for each head,
+// projects them to that head's q, k, v (49 x 192 outputs) into K9's tiles
+// before K9's per-head body; then K9's output projection.  Every projection
+// runs on tensor cores in bf16 (wmma 16x16x16, f32 accumulation; rows padded
+// to 16 with zeros) where the widths are multiples of 16, else on CUDA cores
+// in f32.  Wqkv (221 KB in bf16) cannot sit whole beside the tiles; it is read
+// from L2, which every block shares, one 16x16 fragment at a time.
+#include "eva_eval.cuh"
+
+using namespace eva_eval;
+
+extern "C" {
+
+// Shared memory of one summaries block and of one attention block, for the
+// wrapper's gates to check their own copies of the layouts against.
+int eva_mega_summaries_smem_bytes(int rows, int d, int esize, int xdim) {
+  return (int)make_sum_layout(rows, d, esize, xdim).total;
+}
+
+int eva_mega_attention_smem_bytes(int d, int S, int C, int nh, int esize, int xdim) {
+  return (int)out_smem_bytes(d, S, C, nh, esize, xdim);
+}
+
+const char* eva_mega_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// rf, beta [B, C, nh*d] (x's type) from x [B, N, xd] and wqkv [xd, 3*nh*d]
+// (both float32 or both bfloat16), bqkv (f32) and the f32 adaptive weights
+// (ln* null unless use_ln), on `stream`.  Returns a cudaError_t.
+int eva_mega_summaries_launch(const void* x, const void* wqkv, const float* bqkv,
+                              const float* wq, const float* bq, const float* wk,
+                              const float* bk, const float* lnq_s, const float* lnq_b,
+                              const float* lnk_s, const float* lnk_b, void* rf, void* beta,
+                              int B, int N, int xd, int gw, int j, int nh, int d,
+                              int use_ln, int is_bf16, void* stream) {
+  SumParams p = {};
+  p.x = x; p.wqkv = wqkv; p.bqkv = bqkv;
+  p.wq = wq; p.bq = bq; p.wk = wk; p.bk = bk;
+  p.lnq_s = lnq_s; p.lnq_b = lnq_b; p.lnk_s = lnk_s; p.lnk_b = lnk_b;
+  p.rf = rf; p.beta = beta;
+  if (xd <= 0 || !sum_geometry(p, B, N, gw, j, nh, xd, use_ln)) return cudaErrorInvalidValue;
+  return launch_summaries<true>(p, d, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// out [B, N, nh*d] from x [B, N, xd], wqkv, rf, beta, wo (all float32 or all
+// bfloat16), bqkv, bo (f32) and bias (f32 [nh, S, S] or null), on `stream`.
+// Returns a cudaError_t.
+int eva_mega_attention_launch(const void* x, const void* wqkv, const float* bqkv,
+                              const void* rf, const void* beta, const float* bias,
+                              const void* wo, const float* bo, void* out, int B, int N,
+                              int xd, int gw, int ws, int nh, int d, int C, int is_bf16,
+                              float scale, void* stream) {
+  OutParams p = {};
+  p.x = x; p.wqkv = wqkv; p.bqkv = bqkv;
+  p.rf = rf; p.beta = beta; p.bias = bias; p.wo = wo; p.bo = bo; p.out = out;
+  if (xd <= 0 || !out_geometry(p, B, N, gw, ws, nh, C, xd, scale))
+    return cudaErrorInvalidValue;
+  return launch_out<true>(p, d, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

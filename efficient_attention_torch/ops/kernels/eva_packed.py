@@ -23,6 +23,15 @@ function with ``eva_packed_fwd_ref`` and ``eva_packed_bwd_ref``, the plain
 PyTorch versions (the backward in explicit formulas, not autograd), which
 are also what the kernels are held against on the card.  ``LAUNCHES_FWD``
 and ``LAUNCHES_BWD`` count the kernels' launches.
+
+K9 ``eva_packed_out`` (``csrc/eva_packed_out.cu``) replaces
+``eva_packed.py::eva_attention_packed_out``, the eval forward behind EVA's
+``fuse_output_proj``: the forward above with the output projection
+``out Wo + bo`` in the kernel (the attention output rounded to qkv's dtype
+first, the projection summed in f32), so the ``[B, N, H*D]`` intermediate
+never reaches device memory.  ``eva_attention_packed_out`` has no gradient;
+its plain version is ``eva_packed_out_ref`` and ``LAUNCHES_OUT`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -37,11 +46,15 @@ from efficient_attention_torch.ops.kernels import _build
 
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_OUT = 0
 
 NAME = "eva_packed"
 SOURCE = "efficient_attention_torch/csrc/eva_packed.cu"
 REPLACES_FWD = "efficient_attention_tpu/ops/pallas/eva_packed.py:238"
 REPLACES_BWD = "efficient_attention_tpu/ops/pallas/eva_packed.py:467"
+NAME_OUT = "eva_packed_out"
+SOURCE_OUT = "efficient_attention_torch/csrc/eva_packed_out.cu"
+REPLACES_OUT = "efficient_attention_tpu/ops/pallas/eva_packed.py:288"
 
 # the kernel's own limits: head dims it is instantiated for (multiples of
 # 4, for its 16-byte shared-memory loads), the shared
@@ -348,3 +361,189 @@ def eva_attention_packed(
     raise."""
     return _EvaPacked.apply(qkv, rf_k_bar, beta, bias, float(scale),
                             int(num_heads), int(W), int(ws))
+
+
+# ---- K9: the eval forward with the output projection in the kernel
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def out_uses_mma(d: int, itemsize: int, xdim: int = 0) -> bool:
+    """Whether K9 (K10's attention with ``xdim > 0``) takes its tensor-core
+    route: bf16, and the head dim and x's width multiples of 16."""
+    return itemsize == 2 and d % 16 == 0 and xdim % 16 == 0
+
+
+def smem_bytes_out(d: int, S: int, C: int, num_heads: int, itemsize: int,
+                   xdim: int = 0) -> int:
+    """Dynamic shared memory of one K9 block (or, with ``xdim > 0``, one
+    ``eva_attention_from_x`` block of K10); the same layouts as
+    ``make_out_layout`` and ``make_out_mma_layout`` in ``csrc/eva_eval.cuh``.
+    CUDA-core route: keys ``[k | rf]``, values ``[v | beta]``, the query
+    rows, the logits, the bias and the row sums of one head in f32 (as in
+    ``smem_bytes``), the window's output rows of every head in the input
+    type, the window's x rows for K10.  Tensor-core route:
+    q, keys (then the numerators) and values of one head in bf16 with rows
+    padded to 16, the f32 logits (a region that also holds K10's x rows and
+    the per-warp MMA scratch), the row sums, the output rows."""
+    SP, hd = _round16(S), num_heads * d
+    if out_uses_mma(d, itemsize, xdim):
+        KP, DB = _round16(S + C), d + 8
+        xbytes = _align128(SP * (xdim + 8) * 2) if xdim else 0
+        return (_align128(SP * DB * 2)
+                + _align128(max(KP * DB, SP * (KP + 8)) * 2)
+                + _align128(KP * DB * 2)
+                + _align128(max(SP * (KP + 4) * 4, xbytes + 8 * 256 * 4))
+                + _align128(SP * 4) + _align128(SP * (hd + 8) * 2))
+    DP = row_stride(d)
+    total = (2 * _align128((S + C) * DP * 4) + _align128(S * DP * 4)
+             + _align128(S * (S + C + 1) * 4) + _align128(S * S * 4)
+             + _align128(S * 4) + _align128(S * (hd + 8) * itemsize))
+    if xdim:
+        total += _align128(S * (xdim + 8) * itemsize)
+    return total
+
+
+def plan_out(B: int, N: int, W: int, ws: int, C: int, num_heads: int, d: int,
+             itemsize: int, xdim: int = 0) -> Optional[int]:
+    """Shared memory of a K9 (or K10 attention) launch, or None where the
+    kernel cannot take the geometry: square windows dividing a ``N/W x W``
+    grid, a head dim it is built for, float32 or bfloat16, and a block within
+    Hopper's shared memory."""
+    if not 1 <= B <= _MAX_GRID_YZ or num_heads < 1 or xdim < 0:
+        return None
+    if W <= 0 or ws <= 0 or C <= 0 or N % W or (N // W) % ws or W % ws:
+        return None
+    if d not in HEAD_DIMS or itemsize not in (2, 4):
+        return None
+    smem = smem_bytes_out(d, ws * ws, C, num_heads, itemsize, xdim)
+    return smem if smem <= SMEM_LIMIT else None
+
+
+def supports_packed_out(B: int, N: int, W: int, ws: int, c: int, head_dim: int,
+                        itemsize: int = 2, num_heads: int = 1) -> bool:
+    """Geometry gate of K9."""
+    return plan_out(B, N, W, ws, c, num_heads, head_dim, itemsize) is not None
+
+
+def eva_packed_out_ref(qkv: torch.Tensor, rf_k_bar: torch.Tensor,
+                       beta: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                       scale: float, num_heads: int, W: int, ws: int,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K9 (the counterpart of
+    ``_kernel_fused_out``): ``eva_packed_fwd_ref``, rounded to qkv's dtype,
+    times ``wo`` in that dtype, summed in f32, plus ``bo`` in f32, then
+    cast.  ``wo [H*D, H*D]`` is in ``[in, out]`` layout."""
+    T = qkv.dtype
+    attn = eva_packed_fwd_ref(qkv, rf_k_bar, beta, scale, num_heads, W, ws, bias)
+    return (attn.float() @ wo.to(T).float() + bo.float()).to(T)
+
+
+def kernel_weight(t: torch.Tensor, shape, dtype: torch.dtype,
+                  like: torch.Tensor, what: str) -> torch.Tensor:
+    """A weight as the eval kernels take it: of ``shape``, on ``like``'s
+    device, in ``dtype``, contiguous and 32-byte aligned (the tensor-core
+    fragments are loaded straight from it)."""
+    if t.device != like.device:
+        raise ValueError(f"{what} is on {t.device}, the input on {like.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must be {tuple(shape)}, got {tuple(t.shape)}")
+    t = t.to(dtype).contiguous()
+    return t if t.data_ptr() % 32 == 0 else t.clone()
+
+
+def summaries_operands(rf: torch.Tensor, beta: torch.Tensor, bias, like, B: int,
+                       nh: int, d: int, ws: int):
+    """Checked chunk summaries (in ``like``'s dtype) and bias (f32) of K9
+    and K10's attention, and their chunk count."""
+    if rf.dim() != 3 or rf.shape[0] != B or rf.shape[2] != nh * d:
+        raise ValueError(f"rf_k_bar must be [B, C, H*D], got {tuple(rf.shape)}")
+    if tuple(beta.shape) != tuple(rf.shape):
+        raise ValueError(f"beta {tuple(beta.shape)} != rf_k_bar {tuple(rf.shape)}")
+    for t, what in ((rf, "rf_k_bar"), (beta, "beta"), (bias, "bias")):
+        if t is not None and t.device != like.device:
+            raise ValueError(f"{what} is on {t.device}, the input on {like.device}")
+    if bias is not None and tuple(bias.shape) != (nh, ws * ws, ws * ws):
+        raise ValueError(f"bias must be {(nh, ws * ws, ws * ws)}, got "
+                         f"{tuple(bias.shape)}")
+    # 16-byte aligned: the tensor-core route reads their rows 16 bytes a load
+    rf, beta = (t if t.data_ptr() % 16 == 0 else t.clone()
+                for t in (rf.to(like.dtype).contiguous(),
+                          beta.to(like.dtype).contiguous()))
+    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    return rf, beta, bias, rf.shape[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_out() -> ctypes.CDLL:
+    lib = _build.load(NAME_OUT)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.eva_packed_out_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ctypes.c_float, ptr]
+    lib.eva_packed_out_launch.restype = i32
+    lib.eva_packed_out_smem_bytes.argtypes = [i32] * 6
+    lib.eva_packed_out_smem_bytes.restype = i32
+    lib.eva_packed_out_error_string.argtypes = [i32]
+    lib.eva_packed_out_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def eva_attention_packed_out(
+    qkv: torch.Tensor,       # [B, N, 3*H*D] fused projection output
+    rf_k_bar: torch.Tensor,  # [B, C, H*D]
+    beta: torch.Tensor,      # [B, C, H*D]
+    wo: torch.Tensor,        # [H*D, H*D] output projection (in, out)
+    bo: torch.Tensor,        # [H*D]
+    scale: float,
+    num_heads: int,
+    W: int,                  # token-grid width
+    ws: int,                 # window side
+    bias: Optional[torch.Tensor] = None,  # [H, S, S] window RPE bias
+) -> torch.Tensor:
+    """Eval forward with the output projection; returns ``[B, N, H*D]`` in
+    qkv's dtype (no gradient).  A CPU tensor goes to the plain version; a
+    CUDA tensor launches the kernel or raises."""
+    if qkv.device.type == "cpu":
+        return eva_packed_out_ref(qkv, rf_k_bar, beta, wo, bo, scale, num_heads,
+                                  W, ws, bias)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"eva_packed_out runs on CUDA or CPU tensors, got {qkv.device}")
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be [B, N, 3*H*D], got {tuple(qkv.shape)}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"eva_packed_out takes float32 or bfloat16, got {qkv.dtype}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    B, N, three_hd = qkv.shape
+    nh = num_heads
+    if three_hd % (3 * nh) or W <= 0 or N % W:
+        raise ValueError(f"qkv {tuple(qkv.shape)} does not split into {nh} "
+                         f"heads over a grid of width {W}")
+    d = three_hd // (3 * nh)
+    hd = nh * d
+    rf, beta, bias, C = summaries_operands(rf_k_bar, beta, bias, qkv, B, nh, d, ws)
+    if plan_out(B, N, W, ws, C, nh, d, qkv.element_size()) is None:
+        raise ValueError(
+            f"eva_packed_out cannot take B={B}, grid {N // W}x{W}, window {ws}, "
+            f"{C} chunks, head dim {d}, {qkv.dtype}; see supports_packed_out")
+    wo = kernel_weight(wo, (hd, hd), qkv.dtype, qkv, "wo")
+    bo = kernel_weight(bo, (hd,), torch.float32, qkv, "bo")
+    out = torch.empty((B, N, hd), dtype=qkv.dtype, device=qkv.device)
+    lib = _lib_out()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.eva_packed_out_launch(
+            qkv.data_ptr(), rf.data_ptr(), beta.data_ptr(),
+            None if bias is None else bias.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+            out.data_ptr(), B, N, W, ws, nh, d, C, int(qkv.dtype == torch.bfloat16),
+            float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"eva_packed_out launch failed: "
+                           f"{lib.eva_packed_out_error_string(rc).decode()}")
+    global LAUNCHES_OUT
+    LAUNCHES_OUT += 1
+    return out

@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need an NVIDIA GPU (marker ``cuda``): the
 kernels eva_single (K2), eva_packed (K1), causal_packed (K3), eva_1d (K4),
-lara_fused (K5), performer_fused (K6) and local_packed (K7) against their
-plain versions, the wrappers' refusal to fall back when a library is
-missing, and a small generation whose encoder runs K4.
+lara_fused (K5), performer_fused (K6), local_packed (K7), eva_summaries (K8),
+eva_packed_out (K9) and eva_mega (K10) against their plain versions, the
+wrappers' refusal to fall back when a library is missing, a small
+generation whose encoder runs K4, and EVA's eval routes on the card.
 
 They skip where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine without them:
@@ -373,3 +374,112 @@ def test_small_generation_runs_k4_in_every_encoder_layer(cuda_device, capsys):
                                  for m in (model, eager))
     assert (enc - want)[~pad].abs().max().item() <= 1e-4
     assert result["sentences"] == 8
+
+
+# ---- K8 eva_summaries, K9 eva_packed_out, K10 eva_mega ----
+
+def _eval_operands(device, dtype, B, g, ws, j, nh, d, seed=31):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    dim, C = nh * d, (g // j) ** 2
+    adaptive = [0.2 * t(d, d), 0.1 * t(d), 0.2 * t(d, d), 0.1 * t(d),
+                1 + 0.1 * t(d), 0.1 * t(d), 1 + 0.1 * t(d), 0.1 * t(d)]
+    return dict(qkv=t(B, g * g, 3 * dim).to(dtype), x=t(B, g * g, dim).to(dtype),
+                wqkv=t(dim, 3 * dim) / dim ** 0.5, bqkv=0.1 * t(3 * dim),
+                adaptive=adaptive, rf=t(B, C, dim).to(dtype),
+                beta=t(B, C, dim).to(dtype), wo=t(dim, dim) / dim ** 0.5,
+                bo=0.1 * t(dim), bias=0.5 * t(nh, ws * ws, ws * ws))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", [(2, 28, 7, 4, 3, 64), (2, 8, 4, 2, 3, 16),
+                                      (2, 14, 7, 2, 4, 12)])
+def test_eval_kernels_match_plain(cuda_device, geometry, dtype):
+    """K8, K9 and both K10 entry points against their plain versions on the
+    same card inputs (_k1_tol: f32 to summation order, bf16 to one
+    rounding), one launch each; head dim 64 and 16 take the tensor-core
+    projections in bf16, 12 the CUDA-core ones."""
+    from efficient_attention_torch.ops.kernels import eva_mega as K10
+    from efficient_attention_torch.ops.kernels import eva_packed as K9
+    from efficient_attention_torch.ops.kernels import eva_summaries as K8
+
+    B, g, ws, j, nh, d = geometry
+    a = _eval_operands(cuda_device, dtype, *geometry)
+    scale = d ** -0.5
+    counts = lambda: (K8.LAUNCHES, K9.LAUNCHES_OUT, K10.LAUNCHES_SUMMARIES,  # noqa: E731
+                      K10.LAUNCHES_ATTENTION)
+    before = counts()
+    got = [*K8.eva_summaries_packed(a["qkv"], *a["adaptive"], nh, g, j, True),
+           K9.eva_attention_packed_out(a["qkv"], a["rf"], a["beta"], a["wo"],
+                                       a["bo"], scale, nh, g, ws, a["bias"]),
+           *K10.eva_summaries_from_x(a["x"], a["wqkv"], a["bqkv"], *a["adaptive"],
+                                     nh, g, j, True),
+           K10.eva_attention_from_x(a["x"], a["wqkv"], a["bqkv"], a["rf"],
+                                    a["beta"], a["wo"], a["bo"], scale, nh, g, ws,
+                                    a["bias"])]
+    torch.cuda.synchronize()
+    assert counts() == tuple(n + 1 for n in before)
+    want = [*K8.eva_summaries_packed_ref(a["qkv"], *a["adaptive"], nh, g, j, True),
+            K9.eva_packed_out_ref(a["qkv"], a["rf"], a["beta"], a["wo"], a["bo"],
+                                  scale, nh, g, ws, a["bias"]),
+            *K10.eva_summaries_from_x_ref(a["x"], a["wqkv"], a["bqkv"],
+                                          *a["adaptive"], nh, g, j, True),
+            K10.eva_attention_from_x_ref(a["x"], a["wqkv"], a["bqkv"], a["rf"],
+                                         a["beta"], a["wo"], a["bo"], scale, nh, g,
+                                         ws, a["bias"])]
+    for out, ref in zip(got, want):
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
+
+
+def test_eval_kernels_raise_outside_their_gates(cuda_device):
+    from efficient_attention_torch.ops.kernels import eva_mega as K10
+    from efficient_attention_torch.ops.kernels import eva_packed as K9
+    from efficient_attention_torch.ops.kernels import eva_summaries as K8
+
+    a = _eval_operands(cuda_device, torch.float32, 1, 8, 4, 4, 2, 24)  # head dim 24
+    with pytest.raises(ValueError, match="cannot take"):
+        K8.eva_summaries_packed(a["qkv"], *a["adaptive"][:4], *[None] * 4, 2, 8, 4,
+                                False)
+    with pytest.raises(ValueError, match="cannot take"):
+        K9.eva_attention_packed_out(a["qkv"], a["rf"], a["beta"], a["wo"], a["bo"],
+                                    0.2, 2, 8, 4, a["bias"])
+    with pytest.raises(ValueError, match="cannot take"):
+        K10.eva_attention_from_x(a["x"], a["wqkv"], a["bqkv"], a["rf"], a["beta"],
+                                 a["wo"], a["bo"], 0.2, 2, 8, 4, a["bias"])
+    a = _eval_operands(cuda_device, torch.float16, 1, 8, 4, 4, 3, 16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K10.eva_summaries_from_x(a["x"], a["wqkv"], a["bqkv"], *a["adaptive"], 3,
+                                 8, 4, True)
+
+
+@pytest.mark.parametrize("toggles,counter", [
+    (dict(use_single_kernel=False, use_pallas_summaries=True), "K8"),
+    (dict(use_single_kernel=False, fuse_output_proj=True), "K9"),
+    (dict(use_single_kernel=False, use_megakernel=True), "K10"),
+])
+def test_eva_eval_routes_on_the_card(cuda_device, toggles, counter):
+    """A small 2-D EVA in f32 at eval on each kernel route: one launch of
+    the route's kernel, the output within 1e-4 of the eager path."""
+    from efficient_attention_torch import AttentionFactory
+    from efficient_attention_torch.ops.kernels import eva_mega as K10
+    from efficient_attention_torch.ops.kernels import eva_packed as K9
+    from efficient_attention_torch.ops.kernels import eva_summaries as K8
+
+    args = {"dim": 48, "num_heads": 3, "window_size": 4, "num_landmarks": 4,
+            "attn_2d": True, "use_rpe": True}
+    torch.manual_seed(0)
+    m = AttentionFactory.build_attention("eva", dict(args, **toggles))
+    eager = AttentionFactory.build_attention("eva", dict(args, impl="xla"))
+    eager.load_state_dict(m.state_dict())
+    m, eager = m.to(cuda_device).eval(), eager.to(cuda_device).eval()
+    x = torch.randn(2, 8, 8, 48, device=cuda_device)
+    count = {"K8": lambda: K8.LAUNCHES, "K9": lambda: K9.LAUNCHES_OUT,
+             "K10": lambda: K10.LAUNCHES_ATTENTION}[counter]
+    before = count()
+    with torch.no_grad():
+        out, want = m(x), eager(x)
+    torch.cuda.synchronize()
+    assert count() == before + 1
+    assert (out - want).abs().max().item() <= 1e-4

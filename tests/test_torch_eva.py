@@ -202,8 +202,23 @@ def test_factory_unported_names(name, match):
 
 def test_factory_drops_unknown_keys():
     m = AttentionFactory.build_attention(
-        "eva", dict(_EVA, name="eva", use_megakernel=False))
+        "eva", dict(_EVA, name="eva", flash_block_size=64))
     assert m.num_landmarks == 4 and m.impl == "auto"
+    assert not hasattr(m, "flash_block_size")
+
+
+def test_factory_passes_the_eval_toggles():
+    """The four eval toggles reach ``EVA`` through the factory, as every
+    dataclass field does in JAX (``efficient_attention_tpu/__init__.py``),
+    with JAX's defaults where they are not given."""
+    m = AttentionFactory.build_attention("eva", _EVA)
+    assert (m.use_single_kernel, m.use_megakernel, m.use_pallas_summaries,
+            m.fuse_output_proj) == (True, False, False, False)
+    m = AttentionFactory.build_attention("eva", dict(
+        _EVA, use_single_kernel=False, use_megakernel=True,
+        use_pallas_summaries=True, fuse_output_proj=True))
+    assert (m.use_single_kernel, m.use_megakernel, m.use_pallas_summaries,
+            m.fuse_output_proj) == (False, True, True, True)
 
 
 def test_windows_and_rpe_match_jax():
@@ -375,3 +390,129 @@ def test_rf_noise_comes_from_the_generator():
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
     with torch.no_grad():
         assert torch.equal(m.eval()(x), m(x))  # no noise at eval
+
+
+# ---- the eval routes (JAX eva.py:567-585) ----
+
+# the non-default routes: toggles -> the kernel wrappers each runs, in order
+ROUTES = {
+    "K1": (dict(use_single_kernel=False), ["eva_attention_packed"]),
+    "K8+K1": (dict(use_single_kernel=False, use_pallas_summaries=True),
+              ["eva_summaries_packed", "eva_attention_packed"]),
+    "K9": (dict(use_single_kernel=False, fuse_output_proj=True),
+           ["eva_attention_packed_out"]),
+    "K8+K9": (dict(use_single_kernel=False, use_pallas_summaries=True,
+                   fuse_output_proj=True),
+              ["eva_summaries_packed", "eva_attention_packed_out"]),
+    "K10": (dict(use_single_kernel=False, use_megakernel=True),
+            ["eva_summaries_from_x", "eva_attention_from_x"]),
+}
+_WRAPPERS = ("eva_attention_single", "eva_attention_packed",
+             "eva_attention_packed_out", "eva_summaries_packed",
+             "eva_summaries_from_x", "eva_attention_from_x")
+
+
+def _spy_wrappers(monkeypatch):
+    """Record, in order, which kernel wrappers the EVA module calls."""
+    import efficient_attention_torch.attention.eva as eva_module
+
+    calls = []
+    for name in _WRAPPERS:
+        monkeypatch.setattr(
+            eva_module, name,
+            lambda *a, _n=name, _f=getattr(eva_module, name), **k:
+            calls.append(_n) or _f(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("adaptive_proj", ["default", "no-ln"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_eva_eval_routes_match_jax(monkeypatch, route, adaptive_proj):
+    """Each non-default route of the port's EVA (the kernels' plain versions
+    on the CPU) against the JAX module built with the same toggles, which on
+    the CPU takes its XLA path whatever the toggles; eval, f32."""
+    geometry = "8x8-w4-j4"
+    toggles, wrappers = ROUTES[route]
+    x, params, _ = _jax_eva(geometry, adaptive_proj)
+    args = dict(_eva_args(geometry, adaptive_proj), **toggles)
+    jm = JaxFactory.build_attention("eva", args)
+    ref = np.asarray(jax.jit(lambda p, xx: jm.apply(p, xx, deterministic=True))(
+        to_jax(params), jnp.asarray(x)))
+    m = load_jax_params(AttentionFactory.build_attention("eva", args), params)
+    calls = _spy_wrappers(monkeypatch)
+    np.testing.assert_allclose(torch_apply(m, x), ref, atol=ATOL, rtol=RTOL)
+    assert calls == wrappers
+
+
+def _route_calls(monkeypatch, toggles, adaptive_proj="default", train=False,
+                 failing_gates=()):
+    """The wrappers one forward of the 8x8 EVA calls, with the named gates
+    of the eva module made to fail."""
+    import efficient_attention_torch.attention.eva as eva_module
+
+    for gate in failing_gates:
+        monkeypatch.setattr(eva_module, gate, lambda *a, **k: False)
+    calls = _spy_wrappers(monkeypatch)
+    m = AttentionFactory.build_attention(
+        "eva", dict(_eva_args("8x8-w4-j4", adaptive_proj), **toggles))
+    x = torch.from_numpy(_jax_eva("8x8-w4-j4", "default")[0])
+    with torch.no_grad():
+        m.train(train)(x)
+    return calls
+
+
+_ALL = dict(use_single_kernel=True, use_megakernel=True,
+            use_pallas_summaries=True, fuse_output_proj=True)
+
+
+@pytest.mark.parametrize("toggles,adaptive_proj,failing,expected", [
+    ({}, "default", (), ["eva_attention_single"]),
+    # K2 is tried before K10: the megakernel toggle alone still runs K2
+    (dict(use_megakernel=True), "default", (), ["eva_attention_single"]),
+    (_ALL, "default", (), ["eva_attention_single"]),
+    # where K2's gate fails, the megakernel takes over
+    (dict(use_megakernel=True), "default", ("supports_single",),
+     ["eva_summaries_from_x", "eva_attention_from_x"]),
+    # a failing gate falls through to the next route, down to eager
+    (dict(_ALL, use_single_kernel=False), "default", ("supports_mega",),
+     ["eva_summaries_packed", "eva_attention_packed_out"]),
+    (dict(_ALL, use_single_kernel=False), "default",
+     ("supports_mega", "supports_summaries", "supports_packed_out"),
+     ["eva_attention_packed"]),
+    (dict(_ALL, use_single_kernel=False), "default",
+     ("supports_mega", "supports_packed"), []),
+    # K8 and K10 take the adaptive Dense (+LN) only: 'none' falls through
+    (dict(_ALL, use_single_kernel=False), "none", (),
+     ["eva_attention_packed_out"]),
+])
+def test_eva_eval_dispatch(monkeypatch, toggles, adaptive_proj, failing, expected):
+    assert _route_calls(monkeypatch, toggles, adaptive_proj,
+                        failing_gates=failing) == expected
+
+
+@pytest.mark.parametrize("toggles", [_ALL, dict(_ALL, use_single_kernel=False)])
+def test_eva_training_ignores_the_eval_toggles(monkeypatch, toggles):
+    """In training every toggle is ignored, as in JAX: K1 alone."""
+    assert _route_calls(monkeypatch, toggles, train=True) == [
+        "eva_attention_packed"]
+
+
+def test_eva_training_with_toggles_is_exactly_without():
+    """Train-mode output and every gradient with all four toggles set equal
+    those with none, bit for bit (the same RF noise from the generator)."""
+    x = torch.from_numpy(_jax_eva("8x8-w4-j4", "default")[0])
+    cot = torch.from_numpy(np.random.default_rng(25).standard_normal(
+        x.shape).astype(np.float32))
+    results = []
+    for toggles in ({}, dict(_ALL, use_single_kernel=False)):
+        torch.manual_seed(0)
+        m = AttentionFactory.build_attention(
+            "eva", dict(_eva_args("8x8-w4-j4", "default"), **toggles)).train()
+        m.generator = torch.Generator().manual_seed(26)
+        xt = x.clone().requires_grad_()
+        out = m(xt)
+        (out * cot).sum().backward()
+        results.append([out.detach(), xt.grad]
+                       + [p.grad for p in m.parameters()])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)

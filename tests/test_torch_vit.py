@@ -71,12 +71,22 @@ def _jax_vit(attn_name, geometry):
                                                           jnp.asarray(x)))
 
 
-def _port_vit(attn_name, geometry, impl="auto"):
+def _port_vit(attn_name, geometry, impl="auto", extra=None):
+    """The port's ViT; ``extra`` adds attention args (EVA's eval toggles)."""
     cfg = dict(GOLDEN_VIT if geometry == "golden" else REAL_VIT)
-    attn_args = dict(ATTN_ARGS[attn_name])
+    attn_args = dict(ATTN_ARGS[attn_name], **(extra or {}))
     if impl is not None:
         attn_args["impl"] = impl
     return EfficientTransformer(attn_name=attn_name, attn_args=attn_args, **cfg)
+
+
+# EVA's eval routes off the default K2 one, by the toggles that select them
+EVA_ROUTES = {
+    "megakernel": dict(use_single_kernel=False, use_megakernel=True),
+    "summaries+fused-out": dict(use_single_kernel=False,
+                                use_pallas_summaries=True,
+                                fuse_output_proj=True),
+}
 
 
 def _jax_eval_projection(cfg):
@@ -102,16 +112,29 @@ def _jax_eval_projection(cfg):
     ("performer", "golden", "xla"),
     ("local", "golden", "auto"),
     ("local", "golden", "xla"),
+    ("eva", "golden", "megakernel"),
+    ("eva", "golden", "summaries+fused-out"),
 ])
-def test_vit_matches_jax(attn_name, geometry, impl):
+def test_vit_matches_jax(monkeypatch, attn_name, geometry, impl):
     """Full-model logits, weights carried from JAX with strict=True; for
     lara and performer 'fused' runs K5/K6's plain versions in every block,
-    for local 'auto' runs K7's."""
+    for local 'auto' runs K7's; EVA's 'megakernel' runs K10's and
+    'summaries+fused-out' K8's and K9's (``EVA_ROUTES``)."""
+    import efficient_attention_torch.attention.eva as eva_module
+
     x, params, ref = _jax_vit(attn_name, geometry)
     proj = _jax_eval_projection(GOLDEN_VIT) if attn_name == "performer" else None
-    m = load_jax_params(_port_vit(attn_name, geometry, impl), params,
-                        random_proj=proj)
+    extra = EVA_ROUTES.get(impl)
+    calls = []
+    for name in ("eva_attention_from_x", "eva_attention_packed_out"):
+        monkeypatch.setattr(eva_module, name,
+                            lambda *a, _f=getattr(eva_module, name), **k:
+                            calls.append(1) or _f(*a, **k))
+    m = load_jax_params(_port_vit(attn_name, geometry,
+                                  "auto" if extra else impl, extra),
+                        params, random_proj=proj)
     np.testing.assert_allclose(torch_apply(m, x), ref, atol=ATOL, rtol=RTOL)
+    assert len(calls) == (GOLDEN_VIT["depth"] if extra else 0)
 
 
 def _golden_sd(name):
