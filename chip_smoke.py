@@ -15,7 +15,15 @@ Two models, random weights from a seed:
   ``use_pallas_summaries``, ``fuse_output_proj``; ``EVA_ROUTES``): K1's
   forward, ``eva_summaries`` (K8) + K1, ``eva_packed_out`` (K9), K8 + K9,
   the two ``eva_mega`` kernels (K10), and K2 again where only the megakernel
-  toggle is set (K2 is tried first);
+  toggle is set (K2 is tried first); and through the JAX module's other
+  ``impl`` routes: ``impl='pallas'`` runs ``eva_kernel`` (K11) on the
+  partitioned windows, ``impl='rowmajor'`` ``eva_rowmajor`` (K12) on the
+  token-order q, k, v, one launch a block, in eval and in training;
+* PVTv2-B3 (``pvt_medium2``, 224 px, 4 stages of 3/4/18/3 blocks, dims
+  64/128/320/512, heads 2/4/10/16) with the same 2-D EVA in its first three
+  stages (56x56, 28x28 and 14x14 tokens, head dim 32) and exact softmax in
+  the last, served at batch 128 in bf16 at ``impl`` ``auto`` (K2 in each of
+  the 25 EVA blocks), ``pallas`` (K11) and ``rowmajor`` (K12);
 * the same DeiT-tiny-p8 served with the zoo's other attentions that reach a
   kernel, each at batch 128 in bf16: LARA (mis-opt, ``pool-mixed``, alpha
   2.0, 49 landmarks) through ``lara_fused`` (K5), Performer (FAVOR+, 64
@@ -47,8 +55,10 @@ Phases, each raising on failure:
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
    ``local_packed``; ``eva_1d`` at non-pad rows of random-length
    sentences; ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
-   entry points; at the main paths' shapes in bf16 and f32 and at small odd
-   geometries (K3-K10 in both types), and K8 at large-norm keys;
+   entry points; ``eva_kernel`` and ``eva_rowmajor`` (also at PVT-B3's
+   first stage, K11 in 1-D, and raising outside their gates); at the main
+   paths' shapes in bf16 and f32 and at small odd geometries (K3-K12 in
+   both types), and K8 at large-norm keys;
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
@@ -58,9 +68,13 @@ Phases, each raising on failure:
    in bf16, with the kernels' launch counts set to 0 just before and read
    just after, then f32 logits of the kernel path against the eager path;
    the same for the LARA, Performer and local cells (12 launches of the
-   cell's kernel a batch and none of any other), and for each of EVA's eval
+   cell's kernel a batch and none of any other), and for each of EVA's
    routes (12 launches of each of the route's kernels a batch and none of
-   any other);
+   any other); K11 as EVA's ``auto`` fallback at a head dim (48) that K1
+   and K2 are not built for, in eval and training, against the eager path
+   in f32; then PVT-B3 served by ``cli.train_vit --eval`` on each of its
+   three routes (25 launches of the route's kernel a batch, none of any
+   other) and its f32 logits on each route against the eager path;
 5. the MT serving path: ``cli.generate`` in-process with the recipe's
    flags, counts set to 0 just before and read just after (6 K4 launches a
    batch, 4 batches, none of any other kernel), a finite BLEU; then f32
@@ -69,17 +83,23 @@ Phases, each raising on failure:
 6. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
    ``--bf16`` and the DeiT recipe, counts set to 0 just before and read
    just after (12 x 8 launches of each K1 kernel, 12 x 4 of K2), finite
-   losses; then f32 gradients, kernel path against eager path;
+   losses; then f32 gradients, kernel path against eager path; the same
+   with ``impl='pallas'`` and ``impl='rowmajor'`` (12 x 8 + 12 x 4
+   launches of K11 or K12, none of any other);
 7. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks, forward and train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
    and 3136 tokens, K8-K10 and the forward rates of EVA's eval routes in
    turns with the default route and the eager path, K4 and the MT encoder,
    the MT cell's sentences/s and hypothesis tokens/s with the kernel and the
-   eager encoder in turns) and profiles of 3 train steps of each model, of
-   one LARA-cell forward, one megakernel-route forward and one MT batch by
+   eager encoder in turns, K11 and K12 at the headline and PVT-B3 stage
+   shapes, the headline train step on K11 against K1, PVT-B3's forward
+   images/s on its routes and the eager path in turns) and profiles of 3
+   train steps of each model, of one LARA-cell forward, one
+   megakernel-route forward, one PVT-B3 forward on K11 and one MT batch by
    op;
-8. the kernels line, the card line, and the result line, last.
+8. the kernels line, the script's wall time, the card line, and the result
+   line, last.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -168,7 +188,34 @@ EVA_ROUTES = {
                             ("eva_summaries", "eva_packed_out")),
     "megakernel": ({"use_single_kernel": False, "use_megakernel": True},
                    ("eva_summaries_from_x", "eva_attention_from_x")),
+    # JAX's other impl routes (attention/eva.py:595-793)
+    "pallas": ({"impl": "pallas"}, ("eva_kernel",)),
+    "rowmajor": ({"impl": "rowmajor"}, ("eva_rowmajor",)),
 }
+# K11/K12 geometries (B, heads, grid rows, grid width, window, chunks, head
+# dim) and whether a bias is given: the headline cell, PVT-B3's first
+# stage, a small rectangular grid
+WIN_CHECKS = (("main bf16", (128, 3, 28, 28, 7, 49, 64), "bfloat16", True),
+              ("main f32", (128, 3, 28, 28, 7, 49, 64), "float32", True),
+              ("pvt stage 1 bf16", (128, 2, 56, 56, 7, 49, 32), "bfloat16", True),
+              ("small f32", (3, 3, 8, 12, 4, 6, 16), "float32", False),
+              ("small bf16", (3, 3, 8, 12, 4, 6, 16), "bfloat16", False))
+# PVTv2-B3 (the reference's second ImageNet recipe, main.sh -m pvt_medium2
+# -a eva) with the headline cell's EVA flags, served by cli.train_vit
+PVT_ARGV = [
+    "--model", "pvt_medium2", "--attn-name", "eva",
+    "--attn-window-size", "7", "--attn-num-landmarks", "49",
+    "--attn-attn-2d", "--attn-use-rpe", "--attn-adaptive-proj", "default",
+    "--input-size", "224", "--batch-size", "128", "--seed", "0",
+    "--device", "cuda",
+]
+PVT_EVA_BLOCKS = 3 + 4 + 18
+# its routes: the impl on the attention args and the kernel of each EVA block
+PVT_ROUTES = {"auto": "eva_single", "pallas": "eva_kernel",
+              "rowmajor": "eva_rowmajor"}
+# its EVA stages at 224 px (B, heads, grid side, head dim)
+PVT_STAGES = (("pvt stage 1", (128, 2, 56, 32)), ("pvt stage 2", (128, 4, 28, 32)),
+              ("pvt stage 3", (128, 10, 14, 32)))
 # K8's check at large-norm keys (keys x40, zero queries): the geometry of
 # tests/test_torch_eva_single.py::test_large_norm_keys_stay_finite_and_match_eager
 LARGE_KEYS = (1, 8, 4, 4, 2, 16)
@@ -664,6 +711,88 @@ def eval_bound(name, a, nh, ws):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def win_inputs(B, H, gh, gw, ws, C, d, dtype, seed, with_bias=True):
+    """(windows [3 x B, H, G, S, d], the same q, k, v in token order
+    [3 x B, H, N, d], summaries [2 x B, H, C, d], an RPE bias or None) of K11
+    and K12 at one geometry."""
+    import torch
+    from efficient_attention_torch.ops import windows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    rows = [r(B, H, gh * gw, d).to(dtype) for _ in range(3)]
+    wins = [windows.window_2d_partition(t.reshape(B, H, gh, gw, d), ws).contiguous()
+            for t in rows]
+    summ = [r(B, H, C, d).to(dtype), r(B, H, C, d).to(dtype)]
+    return wins, rows, summ, (0.5 * r(H, ws * ws, ws * ws) if with_bias else None)
+
+
+def win_calls(k11, k12, a, gw, ws):
+    """{name: (kernel call, plain call)} of K11 and K12 on inputs ``a``."""
+    wins, rows, summ, bias = a
+    scale = wins[0].shape[-1] ** -0.5
+    return {
+        k11.NAME: (lambda: k11.eva_attention_fused(*wins, *summ, scale, bias),
+                   lambda: k11.eva_fused_ref(*wins, *summ, scale, bias)),
+        k12.NAME: (lambda: k12.eva_attention_rowmajor(*rows, *summ, scale, gw, ws,
+                                                      bias),
+                   lambda: k12.eva_rowmajor_ref(*rows, *summ, scale, gw, ws, bias)),
+    }
+
+
+def win_bound(a, ws):
+    """Least time of K11 or K12 at inputs ``a``: q, k, v, the summaries and
+    the bias (f32) read once and the output written once over HBM, or its
+    two products (q.k and p.v over S + C columns, 2 d operations a column
+    each) at the peak of the inputs' type, whichever is larger."""
+    wins, _, summ, bias = a
+    q = wins[0]
+    t, d = q.element_size(), q.shape[-1]
+    moved = (4 * q.numel() + 2 * summ[0].numel()) * t
+    if bias is not None:
+        moved += bias.numel() * 4
+    flops = 2 * 2 * (q.numel() // d) * (ws * ws + summ[0].shape[2]) * d
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(q.dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def win_sdpa(a):
+    """One scaled_dot_product_attention call for K11's function on the
+    windows: q [B*G, H, S, D], keys and values [window | C chunks] of S + C,
+    the bias as an additive [H, S, S + C] mask (0 on the chunk columns); the
+    layout copies are excluded.  Returns (ms, its output as [B, H, G, S, D])."""
+    import torch
+    import torch.nn.functional as F
+
+    wins, _, summ, bias = a
+    B, H, G, S, d = wins[0].shape
+    C = summ[0].shape[2]
+
+    def lay(t):  # [B, H, G, n, d] -> [B*G, H, n, d]
+        return t.transpose(1, 2).reshape(B * G, H, -1, d)
+
+    def chunks(t):  # [B, H, C, d] -> [B, H, G, C, d]
+        return t[:, :, None].expand(B, H, G, C, d)
+
+    q = lay(wins[0]).contiguous()
+    k = lay(torch.cat([wins[1], chunks(summ[0])], dim=3)).contiguous()
+    v = lay(torch.cat([wins[2], chunks(summ[1])], dim=3)).contiguous()
+    mask = torch.cat([bias, bias.new_zeros(H, S, C)], dim=-1).to(q.dtype)
+    fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, scale=d ** -0.5)
+    out = fwd().reshape(B, G, H, S, d).transpose(1, 2)
+    return cuda_ms(fwd, 20), out
+
+
+def set_impl(model, eva_cls, impl):
+    """Every EVA module of ``model`` on route ``impl``."""
+    for module in model.modules():
+        if isinstance(module, eva_cls):
+            module.impl = impl
+    return model
+
+
 def profile_steps(torch, prof_factory, run, kernel_tag):
     """Device busy time, its share in kernels named ``kernel_tag``, and the
     op table of ``run()`` (3 train steps) under ``torch.profiler``."""
@@ -685,6 +814,7 @@ def profile_steps(torch, prof_factory, run, kernel_tag):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -706,10 +836,13 @@ def main() -> int:
         from efficient_attention_torch.ops.kernels import eva_1d as k4
         from efficient_attention_torch.ops.kernels import eva_summaries as k8
         from efficient_attention_torch.ops.kernels import eva_mega as k10
+        from efficient_attention_torch.ops.kernels import eva_kernel as k11
+        from efficient_attention_torch.ops.kernels import eva_rowmajor as k12
         from efficient_attention_torch.cli import generate, train_lm
         from efficient_attention_torch.attention.causal_eva import (
             CausalEVAttention,
         )
+        from efficient_attention_torch.ops import windows
     except ImportError as err:
         print(f"chip_smoke: run from the root of a checkout ({err})",
               file=sys.stderr)
@@ -725,7 +858,7 @@ def main() -> int:
     # ---- 1. build
     t0 = time.perf_counter()
     all_kernels = (k2.NAME, k1.NAME, k3.NAME, k4.NAME, k5.NAME, k6.NAME, k7.NAME,
-                   k8.NAME, k1.NAME_OUT, k10.NAME)
+                   k8.NAME, k1.NAME_OUT, k10.NAME, k11.NAME, k12.NAME)
     built = _build.build(all_kernels)
     log(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.2f} s")
     for name in all_kernels:
@@ -776,6 +909,14 @@ def main() -> int:
         if fn(*args) != py(*args):
             raise AssertionError(f"{py.__name__}{args} {py(*args)} != the "
                                  f"kernel's {fn(*args)}")
+    for d, S, C, itemsize in ((64, 49, 49, 2), (64, 49, 49, 4), (32, 49, 49, 2),
+                              (48, 49, 196, 2), (16, 8, 5, 4), (24, 16, 6, 2)):
+        want = k11.smem_bytes(d, S, C, itemsize)
+        for fn in (k11._lib().eva_kernel_smem_bytes,
+                   k12._lib().eva_rowmajor_smem_bytes):
+            if fn(d, S, C, int(itemsize == 2)) != want:
+                raise AssertionError(f"eva_kernel smem_bytes{(d, S, C, itemsize)} "
+                                     f"{want} != the kernel's {fn(d, S, C, itemsize == 2)}")
 
     # ---- 2. kernels against their plain versions
     errors = {}
@@ -945,6 +1086,66 @@ def main() -> int:
         if not (all(torch.isfinite(o.float()).all() for o in out) and err <= tol):
             raise AssertionError(f"eva_summaries at large-norm keys: err {err}")
 
+    # K11 on the windows and K12 on the same q, k, v in token order, in K1's
+    # terms; K11 also in 1-D (5 windows of 8, 5 chunks)
+    win_errors = {}
+    for label, (B, H, gh, gw, ws, C, d), dtype_name, with_bias in WIN_CHECKS:
+        a = win_inputs(B, H, gh, gw, ws, C, d, getattr(torch, dtype_name),
+                       seed=100 + len(win_errors), with_bias=with_bias)
+        merged = lambda t: windows.window_2d_merge(  # noqa: E731
+            t, ws, (gh, gw)).reshape(B, H, gh * gw, d)
+        for name, (kernel, plain) in win_calls(k11, k12, a, gw, ws).items():
+            with torch.no_grad():
+                out = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+            if out.shape != ref.shape or out.dtype != ref.dtype:
+                raise AssertionError(f"{name} {label}: {out.shape} {out.dtype} vs "
+                                     f"{ref.shape} {ref.dtype}")
+            err = (out.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            tol = K1_TOL[f"torch.{dtype_name}"] * max(1.0, peak)
+            log(f"[{name} vs plain] {label}: max abs err {err:.3e} (tol "
+                f"{tol:.1e}), max |value| {peak:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
+            win_errors[(name, label)] = err
+            if name == k11.NAME:
+                k11_out = merged(out)
+            elif not torch.equal(k11_out, out):
+                log(f"[eva_rowmajor vs eva_kernel] {label}: max abs difference "
+                    f"{(k11_out.float() - out.float()).abs().max().item():.3e}")
+        del a
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        gen1 = torch.Generator(device="cuda").manual_seed(109)
+        r = lambda *sh: torch.randn(*sh, generator=gen1, device="cuda")  # noqa: E731
+        ops = [r(2, 3, 5, 8, 16).to(dtype) for _ in range(3)]
+        ops += [r(2, 3, 5, 16).to(dtype), r(2, 3, 5, 16).to(dtype)]
+        bias = 0.5 * r(3, 8, 8)
+        out = k11.eva_attention_fused(*ops, 0.25, bias)
+        torch.cuda.synchronize()
+        ref = k11.eva_fused_ref(*ops, 0.25, bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = K1_TOL[f"torch.{dtype_name}"] * max(1.0, ref.float().abs().max().item())
+        log(f"[eva_kernel vs plain] 1-D {dtype_name}: max abs err {err:.3e} (tol "
+            f"{tol:.1e})")
+        if not err <= tol:
+            raise AssertionError(f"eva_kernel 1-D {dtype_name}: max abs err {err}")
+    # CUDA tensors outside the gates raise (head dim 20), launching nothing
+    a = win_inputs(1, 2, 8, 8, 4, 4, 20, torch.float32, seed=108)
+    before = k11.LAUNCHES, k12.LAUNCHES
+    for name, (kernel, _) in win_calls(k11, k12, a, 8, 4).items():
+        try:
+            kernel()
+        except ValueError as err:
+            log(f"[{name} outside its gate] raises: {err}")
+        else:
+            raise AssertionError(f"{name} took head dim 20")
+    if (k11.LAUNCHES, k12.LAUNCHES) != before:
+        raise AssertionError("a kernel outside its gate launched")
+    del a
+
     # ---- 3. the LM training path, counts set to 0 just before and read after
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1082,10 +1283,10 @@ def main() -> int:
             raise AssertionError(f"{cell} f32 logits differ by {lerr}")
         del model, eager
 
-    # EVA's eval routes on the serving cell, each selected by its attention
-    # args on the namespace that build_model reads: every kernel's count set
-    # to 0 just before the 4-batch eval and read just after; then f32 logits
-    # of the route against the eager path
+    # EVA's routes on the serving cell, each selected by its attention args
+    # on the namespace that build_model reads: every kernel's count set to 0
+    # just before the 4-batch eval and read just after; then f32 logits of
+    # the route against the eager path
     counters = ((k2, "LAUNCHES", k2.NAME), (k1, "LAUNCHES_FWD", "eva_packed_fwd"),
                 (k1, "LAUNCHES_BWD", "eva_packed_bwd"),
                 (k3, "LAUNCHES_FWD", "causal_packed_fwd"),
@@ -1094,7 +1295,8 @@ def main() -> int:
                 (k7, "LAUNCHES", k7.NAME), (k8, "LAUNCHES", k8.NAME),
                 (k1, "LAUNCHES_OUT", k1.NAME_OUT),
                 (k10, "LAUNCHES_SUMMARIES", k10.NAME_SUMMARIES),
-                (k10, "LAUNCHES_ATTENTION", k10.NAME_ATTENTION))
+                (k10, "LAUNCHES_ATTENTION", k10.NAME_ATTENTION),
+                (k11, "LAUNCHES", k11.NAME), (k12, "LAUNCHES", k12.NAME))
 
     def launched():
         return {name: getattr(k, attr) for k, attr, name in counters
@@ -1144,6 +1346,103 @@ def main() -> int:
         if not lerr <= LOGITS_TOL:
             raise AssertionError(f"eva {route} f32 logits differ by {lerr}")
         del model, eager
+
+    # K11 as EVA's auto fallback (JAX attention/eva.py:767-793): 28x28
+    # tokens, window 7, 49 landmarks, 2 heads of 48, a head dim K1 and K2
+    # are not built for; eval, then training (zero RF noise) with every
+    # gradient, against the eager path in f32
+    fb = EVA(96, 2, window_size=7, attn_2d=True, use_rpe=True,
+             num_landmarks=49).cuda()
+    if (k1.supports_packed(16, 784, 28, 7, 49, 48, 4, 2)
+            or k2.supports_single(16, 28, 28, 7, 4, "default", 288, 2, 4)
+            or not k11.supports_fused(16, 16, 49, 49, 48, 4, 2)):
+        raise AssertionError("the fallback geometry is not one for K11 alone")
+    with torch.no_grad():
+        fb.local_relative_position_bias_table.normal_(0.0, 0.5)
+    fb_eager = set_impl(copy.deepcopy(fb), EVA, "xla")
+    gen_fb = torch.Generator(device="cuda").manual_seed(111)
+    xf = torch.randn(16, 28, 28, 96, generator=gen_fb, device="cuda")
+    cot = torch.randn(xf.shape, generator=gen_fb, device="cuda")
+    fb_errors = {}
+    for train in (False, True):
+        for k, attr, _ in counters:
+            setattr(k, attr, 0)
+        outs = []
+        with mock.patch.object(EVA, "_sample_weights", lambda self, mu: mu):
+            for m in (fb, fb_eager):
+                m.train(train).zero_grad()
+                xt = xf.clone().requires_grad_(train)
+                with torch.set_grad_enabled(train):
+                    out = m(xt)
+                    if train:
+                        (out * cot).sum().backward()
+                outs.append([out.detach(), *([xt.grad] + [
+                    p.grad for p in m.parameters()] if train else [])])
+        torch.cuda.synchronize()
+        got = launched()
+        if got != {k11.NAME: 1}:
+            raise AssertionError(f"the auto fallback launched {got}")
+        errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                for a, b in zip(*outs)]
+        fb_errors["train" if train else "eval"] = max(errs)
+        log(f"[auto fallback] {'train' if train else 'eval'}: K11 launched once; "
+            f"f32 output{' and all gradients' if train else ''} vs eager path: "
+            f"max err {max(errs):.3e} relative to the largest |value| (at least "
+            f"1; tol {GRAD_TOL:.0e})")
+        if not max(errs) <= GRAD_TOL:
+            raise AssertionError(f"auto fallback differs from eager by {max(errs)}")
+    del fb, fb_eager, xf, cot
+
+    # PVTv2-B3 served on each route: every kernel's count set to 0 just before
+    # the 4-batch eval and read just after; then f32 logits of each route on
+    # 8 images against the eager path (TF32 off in cuDNN's convolutions)
+    def pvt_args(extra, impl):
+        pargs = train_vit.parse_args(PVT_ARGV + extra)
+        setattr(pargs.attn_specific_args, "impl", impl)
+        return pargs
+
+    pvt_launches = {}
+    for impl, kname in PVT_ROUTES.items():
+        for k, attr, _ in counters:
+            setattr(k, attr, 0)
+        t0 = time.perf_counter()
+        stats = train_vit.main(pvt_args(["--eval", "--bf16"], impl))
+        torch.cuda.synchronize()
+        got = launched()
+        log(f"[serve pvt {impl}] eval {json.dumps(stats)} in "
+            f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}")
+        if not all(math.isfinite(stats[k]) for k in ("acc1", "acc5", "loss")):
+            raise AssertionError(f"non-finite pvt {impl} eval stats {stats}")
+        if stats["batches"] != 4 or got != {kname: PVT_EVA_BLOCKS * 4}:
+            raise AssertionError(f"pvt {impl}: launches {got} for "
+                                 f"{stats['batches']} batches of "
+                                 f"{PVT_EVA_BLOCKS} EVA blocks")
+        pvt_launches[impl] = got[kname]
+    pvt = set_impl(train_vit.build_model(pvt_args(["--eval"], "xla")).cuda(),
+                   EVA, "xla")
+    with torch.no_grad():
+        pvt_eager = pvt(x)
+    pvt_errors = {}
+    for impl, kname in PVT_ROUTES.items():
+        before = dict(launched())
+        with torch.no_grad():
+            logits = set_impl(pvt, EVA, impl)(x)
+        torch.cuda.synchronize()
+        delta = {n: c - before.get(n, 0) for n, c in launched().items()
+                 if c != before.get(n, 0)}
+        if delta != {kname: PVT_EVA_BLOCKS}:
+            raise AssertionError(f"pvt {impl} f32 forward launched {delta}")
+        if logits.shape != (8, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad pvt {impl} logits {logits.shape}")
+        lerr = (logits - pvt_eager).abs().max().item()
+        pvt_errors[impl] = lerr
+        log(f"[serve pvt {impl}] f32 logits vs eager path: max abs err "
+            f"{lerr:.3e} (tol {LOGITS_TOL:.0e}), max |logit| "
+            f"{pvt_eager.abs().max().item():.3e}")
+        if not lerr <= LOGITS_TOL:
+            raise AssertionError(f"pvt {impl} f32 logits differ by {lerr}")
+    del pvt
+    torch.cuda.empty_cache()
 
     # ---- 5. the MT serving path, counts set to 0 just before and read after
     for k in (k2, k4, k5, k6, k7):
@@ -1258,6 +1557,47 @@ def main() -> int:
     if not gerr <= gtol:
         raise AssertionError(f"f32 gradients differ by {gerr}")
     del model, eager
+    # the same training step with impl='pallas' (K11) and impl='rowmajor'
+    # (K12), whose gradients are autograd's over the plain versions: counts
+    # set to 0 just before and read just after; then f32 gradients
+    win_train = {}
+    for impl, kname in (("pallas", k11.NAME), ("rowmajor", k12.NAME)):
+        for k, attr, _ in counters:
+            setattr(k, attr, 0)
+        t0 = time.perf_counter()
+        record = train_vit.main(route_args(TRAIN_ARGV, {"impl": impl}))
+        torch.cuda.synchronize()
+        got = launched()
+        log(f"[train {impl}] 8 steps + eval {json.dumps(record)} in "
+            f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}")
+        for key in ("loss", "grad_norm", "val_loss", "val_acc1"):
+            if not math.isfinite(record[key]):
+                raise AssertionError(f"non-finite {key} in {record}")
+        if got != {kname: 12 * 8 + 12 * 4}:
+            raise AssertionError(f"train {impl}: launches {got} for 8 train "
+                                 "steps and 4 eval batches of a 12-block model")
+        win_train[kname] = got[kname]
+        model = train_vit.build_model(route_args(["--drop-path", "0"],
+                                                 {"impl": impl})).cuda().train()
+        eager = set_impl(copy.deepcopy(model), EVA, "xla")
+        before = dict(launched())
+        with mock.patch.object(EVA, "_sample_weights", lambda self, mu: mu):
+            for m in (model, eager):
+                soft_target_cross_entropy(m(x), targets).backward()
+        torch.cuda.synchronize()
+        if launched().get(kname, 0) - before.get(kname, 0) != 12:
+            raise AssertionError(f"the {impl} path did not run {kname} 12 times")
+        gerr, gpeak = 0.0, 0.0
+        for p, pe in zip(model.parameters(), eager.parameters()):
+            gerr = max(gerr, (p.grad - pe.grad).abs().max().item())
+            gpeak = max(gpeak, pe.grad.abs().max().item())
+        gtol = GRAD_TOL * max(1.0, gpeak)
+        log(f"[train {impl}] f32 gradients vs eager path, all "
+            f"{len(list(model.parameters()))} parameters: max abs err {gerr:.3e} "
+            f"(tol {gtol:.1e}), max |grad| {gpeak:.3e}")
+        if not gerr <= gtol:
+            raise AssertionError(f"{impl} f32 gradients differ by {gerr}")
+        del model, eager
 
     # ---- 7. timings
     args, bias = k2_inputs(128, 28, 7, 4, 3, 64, torch.bfloat16, seed=7)
@@ -1309,6 +1649,25 @@ def main() -> int:
         f"{json.dumps(k1_bounds)}, SDPA on pre-partitioned windows "
         f"{json.dumps(sdpa)} ms; {card}")
     del qkv, rf, beta, grad, kernel_model, eager_model, softmax_model
+    # K11 and K12 at the headline cell's and PVT-B3's stage shapes, bf16:
+    # kernel, plain version, bound, and SDPA on the windows (its output's
+    # error against the plain version beside it)
+    win_ms = {}
+    for label, (B, H, g, d) in (("headline", (128, 3, 28, 64)),) + PVT_STAGES:
+        a = win_inputs(B, H, g, g, 7, 49, d, bf16, seed=120)
+        with torch.no_grad():
+            lib_ms, lib_out = win_sdpa(a)
+            for name, (kernel, plain) in win_calls(k11, k12, a, g, 7).items():
+                win_ms[(name, label)] = {
+                    "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+                    "bound": win_bound(a, 7), "library_ms": lib_ms}
+            ref = k11.eva_fused_ref(*a[0], *a[2], d ** -0.5, a[3])
+            lib_err = (lib_out.float() - ref.float()).abs().max().item()
+        log(f"[time] eva_kernel / eva_rowmajor {label} (B={B}, {H} heads of "
+            f"{d}, {g}x{g} tokens) bf16: "
+            f"{json.dumps({n: t for (n, lb), t in win_ms.items() if lb == label})}"
+            f"; SDPA output vs plain version max abs err {lib_err:.3e}; {card}")
+        del a, lib_out, ref
 
     # the train step at B=128 bf16 with the recipe's mixup, cutmix, erasing
     # and drop-path, on one batch held on the card: kernel path, eager
@@ -1329,11 +1688,9 @@ def main() -> int:
     labels = torch.randint(0, 1000, (128,), generator=gen, device="cuda")
     train_args = train_vit.parse_args(MAIN_ARGV + TRAIN_ARGV)
     states = {}
-    for path in ("kernel", "eager"):
-        m = train_vit.build_model(train_args).cuda()
-        if path == "eager":
-            for blk in m.blocks:
-                blk.attn.impl = "xla"
+    # the kernel path (K1), K11's route and the eager path
+    for path, impl in (("kernel", "auto"), ("pallas", "pallas"), ("eager", "xla")):
+        m = set_impl(train_vit.build_model(train_args).cuda(), EVA, impl)
         states[path] = TrainState(m, make_optimizer(
             "adamw", m.named_parameters(), lambda step: 5e-4 * 128 / 512))
 
@@ -1342,13 +1699,14 @@ def main() -> int:
             step_fn(state, images, labels, gen)
 
     train_rates = {}
-    for i, path in enumerate(("kernel", "eager", "eager", "kernel")):
+    for i, path in enumerate(("kernel", "pallas", "eager", "eager", "pallas",
+                              "kernel")):
         steps(states[path], 3)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         steps(states[path], 10)
         torch.cuda.synchronize()
-        train_rates[f"{path} path ({'first' if i in (0, 1) else 'second'})"] = (
+        train_rates[f"{path} path ({'first' if i < 3 else 'second'})"] = (
             128 * 10 / (time.perf_counter() - t0))
     log(f"[time] train step B=128 bf16 images/s: {json.dumps(train_rates)}; "
         f"{card}")
@@ -1531,6 +1889,29 @@ def main() -> int:
         f"of busy)")
     print(table, flush=True)
     del route_models, xb
+    # PVT-B3's forward images/s at B=128 bf16 on its routes and the eager
+    # path, in turns on one model; then one forward on K11 by op
+    pvt_tp = train_vit.parse_args(PVT_ARGV + ["--throughput", "--bf16"])
+    pvt = train_vit.build_model(pvt_tp).to(device, bf16)
+    pvt_rates = {}
+    for impl in ["auto", "pallas", "rowmajor", "xla", "xla", "rowmajor", "pallas",
+                 "auto"]:
+        pvt_rates.setdefault(impl, []).append(train_vit.compute_throughput(
+            set_impl(pvt, EVA, impl), pvt_tp, device, bf16)["images_per_sec"])
+    log(f"[time] PVT-B3 forward B=128 bf16 images/s, in turns: "
+        f"{json.dumps(pvt_rates)}; {card}")
+    xb = torch.randn(128, 224, 224, 3, generator=gen, device="cuda").to(bf16)
+    with torch.no_grad():
+        busy, k11_total, wall_ms, table = profile_steps(
+            torch, train_vit._profiler, lambda: set_impl(pvt, EVA, "pallas")(xb),
+            "eva_window::")
+    log(f"[profile] one PVT-B3 forward on K11 at B=128 bf16: device busy "
+        f"{busy:.3f} ms ({wall_ms:.3f} ms wall while profiled, "
+        f"{128e3 / pvt_rates['pallas'][0]:.3f} ms a forward unprofiled), "
+        f"eva_kernel {k11_total:.3f} ms ({k11_total / busy:.3f} of busy)")
+    print(table, flush=True)
+    del pvt, xb
+    torch.cuda.empty_cache()
 
     # eva_1d at the WMT encoder's shape (B=64 sentences of 32 tokens, 8 heads
     # of 64, window 8, halo 4, 8 chunks) and at long sentences (B=16, 256
@@ -1658,7 +2039,25 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
         })
+    for k, launches_run in ((k11, pvt_launches["pallas"]),
+                            (k12, pvt_launches["rowmajor"])):
+        t = win_ms[(k.NAME, "headline")]
+        kernels.append({
+            "name": k.NAME, "route": "cuda", "source": k.SOURCE,
+            "replaces": k.REPLACES, "launches": launches_run,
+            "max_abs_err": win_errors[(k.NAME, "main bf16")], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+        })
+    serve_win = {r: route_launches[r] for r in ("pallas", "rowmajor")}
+    log(f"[launches] this slice's paths: headline serving "
+        f"{json.dumps(serve_win)}, headline "
+        f"training {json.dumps(win_train)}, PVT-B3 serving "
+        f"{json.dumps(pvt_launches)}, auto fallback errors "
+        f"{json.dumps(fb_errors)}, PVT-B3 f32 logits errors "
+        f"{json.dumps(pvt_errors)}")
     print(json.dumps({"kernels": kernels}))
+    log(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,11 +26,19 @@ this order, where each route's gate holds:
    projection inside), else ``eva_packed`` (K1) and the projection;
 4. the eager tensor-op path.
 
-In training every toggle is ignored, as in JAX: K1 where its gate holds,
-else eager.  ``impl='xla'`` (the JAX package's name for the plain path)
-forces the eager path, and ``impl='packed'`` raises ``ValueError`` where K1's
-gate fails.  The RF noise is drawn from ``self.generator``, which the train
-step sets.
+In training every toggle is ignored, as in JAX: K1 where its gate holds.
+Where the packed path does not engage (or ``impl`` is ``'pallas'`` or
+``'rowmajor'``), the route goes on as JAX's does (``eva.py:595-793``): the
+projection, the natural-layout chunk summaries, then the joint softmax by
+the ``eva_rowmajor`` kernel (K12) on the token-order q, k, v with
+``impl='rowmajor'`` where its gate holds, else by the ``eva_kernel`` kernel
+(K11) on the partitioned windows for ``impl`` in ``auto``, ``pallas`` and
+``rowmajor`` where attention dropout is 0 and its gate holds, in training
+and at eval alike, else by the eager tensor ops.  ``impl='xla'`` (the JAX
+package's name for the plain path) forces the eager path;
+``impl='packed'`` raises ``ValueError`` where K1's gate fails, and
+``impl='pallas'`` before any compute where K11 cannot run.  The RF noise is
+drawn from ``self.generator``, which the train step sets.
 
 The 1-D forward (the WMT encoder's) is ported too: the sequence is padded to
 a window multiple, the chunk summaries come from chunks halo'd by ``ext`` on
@@ -41,10 +49,13 @@ windows carry the same halo, a key-padding mask and a T5 (non-causal,
 whatever ``attn_drop`` is (attention dropout is off at eval; the JAX gate's
 ``attn_drop == 0`` test keeps the WMT recipe's encoder off its kernel,
 ROADMAP.md Queue 3); ``impl='packed'`` raises ``ValueError`` where that gate
-fails; otherwise the eager twin runs.  Not ported yet, each raising
-``NotImplementedError`` with its ROADMAP.md item: 2-D halos, 2-D padding
-masks and 2-D T5 RPE (Queue 1, item 4), sequence parallelism (item 7), and
-the other TPU-only ``impl`` choices (Queue 2).
+fails.  Otherwise K11 takes the windows, for ``impl`` in ``auto``,
+``pallas`` and ``rowmajor``, where the input is free of padding (no mask
+given and no padding to a window multiple), there is no halo, attention
+dropout is 0 and its gate holds (``impl='pallas'`` raises where not); else
+the eager twin runs.  Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP.md item: 2-D halos, 2-D padding masks and 2-D T5 RPE
+(Queue 1, item 4) and sequence parallelism (item 7).
 """
 from __future__ import annotations
 
@@ -61,6 +72,10 @@ from efficient_attention_torch.attention.base import MASK_VAL
 from efficient_attention_torch.attention.causal_eva import T5RelativePositionBias
 from efficient_attention_torch.attention.local import LocalAttention
 from efficient_attention_torch.ops.kernels.eva_1d import eva_attention_1d, supports_1d
+from efficient_attention_torch.ops.kernels.eva_kernel import (
+    eva_attention_fused,
+    supports_fused,
+)
 from efficient_attention_torch.ops.kernels.eva_mega import (
     eva_attention_from_x,
     eva_summaries_from_x,
@@ -71,6 +86,10 @@ from efficient_attention_torch.ops.kernels.eva_packed import (
     eva_attention_packed_out,
     supports_packed,
     supports_packed_out,
+)
+from efficient_attention_torch.ops.kernels.eva_rowmajor import (
+    eva_attention_rowmajor,
+    supports_rowmajor,
 )
 from efficient_attention_torch.ops.kernels.eva_single import (
     eva_attention_single,
@@ -83,7 +102,7 @@ from efficient_attention_torch.ops.kernels.eva_summaries import (
 from efficient_attention_torch.ops.random_features import prm_projection
 from efficient_attention_torch.ops.rpe import t5_bucket_table
 
-_TPU_IMPLS = {"pallas": "K11", "rowmajor": "K12"}
+IMPLS = ("auto", "packed", "pallas", "rowmajor", "xla")
 
 
 def _adaptive_proj(head_dim: int, with_ln: bool) -> nn.Sequential:
@@ -103,7 +122,9 @@ class EVA(LocalAttention):
         table (1-D)
       * ``impl``: ``auto`` (the kernels where their gates allow, else
         eager), ``packed`` (the kernels, raising where the gate of K1, or
-        in 1-D of K4, fails) or ``xla`` (eager)
+        in 1-D of K4, fails), ``pallas`` (K11, raising where it cannot
+        run), ``rowmajor`` (2-D: K12, else as ``pallas`` without raising)
+        or ``xla`` (eager)
       * the 2-D eval routes, JAX's defaults (``eva.py:88-122``):
         ``use_single_kernel`` (True: K2), ``use_megakernel`` (K10),
         ``use_pallas_summaries`` (K8), ``fuse_output_proj`` (K9)
@@ -137,13 +158,8 @@ class EVA(LocalAttention):
             raise NotImplementedError(
                 "sequence-parallel EVA is not ported yet; see ROADMAP.md "
                 "Queue 1, item 7")
-        if impl in _TPU_IMPLS:
-            raise NotImplementedError(
-                f"impl={impl!r} selects TPU kernel {_TPU_IMPLS[impl]}, not "
-                "ported yet; see ROADMAP.md Queue 2")
-        if impl not in ("auto", "packed", "xla"):
-            raise ValueError(
-                f"unknown EVA impl {impl!r}; use 'auto', 'packed' or 'xla'")
+        if impl not in IMPLS:
+            raise ValueError(f"unknown EVA impl {impl!r}; use one of {IMPLS}")
         self.adaptive_proj = adaptive_proj
         self.num_landmarks = num_landmarks
         self.use_t5_rpe = use_t5_rpe
@@ -229,7 +245,20 @@ class EVA(LocalAttention):
                 "impl='packed' requires square windows and chunks dividing "
                 "the grid, attn_drop=0 and a geometry within the eva_packed "
                 "kernel's gate (supports_packed)")
-        return self._forward_eager(x, j)
+        S = ws * ws
+        fused = self.impl != "xla" and self._fused_ok(
+            B, N // S, S, (gh // j) * (gw // j), x.element_size())
+        if self.impl == "pallas" and not fused:
+            raise ValueError(
+                "impl='pallas' requires attn_drop=0 and a geometry within the "
+                "eva_kernel kernel's gate (supports_fused)")
+        return self._forward_windows(x, j, fused)
+
+    def _fused_ok(self, B: int, G: int, S: int, C: int, itemsize: int) -> bool:
+        """Whether K11 can take G windows of S tokens and C chunks: no
+        attention dropout and the kernel's gate (``eva.py:696-703, 773``)."""
+        return self.attn_dropout.p == 0.0 and supports_fused(
+            B, G, S, C, self.head_dim, itemsize, self.num_heads)
 
     def _forward_single(self, x: torch.Tensor, j: int) -> torch.Tensor:
         """Single-pass eval path: one ``eva_single`` launch computes the
@@ -402,42 +431,63 @@ class EVA(LocalAttention):
                             chunked(v)).reshape(B, nh, c, d)
         return rf_k_bar, beta
 
-    def _forward_eager(self, x: torch.Tensor, j: int) -> torch.Tensor:
-        """Eager path: natural-layout summaries, then the joint softmax
-        over ``[window keys | chunk keys]`` (``eva.py:795-840``)."""
+    def _forward_windows(self, x: torch.Tensor, j: int, fused: bool
+                         ) -> torch.Tensor:
+        """The route after the packed path (``eva.py:612-840``): natural-
+        layout summaries, then the joint softmax over ``[window keys | chunk
+        keys]``: with ``impl='rowmajor'`` by K12 on the token-order q, k, v
+        where its gate holds, else by K11 on the partitioned windows where
+        ``fused``, else by the eager tensor ops."""
         B, gh, gw, C = x.shape
         seq_shape = (gh, gw)
+        ws = self.window_size
         q, k, v = self.proj_and_split_heads(x)
         rf_k_bar, beta = self._chunk_summaries_natural(q, k, v, seq_shape, j)
-        w_q = self.window_partition(q, seq_shape)
-        w_k = self.window_partition(k, seq_shape)
-        w_v = self.window_partition(v, seq_shape)
+        if (self.impl == "rowmajor" and self.attn_dropout.p == 0.0
+                and supports_rowmajor(B, gh * gw, gw, ws, rf_k_bar.shape[2],
+                                      self.head_dim, x.element_size(),
+                                      self.num_heads)):
+            output = eva_attention_rowmajor(q, k, v, rf_k_bar, beta, self.scale,
+                                            gw, ws, bias=self.window_bias())
+        else:
+            w_q, w_k, w_v = (self.window_partition(t, seq_shape) for t in (q, k, v))
+            if fused:
+                output = eva_attention_fused(w_q, w_k, w_v, rf_k_bar, beta,
+                                             self.scale, self.window_bias())
+            else:
+                output = self._joint_eager(w_q, w_k, w_v, rf_k_bar, beta)
+            output = self.window_merge(output, seq_shape)
+        x = output.transpose(1, 2).reshape(B, gh, gw, C)
+        return self.proj_dropout(self.proj(x))
+
+    def _joint_eager(self, w_q, w_k, w_v, rf_k_bar, beta) -> torch.Tensor:
+        """The eager 2-D joint softmax over ``[window keys | chunk keys]``
+        (``eva.py:795-834``), ``[B, H, G, S, D]``."""
         rfa_chunk = torch.einsum("bhwid,bhcd->bhwic", w_q,
                                  (self.scale * rf_k_bar).to(w_q.dtype))
         local = (torch.einsum("bhwie,bhwje->bhwij", w_q, w_k)
-                 * self.scale).to(q.dtype)
+                 * self.scale).to(w_q.dtype)
         if self.rpe_enabled:
             local = self.add_rel_pos_bias(local)
         local_len = local.shape[-1]
         attn = F.softmax(torch.cat([local, rfa_chunk.to(local.dtype)], dim=-1),
                          dim=-1).to(w_v.dtype)
-        output = (torch.einsum("bhwij,bhwjd->bhwid", attn[..., :local_len], w_v)
-                  + torch.einsum("bhwic,bhcd->bhwid", attn[..., local_len:],
-                                 beta.to(w_v.dtype)))
-        output = self.window_merge(output, seq_shape)
-        x = output.transpose(1, 2).reshape(B, gh, gw, C)
-        return self.proj_dropout(self.proj(x))
+        return (torch.einsum("bhwij,bhwjd->bhwid", attn[..., :local_len], w_v)
+                + torch.einsum("bhwic,bhcd->bhwid", attn[..., local_len:],
+                               beta.to(w_v.dtype)))
 
     def _forward_1d(self, x: torch.Tensor,
                     key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
         """1-D forward of a ``[B, N, C]`` sequence: padded to a window
         multiple with its mask (``eva.py:506-520``), chunk summaries over
-        halo'd, masked chunks, then K4 at eval where its gate holds, else the
+        halo'd, masked chunks, then K4 at eval where its gate holds, else K11
+        on padding-free input without halo where its gate holds, else the
         eager twin."""
         B, orig_n, C = x.shape
         ws, ext = self.window_size, self.ext_size
         if ws <= 0:
             raise ValueError("1-D EVA needs a window_size > 0")
+        mask_given = key_padding_mask is not None
         # an all-False mask where there was none: the same function as the
         # JAX module's mask-free forms (eva.py:469-488, 809)
         x, key_padding_mask, (N,) = self._process_input(x, key_padding_mask)
@@ -446,6 +496,17 @@ class EVA(LocalAttention):
             raise ValueError(
                 f"num_landmarks={self.num_landmarks} exceeds the (padded) "
                 f"sequence length {N}; the RF chunk size would be 0")
+        # JAX's padding_free: no mask given and none made by the padding to
+        # a window multiple (eva.py:506-523)
+        padding_free = not mask_given and N == orig_n
+        fused = (self.impl in ("auto", "pallas", "rowmajor") and padding_free
+                 and ext == 0
+                 and self._fused_ok(B, N // ws, ws, N // j, x.element_size()))
+        if self.impl == "pallas" and not fused:
+            raise ValueError(
+                "impl='pallas' requires no halo, no padding mask, a sequence "
+                "that needs no padding to a window multiple, attn_drop=0 and a "
+                "geometry within the eva_kernel kernel's gate (supports_fused)")
         H, d = self.num_heads, self.head_dim
         qkv = self.qkv(x)  # [B, N, 3*H*D]
         q, k, v = qkv.reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
@@ -464,6 +525,12 @@ class EVA(LocalAttention):
             raise ValueError(
                 "impl='packed' requires eval mode and a geometry within the "
                 "eva_1d kernel's gate (supports_1d)")
+        if fused:
+            w_q, w_k, w_v = (self.window_partition(t, None) for t in (q, k, v))
+            out = eva_attention_fused(w_q, w_k, w_v, rf_k_bar, beta, self.scale,
+                                      self.window_bias())
+            out = self.window_merge(out, None).transpose(1, 2).reshape(B, N, H * d)
+            return self.proj_dropout(self.proj(out))
         return self._forward_eager_1d(q, k, v, rf_k_bar, beta,
                                       key_padding_mask, orig_n)
 

@@ -18,6 +18,10 @@ Example (DeiT-tiny-p8 with 2-D EVA, the main path):
       --model evit_tiny_p8 --attn-name eva --attn-window-size 7 \\
       --attn-num-landmarks 49 --attn-attn-2d --attn-use-rpe \\
       --batch-size 128 --bf16 --epochs 1 --max-steps-per-epoch 8
+
+The PVTv2 archs (``--model pvt_*``, e.g. ``pvt_medium2``, PVTv2-B3) take the
+same flags and ``--use-conv-patchify``; ``--eval`` and ``--throughput``
+serve them.
 """
 from __future__ import annotations
 
@@ -136,10 +140,14 @@ def parse_args(argv=None):
     (``vit/main.py:186-193``)."""
     from efficient_attention_torch import AttentionFactory, NestedNamespace
     from efficient_attention_torch.models.efficient_vit import EfficientTransformer
+    from efficient_attention_torch.models.pvt import PyramidVisionTransformerV2
 
     parser = build_parser()
     known, _ = parser.parse_known_args(argv)
-    parser = EfficientTransformer.add_model_specific_args(parser)
+    if known.model.startswith("pvt"):
+        parser = PyramidVisionTransformerV2.add_model_specific_args(parser)
+    else:
+        parser = EfficientTransformer.add_model_specific_args(parser)
     parser = AttentionFactory.add_attn_specific_args(
         parser, known.attn_name, struct_name="attn_specific_args",
         prefix="attn")
@@ -194,14 +202,21 @@ def build_model(args) -> torch.nn.Module:
         img_size=args.input_size, num_classes=args.num_classes,
         drop_rate=args.drop, drop_path_rate=args.drop_path,
         attn_drop_rate=args.attn_drop_rate,
-        patchify_stem=getattr(args, "patchify_stem", "default"),
-        use_glu=getattr(args, "use_glu", False),
-        use_pos_emb=not getattr(args, "no_pos_emb", False),
         checkpoint_activations=getattr(args, "checkpoint_activations", False))
-    if getattr(args, "depth", None):
-        model_kwargs["depth"] = args.depth
-    if getattr(args, "num_heads", None):
-        model_kwargs["num_heads"] = args.num_heads
+    if args.model.startswith("pvt"):
+        # PVT's own kwargs only (JAX cli/train_vit.py:250-265), and its stem
+        # flag, which the JAX CLI registers but does not pass on
+        model_kwargs["use_conv_patchify"] = getattr(args, "use_conv_patchify",
+                                                    False)
+    else:
+        model_kwargs.update(
+            patchify_stem=getattr(args, "patchify_stem", "default"),
+            use_glu=getattr(args, "use_glu", False),
+            use_pos_emb=not getattr(args, "no_pos_emb", False))
+        if getattr(args, "depth", None):
+            model_kwargs["depth"] = args.depth
+        if getattr(args, "num_heads", None):
+            model_kwargs["num_heads"] = args.num_heads
     model = create_model(args.model, **model_kwargs)
     init_weights(model, torch.Generator().manual_seed(args.seed))
     return model.eval()

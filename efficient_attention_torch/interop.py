@@ -66,9 +66,12 @@ DERIVED_BUFFERS = ("relative_position_index",)
 _PVT_BLOCK = re.compile(r"block(\d+)_(\d+)")
 
 
-def flax_path_to_torch_key(parts) -> str:
+def flax_path_to_torch_key(parts, conv_stems=()) -> str:
     """``['blocks_0', 'EVA_0', 'qkv', 'kernel'] -> 'blocks.0.attn.qkv.weight'``
-    (PVT paths as well: ``block1_0`` -> ``block1.0.attn.attn_fn``)."""
+    (PVT paths as well: ``block1_0`` -> ``block1.0.attn.attn_fn``).  In the
+    ``patch_embedN`` named in ``conv_stems`` (PVT's ``use_conv_patchify``
+    stem), ``Conv_i`` and ``GroupNorm_i`` are items ``3i`` and ``3i + 1`` of
+    the port's ``proj`` Sequential."""
     pvt = any(_PVT_BLOCK.fullmatch(p) for p in parts)
     body, out = parts[:-1], []
     i = 0
@@ -83,7 +86,11 @@ def flax_path_to_torch_key(parts) -> str:
             out.append("attn.attn_fn" if pvt else "attn")
         elif p.startswith("patch_embed"):
             child = body[i + 1] if i + 1 < len(body) else ""
-            out.append(p + (".norm" if child == "LayerNorm_0" else ".proj"))
+            if p in conv_stems and child != "LayerNorm_0":
+                kind, n = child.rsplit("_", 1)
+                out.append(f"{p}.proj.{3 * int(n) + (kind == 'GroupNorm')}")
+            else:
+                out.append(p + (".norm" if child == "LayerNorm_0" else ".proj"))
             i += 2
             continue
         elif i > 0 and (body[i - 1], p) in _CHILD_MAP:
@@ -126,9 +133,11 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     key) onto the reference's parameter names, in PyTorch layouts."""
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
+    conv_stems = {k for k, v in params.items()
+                  if k.startswith("patch_embed") and "GroupNorm_0" in v}
     out: Dict[str, torch.Tensor] = {}
     for parts, val in _flatten(params):
-        key = flax_path_to_torch_key(list(parts))
+        key = flax_path_to_torch_key(list(parts), conv_stems)
         if key in out:
             raise ValueError(f"two flax leaves map to {key!r}")
         out[key] = torch.from_numpy(

@@ -1,12 +1,16 @@
-"""Shared model layers: dropout, gated MLP, stochastic depth, patch embedding.
+"""Shared model layers: dropout, gated MLP, stochastic depth, patch
+embeddings, and PVTv2's depthwise-conv MLP and overlapping patch embedding.
 
 PyTorch counterparts of ``efficient_attention_tpu/models/layers.py``
-(reference ``vit/models/model_utils.py`` and ``vit/models/efficient_vit.py:
-32-95``).  Token grids stay ``[B, H, W, C]`` as in the JAX package; the
-patch embedding permutes to PyTorch's NCHW only around its convolution.
+(reference ``vit/models/model_utils.py``, ``vit/models/efficient_vit.py:
+32-95`` and ``vit/models/pvt_legacy.py``).  Token grids stay ``[B, H, W, C]``
+as in the JAX package; the convolutions permute to PyTorch's NCHW only
+around themselves.  As in flax, LayerNorm and GroupNorm take epsilon 1e-6
+and GELU is the tanh form.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -99,11 +103,83 @@ class PatchEmbed(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
+def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` (NCHW) applied to a ``[B, H, W, C]`` grid."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class DWConv(nn.Module):
+    """The 3x3 depthwise convolution of PVTv2's MLP (``pvt_legacy.py``
+    ``DWConv:285-296``; the reference's ``dwconv.dwconv`` names)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv2d(dim, dim, 3, padding=1, groups=dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _conv_nhwc(self.dwconv, x)
+
+
+class MlpWithDepthwiseConv(nn.Module):
+    """PVTv2 MLP on ``[B, H, W, C]`` grids (JAX ``models/layers.py:76-101``):
+    fc1, a ReLU when ``linear``, the 3x3 depthwise conv, GELU (tanh form),
+    fc2."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: Optional[int] = None, drop: float = 0.0,
+                 linear: bool = False):
+        super().__init__()
+        self.linear = linear
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.dwconv = DWConv(hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features or in_features)
+        self.drop = Dropout(drop)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.fc1(x)
+        if self.linear:
+            x = F.relu(x)
+        x = F.gelu(self.dwconv(x), approximate="tanh")
+        x = self.fc2(self.drop(x))
+        return self.drop(x)
+
+
+class OverlapPatchEmbed(nn.Module):
+    """PVTv2 overlapping patch embedding (JAX ``models/layers.py:154-190``),
+    ``[B, H, W, C] -> [B, H/stride, W/stride, d]``: a ``patch x patch`` conv
+    with padding ``patch // 2``, then LayerNorm.  With ``use_conv_patchify``
+    the 3-conv stem instead (two stride-2 3x3 convs to d/4 and d/2 channels
+    and a stride-1 one to d, each followed by GroupNorm(1), the first two by
+    GELU), whose modules are ``proj.0`` to ``proj.7``."""
+
+    def __init__(self, patch_size: int = 7, stride: int = 4, in_chans: int = 3,
+                 embed_dim: int = 768, use_conv_patchify: bool = False):
+        super().__init__()
+        d = embed_dim
+        if use_conv_patchify:
+            gelu = functools.partial(nn.GELU, approximate="tanh")
+            self.proj = nn.Sequential(
+                nn.Conv2d(in_chans, d // 4, 3, stride=2, padding=1),
+                nn.GroupNorm(1, d // 4, eps=1e-6), gelu(),
+                nn.Conv2d(d // 4, d // 2, 3, stride=2, padding=1),
+                nn.GroupNorm(1, d // 2, eps=1e-6), gelu(),
+                nn.Conv2d(d // 2, d, 3, stride=1, padding=1),
+                nn.GroupNorm(1, d, eps=1e-6))
+        else:
+            self.proj = nn.Conv2d(in_chans, d, patch_size, stride=stride,
+                                  padding=patch_size // 2)
+        self.norm = nn.LayerNorm(d, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(_conv_nhwc(self.proj, x))
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every parameter from ``generator`` as the JAX package
     initialises its modules: truncated-normal(0.02) Linear weights, learned
-    tables and embeddings, zero biases, unit LayerNorms, convolutions
+    tables and embeddings, zero biases, unit LayerNorms and GroupNorms,
+    convolutions
     normal(0, sqrt(2/fan_out)) and learned Fourier projections normal(0,
     0.02); a Performer's learnable projection keeps the orthogonal matrix it
     was made with.  Draws on the CPU, so one seed gives the same weights on
@@ -119,7 +195,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 continue
             if name == "random_proj":
                 cpu.normal_(0.0, 0.02, generator=generator)
-            elif isinstance(module, nn.LayerNorm):
+            elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
                 cpu.fill_(1.0 if name == "weight" else 0.0)
             elif name == "bias":
                 cpu.zero_()

@@ -1,9 +1,10 @@
 """Tests of the PyTorch port that need an NVIDIA GPU (marker ``cuda``): the
 kernels eva_single (K2), eva_packed (K1), causal_packed (K3), eva_1d (K4),
 lara_fused (K5), performer_fused (K6), local_packed (K7), eva_summaries (K8),
-eva_packed_out (K9) and eva_mega (K10) against their plain versions, the
-wrappers' refusal to fall back when a library is missing, a small
-generation whose encoder runs K4, and EVA's eval routes on the card.
+eva_packed_out (K9), eva_mega (K10), eva_kernel (K11) and eva_rowmajor (K12)
+against their plain versions, the wrappers' refusal to fall back when a
+library is missing, a small generation whose encoder runs K4, EVA's eval
+routes on the card, and a 2-block model on K11.
 
 They skip where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine without them:
@@ -482,4 +483,107 @@ def test_eva_eval_routes_on_the_card(cuda_device, toggles, counter):
         out, want = m(x), eager(x)
     torch.cuda.synchronize()
     assert count() == before + 1
+    assert (out - want).abs().max().item() <= 1e-4
+
+
+# ---- K11 eva_kernel and K12 eva_rowmajor ----
+
+def _k11_args(device, dtype, B, H, gh, gw, ws, C, d, seed=37):
+    """Windows [B, H, G, S, d] of a gh x gw grid (and the same q, k, v in
+    token order), chunk summaries and an RPE bias."""
+    from efficient_attention_torch.ops import windows
+
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    rows = [t(B, H, gh * gw, d).to(dtype) for _ in range(3)]
+    wins = [windows.window_2d_partition(r.reshape(B, H, gh, gw, d), ws) for r in rows]
+    return wins, rows, [t(B, H, C, d).to(dtype), t(B, H, C, d).to(dtype)], \
+        0.5 * t(H, ws * ws, ws * ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", [(2, 3, 28, 28, 7, 49, 64),
+                                      (2, 2, 8, 12, 4, 6, 24)])
+def test_eva_window_kernels_match_plain(cuda_device, geometry, dtype):
+    """K11 on the windows and K12 on the tokens against their plain versions
+    (relative to the largest output, as K1's)."""
+    from efficient_attention_torch.ops.kernels import eva_kernel as K11
+    from efficient_attention_torch.ops.kernels import eva_rowmajor as K12
+
+    B, H, gh, gw, ws, C, d = geometry
+    wins, rows, summ, bias = _k11_args(cuda_device, dtype, *geometry)
+    before = K11.LAUNCHES, K12.LAUNCHES
+    pairs = [(K11.eva_attention_fused(*wins, *summ, d ** -0.5, bias),
+              K11.eva_fused_ref(*wins, *summ, d ** -0.5, bias)),
+             (K12.eva_attention_rowmajor(*rows, *summ, d ** -0.5, gw, ws, bias),
+              K12.eva_rowmajor_ref(*rows, *summ, d ** -0.5, gw, ws, bias))]
+    torch.cuda.synchronize()
+    assert (K11.LAUNCHES, K12.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for out, ref in pairs:
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
+
+
+def test_eva_window_kernels_raise_outside_their_gates_or_without_their_library(
+        cuda_device, monkeypatch, tmp_path):
+    from efficient_attention_torch.ops.kernels import _build
+    from efficient_attention_torch.ops.kernels import eva_kernel as K11
+    from efficient_attention_torch.ops.kernels import eva_rowmajor as K12
+
+    wins, rows, summ, bias = _k11_args(cuda_device, torch.float32, 1, 2, 8, 8, 4,
+                                       4, 20)  # head dim 20
+    with pytest.raises(ValueError, match="cannot take"):
+        K11.eva_attention_fused(*wins, *summ, 0.2, bias)
+    with pytest.raises(ValueError, match="cannot take"):
+        K12.eva_attention_rowmajor(*rows, *summ, 0.2, 8, 4, bias)
+    wins, rows, summ, bias = _k11_args(cuda_device, torch.float16, 1, 2, 8, 8, 4,
+                                       4, 16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K11.eva_attention_fused(*wins, *summ, 0.25, bias)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    for k in (K11, K12):
+        k._lib.cache_clear()
+    try:
+        wins, rows, summ, bias = _k11_args(cuda_device, torch.float32, 1, 2, 8, 8,
+                                           4, 4, 16)
+        before = K11.LAUNCHES, K12.LAUNCHES
+        with pytest.raises(RuntimeError, match="nvcc"):
+            K11.eva_attention_fused(*wins, *summ, 0.25, bias)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            K12.eva_attention_rowmajor(*rows, *summ, 0.25, 8, 4, bias)
+        assert (K11.LAUNCHES, K12.LAUNCHES) == before
+    finally:
+        for k in (K11, K12):
+            k._lib.cache_clear()
+
+
+def test_two_block_headline_model_runs_k11_in_each_block(cuda_device):
+    """A 2-block DeiT-tiny-p8 + EVA with impl='pallas' at 224 px, f32: one
+    K11 launch a block, the logits within 1e-4 of the eager path."""
+    from efficient_attention_torch.models import create_model
+    from efficient_attention_torch.models.layers import init_weights
+    from efficient_attention_torch.ops.kernels import eva_kernel as K11
+
+    args = {"window_size": 7, "num_landmarks": 49, "attn_2d": True,
+            "use_rpe": True, "adaptive_proj": "default"}
+    m = create_model("evit_tiny_p8", attn_name="eva", depth=2,
+                     attn_args=dict(args, impl="pallas"))
+    eager = create_model("evit_tiny_p8", attn_name="eva", depth=2,
+                         attn_args=dict(args, impl="xla"))
+    init_weights(m, torch.Generator().manual_seed(0))
+    eager.load_state_dict(m.state_dict())
+    m, eager = m.to(cuda_device).eval(), eager.to(cuda_device).eval()
+    x = torch.randn(4, 224, 224, 3, device=cuda_device)
+    before = K11.LAUNCHES
+    with torch.no_grad():
+        out, want = m(x), eager(x)
+    torch.cuda.synchronize()
+    assert K11.LAUNCHES == before + 2
     assert (out - want).abs().max().item() <= 1e-4

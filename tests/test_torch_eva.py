@@ -169,12 +169,15 @@ _EVA = {"dim": 48, "num_heads": 4, "window_size": 4, "num_landmarks": 4,
 
 
 @pytest.mark.parametrize("args,error", [
-    (dict(_EVA, attn_2d=False, impl="pallas"), NotImplementedError),  # 1-D K11
+    # the K11/K12 impls reach no unported configuration either
+    (dict(_EVA, attn_2d=False, impl="pallas", seq_axis="seq"),
+     NotImplementedError),
     (dict(_EVA, overlap_window=True), NotImplementedError),  # 2-D halo
     (dict(_EVA, use_rpe=False, use_t5_rpe=True), NotImplementedError),
     (dict(_EVA, seq_axis="seq"), NotImplementedError),      # seq-parallel
-    (dict(_EVA, impl="pallas"), NotImplementedError),        # TPU kernel K11
-    (dict(_EVA, impl="rowmajor"), NotImplementedError),      # TPU kernel K12
+    (dict(_EVA, impl="pallas", overlap_window=True), NotImplementedError),
+    (dict(_EVA, impl="rowmajor", use_rpe=False, use_t5_rpe=True),
+     NotImplementedError),
     (dict(_EVA, impl="fast"), ValueError),                   # unknown impl
     (dict(_EVA, adaptive_proj="mlp"), NotImplementedError),
 ])
@@ -244,7 +247,6 @@ def test_windows_and_rpe_match_jax():
 from efficient_attention_tpu.attention.eva import EVA as JaxEVA  # noqa: E402
 from efficient_attention_torch.attention.eva import EVA  # noqa: E402
 from efficient_attention_torch.interop import state_dict_from_jax  # noqa: E402
-from efficient_attention_torch.ops.kernels import eva_packed as K1  # noqa: E402
 
 GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
 
@@ -300,15 +302,11 @@ def test_training_summaries_match_jax(monkeypatch, geometry, adaptive_proj):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("impl", ["auto", "xla"])
-@pytest.mark.parametrize("geometry", list(GEOMETRIES))
-def test_eva_train_mode_matches_jax(monkeypatch, geometry, impl):
-    """Train-mode output and every gradient (parameters and input) against
-    the JAX module at deterministic=False with the same noise.  'auto'
-    takes the packed path (K1's plain versions on the CPU), 'xla' the eager
-    one."""
+@functools.lru_cache(maxsize=None)
+def _jax_train(geometry):
+    """(output, parameter gradients, input gradient) of the JAX module at
+    deterministic=False, with the noise ``_inject_noise`` put in place."""
     x, params, _ = _jax_eva(geometry, "default")
-    _inject_noise(monkeypatch, _noise(geometry))
     cot = np.random.default_rng(23).standard_normal(x.shape).astype(np.float32)
     jm = JaxFactory.build_attention("eva", dict(_eva_args(geometry, "default"),
                                                 impl="xla"))
@@ -320,21 +318,37 @@ def test_eva_train_mode_matches_jax(monkeypatch, geometry, impl):
     (_, ref), (gp, gx) = jax.jit(jax.value_and_grad(
         loss, argnums=(0, 1), has_aux=True))(
         to_jax(params), jnp.asarray(x))
+    return np.asarray(ref), jax.tree_util.tree_map(np.array, gp), np.asarray(gx)
+
+
+# the kernel wrapper each impl's training forward calls
+TRAIN_ROUTES = {"auto": ["eva_attention_packed"], "xla": [],
+                "pallas": ["eva_attention_fused"],
+                "rowmajor": ["eva_attention_rowmajor"]}
+
+
+@pytest.mark.parametrize("impl", list(TRAIN_ROUTES))
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_eva_train_mode_matches_jax(monkeypatch, geometry, impl):
+    """Train-mode output and every gradient (parameters and input) against
+    the JAX module at deterministic=False with the same noise.  'auto'
+    takes the packed path (K1's plain versions on the CPU), 'pallas' K11,
+    'rowmajor' K12 (their autograd Functions over the plain versions),
+    'xla' the eager one."""
+    x, params, _ = _jax_eva(geometry, "default")
+    _inject_noise(monkeypatch, _noise(geometry))
+    cot = np.random.default_rng(23).standard_normal(x.shape).astype(np.float32)
+    ref, gp, gx = _jax_train(geometry)
     m = load_jax_params(AttentionFactory.build_attention(
         "eva", dict(_eva_args(geometry, "default"), impl=impl)), params).train()
     xt = torch.from_numpy(x).requires_grad_()
-    calls = K1.eva_attention_packed
-    spy = []
-    monkeypatch.setattr("efficient_attention_torch.attention.eva."
-                        "eva_attention_packed",
-                        lambda *a, **k: spy.append(1) or calls(*a, **k))
+    calls = _spy_wrappers(monkeypatch)
     out = m(xt)
     (out * torch.from_numpy(cot)).sum().backward()
-    assert len(spy) == (impl == "auto")
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
-                               atol=ATOL, rtol=RTOL)
-    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **GRAD_TOL)
-    want = state_dict_from_jax(jax.tree_util.tree_map(np.array, gp))
+    assert calls == TRAIN_ROUTES[impl]
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(xt.grad.numpy(), gx, **GRAD_TOL)
+    want = state_dict_from_jax(gp)
     named = dict(m.named_parameters())
     assert set(want) == set(named)
     for name, g in want.items():
@@ -409,7 +423,8 @@ ROUTES = {
 }
 _WRAPPERS = ("eva_attention_single", "eva_attention_packed",
              "eva_attention_packed_out", "eva_summaries_packed",
-             "eva_summaries_from_x", "eva_attention_from_x")
+             "eva_summaries_from_x", "eva_attention_from_x",
+             "eva_attention_fused", "eva_attention_rowmajor")
 
 
 def _spy_wrappers(monkeypatch):
@@ -473,17 +488,28 @@ _ALL = dict(use_single_kernel=True, use_megakernel=True,
     # where K2's gate fails, the megakernel takes over
     (dict(use_megakernel=True), "default", ("supports_single",),
      ["eva_summaries_from_x", "eva_attention_from_x"]),
-    # a failing gate falls through to the next route, down to eager
+    # a failing gate falls through to the next route, down to K11 (JAX's
+    # auto fallback, eva.py:767-793), then eager
     (dict(_ALL, use_single_kernel=False), "default", ("supports_mega",),
      ["eva_summaries_packed", "eva_attention_packed_out"]),
     (dict(_ALL, use_single_kernel=False), "default",
      ("supports_mega", "supports_summaries", "supports_packed_out"),
      ["eva_attention_packed"]),
     (dict(_ALL, use_single_kernel=False), "default",
-     ("supports_mega", "supports_packed"), []),
+     ("supports_mega", "supports_packed"), ["eva_attention_fused"]),
     # K8 and K10 take the adaptive Dense (+LN) only: 'none' falls through
     (dict(_ALL, use_single_kernel=False), "none", (),
      ["eva_attention_packed_out"]),
+    (dict(_ALL, use_single_kernel=False), "default",
+     ("supports_mega", "supports_packed", "supports_fused"), []),
+    (dict(impl="pallas"), "default", (), ["eva_attention_fused"]),
+    (dict(_ALL, impl="rowmajor"), "default", (), ["eva_attention_rowmajor"]),
+    # rowmajor falls back to K11 where K12's gate fails
+    (dict(impl="rowmajor"), "default", ("supports_rowmajor",),
+     ["eva_attention_fused"]),
+    (dict(impl="rowmajor"), "default", ("supports_rowmajor", "supports_fused"),
+     []),
+    (dict(impl="xla"), "default", (), []),
 ])
 def test_eva_eval_dispatch(monkeypatch, toggles, adaptive_proj, failing, expected):
     assert _route_calls(monkeypatch, toggles, adaptive_proj,
@@ -516,3 +542,142 @@ def test_eva_training_with_toggles_is_exactly_without():
                        + [p.grad for p in m.parameters()])
     for a, b in zip(*results):
         assert torch.equal(a, b)
+
+
+# ---- the K11 and K12 routes (JAX eva.py:595-793) ----
+
+@pytest.mark.parametrize("impl,wrapper", [("pallas", "eva_attention_fused"),
+                                          ("rowmajor", "eva_attention_rowmajor")])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_eva_kernel_routes_match_jax(monkeypatch, geometry, impl, wrapper):
+    """Eval: 'pallas' through K11 and 'rowmajor' through K12 (their plain
+    versions on the CPU) against the JAX eager module, f32."""
+    x, params, ref = _jax_eva(geometry, "default")
+    m = load_jax_params(AttentionFactory.build_attention(
+        "eva", dict(_eva_args(geometry, "default"), impl=impl)), params)
+    calls = _spy_wrappers(monkeypatch)
+    np.testing.assert_allclose(torch_apply(m, x), ref, atol=ATOL, rtol=RTOL)
+    assert calls == [wrapper]
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_eva_auto_falls_back_to_k11(monkeypatch, train):
+    """'auto' where the packed path does not engage (K1's and K2's gates
+    made to fail) takes K11, in training and at eval."""
+    assert _route_calls(monkeypatch, {}, train=train, failing_gates=(
+        "supports_single", "supports_packed")) == ["eva_attention_fused"]
+
+
+@pytest.mark.parametrize("args", [dict(_EVA, impl="pallas", attn_drop=0.1),
+                                  dict(_EVA, impl="pallas", num_heads=16)])
+def test_eva_pallas_raises_before_any_compute(monkeypatch, args):
+    """impl='pallas' with attention dropout, or with a head dim K11 is not
+    built for (3), raises ValueError before the projection runs."""
+    m = AttentionFactory.build_attention("eva", args)
+    monkeypatch.setattr(m, "qkv", None)  # any compute would fail otherwise
+    for mode in (m.train, m.eval):
+        with pytest.raises(ValueError, match="impl='pallas'"):
+            mode()(torch.zeros(1, 8, 8, 48))
+
+
+_EVA_1D = dict(dim=48, num_heads=3, window_size=8, num_landmarks=8,
+               attn_2d=False, adaptive_proj="no-ln")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_eva_1d(bias_kind, train):
+    """x [2, 64, 48], flax params, and the JAX eager module's output and
+    gradients (train: deterministic=False with ``_inject_noise``'s noise)
+    for 1-D EVA without halo, with the learned or the T5 bias."""
+    args = dict(_EVA_1D, **{"learned": dict(use_rpe=True),
+                            "t5": dict(use_t5_rpe=True)}[bias_kind])
+    x = np.random.default_rng(31).standard_normal((2, 64, 48)).astype(np.float32)
+    cot = np.random.default_rng(32).standard_normal(x.shape).astype(np.float32)
+    jm = JaxEVA(impl="xla", **args)
+    params = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)), 33)
+
+    def loss(p, xx):
+        out = jm.apply(p, xx, deterministic=not train)
+        return jnp.sum(out * jnp.asarray(cot)), out
+
+    (_, ref), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(to_jax(params), jnp.asarray(x))
+    return (args, x, cot, params, np.asarray(ref),
+            jax.tree_util.tree_map(np.array, gp), np.asarray(gx))
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("impl", ["pallas", "rowmajor"])
+@pytest.mark.parametrize("bias_kind", ["learned", "t5"])
+def test_eva_1d_k11_route_matches_jax(monkeypatch, bias_kind, impl, train):
+    """1-D without halo or padding: 'pallas' and 'rowmajor' take K11 (not
+    K4, at eval too) and match the JAX eager module's output and, in
+    training with the same RF noise, every gradient."""
+    import efficient_attention_torch.attention.eva as eva_module
+
+    _inject_noise(monkeypatch, np.random.default_rng(34).standard_normal(
+        (2, 8, 3, 16)).astype(np.float32))
+    args, x, cot, params, ref, gp, gx = _jax_eva_1d(bias_kind, train)
+    m = load_jax_params(AttentionFactory.build_attention(
+        "eva", dict(args, impl=impl)), params).train(train)
+    calls = _spy_wrappers(monkeypatch)
+    monkeypatch.setattr(eva_module, "eva_attention_1d",
+                        lambda *a, **k: calls.append("eva_attention_1d"))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = m(xt)
+    assert calls == ["eva_attention_fused"]
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=ATOL, rtol=RTOL)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), gx, **GRAD_TOL)
+    named = dict(m.named_parameters())
+    for name, g in state_dict_from_jax(gp).items():
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(),
+                                   **GRAD_TOL, err_msg=name)
+
+
+def _1d_calls(monkeypatch, impl="auto", train=False, N=64, mask=False, **kw):
+    import efficient_attention_torch.attention.eva as eva_module
+
+    calls = _spy_wrappers(monkeypatch)
+    real = eva_module.eva_attention_1d
+    monkeypatch.setattr(eva_module, "eva_attention_1d", lambda *a, **k:
+                        calls.append("eva_attention_1d") or real(*a, **k))
+    m = AttentionFactory.build_attention(
+        "eva", dict(_EVA_1D, use_rpe=True, impl=impl, **kw)).train(train)
+    with torch.no_grad():
+        m(torch.zeros(2, N, 48),
+          torch.zeros(2, N, dtype=torch.bool) if mask else None)
+    return calls
+
+
+@pytest.mark.parametrize("kw,expected", [
+    (dict(train=True), ["eva_attention_fused"]),
+    (dict(train=True, N=60), []),          # padded to a window multiple
+    (dict(train=True, mask=True), []),     # a padding mask given
+    (dict(train=True, overlap_window=True), []),  # a halo
+    (dict(train=True, attn_drop=0.1), []),
+    (dict(), ["eva_attention_1d"]),        # eval: K4 first
+    (dict(impl="pallas"), ["eva_attention_fused"]),
+    (dict(impl="rowmajor", train=True), ["eva_attention_fused"]),
+    (dict(impl="xla", train=True), []),
+])
+def test_eva_1d_dispatch(monkeypatch, kw, expected):
+    """1-D: 'auto' in training takes K11 only on input free of padding,
+    without halo or attention dropout; at eval K4 first; 'pallas' takes
+    K11, not K4."""
+    assert _1d_calls(monkeypatch, **kw) == expected
+
+
+@pytest.mark.parametrize("kw", [dict(N=60), dict(mask=True),
+                                dict(overlap_window=True), dict(attn_drop=0.1)])
+def test_eva_1d_pallas_raises_where_k11_cannot_run(monkeypatch, kw):
+    for train in (False, True):
+        with pytest.raises(ValueError, match="impl='pallas'"):
+            _1d_calls(monkeypatch, impl="pallas", train=train, **kw)
+
+
+def test_factory_passes_impl():
+    """``impl`` reaches ``EVA`` through the attention args dict, as the
+    chip script sets it (no CLI flag, as in JAX)."""
+    for impl in ("pallas", "rowmajor"):
+        assert AttentionFactory.build_attention("eva", dict(_EVA, impl=impl)).impl == impl
