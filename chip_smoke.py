@@ -49,7 +49,9 @@ Two models, random weights from a seed:
 Phases, each raising on failure:
 
 1. build: compile every kernel with nvcc (one process per source, all at
-   once) and print the seconds;
+   once) and print the seconds, each kernel's registers and spills, and for
+   ``eva_packed``'s tensor-core backward the blocks an SM; the wrappers'
+   twins of the kernels' shared-memory layouts and route choices;
 2. kernels against their plain versions on the card: ``eva_single``;
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
@@ -58,7 +60,11 @@ Phases, each raising on failure:
    entry points; ``eva_kernel`` and ``eva_rowmajor`` (also at PVT-B3's
    first stage, K11 in 1-D, and raising outside their gates); at the main
    paths' shapes in bf16 and f32 and at small odd geometries (K3-K12 in
-   both types), and K8 at large-norm keys;
+   both types), and K8 at large-norm keys; K1 also at PVT-B3's first stage,
+   without a bias where S + C is not a multiple of 16, and where S + C is
+   too wide for its one-pass strips (its backward on the tensor-core route
+   in bf16 at head dims 16, 32 and 64, asserted), and its CUDA-core
+   backward in bf16 at the main shape;
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
@@ -82,12 +88,14 @@ Phases, each raising on failure:
    positions, and the share of identical 1-best hypotheses of the two;
 6. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
    ``--bf16`` and the DeiT recipe, counts set to 0 just before and read
-   just after (12 x 8 launches of each K1 kernel, 12 x 4 of K2), finite
+   just after (12 x 8 launches of each K1 kernel, every backward on the
+   tensor-core route, 12 x 4 of K2), finite
    losses; then f32 gradients, kernel path against eager path; the same
    with ``impl='pallas'`` and ``impl='rowmajor'`` (12 x 8 + 12 x 4
    launches of K11 or K12, none of any other);
 7. timings with CUDA events (kernels, plain versions, bounds, SDPA
-   yardsticks, forward and train-step rates of both models, the forward
+   yardsticks; K1's backward on both routes, K3 in bf16 and in the f32 the
+   LM step runs; forward and train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
    and 3136 tokens, K8-K10 and the forward rates of EVA's eval routes in
    turns with the default route and the eager path, K4 and the MT encoder,
@@ -107,6 +115,7 @@ checkout of the repository.
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +149,14 @@ GRAD_TOL = 1e-4
 CHECKS = (("main bf16", (128, 28, 7, 4, 3, 64), "bfloat16"),
           ("main f32", (128, 28, 7, 4, 3, 64), "float32"),
           ("golden f32", (2, 14, 7, 2, 4, 12), "float32"))
+# K1 is also checked, with its bias or without, at PVT-B3's first stage
+# (heads of 32), where S + C (16 + 4) is not a multiple of 16, and where
+# S + C (49 + 196) is too wide for a strip to stay in registers (its strips
+# then take two passes), all on the backward's tensor-core route
+K1_CHECKS = tuple((label, geo, dtype, True) for label, geo, dtype in CHECKS) + (
+    ("pvt stage 1 bf16", (128, 56, 7, 8, 2, 32), "bfloat16", True),
+    ("odd no-bias bf16", (3, 8, 4, 4, 3, 16), "bfloat16", False),
+    ("two-pass bf16", (8, 28, 7, 2, 2, 16), "bfloat16", True))
 TRAIN_ARGV = ["--bf16", "--epochs", "1", "--max-steps-per-epoch", "8",
               "--warmup-epochs", "0", "--output-dir", "build/smoke_train"]
 # the WikiText-103 recipe (configs/wikitext103_causal_eva.yaml's attention
@@ -793,6 +810,26 @@ def set_impl(model, eva_cls, impl):
     return model
 
 
+def mma_kernel_report(log_path, tag):
+    """What ``nvcc -Xptxas -v`` said of each instantiation of the kernel
+    named ``tag`` (registers, stack, spills), by its template arguments."""
+    report, name = {}, None
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if tag in line else None
+            if name is not None:
+                # the template arguments of the mangled name, e.g.
+                # ...kernelILi64ELb1EEE...: D = 64, one pass (Lb0: two)
+                args = re.match(r"ILi(\d+)ELb([01])E", name[name.index(tag) + len(tag):])
+                name = f"D={args[1]} {'one' if args[2] == '1' else 'two'}-pass"
+                report[name] = []
+        elif name is not None and ("registers" in line or "spill" in line):
+            report[name].append(line.replace("ptxas info    :", "").strip())
+    if not report:
+        raise AssertionError(f"no ptxas report of {tag} in {log_path}")
+    return {k: "; ".join(v) for k, v in report.items()}
+
+
 def profile_steps(torch, prof_factory, run, kernel_tag):
     """Device busy time, its share in kernels named ``kernel_tag``, and the
     op table of ``run()`` (3 train steps) under ``torch.profiler``."""
@@ -869,11 +906,30 @@ def main() -> int:
     if lib_smem != k2.smem_bytes(98, 64, 2, 49, 7, 7):
         raise AssertionError(f"gate's smem layout {k2.smem_bytes(98, 64, 2, 49, 7, 7)}"
                              f" != kernel's {lib_smem}")
-    for backward in (0, 1):
-        lib_smem = k1._lib().eva_packed_smem_bytes(backward, 64, 49, 49)
-        if lib_smem != k1.smem_bytes(bool(backward), 64, 49, 49):
+    for backward, d, S, C, itemsize in (
+            (0, 64, 49, 49, 2), (0, 64, 49, 49, 4), (1, 64, 49, 49, 2),
+            (1, 64, 49, 49, 4), (1, 32, 49, 49, 2), (1, 16, 16, 4, 2),
+            (1, 12, 49, 49, 2)):
+        lib_smem = k1._lib().eva_packed_smem_bytes(backward, d, S, C, itemsize)
+        if lib_smem != k1.smem_bytes(bool(backward), d, S, C, itemsize):
             raise AssertionError(f"eva_packed gate's smem layout != kernel's "
-                                 f"{lib_smem} (backward={backward})")
+                                 f"{lib_smem} {(backward, d, S, C, itemsize)}")
+    for d in k1.HEAD_DIMS:
+        for itemsize in (2, 4):
+            if bool(k1._lib().bwd_uses_mma(d, itemsize)) != k1.bwd_uses_mma(d, itemsize):
+                raise AssertionError(f"eva_packed bwd_uses_mma({d}, {itemsize}): "
+                                     f"the kernel's and the wrapper's differ")
+    k1_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k1.NAME}.log",
+                                 "eva_packed_bwd_mma_kernel")
+    k1_blocks = {f"d{d}": k1._lib().eva_packed_bwd_mma_blocks_per_sm(d, 49, 49)
+                 for d in (64, 32)}
+    log(f"[build] eva_packed tensor-core backward, ptxas: {json.dumps(k1_ptxas)}; "
+        f"blocks an SM at 49 + 49 keys (occupancy calculator): "
+        f"{json.dumps(k1_blocks)}; {k1.smem_bytes(True, 64, 49, 49, 2)} bytes of "
+        f"shared memory a block at head dim 64")
+    if min(k1_blocks.values()) < 2:
+        raise AssertionError(f"eva_packed tensor-core backward: {k1_blocks} blocks an SM")
+    for backward in (0, 1):
         qt = 32 if backward else 64
         lib_smem = k3._lib().causal_packed_smem_bytes(backward, 128, 128, 64, qt)
         if lib_smem != k3.smem_bytes(bool(backward), 128, 128, 64, qt):
@@ -938,19 +994,45 @@ def main() -> int:
             raise AssertionError(f"eva_single {label}: max abs err {err} > {tol}")
         errors[label] = err
     k1_errors = {}
-    for label, (B, g, ws, j, nh, d), dtype_name in CHECKS:
+    for label, (B, g, ws, j, nh, d), dtype_name, with_bias in K1_CHECKS:
         dtype = getattr(torch, dtype_name)
         qkv, rf, beta, bias, grad = k1_inputs(B, g, ws, j, nh, d, dtype,
                                               seed=10 + len(k1_errors))
+        bias = bias if with_bias else None
         scale = d ** -0.5
+        mma_before = k1.LAUNCHES_BWD_MMA
         got = [k1._forward(qkv, rf, beta, bias, scale, nh, g, ws),
                *k1._backward(qkv, rf, beta, bias, grad, scale, nh, g, ws)]
         torch.cuda.synchronize()
+        mma = k1.bwd_uses_mma(d, qkv.element_size())
+        if k1.LAUNCHES_BWD_MMA - mma_before != int(mma):
+            raise AssertionError(f"eva_packed {label}: the backward did not take "
+                                 f"the {'tensor' if mma else 'CUDA'}-core route")
         want = [k1.eva_packed_fwd_ref(qkv, rf, beta, scale, nh, g, ws, bias),
                 *k1.eva_packed_bwd_ref(qkv, rf, beta, bias, grad, scale, nh,
                                        g, ws)]
+        if label == "main bf16":  # the CUDA-core backward, timed beside it
+            label_cc = "main bf16 cuda-core bwd"
+            got_cc = k1._backward(qkv, rf, beta, bias, grad, scale, nh, g, ws,
+                                  cuda_cores=True)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dqkv", "drf", "dbeta", "dbias"), got_cc, want[1:]):
+                err = (a.float() - b.float()).abs().max().item()
+                tol = K1_TOL[str(b.dtype)] * max(1.0, b.float().abs().max().item())
+                log(f"[k1 vs plain] {label_cc} {name}: max abs err {err:.3e} "
+                    f"(tol {tol:.1e})")
+                if not err <= tol:
+                    raise AssertionError(f"eva_packed {label_cc} {name}: max abs "
+                                         f"err {err} > {tol}")
+            del got_cc
+        log(f"[k1 vs plain] {label}: backward on the "
+            f"{'tensor' if mma else 'CUDA'}-core route")
         for name, a, b in zip(("out", "dqkv", "drf", "dbeta", "dbias"),
                               got, want):
+            if b is None and not with_bias:
+                if a is not None:
+                    raise AssertionError(f"eva_packed {label}: dbias without a bias")
+                continue
             if a.shape != b.shape or a.dtype != b.dtype:
                 raise AssertionError(f"eva_packed {label} {name}: {a.shape} "
                                      f"{a.dtype} vs {b.shape} {b.dtype}")
@@ -1506,13 +1588,14 @@ def main() -> int:
         f"{mt_runs['kernel']['bleu']}, eager {mt_runs['eager']['bleu']}")
 
     # ---- 6. the training path, counts set to 0 just before and read after
-    k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
+    k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k1.LAUNCHES_BWD_MMA = k2.LAUNCHES = 0
     t0 = time.perf_counter()
     record = train_vit.cli_main(MAIN_ARGV + TRAIN_ARGV)
     torch.cuda.synchronize()
     train_launches = {"eva_packed_fwd": k1.LAUNCHES_FWD,
                       "eva_packed_bwd": k1.LAUNCHES_BWD,
                       "eva_single": k2.LAUNCHES}
+    bwd_mma_launches = k1.LAUNCHES_BWD_MMA
     log(f"[train] 8 steps + eval {json.dumps(record)} in "
         f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(train_launches)}")
     # the epoch's loss and grad norm are means over its steps, so they are
@@ -1525,6 +1608,11 @@ def main() -> int:
                           "eva_single": 12 * 4}:
         raise AssertionError(f"launches {train_launches} for 8 train steps and "
                              "4 eval batches of a 12-block model")
+    log(f"[train] eva_packed backward launches on the tensor-core route: "
+        f"{bwd_mma_launches} of {train_launches['eva_packed_bwd']}")
+    if bwd_mma_launches != 12 * 8:
+        raise AssertionError(f"{bwd_mma_launches} of the 96 bf16 eva_packed "
+                             "backward launches took the tensor-core route")
     # f32 gradients of every parameter: the kernel path against the eager
     # path, train mode, zero RF noise, no drop-path
     args = train_vit.parse_args(MAIN_ARGV + ["--drop-path", "0"])
@@ -1636,6 +1724,8 @@ def main() -> int:
         "fwd": cuda_ms(lambda: k1._forward(*k1_args), 20),
         "bwd": cuda_ms(lambda: k1._backward(*k1_args[:4], grad,
                                             *k1_args[4:]), 10),
+        "bwd_cuda_cores": cuda_ms(lambda: k1._backward(
+            *k1_args[:4], grad, *k1_args[4:], cuda_cores=True), 10),
         "plain_fwd": cuda_ms(lambda: k1.eva_packed_fwd_ref(
             *k1_args[:3], *k1_args[4:], bias), 5),
         "plain_bwd": cuda_ms(lambda: k1.eva_packed_bwd_ref(
@@ -1645,7 +1735,8 @@ def main() -> int:
                  "bwd": k1_bound(qkv, rf, beta, bias, 3, 7, True)}
     sdpa = dict(zip(("fwd", "bwd", "fwd+bwd"),
                     sdpa_yardstick(qkv, rf, beta, bias, 3, 28, 7, grad)))
-    log(f"[time] eva_packed main shape bf16: {json.dumps(k1_ms)} ms, bounds "
+    log(f"[time] eva_packed main shape bf16 (bwd on the tensor-core route, "
+        f"bwd_cuda_cores the CUDA-core route): {json.dumps(k1_ms)} ms, bounds "
         f"{json.dumps(k1_bounds)}, SDPA on pre-partitioned windows "
         f"{json.dumps(sdpa)} ms; {card}")
     del qkv, rf, beta, grad, kernel_model, eager_model, softmax_model
@@ -1724,23 +1815,28 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # causal_packed at the LM's shape (B=18, T=512, 8 heads of 128, window
-    # 128, chunk 8, bf16): kernels, plain versions, bounds, SDPA yardstick
+    # 128, chunk 8): kernels, plain versions, bounds, SDPA yardstick, in bf16
+    # (the kernels line) and in the f32 that the LM step runs
     k3_shape = (18, 512, 8, 128, 128, 8)
-    ops, grad = k3_inputs(*k3_shape, bf16, seed=40)
     k3_geo = (128 ** -0.5, 8, 128, 8)
-    k3_ms = {
-        "fwd": cuda_ms(lambda: k3._forward(*ops, *k3_geo), 20),
-        "bwd": cuda_ms(lambda: k3._backward(*ops, grad, *k3_geo), 10),
-        "plain_fwd": cuda_ms(lambda: k3.causal_packed_fwd_ref(*ops, *k3_geo), 5),
-        "plain_bwd": cuda_ms(lambda: k3.causal_packed_bwd_ref(*ops, grad, *k3_geo), 3),
-    }
-    k3_bounds = {"fwd": k3_bound(ops[0], ops[3], 128, 8, 8, False),
-                 "bwd": k3_bound(ops[0], ops[3], 128, 8, 8, True)}
-    k3_sdpa_ms = dict(zip(("fwd", "bwd", "fwd+bwd"), k3_sdpa(ops, grad, 8, 128, 8)))
-    log(f"[time] causal_packed main shape bf16: {json.dumps(k3_ms)} ms, bounds "
-        f"{json.dumps(k3_bounds)}, SDPA on pre-partitioned windows "
-        f"{json.dumps(k3_sdpa_ms)} ms; {card}")
-    del ops, grad
+    for dtype in (bf16, torch.float32):
+        ops, grad = k3_inputs(*k3_shape, dtype, seed=40)
+        times = {
+            "fwd": cuda_ms(lambda: k3._forward(*ops, *k3_geo), 20),
+            "bwd": cuda_ms(lambda: k3._backward(*ops, grad, *k3_geo), 10),
+            "plain_fwd": cuda_ms(lambda: k3.causal_packed_fwd_ref(*ops, *k3_geo), 5),
+            "plain_bwd": cuda_ms(lambda: k3.causal_packed_bwd_ref(*ops, grad, *k3_geo),
+                                 3),
+        }
+        bounds = {"fwd": k3_bound(ops[0], ops[3], 128, 8, 8, False),
+                  "bwd": k3_bound(ops[0], ops[3], 128, 8, 8, True)}
+        lib_ms = dict(zip(("fwd", "bwd", "fwd+bwd"), k3_sdpa(ops, grad, 8, 128, 8)))
+        log(f"[time] causal_packed main shape {str(dtype)[6:]}: {json.dumps(times)} "
+            f"ms, bounds {json.dumps(bounds)}, SDPA on pre-partitioned windows "
+            f"{json.dumps(lib_ms)} ms; {card}")
+        if dtype == bf16:
+            k3_ms, k3_bounds, k3_sdpa_ms = times, bounds, lib_ms
+        del ops, grad
 
     # the LM train step at B=18 x 512 bf16, dropout 0, on one batch held on
     # the card: kernel path, eager path, eager, kernel; then a profile of 3

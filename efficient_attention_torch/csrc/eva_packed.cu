@@ -44,15 +44,58 @@
 // atomics: drf/dbeta into [B, C, H*D], dbias into per-image partials
 // [B, H, S, S] that the wrapper sums over B.  So each address sees only
 // (windows / wpb) atomic adds.  CUDA cores only: no wgmma, TMA or pipelining.
+//
+// The backward has a second route, on tensor cores, for bf16 with head dims
+// a multiple of 16 (bwd_uses_mma; everything else takes the CUDA-core kernel
+// above).  Its roundings are the ones mma.sync m16n8k16 computes: bf16
+// operands, f32 sums, so the same function as the CUDA-core route; the
+// logits are held in base 2 (scale and bias times log2 e, one ex2 for each
+// exp), which moves P by about 1e-7 relative, far below its bf16 rounding.
+// A block of 4 warps takes wpb windows of one (image, head) in turn.  Design:
+//  * staging in bf16: q, g [S][D+8], keys [k | rf] and values [v | beta]
+//    [S+C][D+8], copied 16 bytes at a time (cp.async); the chunk rows once a
+//    block, the next window's k and v rows while the transposed products of
+//    this one run.  Rows are padded by 16 bytes so that the 8 rows an
+//    ldmatrix reads fall in 8 different bank groups.  Rows past the end are
+//    never stored: the fragment loads read the last real row instead (keys
+//    and values past S + C, q and g past S: their logits are masked to
+//    -inf, or their rows of P and dS are 0) or a zero row (P and dS past S);
+//  * a warp owns a strip of 16 query rows of a window and computes its
+//    logits and dP = g vals^T as mma.sync accumulator fragments, 16 key
+//    columns at a time.  Where S + C <= 112 (the one-pass kernel) the
+//    strip's fragments stay in registers: the row max, then exp(s - max) in
+//    place and the row sums of P and P dP, each reduced over the quad of
+//    threads that shares a row (two shuffles, no block-wide step).  Wider
+//    strips take two passes: the row statistics online (as in flash
+//    attention), then the products again.  Then P and dS = P (dP - sum P dP)
+//    in f32; dS into the block's dbias (each element owned by one thread: no
+//    atomics, no barrier); P and dS rounded to bf16 into shared memory for
+//    the transposed products; dq = dS keys with the dS fragments repacked in
+//    registers as operands;
+//  * after one barrier, [dk | drf] = dS^T q and [dv | dbeta] = P^T g: the
+//    warps share the 16-row output tiles, reading P, dS, q and g through
+//    ldmatrix.trans; window rows go to dqkv, chunk rows are summed over the
+//    block's windows in shared f32 and added once per block with f32
+//    atomics (four at a time for drf and dbeta), as on the CUDA-core route.
+// 112,000 bytes of shared memory at the DeiT-tiny-p8 shape (head dim 64,
+// 49 + 49 keys), so two blocks fit an SM.  mma.sync and cp.async only: no
+// wgmma or TMA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_frag.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMmaThreads = 128;
+constexpr int kMmaWarps = kMmaThreads / 32;
+// Windows a block takes in turn at most (WINDOWS_PER_BLOCK in the wrapper):
+// the tensor-core backward's token table holds their rows.
+constexpr int kMaxWpb = 4;
 
 struct Params {
   const void* qkv;    // [B, N, 3*nh*D], T
@@ -105,6 +148,43 @@ __host__ __device__ inline Layout make_layout(bool backward, int D, int S, int C
   } else {
     L.rowstat = o; o += align16((size_t)S * 4);
   }
+  L.total = o;
+  return L;
+}
+
+__host__ __device__ inline bool uses_mma(int D, int itemsize) {
+  return itemsize == 2 && D % 16 == 0;
+}
+
+__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
+__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+
+// Offsets (bytes) of the tensor-core backward's shared memory; the same
+// layout as smem_bytes() in ops/kernels/eva_packed.py.  bf16: q and g
+// [S][D+8], keys and values [S+C][D+8], P and dS [S][KB] and one zero row
+// [KB], KB = round16(S+C) + 8; f32: the bias and dbias [S][S], the block's
+// drf and dbeta sums [C][D]; int32: the token index of each row of the
+// block's windows [kMaxWpb][S].
+struct MmaLayout {
+  size_t q, g, keys, vals, P, Ds, zero, bias, dbias, drf, dbeta, tok, total;
+};
+
+__host__ __device__ inline MmaLayout make_mma_layout(int D, int S, int C) {
+  const size_t DB = D + 8, SC = S + C, KB = round16(S + C) + 8;
+  MmaLayout L = {};
+  size_t o = 0;
+  L.q = o;     o += align128(S * DB * 2);
+  L.g = o;     o += align128(S * DB * 2);
+  L.keys = o;  o += align128(SC * DB * 2);
+  L.vals = o;  o += align128(SC * DB * 2);
+  L.P = o;     o += align128(S * KB * 2);
+  L.Ds = o;    o += align128(S * KB * 2);
+  L.zero = o;  o += align128(KB * 2);
+  L.bias = o;  o += align128((size_t)S * S * 4);
+  L.dbias = o; o += align128((size_t)S * S * 4);
+  L.drf = o;   o += align128((size_t)C * D * 4);
+  L.dbeta = o; o += align128((size_t)C * D * 4);
+  L.tok = o;   o += align128((size_t)kMaxWpb * S * 4);
   L.total = o;
   return L;
 }
@@ -462,6 +542,451 @@ __global__ void __launch_bounds__(kThreads) eva_packed_bwd_kernel(const Params p
   for (int e = tid; e < S * S; e += kThreads) atomicAdd(dbias + e, dbias_s[e]);
 }
 
+using bf16 = __nv_bfloat16;
+
+// Key-column tiles of 16 that the one-pass strip keeps in registers: the
+// strips of geometries with S + C <= 16 * kResidentTiles (112; the
+// DeiT-tiny-p8 and PVT-B3 shapes have 49 + 49) run in one pass, the others
+// in two.  Eight tiles spilled registers at head dim 64.
+constexpr int kResidentTiles = 7;
+
+// The logits are held in base 2 (scale and bias times log2 e), so that
+// exp(s - max) is one ex2 instruction.
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One 16-column tile kt of a strip's logits s (scaled, the bias added on
+// the window's columns, -inf past S + C) and of dP = g vals^T, from the
+// strip's q and g fragments qa, ga.  Rows are the thread's row0 and
+// row0 + 8; s[n][e] and dp[n][e] are column kt*16 + 8n + 2(lane%4) + e%2
+// of row row0 + 8 (e / 2).
+template <int D>
+__device__ __forceinline__ void strip_tile(const Params& p, int kt, int row0,
+                                           const uint32_t (&qa)[D / 16][4],
+                                           const uint32_t (&ga)[D / 16][4], const bf16* keys,
+                                           const bf16* vals, const float* bias_s,
+                                           float (&s)[2][4], float (&dp)[2][4]) {
+  using namespace mma_frag;
+  constexpr int DB = D + 8;
+  const int lane = threadIdx.x & 31, SC = p.S + p.C;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+  const int j = min(kt * 16 + row_c(lane), SC - 1);
+  const bf16* kr = keys + j * DB + col_c(lane);
+  const bf16* vr = vals + j * DB + col_c(lane);
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t bk[4], bv[4];
+    ldsm_x4(bk, kr + 16 * kd);
+    ldsm_x4(bv, vr + 16 * kd);
+    mma_bf16(s[0], qa[kd], bk[0], bk[1]);
+    mma_bf16(s[1], qa[kd], bk[2], bk[3]);
+    mma_bf16(dp[0], ga[kd], bv[0], bv[1]);
+    mma_bf16(dp[1], ga[kd], bv[2], bv[3]);
+  }
+  // the bias only on tiles with window columns, the mask only on the last
+  // tile (both tests uniform over the warp); the padding rows past S read
+  // the bias of row S - 1, their P being 0
+  const bool window_cols = kt * 16 < p.S, masked = kt * 16 + 16 > SC;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = min(row0 + 8 * (e >> 1), p.S - 1);
+      const int jj = kt * 16 + 8 * n + 2 * (threadIdx.x & 3) + (e & 1);
+      float v = s[n][e] * (p.scale * kLog2e);
+      if (window_cols && jj < p.S) v += bias_s[i * p.S + jj];
+      if (masked && jj >= SC) v = -INFINITY;
+      s[n][e] = v;
+    }
+}
+
+// The row statistics of one tile, online: the max m of the thread's columns
+// so far, the sum l of exp(s - m) and the sum t of exp(s - m) dP, rescaled
+// as m grows.
+__device__ __forceinline__ void online_stats(const float (&s)[2][4], const float (&dp)[2][4],
+                                             float (&m)[2], float (&l)[2], float (&t)[2]) {
+  using mma_frag::exp2_approx;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                       fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+    if (mn == -INFINITY) continue;  // every column so far masked
+    const float alpha = exp2_approx(m[r] - mn);
+    float sl = 0.f, st = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const float x = exp2_approx(s[n][e] - mn);
+        sl += x;
+        st = fmaf(x, dp[n][e], st);
+      }
+    l[r] = fmaf(l[r], alpha, sl);
+    t[r] = fmaf(t[r], alpha, st);
+    m[r] = mn;
+  }
+}
+
+// Tile kt of a strip from its numerators x = exp(s - m) and dP: P = x / l
+// (0 on the padding rows past S) and dS = P (dP - sum_j P dP) in f32; dS
+// into the block's dbias; P and dS rounded to bf16 into shared memory (rows
+// below S); returns dS as the A fragment (bf16) of the product dS keys.
+template <int D>
+__device__ __forceinline__ void strip_store(const Params& p, int kt, int row0,
+                                            const float (&x)[2][4], const float (&dp)[2][4],
+                                            const float (&inv_l)[2], const float (&ds)[2],
+                                            bf16* Ps, bf16* Dss, float* dbias_s, int KB,
+                                            uint32_t (&a)[4]) {
+  using namespace mma_frag;
+  const int S = p.S, lane = threadIdx.x & 31, cq = 2 * (lane & 3);
+  // rows past S only in the strip's last 8 rows of the window, dbias only on
+  // tiles with window columns (both tests uniform over the warp)
+  const bool pad_rows = row0 - (lane >> 2) + 16 > S, window_cols = kt * 16 < S;
+  float pn[2][4], dsf[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, i = row0 + 8 * r, j = kt * 16 + 8 * n + cq + (e & 1);
+      pn[n][e] = pad_rows && i >= S ? 0.f : x[n][e] * inv_l[r];
+      dsf[n][e] = pn[n][e] * (dp[n][e] - ds[r]);
+      if (window_cols && i < S && j < S) dbias_s[i * S + j] += dsf[n][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + 8 * r;
+    if (i >= S) continue;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int j = kt * 16 + 8 * n + cq;
+      *reinterpret_cast<uint32_t*>(Ps + i * KB + j) = pack_bf16(pn[n][2 * r], pn[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(Dss + i * KB + j) =
+          pack_bf16(dsf[n][2 * r], dsf[n][2 * r + 1]);
+    }
+  }
+  c_to_a(dsf[0], dsf[1], a);
+}
+
+// dq += dS keys over key tile kt, from dS's A fragment a.
+template <int D>
+__device__ __forceinline__ void strip_dq(const Params& p, int kt, const uint32_t (&a)[4],
+                                         const bf16* keys, float (&dq)[D / 8][4]) {
+  using namespace mma_frag;
+  constexpr int DB = D + 8;
+  const int lane = threadIdx.x & 31;
+  const bf16* kr = keys + min(kt * 16 + row_r(lane), p.S + p.C - 1) * DB + col_r(lane);
+#pragma unroll
+  for (int nd = 0; nd < D / 16; ++nd) {
+    uint32_t bk[4];
+    ldsm_x4_trans(bk, kr + 16 * nd);
+    mma_bf16(dq[2 * nd], a, bk[0], bk[1]);
+    mma_bf16(dq[2 * nd + 1], a, bk[2], bk[3]);
+  }
+}
+
+// Two of a window's row sets into shared memory with 16-byte asynchronous
+// copies: q and g (qg) or the window's keys and values (k and v, rows 0 to
+// S - 1 of keys and vals); tok holds the window's token indices.
+template <int D>
+__device__ __forceinline__ void load_window_mma(const Params& p, const int* tok,
+                                                const bf16* qkv, const bf16* g, bool qg,
+                                                bf16* dst0, bf16* dst1) {
+  using namespace mma_frag;
+  constexpr int DB = D + 8, V8 = D / 8;
+  const int HD = p.nh * D;
+  for (int e = threadIdx.x; e < p.S * 2 * V8; e += kMmaThreads) {
+    const int v = e % V8, which = (e / V8) % 2, l = e / (2 * V8);
+    const size_t t = tok[l];
+    const bf16* src = qg && which ? g + t * HD : qkv + t * 3 * HD + (qg ? 0 : 1 + which) * HD;
+    cp_async16((which ? dst1 : dst0) + l * DB + 8 * v, src + 8 * v);
+  }
+  cp_async_commit();
+}
+
+// The tensor-core backward (bf16, D a multiple of 16): the design is in the
+// header comment.  A block takes wpb windows of one (image, head) in turn.
+// kOnePass: S + C <= 16 * kResidentTiles, a strip's logits and dP stay in
+// registers between the row statistics and their use.
+template <int D, bool kOnePass>
+__global__ void __launch_bounds__(kMmaThreads, 2) eva_packed_bwd_mma_kernel(const Params p) {
+  using namespace mma_frag;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int DB = D + 8, KD = D / 16, V8 = D / 8;
+  const int S = p.S, C = p.C, SC = S + C, KT = round16(SC) / 16, KB = 16 * KT + 8;
+  const int NS = (S + 15) / 16;  // strips of 16 query rows
+  const MmaLayout L = make_mma_layout(D, S, C);
+  bf16* qs = reinterpret_cast<bf16*>(smem + L.q);        // [S][DB]
+  bf16* gs = reinterpret_cast<bf16*>(smem + L.g);        // [S][DB]
+  bf16* keys = reinterpret_cast<bf16*>(smem + L.keys);   // [S+C][DB]: k | rf
+  bf16* vals = reinterpret_cast<bf16*>(smem + L.vals);   // [S+C][DB]: v | beta
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L.P);        // [S][KB]
+  bf16* Dss = reinterpret_cast<bf16*>(smem + L.Ds);      // [S][KB]
+  bf16* zero = reinterpret_cast<bf16*>(smem + L.zero);   // [KB]
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);    // [S][S]
+  float* dbias_s = reinterpret_cast<float*>(smem + L.dbias);  // [S][S]
+  float* drf_s = reinterpret_cast<float*>(smem + L.drf);      // [C][D]
+  float* dbeta_s = reinterpret_cast<float*>(smem + L.dbeta);  // [C][D]
+  int* tok_s = reinterpret_cast<int*>(smem + L.tok);          // [kMaxWpb][S]
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int HD = p.nh * D;
+  const int cq = 2 * (lane & 3);  // the thread's first column in an 8-column tile
+  const bf16* qkv = static_cast<const bf16*>(p.qkv) + (size_t)b * p.N * 3 * HD + h * D;
+  const bf16* g = static_cast<const bf16*>(p.g) + (size_t)b * p.N * HD + h * D;
+  bf16* dqkv = static_cast<bf16*>(p.out) + (size_t)b * p.N * 3 * HD + h * D;
+
+  {  // the block's chunk rows, bias, zeroed sums and token table
+    const bf16* rf = static_cast<const bf16*>(p.rf) + (size_t)b * C * HD + h * D;
+    const bf16* bt = static_cast<const bf16*>(p.beta) + (size_t)b * C * HD + h * D;
+    for (int e = tid; e < C * V8; e += kMmaThreads) {
+      const int c = e / V8, v = e % V8;
+      cp_async16(keys + (S + c) * DB + 8 * v, rf + (size_t)c * HD + 8 * v);
+      cp_async16(vals + (S + c) * DB + 8 * v, bt + (size_t)c * HD + 8 * v);
+    }
+    const float* bh = p.bias != nullptr ? p.bias + (size_t)h * S * S : nullptr;
+    for (int e = tid; e < S * S; e += kMmaThreads) {
+      bias_s[e] = bh != nullptr ? kLog2e * bh[e] : 0.f;
+      dbias_s[e] = 0.f;
+    }
+    for (int e = tid; e < C * D; e += kMmaThreads) drf_s[e] = dbeta_s[e] = 0.f;
+    for (int e = tid; e < KB; e += kMmaThreads) zero[e] = __float2bfloat16(0.f);
+    for (int e = tid; e < p.wpb * S; e += kMmaThreads)
+      tok_s[e] = window_token(p, blockIdx.x * p.wpb + e / S, e % S);
+    __syncthreads();
+  }
+  load_window_mma<D>(p, tok_s, qkv, g, false, keys, vals);
+  for (int wi = 0; wi < p.wpb; ++wi) {
+    const int* tok = tok_s + wi * S;
+    // the window's q and g rows (its k and v rows were issued before)
+    load_window_mma<D>(p, tok, qkv, g, true, qs, gs);
+    cp_async_wait_all();
+    __syncthreads();
+
+    for (int st = warp; st < NS; st += kMmaWarps) {
+      const int row0 = 16 * st + (lane >> 2);  // the thread's rows: row0, row0 + 8
+      uint32_t qa[KD][4], ga[KD][4];
+      {
+        const int r = min(16 * st + row_r(lane), S - 1);
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          ldsm_x4(qa[kd], qs + r * DB + 16 * kd + col_r(lane));
+          ldsm_x4(ga[kd], gs + r * DB + 16 * kd + col_r(lane));
+        }
+      }
+      float dq[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+      float m[2], inv_l[2], ds[2];
+      if constexpr (kOnePass) {
+        // the logits and dP of every tile, then the row max over the quad,
+        // the numerators exp(s - m) in place, and the row sums
+        float s[kResidentTiles][2][4], dp[kResidentTiles][2][4];
+        m[0] = m[1] = -INFINITY;
+#pragma unroll
+        for (int kt = 0; kt < kResidentTiles; ++kt) {
+          if (kt >= KT) break;
+          strip_tile<D>(p, kt, row0, qa, ga, keys, vals, bias_s, s[kt], dp[kt]);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            m[r] = fmaxf(m[r], fmaxf(fmaxf(s[kt][0][2 * r], s[kt][0][2 * r + 1]),
+                                     fmaxf(s[kt][1][2 * r], s[kt][1][2 * r + 1])));
+        }
+        float l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
+#pragma unroll
+        for (int kt = 0; kt < kResidentTiles; ++kt) {
+          if (kt >= KT) break;
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              s[kt][n][e] = exp2_approx(s[kt][n][e] - m[r]);
+              l[r] += s[kt][n][e];
+              t[r] = fmaf(s[kt][n][e], dp[kt][n][e], t[r]);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          inv_l[r] = 1.f / quad_sum(l[r]);
+          ds[r] = quad_sum(t[r]) * inv_l[r];  // sum_j P dP
+        }
+#pragma unroll
+        for (int kt = 0; kt < kResidentTiles; ++kt) {
+          if (kt >= KT) break;
+          uint32_t a[4];
+          strip_store<D>(p, kt, row0, s[kt], dp[kt], inv_l, ds, Ps, Dss, dbias_s, KB, a);
+          strip_dq<D>(p, kt, a, keys, dq);
+        }
+      } else {
+        // pass 1: the row statistics online; pass 2: the products again
+        float l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
+        m[0] = m[1] = -INFINITY;
+        for (int kt = 0; kt < KT; ++kt) {
+          float s[2][4], dp[2][4];
+          strip_tile<D>(p, kt, row0, qa, ga, keys, vals, bias_s, s, dp);
+          online_stats(s, dp, m, l, t);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mq = quad_max(m[r]);
+          const float alpha = m[r] == -INFINITY ? 0.f : exp2_approx(m[r] - mq);
+          inv_l[r] = 1.f / quad_sum(l[r] * alpha);
+          ds[r] = quad_sum(t[r] * alpha) * inv_l[r];
+          m[r] = mq;
+        }
+        for (int kt = 0; kt < KT; ++kt) {
+          float s[2][4], dp[2][4];
+          strip_tile<D>(p, kt, row0, qa, ga, keys, vals, bias_s, s, dp);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = exp2_approx(s[n][e] - m[e >> 1]);
+          uint32_t a[4];
+          strip_store<D>(p, kt, row0, s, dp, inv_l, ds, Ps, Dss, dbias_s, KB, a);
+          strip_dq<D>(p, kt, a, keys, dq);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = row0 + 8 * r;
+        if (i >= S) continue;
+        bf16* dst = dqkv + (size_t)tok[i] * 3 * HD + cq;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+              pack_bf16(p.scale * dq[n][2 * r], p.scale * dq[n][2 * r + 1]);
+      }
+    }
+    __syncthreads();
+    // the next window's k and v rows load while the transposed products run
+    if (wi + 1 < p.wpb) load_window_mma<D>(p, tok + S, qkv, g, false, keys, vals);
+
+    // [dk | drf] = dS^T q (unit u even) and [dv | dbeta] = P^T g (u odd):
+    // a unit is two 16-row output tiles of one product, which share the q
+    // or g fragments; rows past S + C are dropped
+    for (int u = warp; u < 2 * ((KT + 1) / 2); u += kMmaWarps) {
+      const int mt = 2 * (u >> 1), which = u & 1;
+      const bool two = mt + 1 < KT;  // uniform over the warp
+      const bf16* X = which ? Ps : Dss;
+      const bf16* Y = which ? gs : qs;
+      float acc[2][D / 8][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+#pragma unroll 2
+      for (int ks = 0; ks < NS; ++ks) {
+        const int ia = 16 * ks + row_c(lane);
+        const bf16* xr = (ia < S ? X + ia * KB : zero) + 16 * mt + col_c(lane);
+        uint32_t a[2][4];
+        ldsm_x4_trans(a[0], xr);
+        if (two) ldsm_x4_trans(a[1], xr + 16);
+        const bf16* yr = Y + min(16 * ks + row_r(lane), S - 1) * DB + col_r(lane);
+#pragma unroll
+        for (int nd = 0; nd < D / 16; ++nd) {
+          uint32_t bb[4];
+          ldsm_x4_trans(bb, yr + 16 * nd);
+          mma_bf16(acc[0][2 * nd], a[0], bb[0], bb[1]);
+          mma_bf16(acc[0][2 * nd + 1], a[0], bb[2], bb[3]);
+          if (two) {
+            mma_bf16(acc[1][2 * nd], a[1], bb[0], bb[1]);
+            mma_bf16(acc[1][2 * nd + 1], a[1], bb[2], bb[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        if (m == 1 && !two) break;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * (mt + m) + (lane >> 2) + 8 * r;
+          if (row < S) {
+            const float f = which ? 1.f : p.scale;
+            bf16* dst = dqkv + (size_t)tok[row] * 3 * HD + (1 + which) * HD + cq;
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n)
+              *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+                  pack_bf16(f * acc[m][n][2 * r], f * acc[m][n][2 * r + 1]);
+          } else if (row < SC) {
+            float* dst = (which ? dbeta_s : drf_s) + (row - S) * D + cq;
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n) {
+              dst[8 * n] += acc[m][n][2 * r];
+              dst[8 * n + 1] += acc[m][n][2 * r + 1];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // q, k, v, g, P and dS are rewritten by the next window
+  }
+  // one atomic add per element and block, as on the CUDA-core route, four
+  // f32 at a time for drf and dbeta (drf takes its scale here, once)
+  float* drf = p.drf + (size_t)b * C * HD + h * D;
+  float* dbeta = p.dbeta + (size_t)b * C * HD + h * D;
+  for (int e = tid; e < C * D / 4; e += kMmaThreads) {
+    const int c = e / (D / 4), d = 4 * (e % (D / 4));
+    const float4 x = reinterpret_cast<const float4*>(drf_s)[e];
+    atomicAdd(reinterpret_cast<float4*>(drf + (size_t)c * HD + d),
+              make_float4(p.scale * x.x, p.scale * x.y, p.scale * x.z, p.scale * x.w));
+    atomicAdd(reinterpret_cast<float4*>(dbeta + (size_t)c * HD + d),
+              reinterpret_cast<const float4*>(dbeta_s)[e]);
+  }
+  float* dbias = p.dbias + ((size_t)b * p.nh + h) * S * S;
+  for (int e = tid; e < S * S; e += kMmaThreads) atomicAdd(dbias + e, dbias_s[e]);
+}
+
+// The kernel instance for a geometry: one pass where a strip's tiles fit
+// the registers.
+template <int D>
+auto mma_kernel(int S, int C) {
+  return round16(S + C) <= 16 * kResidentTiles ? eva_packed_bwd_mma_kernel<D, true>
+                                                : eva_packed_bwd_mma_kernel<D, false>;
+}
+
+template <int D>
+cudaError_t prepare_mma(int S, int C) {
+  const MmaLayout L = make_mma_layout(D, S, C);
+  const auto kernel = mma_kernel<D>(S, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
+  cudaError_t err = prepare_mma<D>(p.S, p.C);
+  if (err != cudaSuccess) return err;
+  const int n_win = (p.N / p.gw / p.ws) * p.nww;
+  const auto kernel = mma_kernel<D>(p.S, p.C);
+  const size_t smem = make_mma_layout(D, p.S, p.C).total;
+  kernel<<<dim3(n_win / p.wpb, p.nh, p.B), kMmaThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Blocks of the tensor-core backward that fit one SM (registers and shared
+// memory), from the occupancy calculator.
+template <int D>
+int mma_blocks_per_sm(int S, int C) {
+  int blocks = 0;
+  if (prepare_mma<D>(S, C) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_kernel<D>(S, C), kMmaThreads,
+                                                    make_mma_layout(D, S, C).total) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
 template <int D, typename T>
 cudaError_t launch(const Params& p, bool backward, cudaStream_t stream) {
   const Layout L = make_layout(backward, D, p.S, p.C);
@@ -510,10 +1035,25 @@ bool make_params(Params& p, int B, int N, int gw, int ws, int nh, int C, int wpb
 
 extern "C" {
 
-// Shared memory of one block, for the wrapper's gate to check its own copy
-// of the layout against.
-int eva_packed_smem_bytes(int backward, int d, int S, int C) {
+// Whether the backward at head dim d and element size itemsize takes the
+// tensor-core route (bwd_uses_mma in ops/kernels/eva_packed.py).
+int bwd_uses_mma(int d, int itemsize) { return uses_mma(d, itemsize) ? 1 : 0; }
+
+// Shared memory of one block of the route that (backward, d, itemsize)
+// takes, for the wrapper's gate to check its own copy of the layout against.
+int eva_packed_smem_bytes(int backward, int d, int S, int C, int itemsize) {
+  if (backward && uses_mma(d, itemsize)) return (int)make_mma_layout(d, S, C).total;
   return (int)make_layout(backward != 0, d, S, C).total;
+}
+
+// Blocks of the tensor-core backward that fit one SM at (d, S, C), or -1.
+int eva_packed_bwd_mma_blocks_per_sm(int d, int S, int C) {
+  switch (d) {
+    case 16: return mma_blocks_per_sm<16>(S, C);
+    case 32: return mma_blocks_per_sm<32>(S, C);
+    case 64: return mma_blocks_per_sm<64>(S, C);
+    default: return -1;
+  }
 }
 
 const char* eva_packed_error_string(int code) {
@@ -545,6 +1085,27 @@ int eva_packed_bwd_launch(const void* qkv, const void* rf, const void* beta,
   p.qkv = qkv; p.rf = rf; p.beta = beta; p.bias = bias; p.g = g; p.out = dqkv;
   p.drf = drf; p.dbeta = dbeta; p.dbias = dbias;
   return dispatch(p, d, true, is_bf16, stream);
+}
+
+// The backward's tensor-core route on `stream` (bf16 operands; d 16, 32 or
+// 64): the same outputs as eva_packed_bwd_launch.  Returns a cudaError_t.
+int eva_packed_bwd_mma_launch(const void* qkv, const void* rf, const void* beta,
+                              const float* bias, const void* g, void* dqkv, float* drf,
+                              float* dbeta, float* dbias, int B, int N, int gw, int ws,
+                              int nh, int d, int C, int wpb, float scale, void* stream) {
+  Params p = {};
+  if (!make_params(p, B, N, gw, ws, nh, C, wpb, scale) || !uses_mma(d, 2) ||
+      wpb > kMaxWpb)
+    return cudaErrorInvalidValue;
+  p.qkv = qkv; p.rf = rf; p.beta = beta; p.bias = bias; p.g = g; p.out = dqkv;
+  p.drf = drf; p.dbeta = dbeta; p.dbias = dbias;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return launch_mma<16>(p, s);
+    case 32: return launch_mma<32>(p, s);
+    case 64: return launch_mma<64>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -21,8 +21,13 @@ tensors its forward and backward launch the kernels of
 ``csrc/eva_packed.cu`` or raise; for CPU tensors they compute the same
 function with ``eva_packed_fwd_ref`` and ``eva_packed_bwd_ref``, the plain
 PyTorch versions (the backward in explicit formulas, not autograd), which
-are also what the kernels are held against on the card.  ``LAUNCHES_FWD``
-and ``LAUNCHES_BWD`` count the kernels' launches.
+are also what the kernels are held against on the card.  The backward has
+two routes, chosen by ``bwd_uses_mma``: bf16 with a head dim that is a
+multiple of 16 runs on tensor cores (mma.sync, per-warp softmax on the
+accumulator fragments), everything else on CUDA cores in f32.
+``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count the kernels' launches (the
+backward's on either route), ``LAUNCHES_BWD_MMA`` the backward's on the
+tensor-core route.
 
 K9 ``eva_packed_out`` (``csrc/eva_packed_out.cu``) replaces
 ``eva_packed.py::eva_attention_packed_out``, the eval forward behind EVA's
@@ -46,6 +51,7 @@ from efficient_attention_torch.ops.kernels import _build
 
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_BWD_MMA = 0
 LAUNCHES_OUT = 0
 
 NAME = "eva_packed"
@@ -70,19 +76,45 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def bwd_uses_mma(d: int, itemsize: int) -> bool:
+    """Whether the backward takes its tensor-core route (``bwd_uses_mma`` in
+    ``csrc/eva_packed.cu``): bf16, and a head dim that is a multiple of 16."""
+    return itemsize == 2 and d % 16 == 0
+
+
 def row_stride(d: int) -> int:
     """Floats between rows of ``d`` in shared memory (``row_stride`` in
     ``csrc/eva_packed.cu``): a multiple of 4 that is 4 mod 8."""
     return ((d // 4 + 1) | 1) * 4
 
 
-def smem_bytes(backward: bool, d: int, S: int, C: int) -> int:
-    """Dynamic shared memory of one block; the same layout as
-    ``make_layout`` in ``csrc/eva_packed.cu``: keys ``[window k | rf]`` and
-    values ``[window v | beta]``, the query rows, the logits and the bias,
-    all f32, rows of ``d`` at ``row_stride(d)`` and logit rows padded by one
-    float; the backward adds the g rows, ``dS``, and the block's dbias, drf
-    and dbeta sums."""
+def smem_bytes(backward: bool, d: int, S: int, C: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one block of the route that ``(backward, d,
+    itemsize)`` takes.  CUDA-core route (``make_layout`` in
+    ``csrc/eva_packed.cu``): keys ``[window k | rf]`` and values ``[window v
+    | beta]``, the query rows, the logits and the bias, all f32, rows of
+    ``d`` at ``row_stride(d)`` and logit rows padded by one float; the
+    backward adds the g rows, ``dS``, and the block's dbias, drf and dbeta
+    sums.  The backward's tensor-core route (``make_mma_layout``): q and g
+    ``[S][d+8]``, keys and values ``[S+C][d+8]``, P and dS ``[S][KB]`` and a
+    zero row ``[KB]`` in bf16 (``KB = round16(S+C) + 8``), the bias and
+    dbias ``[S][S]`` and the drf and dbeta sums ``[C][d]`` in f32, the
+    token index of each row of a block's windows ``[4][S]`` in int32, each
+    region 128-byte aligned."""
+    if backward and bwd_uses_mma(d, itemsize):
+        db, kb = d + 8, _round16(S + C) + 8
+        return (2 * _align128(S * db * 2) + 2 * _align128((S + C) * db * 2)
+                + 2 * _align128(S * kb * 2) + _align128(kb * 2)
+                + 2 * _align128(S * S * 4) + 2 * _align128(C * d * 4)
+                + _align128(max(WINDOWS_PER_BLOCK) * S * 4))
     rows_d = lambda n: _align16(n * row_stride(d) * 4)  # noqa: E731
     logits = _align16(S * (S + C + 1) * 4)
     total = 2 * rows_d(S + C) + rows_d(S) + logits + _align16(S * S * 4)
@@ -96,15 +128,17 @@ def plan(B: int, N: int, W: int, ws: int, C: int, num_heads: int, d: int,
          itemsize: int) -> Optional[int]:
     """Windows per block for a launch, or None where the kernels cannot take
     the geometry: square windows dividing a ``N/W x W`` grid, a head dim they
-    are built for, float32 or bfloat16, and the backward's block (the larger
-    of the two) within Hopper's shared memory."""
+    are built for, float32 or bfloat16, and the blocks within Hopper's
+    shared memory: the CUDA-core backward's (the largest of K1's layouts, so
+    both types accept the same geometries) and the backward route's own."""
     if not 1 <= B <= _MAX_GRID_YZ or not 1 <= num_heads <= _MAX_GRID_YZ:
         return None
     if W <= 0 or ws <= 0 or C <= 0 or N % W or (N // W) % ws or W % ws:
         return None
     if d not in HEAD_DIMS or itemsize not in (2, 4):
         return None
-    if smem_bytes(True, d, ws * ws, C) > SMEM_LIMIT:
+    if max(smem_bytes(True, d, ws * ws, C),
+           smem_bytes(True, d, ws * ws, C, itemsize)) > SMEM_LIMIT:
         return None
     n_win = (N // W // ws) * (W // ws)
     return next(g for g in WINDOWS_PER_BLOCK if n_win % g == 0)
@@ -223,8 +257,15 @@ def _lib() -> ctypes.CDLL:
     lib.eva_packed_bwd_launch.argtypes = ([ptr] * 9 + [i32] * 9
                                           + [ctypes.c_float, ptr])
     lib.eva_packed_bwd_launch.restype = i32
-    lib.eva_packed_smem_bytes.argtypes = [i32] * 4
+    lib.eva_packed_bwd_mma_launch.argtypes = ([ptr] * 9 + [i32] * 8
+                                              + [ctypes.c_float, ptr])
+    lib.eva_packed_bwd_mma_launch.restype = i32
+    lib.eva_packed_smem_bytes.argtypes = [i32] * 5
     lib.eva_packed_smem_bytes.restype = i32
+    lib.bwd_uses_mma.argtypes = [i32] * 2
+    lib.bwd_uses_mma.restype = i32
+    lib.eva_packed_bwd_mma_blocks_per_sm.argtypes = [i32] * 3
+    lib.eva_packed_bwd_mma_blocks_per_sm.restype = i32
     lib.eva_packed_error_string.argtypes = [i32]
     lib.eva_packed_error_string.restype = ctypes.c_char_p
     return lib
@@ -293,7 +334,18 @@ def _forward(qkv, rf, beta, bias, scale, num_heads, W, ws):
     return out
 
 
-def _backward(qkv, rf, beta, bias, g, scale, num_heads, W, ws):
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned start (the tensor-core route
+    copies rows 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _backward(qkv, rf, beta, bias, g, scale, num_heads, W, ws,
+              cuda_cores: bool = False):
+    """The backward on the route ``bwd_uses_mma`` picks, or with
+    ``cuda_cores`` on the CUDA-core route whatever the type (to time it
+    beside the tensor-core one)."""
     if qkv.device.type == "cpu":
         return eva_packed_bwd_ref(qkv, rf, beta, bias, g, scale, num_heads, W, ws)
     if qkv.device.type != "cuda":
@@ -306,26 +358,42 @@ def _backward(qkv, rf, beta, bias, g, scale, num_heads, W, ws):
         raise ValueError(f"g must be [{B}, {N}, {nh * d}] on {qkv.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
     g = g.to(qkv.dtype).contiguous()
+    uses_mma = not cuda_cores and bwd_uses_mma(d, qkv.element_size())
+    if uses_mma:
+        qkv, rf, beta, g = (_aligned16(t) for t in (qkv, rf, beta, g))
     S = ws * ws
     dqkv = torch.empty_like(qkv)
-    drf = torch.zeros((B, C, nh * d), dtype=torch.float32, device=qkv.device)
-    dbeta = torch.zeros_like(drf)
-    dbias_part = torch.zeros((B, nh, S, S), dtype=torch.float32, device=qkv.device)
+    # the kernels add into zeroed f32 drf, dbeta and per-image dbias
+    # partials, here one buffer (one fill; drf and dbeta start 64-byte
+    # aligned for the four-wide atomics)
+    n = B * C * nh * d
+    sums = torch.zeros(2 * n + B * nh * S * S, dtype=torch.float32, device=qkv.device)
+    drf, dbeta = sums[:n].view(B, C, nh * d), sums[n:2 * n].view(B, C, nh * d)
+    dbias_part = sums[2 * n:].view(B, nh, S, S)
     lib = _lib()
+    pointers = (qkv.data_ptr(), rf.data_ptr(), beta.data_ptr(),
+                None if bias is None else bias.data_ptr(), g.data_ptr(),
+                dqkv.data_ptr(), drf.data_ptr(), dbeta.data_ptr(),
+                dbias_part.data_ptr())
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.eva_packed_bwd_launch(
-            qkv.data_ptr(), rf.data_ptr(), beta.data_ptr(),
-            None if bias is None else bias.data_ptr(), g.data_ptr(),
-            dqkv.data_ptr(), drf.data_ptr(), dbeta.data_ptr(),
-            dbias_part.data_ptr(), B, N, W, ws, nh, d, C, wpb,
-            int(qkv.dtype == torch.bfloat16), float(scale), stream)
+        if uses_mma:
+            rc = lib.eva_packed_bwd_mma_launch(
+                *pointers, B, N, W, ws, nh, d, C, wpb, float(scale), stream)
+        else:
+            rc = lib.eva_packed_bwd_launch(
+                *pointers, B, N, W, ws, nh, d, C, wpb,
+                int(qkv.dtype == torch.bfloat16), float(scale), stream)
     _check(rc, "backward")
-    global LAUNCHES_BWD
+    global LAUNCHES_BWD, LAUNCHES_BWD_MMA
     LAUNCHES_BWD += 1
+    LAUNCHES_BWD_MMA += int(uses_mma)
     # the per-image dbias partials are summed here, as the TPU kernel's
     # caller sums its batch-group partials
     dbias = None if bias is None else dbias_part.sum(dim=0).to(bias_dtype)
+    if rf_dtype == beta_dtype:  # one cast for both
+        both = sums[:2 * n].to(rf_dtype)
+        return dqkv, both[:n].view(B, C, nh * d), both[n:].view(B, C, nh * d), dbias
     return dqkv, drf.to(rf_dtype), dbeta.to(beta_dtype), dbias
 
 
@@ -364,14 +432,6 @@ def eva_attention_packed(
 
 
 # ---- K9: the eval forward with the output projection in the kernel
-
-def _align128(n: int) -> int:
-    return -(-n // 128) * 128
-
-
-def _round16(n: int) -> int:
-    return -(-n // 16) * 16
-
 
 def out_uses_mma(d: int, itemsize: int, xdim: int = 0) -> bool:
     """Whether K9 (K10's attention with ``xdim > 0``) takes its tensor-core

@@ -168,6 +168,54 @@ def test_gate():
     assert K.smem_bytes(False, 64, 49, 49) < K.smem_bytes(True, 64, 49, 49)
 
 
+@pytest.mark.parametrize("d,itemsize,mma", [
+    (16, 2, True), (32, 2, True), (64, 2, True),
+    (16, 4, False), (32, 4, False), (64, 4, False),
+    (12, 2, False), (12, 4, False),
+])
+def test_bwd_uses_mma_picks_the_route(d, itemsize, mma):
+    """bf16 at head dims that are multiples of 16 takes the tensor-core
+    backward; f32, and head dim 12, the CUDA-core one."""
+    assert K.bwd_uses_mma(d, itemsize) is mma
+
+
+# Hopper: 228 KB of shared memory an SM, 1 KB of it reserved for each block
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+
+
+@pytest.mark.parametrize("what,d,S,C", [
+    ("headline: 28x28 tokens, window 7, 49 chunks, heads of 64", 64, 49, 49),
+    ("PVT-B3 stage 1: 56x56 tokens, window 7, 49 chunks, heads of 32", 32, 49, 49),
+])
+def test_mma_backward_layout_fits_two_blocks_an_sm(what, d, S, C):
+    mma = K.smem_bytes(True, d, S, C, itemsize=2)
+    assert mma <= K.SMEM_LIMIT, what
+    assert 2 * (mma + BLOCK_RESERVED) <= SM_SMEM, what
+    # the bf16 staging is smaller than the CUDA-core route's f32 one, which
+    # the other types keep
+    assert mma < K.smem_bytes(True, d, S, C) == K.smem_bytes(True, d, S, C, 4)
+    assert K.smem_bytes(False, d, S, C, 2) == K.smem_bytes(False, d, S, C)
+
+
+def test_mma_backward_layout_counts_each_region():
+    """The layout twin of ``make_mma_layout``: bf16 q, g [S][d+8], keys and
+    values [S+C][d+8], P and dS [S][round16(S+C)+8], a zero row, then f32
+    bias, dbias [S][S] and drf, dbeta [C][d], the int32 token table [4][S],
+    each 128-byte aligned."""
+    a = lambda n: -(-n // 128) * 128  # noqa: E731
+    # S=16, C=4: 20 keys pad to 32 columns, rows of 40 bf16
+    want = (2 * a(16 * 24 * 2) + 2 * a(20 * 24 * 2) + 2 * a(16 * 40 * 2)
+            + a(40 * 2) + 2 * a(16 * 16 * 4) + 2 * a(4 * 16 * 4)
+            + a(4 * 16 * 4))
+    assert K.smem_bytes(True, 16, 16, 4, 2) == want
+    # plan accepts the same geometries in both types: at window 7 and heads
+    # of 64 the CUDA-core backward's f32 block bounds the chunks at 96
+    for C, wpb in ((49, 4), (96, 4), (97, None), (170, None)):
+        assert K.plan(128, 784, 28, 7, C, 3, 64, 2) == wpb
+        assert K.plan(128, 784, 28, 7, C, 3, 64, 4) == wpb
+
+
 @pytest.mark.parametrize("change,match", [
     (dict(dtype=torch.float16), "float32 or bfloat16"),
     (dict(d=24), "cannot take"),
