@@ -50,8 +50,8 @@ Phases, each raising on failure:
 
 1. build: compile every kernel with nvcc (one process per source, all at
    once) and print the seconds, each kernel's registers and spills, and for
-   ``eva_packed``'s tensor-core backward the blocks an SM; the wrappers'
-   twins of the kernels' shared-memory layouts and route choices;
+   ``eva_packed``'s tensor-core forward and backward the blocks an SM; the
+   wrappers' twins of the kernels' shared-memory layouts and route choices;
 2. kernels against their plain versions on the card: ``eva_single``;
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
@@ -62,9 +62,9 @@ Phases, each raising on failure:
    paths' shapes in bf16 and f32 and at small odd geometries (K3-K12 in
    both types), and K8 at large-norm keys; K1 also at PVT-B3's first stage,
    without a bias where S + C is not a multiple of 16, and where S + C is
-   too wide for its one-pass strips (its backward on the tensor-core route
-   in bf16 at head dims 16, 32 and 64, asserted), and its CUDA-core
-   backward in bf16 at the main shape;
+   too wide for its one-pass strips (its forward and backward on the
+   tensor-core routes in bf16 at head dims 16, 32 and 64, asserted), and
+   its CUDA-core forward and backward in bf16 at the main shape;
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
@@ -76,7 +76,7 @@ Phases, each raising on failure:
    the same for the LARA, Performer and local cells (12 launches of the
    cell's kernel a batch and none of any other), and for each of EVA's
    routes (12 launches of each of the route's kernels a batch and none of
-   any other); K11 as EVA's ``auto`` fallback at a head dim (48) that K1
+   any other, K1's forward on the tensor-core route); K11 as EVA's ``auto`` fallback at a head dim (48) that K1
    and K2 are not built for, in eval and training, against the eager path
    in f32; then PVT-B3 served by ``cli.train_vit --eval`` on each of its
    three routes (25 launches of the route's kernel a batch, none of any
@@ -88,13 +88,14 @@ Phases, each raising on failure:
    positions, and the share of identical 1-best hypotheses of the two;
 6. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
    ``--bf16`` and the DeiT recipe, counts set to 0 just before and read
-   just after (12 x 8 launches of each K1 kernel, every backward on the
-   tensor-core route, 12 x 4 of K2), finite
+   just after (12 x 8 launches of each K1 kernel, every forward and
+   backward on the tensor-core routes, 12 x 4 of K2), finite
    losses; then f32 gradients, kernel path against eager path; the same
    with ``impl='pallas'`` and ``impl='rowmajor'`` (12 x 8 + 12 x 4
    launches of K11 or K12, none of any other);
 7. timings with CUDA events (kernels, plain versions, bounds, SDPA
-   yardsticks; K1's backward on both routes, K3 in bf16 and in the f32 the
+   yardsticks; K1's forward and backward on both routes, K3 in bf16 and in
+   the f32 the
    LM step runs; forward and train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
    and 3136 tokens, K8-K10 and the forward rates of EVA's eval routes in
@@ -104,8 +105,8 @@ Phases, each raising on failure:
    shapes, the headline train step on K11 against K1, PVT-B3's forward
    images/s on its routes and the eager path in turns) and profiles of 3
    train steps of each model, of one LARA-cell forward, one
-   megakernel-route forward, one PVT-B3 forward on K11 and one MT batch by
-   op;
+   ``two-kernel``-route forward (K1's forward alone), one megakernel-route
+   forward, one PVT-B3 forward on K11 and one MT batch by op;
 8. the kernels line, the script's wall time, the card line, and the result
    line, last.
 
@@ -152,7 +153,8 @@ CHECKS = (("main bf16", (128, 28, 7, 4, 3, 64), "bfloat16"),
 # K1 is also checked, with its bias or without, at PVT-B3's first stage
 # (heads of 32), where S + C (16 + 4) is not a multiple of 16, and where
 # S + C (49 + 196) is too wide for a strip to stay in registers (its strips
-# then take two passes), all on the backward's tensor-core route
+# then take two passes), all on the forward's and backward's tensor-core
+# routes
 K1_CHECKS = tuple((label, geo, dtype, True) for label, geo, dtype in CHECKS) + (
     ("pvt stage 1 bf16", (128, 56, 7, 8, 2, 32), "bfloat16", True),
     ("odd no-bias bf16", (3, 8, 4, 4, 3, 16), "bfloat16", False),
@@ -907,28 +909,37 @@ def main() -> int:
         raise AssertionError(f"gate's smem layout {k2.smem_bytes(98, 64, 2, 49, 7, 7)}"
                              f" != kernel's {lib_smem}")
     for backward, d, S, C, itemsize in (
-            (0, 64, 49, 49, 2), (0, 64, 49, 49, 4), (1, 64, 49, 49, 2),
-            (1, 64, 49, 49, 4), (1, 32, 49, 49, 2), (1, 16, 16, 4, 2),
-            (1, 12, 49, 49, 2)):
+            (0, 64, 49, 49, 2), (0, 64, 49, 49, 4), (0, 32, 49, 49, 2),
+            (0, 16, 16, 4, 2), (0, 16, 49, 196, 2), (0, 12, 49, 49, 2),
+            (1, 64, 49, 49, 2), (1, 64, 49, 49, 4), (1, 32, 49, 49, 2),
+            (1, 16, 16, 4, 2), (1, 12, 49, 49, 2)):
         lib_smem = k1._lib().eva_packed_smem_bytes(backward, d, S, C, itemsize)
         if lib_smem != k1.smem_bytes(bool(backward), d, S, C, itemsize):
             raise AssertionError(f"eva_packed gate's smem layout != kernel's "
                                  f"{lib_smem} {(backward, d, S, C, itemsize)}")
-    for d in k1.HEAD_DIMS:
-        for itemsize in (2, 4):
-            if bool(k1._lib().bwd_uses_mma(d, itemsize)) != k1.bwd_uses_mma(d, itemsize):
-                raise AssertionError(f"eva_packed bwd_uses_mma({d}, {itemsize}): "
-                                     f"the kernel's and the wrapper's differ")
-    k1_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k1.NAME}.log",
-                                 "eva_packed_bwd_mma_kernel")
-    k1_blocks = {f"d{d}": k1._lib().eva_packed_bwd_mma_blocks_per_sm(d, 49, 49)
-                 for d in (64, 32)}
-    log(f"[build] eva_packed tensor-core backward, ptxas: {json.dumps(k1_ptxas)}; "
-        f"blocks an SM at 49 + 49 keys (occupancy calculator): "
-        f"{json.dumps(k1_blocks)}; {k1.smem_bytes(True, 64, 49, 49, 2)} bytes of "
-        f"shared memory a block at head dim 64")
-    if min(k1_blocks.values()) < 2:
-        raise AssertionError(f"eva_packed tensor-core backward: {k1_blocks} blocks an SM")
+    for gate in ("fwd_uses_mma", "bwd_uses_mma"):
+        for d in k1.HEAD_DIMS:
+            for itemsize in (2, 4):
+                if (bool(getattr(k1._lib(), gate)(d, itemsize))
+                        != getattr(k1, gate)(d, itemsize)):
+                    raise AssertionError(f"eva_packed {gate}({d}, {itemsize}): "
+                                         f"the kernel's and the wrapper's differ")
+    # the tensor-core routes: registers and spills, blocks an SM (at least
+    # 3 for the forward, 2 for the backward)
+    for backward, part, least in ((0, "forward", 3), (1, "backward", 2)):
+        tag = f"eva_packed_{'bwd' if backward else 'fwd'}_mma_kernel"
+        k1_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k1.NAME}.log", tag)
+        k1_blocks = {f"d{d}": k1._lib().eva_packed_mma_blocks_per_sm(backward, d, 49, 49)
+                     for d in (64, 32)}
+        log(f"[build] eva_packed tensor-core {part}, ptxas: {json.dumps(k1_ptxas)}; "
+            f"blocks an SM at 49 + 49 keys (occupancy calculator): "
+            f"{json.dumps(k1_blocks)}; {k1.smem_bytes(bool(backward), 64, 49, 49, 2)} "
+            f"bytes of shared memory a block at head dim 64")
+        if any("0 bytes spill stores" not in v for v in k1_ptxas.values()):
+            raise AssertionError(f"eva_packed tensor-core {part} spills: {k1_ptxas}")
+        if min(k1_blocks.values()) < least:
+            raise AssertionError(f"eva_packed tensor-core {part}: {k1_blocks} blocks "
+                                 f"an SM")
     for backward in (0, 1):
         qt = 32 if backward else 64
         lib_smem = k3._lib().causal_packed_smem_bytes(backward, 128, 128, 64, qt)
@@ -1000,23 +1011,34 @@ def main() -> int:
                                               seed=10 + len(k1_errors))
         bias = bias if with_bias else None
         scale = d ** -0.5
-        mma_before = k1.LAUNCHES_BWD_MMA
+        mma_before = (k1.LAUNCHES_FWD_MMA, k1.LAUNCHES_BWD_MMA)
         got = [k1._forward(qkv, rf, beta, bias, scale, nh, g, ws),
                *k1._backward(qkv, rf, beta, bias, grad, scale, nh, g, ws)]
         torch.cuda.synchronize()
-        mma = k1.bwd_uses_mma(d, qkv.element_size())
-        if k1.LAUNCHES_BWD_MMA - mma_before != int(mma):
-            raise AssertionError(f"eva_packed {label}: the backward did not take "
-                                 f"the {'tensor' if mma else 'CUDA'}-core route")
+        mma = k1.fwd_uses_mma(d, qkv.element_size())
+        if mma != k1.bwd_uses_mma(d, qkv.element_size()):
+            raise AssertionError(f"eva_packed {label}: the gates differ")
+        if (k1.LAUNCHES_FWD_MMA - mma_before[0],
+                k1.LAUNCHES_BWD_MMA - mma_before[1]) != (int(mma), int(mma)):
+            raise AssertionError(f"eva_packed {label}: the forward or the backward "
+                                 f"did not take the {'tensor' if mma else 'CUDA'}-core "
+                                 f"route")
         want = [k1.eva_packed_fwd_ref(qkv, rf, beta, scale, nh, g, ws, bias),
                 *k1.eva_packed_bwd_ref(qkv, rf, beta, bias, grad, scale, nh,
                                        g, ws)]
-        if label == "main bf16":  # the CUDA-core backward, timed beside it
-            label_cc = "main bf16 cuda-core bwd"
-            got_cc = k1._backward(qkv, rf, beta, bias, grad, scale, nh, g, ws,
-                                  cuda_cores=True)
+        if label == "main bf16":  # the CUDA-core routes, timed beside them
+            label_cc = "main bf16 cuda-core"
+            before_cc = (k1.LAUNCHES_FWD_MMA, k1.LAUNCHES_BWD_MMA)
+            got_cc = [k1._forward(qkv, rf, beta, bias, scale, nh, g, ws,
+                                  cuda_cores=True),
+                      *k1._backward(qkv, rf, beta, bias, grad, scale, nh, g, ws,
+                                    cuda_cores=True)]
             torch.cuda.synchronize()
-            for name, a, b in zip(("dqkv", "drf", "dbeta", "dbias"), got_cc, want[1:]):
+            if (k1.LAUNCHES_FWD_MMA, k1.LAUNCHES_BWD_MMA) != before_cc:
+                raise AssertionError("eva_packed cuda_cores=True took a tensor-core "
+                                     "route")
+            for name, a, b in zip(("out", "dqkv", "drf", "dbeta", "dbias"), got_cc,
+                                  want):
                 err = (a.float() - b.float()).abs().max().item()
                 tol = K1_TOL[str(b.dtype)] * max(1.0, b.float().abs().max().item())
                 log(f"[k1 vs plain] {label_cc} {name}: max abs err {err:.3e} "
@@ -1025,8 +1047,8 @@ def main() -> int:
                     raise AssertionError(f"eva_packed {label_cc} {name}: max abs "
                                          f"err {err} > {tol}")
             del got_cc
-        log(f"[k1 vs plain] {label}: backward on the "
-            f"{'tensor' if mma else 'CUDA'}-core route")
+        log(f"[k1 vs plain] {label}: forward and backward on the "
+            f"{'tensor' if mma else 'CUDA'}-core routes")
         for name, a, b in zip(("out", "dqkv", "drf", "dbeta", "dbias"),
                               got, want):
             if b is None and not with_bias:
@@ -1390,23 +1412,33 @@ def main() -> int:
             setattr(rargs.attn_specific_args, key, value)
         return rargs
 
-    route_launches = {}
+    route_launches, route_fwd_mma = {}, {}
     for route, (toggles, route_kernels) in EVA_ROUTES.items():
         for k, attr, _ in counters:
             setattr(k, attr, 0)
+        k1.LAUNCHES_FWD_MMA = 0
         t0 = time.perf_counter()
         stats = train_vit.main(route_args(["--eval", "--bf16"], toggles))
         torch.cuda.synchronize()
         got = launched()
+        fwd_mma = k1.LAUNCHES_FWD_MMA
         log(f"[serve eva {route}] {json.dumps(toggles)}: eval {json.dumps(stats)} "
-            f"in {time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}")
+            f"in {time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}, "
+            f"eva_packed forward on the tensor-core route {fwd_mma}")
         if not all(math.isfinite(stats[k]) for k in ("acc1", "acc5", "loss")):
             raise AssertionError(f"non-finite eva {route} eval stats {stats}")
         want = {name: 12 * stats["batches"] for name in route_kernels}
         if stats["batches"] != 4 or got != want:
             raise AssertionError(f"eva {route}: launches {got} for "
                                  f"{stats['batches']} batches, want {want}")
+        # every bf16 K1 forward on the tensor-core route
+        if fwd_mma != got.get("eva_packed_fwd", 0):
+            raise AssertionError(f"eva {route}: {fwd_mma} of the "
+                                 f"{got.get('eva_packed_fwd', 0)} bf16 eva_packed "
+                                 f"forward launches took the tensor-core route")
         route_launches[route] = got
+        if "eva_packed_fwd" in route_kernels:
+            route_fwd_mma[route] = fwd_mma
         model = train_vit.build_model(route_args(["--eval"], toggles)).cuda()
         eager = copy.deepcopy(model)
         for blk in eager.blocks:
@@ -1588,14 +1620,15 @@ def main() -> int:
         f"{mt_runs['kernel']['bleu']}, eager {mt_runs['eager']['bleu']}")
 
     # ---- 6. the training path, counts set to 0 just before and read after
-    k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k1.LAUNCHES_BWD_MMA = k2.LAUNCHES = 0
+    k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
+    k1.LAUNCHES_FWD_MMA = k1.LAUNCHES_BWD_MMA = 0
     t0 = time.perf_counter()
     record = train_vit.cli_main(MAIN_ARGV + TRAIN_ARGV)
     torch.cuda.synchronize()
     train_launches = {"eva_packed_fwd": k1.LAUNCHES_FWD,
                       "eva_packed_bwd": k1.LAUNCHES_BWD,
                       "eva_single": k2.LAUNCHES}
-    bwd_mma_launches = k1.LAUNCHES_BWD_MMA
+    fwd_mma_launches, bwd_mma_launches = k1.LAUNCHES_FWD_MMA, k1.LAUNCHES_BWD_MMA
     log(f"[train] 8 steps + eval {json.dumps(record)} in "
         f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(train_launches)}")
     # the epoch's loss and grad norm are means over its steps, so they are
@@ -1608,11 +1641,13 @@ def main() -> int:
                           "eva_single": 12 * 4}:
         raise AssertionError(f"launches {train_launches} for 8 train steps and "
                              "4 eval batches of a 12-block model")
-    log(f"[train] eva_packed backward launches on the tensor-core route: "
+    log(f"[train] eva_packed launches on the tensor-core routes: forward "
+        f"{fwd_mma_launches} of {train_launches['eva_packed_fwd']}, backward "
         f"{bwd_mma_launches} of {train_launches['eva_packed_bwd']}")
-    if bwd_mma_launches != 12 * 8:
-        raise AssertionError(f"{bwd_mma_launches} of the 96 bf16 eva_packed "
-                             "backward launches took the tensor-core route")
+    if (fwd_mma_launches, bwd_mma_launches) != (12 * 8, 12 * 8):
+        raise AssertionError(f"{fwd_mma_launches} of the 96 bf16 eva_packed forward "
+                             f"and {bwd_mma_launches} of the 96 backward launches "
+                             "took the tensor-core routes")
     # f32 gradients of every parameter: the kernel path against the eager
     # path, train mode, zero RF noise, no drop-path
     args = train_vit.parse_args(MAIN_ARGV + ["--drop-path", "0"])
@@ -1722,6 +1757,8 @@ def main() -> int:
     k1_args = (qkv, rf, beta, bias, 64 ** -0.5, 3, 28, 7)
     k1_ms = {
         "fwd": cuda_ms(lambda: k1._forward(*k1_args), 20),
+        "fwd_cuda_cores": cuda_ms(lambda: k1._forward(*k1_args, cuda_cores=True),
+                                  20),
         "bwd": cuda_ms(lambda: k1._backward(*k1_args[:4], grad,
                                             *k1_args[4:]), 10),
         "bwd_cuda_cores": cuda_ms(lambda: k1._backward(
@@ -1735,8 +1772,9 @@ def main() -> int:
                  "bwd": k1_bound(qkv, rf, beta, bias, 3, 7, True)}
     sdpa = dict(zip(("fwd", "bwd", "fwd+bwd"),
                     sdpa_yardstick(qkv, rf, beta, bias, 3, 28, 7, grad)))
-    log(f"[time] eva_packed main shape bf16 (bwd on the tensor-core route, "
-        f"bwd_cuda_cores the CUDA-core route): {json.dumps(k1_ms)} ms, bounds "
+    log(f"[time] eva_packed main shape bf16 (fwd and bwd on the tensor-core "
+        f"routes, *_cuda_cores on the CUDA-core routes): {json.dumps(k1_ms)} ms, "
+        f"bounds "
         f"{json.dumps(k1_bounds)}, SDPA on pre-partitioned windows "
         f"{json.dumps(sdpa)} ms; {card}")
     del qkv, rf, beta, grad, kernel_model, eager_model, softmax_model
@@ -1975,6 +2013,17 @@ def main() -> int:
         f"{json.dumps(route_rates)}; {card}")
     xb = torch.randn(128, 224, 224, 3, generator=gen, device="cuda").to(bf16)
     with torch.no_grad():
+        route_models["two-kernel"](xb)
+        busy, k1_fwd_total, wall_ms, table = profile_steps(
+            torch, train_vit._profiler, lambda: route_models["two-kernel"](xb),
+            "eva_packed")
+    log(f"[profile] one two-kernel-route forward at B=128 bf16: device busy "
+        f"{busy:.3f} ms ({wall_ms:.3f} ms wall while profiled, "
+        f"{128e3 / route_rates['two-kernel'][0]:.3f} ms a forward unprofiled), "
+        f"eva_packed's forward {k1_fwd_total:.3f} ms ({k1_fwd_total / busy:.3f} "
+        f"of busy)")
+    print(table, flush=True)
+    with torch.no_grad():
         busy, k10_total, wall_ms, table = profile_steps(
             torch, train_vit._profiler, lambda: route_models["megakernel"](xb),
             "eva_eval::")
@@ -2145,8 +2194,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
         })
+    log(f"[launches] eva_packed forward on the tensor-core route: training "
+        f"{fwd_mma_launches} of {train_launches['eva_packed_fwd']}, EVA eval "
+        f"routes {json.dumps(route_fwd_mma)} (48 a route)")
     serve_win = {r: route_launches[r] for r in ("pallas", "rowmajor")}
-    log(f"[launches] this slice's paths: headline serving "
+    log(f"[launches] K11 and K12's paths: headline serving "
         f"{json.dumps(serve_win)}, headline "
         f"training {json.dumps(win_train)}, PVT-B3 serving "
         f"{json.dumps(pvt_launches)}, auto fallback errors "

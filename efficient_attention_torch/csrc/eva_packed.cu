@@ -80,6 +80,32 @@
 // 112,000 bytes of shared memory at the DeiT-tiny-p8 shape (head dim 64,
 // 49 + 49 keys), so two blocks fit an SM.  mma.sync and cp.async only: no
 // wgmma or TMA.
+//
+// The forward has a tensor-core route too, behind the same gate
+// (fwd_uses_mma: bf16, head dims a multiple of 16; f32 and head dim 12 keep
+// the CUDA-core kernel above).  The same roundings as the TPU kernel: the
+// numerators exp(s - max) rounded to bf16 as the value product's A operand,
+// the denominator the f32 sum of the unrounded ones, out / denom in f32,
+// then rounded.  A block of 4 warps takes wpb windows of one (image, head)
+// in turn.  Design:
+//  * staging in bf16 (16-byte cp.async through the token table): the chunk
+//    rows rf and beta [C][D+8] once a block; a window's q, k and v rows
+//    [S][D+8] in two buffers, the next window's loading while this one is
+//    computed, so one barrier a window; the bias in f32, times log2 e.  No
+//    logit matrix in shared memory: 67,968 bytes at the DeiT-tiny-p8 shape,
+//    three blocks an SM;
+//  * a warp owns a strip of 16 query rows and computes its logits as
+//    mma.sync accumulator fragments, 16 key columns [k | rf] at a time.
+//    Where S + C <= 112 the strip's fragments stay in registers: the row
+//    max over the quad, the numerators exp(s - max) in place, their f32 sum.
+//    Wider strips take two passes: the row max alone, then the logits again
+//    (no running rescale, which would round the numerators at a running max
+//    instead of the final one);
+//  * out += P [v | beta] on tensor cores, P's fragments repacked in
+//    registers as bf16 operands, the values read through ldmatrix.trans;
+//    key and value rows past S + C read the last real row (their P is 0);
+//  * the strip's rows, divided by the denominator and rounded, are staged in
+//    the strip's own q rows and leave 16 bytes a thread to their tokens.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -184,6 +210,31 @@ __host__ __device__ inline MmaLayout make_mma_layout(int D, int S, int C) {
   L.dbias = o; o += align128((size_t)S * S * 4);
   L.drf = o;   o += align128((size_t)C * D * 4);
   L.dbeta = o; o += align128((size_t)C * D * 4);
+  L.tok = o;   o += align128((size_t)kMaxWpb * S * 4);
+  L.total = o;
+  return L;
+}
+
+// Offsets (bytes) of the tensor-core forward's shared memory; the same
+// layout as smem_bytes() in ops/kernels/eva_packed.py.  bf16: a window's q,
+// k and v rows [S][D+8] in two buffers each (buffer b at b * win), the chunk
+// rows rf and beta [C][D+8]; f32: the bias [S][S]; int32: the token table
+// [kMaxWpb][S].
+struct FwdMmaLayout {
+  size_t win, q, kw, vw, kc, vc, bias, tok, total;
+};
+
+__host__ __device__ inline FwdMmaLayout make_fwd_mma_layout(int D, int S, int C) {
+  const size_t DB = D + 8;
+  FwdMmaLayout L = {};
+  L.win = align128(S * DB * 2);
+  size_t o = 0;
+  L.q = o;     o += 2 * L.win;
+  L.kw = o;    o += 2 * L.win;
+  L.vw = o;    o += 2 * L.win;
+  L.kc = o;    o += align128(C * DB * 2);
+  L.vc = o;    o += align128(C * DB * 2);
+  L.bias = o;  o += align128((size_t)S * S * 4);
   L.tok = o;   o += align128((size_t)kMaxWpb * S * 4);
   L.total = o;
   return L;
@@ -944,47 +995,292 @@ __global__ void __launch_bounds__(kMmaThreads, 2) eva_packed_bwd_mma_kernel(cons
   for (int e = tid; e < S * S; e += kMmaThreads) atomicAdd(dbias + e, dbias_s[e]);
 }
 
-// The kernel instance for a geometry: one pass where a strip's tiles fit
-// the registers.
+// Row j of a window's [k | rf] or [v | beta]: window row j < S from the
+// window's buffer, chunk row j - S from the block's.
 template <int D>
-auto mma_kernel(int S, int C) {
-  return round16(S + C) <= 16 * kResidentTiles ? eva_packed_bwd_mma_kernel<D, true>
-                                                : eva_packed_bwd_mma_kernel<D, false>;
+__device__ __forceinline__ const bf16* joint_row(const bf16* win, const bf16* chunk, int j,
+                                                 int S) {
+  return j < S ? win + j * (D + 8) : chunk + (j - S) * (D + 8);
+}
+
+// One 16-column tile kt of a strip's logits in base 2 (scaled, the bias
+// added on the window's columns, -inf past S + C) from the strip's q
+// fragments qa: the forward's half of strip_tile.  Rows are the thread's
+// row0 and row0 + 8; s[n][e] is column kt*16 + 8n + 2(lane%4) + e%2 of row
+// row0 + 8 (e / 2).
+template <int D>
+__device__ __forceinline__ void fwd_logits_tile(const Params& p, int kt, int row0,
+                                                const uint32_t (&qa)[D / 16][4],
+                                                const bf16* kw, const bf16* kc,
+                                                const float* bias_s, float (&s)[2][4]) {
+  using namespace mma_frag;
+  const int lane = threadIdx.x & 31, SC = p.S + p.C;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  const bf16* kr =
+      joint_row<D>(kw, kc, min(kt * 16 + row_c(lane), SC - 1), p.S) + col_c(lane);
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t bk[4];
+    ldsm_x4(bk, kr + 16 * kd);
+    mma_bf16(s[0], qa[kd], bk[0], bk[1]);
+    mma_bf16(s[1], qa[kd], bk[2], bk[3]);
+  }
+  // the bias only on tiles with window columns, the mask only on the last
+  // tile (both tests uniform over the warp); the padding rows past S read
+  // the bias of row S - 1 and are never stored
+  const bool window_cols = kt * 16 < p.S, masked = kt * 16 + 16 > SC;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = min(row0 + 8 * (e >> 1), p.S - 1);
+      const int jj = kt * 16 + 8 * n + 2 * (threadIdx.x & 3) + (e & 1);
+      float v = s[n][e] * (p.scale * kLog2e);
+      if (window_cols && jj < p.S) v += bias_s[i * p.S + jj];
+      if (masked && jj >= SC) v = -INFINITY;
+      s[n][e] = v;
+    }
+}
+
+// Tile kt of a strip from its logits s and row max m: the numerators
+// x = exp(s - m) added into the f32 row sums l, then o += x [v | beta] with
+// x rounded to bf16 as the product's A operand.
+template <int D>
+__device__ __forceinline__ void fwd_pv_tile(const Params& p, int kt, float (&s)[2][4],
+                                            const float (&m)[2], float (&l)[2],
+                                            const bf16* vw, const bf16* vc,
+                                            float (&o)[D / 8][4]) {
+  using namespace mma_frag;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = exp2_approx(s[n][e] - m[e >> 1]);
+      l[e >> 1] += s[n][e];
+    }
+  uint32_t a[4];
+  c_to_a(s[0], s[1], a);
+  const bf16* vr =
+      joint_row<D>(vw, vc, min(kt * 16 + row_r(lane), p.S + p.C - 1), p.S) + col_r(lane);
+#pragma unroll
+  for (int nd = 0; nd < D / 16; ++nd) {
+    uint32_t bv[4];
+    ldsm_x4_trans(bv, vr + 16 * nd);
+    mma_bf16(o[2 * nd], a, bv[0], bv[1]);
+    mma_bf16(o[2 * nd + 1], a, bv[2], bv[3]);
+  }
+}
+
+// A window's q, k and v rows into one buffer with 16-byte asynchronous
+// copies; tok holds the window's token indices.
+template <int D>
+__device__ __forceinline__ void load_window_fwd(const Params& p, const int* tok,
+                                                const bf16* qkv, bf16* q, bf16* kw, bf16* vw) {
+  using namespace mma_frag;
+  constexpr int DB = D + 8, V8 = D / 8;
+  const int HD = p.nh * D;
+  for (int e = threadIdx.x; e < p.S * 3 * V8; e += kMmaThreads) {
+    const int v = e % V8, part = (e / V8) % 3, l = e / (3 * V8);
+    bf16* dst = part == 0 ? q : part == 1 ? kw : vw;
+    cp_async16(dst + l * DB + 8 * v, qkv + (size_t)tok[l] * 3 * HD + part * HD + 8 * v);
+  }
+  cp_async_commit();
+}
+
+// The tensor-core forward (bf16, D a multiple of 16): the design is in the
+// header comment.  A block takes wpb windows of one (image, head) in turn.
+// kOnePass: S + C <= 16 * kResidentTiles, a strip's logits stay in
+// registers between the row max and their use.
+template <int D, bool kOnePass>
+__global__ void __launch_bounds__(kMmaThreads, 3) eva_packed_fwd_mma_kernel(const Params p) {
+  using namespace mma_frag;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int DB = D + 8, KD = D / 16, V8 = D / 8;
+  const int S = p.S, C = p.C, KT = round16(S + C) / 16;
+  const int NS = (S + 15) / 16;  // strips of 16 query rows
+  const FwdMmaLayout L = make_fwd_mma_layout(D, S, C);
+  bf16* kc = reinterpret_cast<bf16*>(smem + L.kc);            // [C][DB]: rf
+  bf16* vc = reinterpret_cast<bf16*>(smem + L.vc);            // [C][DB]: beta
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);    // [S][S]
+  int* tok_s = reinterpret_cast<int*>(smem + L.tok);          // [kMaxWpb][S]
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int HD = p.nh * D;
+  const int cq = 2 * (lane & 3);  // the thread's first column in an 8-column tile
+  const bf16* qkv = static_cast<const bf16*>(p.qkv) + (size_t)b * p.N * 3 * HD + h * D;
+  bf16* out = static_cast<bf16*>(p.out) + (size_t)b * p.N * HD + h * D;
+  // buffer `buf` of a window's q, k or v rows ([S][DB] each)
+  auto rows = [&](size_t region, int buf) {
+    return reinterpret_cast<bf16*>(smem + region + buf * L.win);
+  };
+
+  {  // the block's chunk rows, bias and token table
+    const bf16* rf = static_cast<const bf16*>(p.rf) + (size_t)b * C * HD + h * D;
+    const bf16* bt = static_cast<const bf16*>(p.beta) + (size_t)b * C * HD + h * D;
+    for (int e = tid; e < C * V8; e += kMmaThreads) {
+      const int c = e / V8, v = e % V8;
+      cp_async16(kc + c * DB + 8 * v, rf + (size_t)c * HD + 8 * v);
+      cp_async16(vc + c * DB + 8 * v, bt + (size_t)c * HD + 8 * v);
+    }
+    const float* bh = p.bias != nullptr ? p.bias + (size_t)h * S * S : nullptr;
+    for (int e = tid; e < S * S; e += kMmaThreads)
+      bias_s[e] = bh != nullptr ? kLog2e * bh[e] : 0.f;
+    for (int e = tid; e < p.wpb * S; e += kMmaThreads)
+      tok_s[e] = window_token(p, blockIdx.x * p.wpb + e / S, e % S);
+    __syncthreads();
+  }
+  // the first window's rows, in one group with the chunk rows
+  load_window_fwd<D>(p, tok_s, qkv, rows(L.q, 0), rows(L.kw, 0), rows(L.vw, 0));
+  for (int wi = 0; wi < p.wpb; ++wi) {
+    const int buf = wi & 1;
+    const int* tok = tok_s + wi * S;
+    bf16* qs = rows(L.q, buf);
+    const bf16* kw = rows(L.kw, buf);
+    const bf16* vw = rows(L.vw, buf);
+    // this window's rows have landed, and every warp is done with the other
+    // buffer, into which the next window's rows now load
+    cp_async_wait_all();
+    __syncthreads();
+    if (wi + 1 < p.wpb)
+      load_window_fwd<D>(p, tok + S, qkv, rows(L.q, buf ^ 1), rows(L.kw, buf ^ 1),
+                         rows(L.vw, buf ^ 1));
+
+    for (int st = warp; st < NS; st += kMmaWarps) {
+      const int row0 = 16 * st + (lane >> 2);  // the thread's rows: row0, row0 + 8
+      uint32_t qa[KD][4];
+      {
+        const int r = min(16 * st + row_r(lane), S - 1);
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) ldsm_x4(qa[kd], qs + r * DB + 16 * kd + col_r(lane));
+      }
+      float o[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      if constexpr (kOnePass) {
+        // the logits of every tile, then the row max over the quad, then
+        // the numerators and the value product tile by tile
+        float s[kResidentTiles][2][4];
+#pragma unroll
+        for (int kt = 0; kt < kResidentTiles; ++kt) {
+          if (kt >= KT) break;
+          fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s[kt]);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            m[r] = fmaxf(m[r], fmaxf(fmaxf(s[kt][0][2 * r], s[kt][0][2 * r + 1]),
+                                     fmaxf(s[kt][1][2 * r], s[kt][1][2 * r + 1])));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
+#pragma unroll
+        for (int kt = 0; kt < kResidentTiles; ++kt) {
+          if (kt >= KT) break;
+          fwd_pv_tile<D>(p, kt, s[kt], m, l, vw, vc, o);
+        }
+      } else {
+        // pass 1: the row max; pass 2: the logits again, the numerators and
+        // the value product
+        for (int kt = 0; kt < KT; ++kt) {
+          float s[2][4];
+          fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            m[r] = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                     fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
+        for (int kt = 0; kt < KT; ++kt) {
+          float s[2][4];
+          fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s);
+          fwd_pv_tile<D>(p, kt, s, m, l, vw, vc, o);
+        }
+      }
+      // out / denom in f32, rounded to bf16 into the strip's own q rows
+      // (no other warp reads them), then 16 bytes a thread to the tokens
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float den = quad_sum(l[r]);
+        const int i = row0 + 8 * r;
+        if (i >= S) continue;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(qs + i * DB + 8 * n + cq) =
+              pack_bf16(o[n][2 * r] / den, o[n][2 * r + 1] / den);
+      }
+      __syncwarp();
+      const int nr = min(16, S - 16 * st);
+      for (int e = lane; e < nr * V8; e += 32) {
+        const int i = 16 * st + e / V8, v = e % V8;
+        *reinterpret_cast<uint4*>(out + (size_t)tok[i] * HD + 8 * v) =
+            *reinterpret_cast<const uint4*>(qs + i * DB + 8 * v);
+      }
+    }
+  }
+}
+
+// The tensor-core kernel of a direction and geometry (one pass where a
+// strip's tiles fit the registers) and its shared memory.
+template <int D>
+auto mma_kernel(bool backward, int S, int C) {
+  const bool one_pass = round16(S + C) <= 16 * kResidentTiles;
+  if (backward)
+    return one_pass ? eva_packed_bwd_mma_kernel<D, true> : eva_packed_bwd_mma_kernel<D, false>;
+  return one_pass ? eva_packed_fwd_mma_kernel<D, true> : eva_packed_fwd_mma_kernel<D, false>;
+}
+
+inline size_t mma_smem(bool backward, int D, int S, int C) {
+  return backward ? make_mma_layout(D, S, C).total : make_fwd_mma_layout(D, S, C).total;
 }
 
 template <int D>
-cudaError_t prepare_mma(int S, int C) {
-  const MmaLayout L = make_mma_layout(D, S, C);
-  const auto kernel = mma_kernel<D>(S, C);
+cudaError_t prepare_mma(bool backward, int S, int C) {
+  const auto kernel = mma_kernel<D>(backward, S, C);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mma_smem(backward, D, S, C));
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
 template <int D>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  cudaError_t err = prepare_mma<D>(p.S, p.C);
+cudaError_t launch_mma(const Params& p, bool backward, cudaStream_t stream) {
+  cudaError_t err = prepare_mma<D>(backward, p.S, p.C);
   if (err != cudaSuccess) return err;
   const int n_win = (p.N / p.gw / p.ws) * p.nww;
-  const auto kernel = mma_kernel<D>(p.S, p.C);
-  const size_t smem = make_mma_layout(D, p.S, p.C).total;
-  kernel<<<dim3(n_win / p.wpb, p.nh, p.B), kMmaThreads, smem, stream>>>(p);
+  const auto kernel = mma_kernel<D>(backward, p.S, p.C);
+  kernel<<<dim3(n_win / p.wpb, p.nh, p.B), kMmaThreads, mma_smem(backward, D, p.S, p.C),
+           stream>>>(p);
   return cudaGetLastError();
 }
 
-// Blocks of the tensor-core backward that fit one SM (registers and shared
+// Blocks of a tensor-core kernel that fit one SM (registers and shared
 // memory), from the occupancy calculator.
 template <int D>
-int mma_blocks_per_sm(int S, int C) {
+int mma_blocks_per_sm(bool backward, int S, int C) {
   int blocks = 0;
-  if (prepare_mma<D>(S, C) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_kernel<D>(S, C), kMmaThreads,
-                                                    make_mma_layout(D, S, C).total) !=
-          cudaSuccess)
+  if (prepare_mma<D>(backward, S, C) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_kernel<D>(backward, S, C),
+                                                    kMmaThreads,
+                                                    mma_smem(backward, D, S, C)) != cudaSuccess)
     return -1;
   return blocks;
+}
+
+cudaError_t dispatch_mma(const Params& p, int d, bool backward, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_mma<16>(p, backward, s);
+    case 32: return launch_mma<32>(p, backward, s);
+    case 64: return launch_mma<64>(p, backward, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int D, typename T>
@@ -1035,23 +1331,26 @@ bool make_params(Params& p, int B, int N, int gw, int ws, int nh, int C, int wpb
 
 extern "C" {
 
-// Whether the backward at head dim d and element size itemsize takes the
-// tensor-core route (bwd_uses_mma in ops/kernels/eva_packed.py).
+// Whether the backward (bwd_uses_mma) and the forward (fwd_uses_mma) at
+// head dim d and element size itemsize take their tensor-core routes (the
+// functions of the same names in ops/kernels/eva_packed.py).
 int bwd_uses_mma(int d, int itemsize) { return uses_mma(d, itemsize) ? 1 : 0; }
+int fwd_uses_mma(int d, int itemsize) { return uses_mma(d, itemsize) ? 1 : 0; }
 
 // Shared memory of one block of the route that (backward, d, itemsize)
 // takes, for the wrapper's gate to check its own copy of the layout against.
 int eva_packed_smem_bytes(int backward, int d, int S, int C, int itemsize) {
-  if (backward && uses_mma(d, itemsize)) return (int)make_mma_layout(d, S, C).total;
+  if (uses_mma(d, itemsize)) return (int)mma_smem(backward != 0, d, S, C);
   return (int)make_layout(backward != 0, d, S, C).total;
 }
 
-// Blocks of the tensor-core backward that fit one SM at (d, S, C), or -1.
-int eva_packed_bwd_mma_blocks_per_sm(int d, int S, int C) {
+// Blocks of the tensor-core backward (or forward) that fit one SM at
+// (d, S, C), or -1.
+int eva_packed_mma_blocks_per_sm(int backward, int d, int S, int C) {
   switch (d) {
-    case 16: return mma_blocks_per_sm<16>(S, C);
-    case 32: return mma_blocks_per_sm<32>(S, C);
-    case 64: return mma_blocks_per_sm<64>(S, C);
+    case 16: return mma_blocks_per_sm<16>(backward != 0, S, C);
+    case 32: return mma_blocks_per_sm<32>(backward != 0, S, C);
+    case 64: return mma_blocks_per_sm<64>(backward != 0, S, C);
     default: return -1;
   }
 }
@@ -1070,6 +1369,19 @@ int eva_packed_fwd_launch(const void* qkv, const void* rf, const void* beta,
   if (!make_params(p, B, N, gw, ws, nh, C, wpb, scale)) return cudaErrorInvalidValue;
   p.qkv = qkv; p.rf = rf; p.beta = beta; p.bias = bias; p.out = out;
   return dispatch(p, d, false, is_bf16, stream);
+}
+
+// The forward's tensor-core route on `stream` (bf16 operands; d 16, 32 or
+// 64): the same output as eva_packed_fwd_launch.  Returns a cudaError_t.
+int eva_packed_fwd_mma_launch(const void* qkv, const void* rf, const void* beta,
+                              const float* bias, void* out, int B, int N, int gw, int ws,
+                              int nh, int d, int C, int wpb, float scale, void* stream) {
+  Params p = {};
+  if (!make_params(p, B, N, gw, ws, nh, C, wpb, scale) || !uses_mma(d, 2) ||
+      wpb > kMaxWpb)
+    return cudaErrorInvalidValue;
+  p.qkv = qkv; p.rf = rf; p.beta = beta; p.bias = bias; p.out = out;
+  return dispatch_mma(p, d, false, static_cast<cudaStream_t>(stream));
 }
 
 // Backward on `stream`: dqkv (input type) and, added into the zeroed f32
@@ -1099,13 +1411,7 @@ int eva_packed_bwd_mma_launch(const void* qkv, const void* rf, const void* beta,
     return cudaErrorInvalidValue;
   p.qkv = qkv; p.rf = rf; p.beta = beta; p.bias = bias; p.g = g; p.out = dqkv;
   p.drf = drf; p.dbeta = dbeta; p.dbias = dbias;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch_mma<16>(p, s);
-    case 32: return launch_mma<32>(p, s);
-    case 64: return launch_mma<64>(p, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch_mma(p, d, true, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

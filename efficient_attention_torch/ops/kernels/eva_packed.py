@@ -21,13 +21,14 @@ tensors its forward and backward launch the kernels of
 ``csrc/eva_packed.cu`` or raise; for CPU tensors they compute the same
 function with ``eva_packed_fwd_ref`` and ``eva_packed_bwd_ref``, the plain
 PyTorch versions (the backward in explicit formulas, not autograd), which
-are also what the kernels are held against on the card.  The backward has
-two routes, chosen by ``bwd_uses_mma``: bf16 with a head dim that is a
-multiple of 16 runs on tensor cores (mma.sync, per-warp softmax on the
-accumulator fragments), everything else on CUDA cores in f32.
-``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count the kernels' launches (the
-backward's on either route), ``LAUNCHES_BWD_MMA`` the backward's on the
-tensor-core route.
+are also what the kernels are held against on the card.  The forward and
+the backward have two routes each, chosen by ``fwd_uses_mma`` and
+``bwd_uses_mma``: bf16 with a head dim that is a multiple of 16 runs on
+tensor cores (mma.sync, per-warp softmax on the accumulator fragments),
+everything else on CUDA cores in f32.  ``LAUNCHES_FWD`` and
+``LAUNCHES_BWD`` count the kernels' launches on either route,
+``LAUNCHES_FWD_MMA`` and ``LAUNCHES_BWD_MMA`` those on the tensor-core
+route.
 
 K9 ``eva_packed_out`` (``csrc/eva_packed_out.cu``) replaces
 ``eva_packed.py::eva_attention_packed_out``, the eval forward behind EVA's
@@ -50,6 +51,7 @@ from efficient_attention_torch.ops import windows
 from efficient_attention_torch.ops.kernels import _build
 
 LAUNCHES_FWD = 0
+LAUNCHES_FWD_MMA = 0
 LAUNCHES_BWD = 0
 LAUNCHES_BWD_MMA = 0
 LAUNCHES_OUT = 0
@@ -90,6 +92,12 @@ def bwd_uses_mma(d: int, itemsize: int) -> bool:
     return itemsize == 2 and d % 16 == 0
 
 
+def fwd_uses_mma(d: int, itemsize: int) -> bool:
+    """Whether the forward takes its tensor-core route (``fwd_uses_mma`` in
+    ``csrc/eva_packed.cu``): bf16, and a head dim that is a multiple of 16."""
+    return itemsize == 2 and d % 16 == 0
+
+
 def row_stride(d: int) -> int:
     """Floats between rows of ``d`` in shared memory (``row_stride`` in
     ``csrc/eva_packed.cu``): a multiple of 4 that is 4 mod 8."""
@@ -108,7 +116,14 @@ def smem_bytes(backward: bool, d: int, S: int, C: int, itemsize: int = 4) -> int
     zero row ``[KB]`` in bf16 (``KB = round16(S+C) + 8``), the bias and
     dbias ``[S][S]`` and the drf and dbeta sums ``[C][d]`` in f32, the
     token index of each row of a block's windows ``[4][S]`` in int32, each
-    region 128-byte aligned."""
+    region 128-byte aligned.  The forward's tensor-core route
+    (``make_fwd_mma_layout``): a window's q, k and v rows ``[S][d+8]`` in two
+    buffers each and the chunk rows rf and beta ``[C][d+8]`` in bf16, the
+    bias ``[S][S]`` in f32, the token table, each region 128-byte aligned."""
+    if not backward and fwd_uses_mma(d, itemsize):
+        db = d + 8
+        return (6 * _align128(S * db * 2) + 2 * _align128(C * db * 2)
+                + _align128(S * S * 4) + _align128(max(WINDOWS_PER_BLOCK) * S * 4))
     if backward and bwd_uses_mma(d, itemsize):
         db, kb = d + 8, _round16(S + C) + 8
         return (2 * _align128(S * db * 2) + 2 * _align128((S + C) * db * 2)
@@ -130,7 +145,7 @@ def plan(B: int, N: int, W: int, ws: int, C: int, num_heads: int, d: int,
     the geometry: square windows dividing a ``N/W x W`` grid, a head dim they
     are built for, float32 or bfloat16, and the blocks within Hopper's
     shared memory: the CUDA-core backward's (the largest of K1's layouts, so
-    both types accept the same geometries) and the backward route's own."""
+    both types accept the same geometries) and the routes' own."""
     if not 1 <= B <= _MAX_GRID_YZ or not 1 <= num_heads <= _MAX_GRID_YZ:
         return None
     if W <= 0 or ws <= 0 or C <= 0 or N % W or (N // W) % ws or W % ws:
@@ -138,7 +153,8 @@ def plan(B: int, N: int, W: int, ws: int, C: int, num_heads: int, d: int,
     if d not in HEAD_DIMS or itemsize not in (2, 4):
         return None
     if max(smem_bytes(True, d, ws * ws, C),
-           smem_bytes(True, d, ws * ws, C, itemsize)) > SMEM_LIMIT:
+           smem_bytes(True, d, ws * ws, C, itemsize),
+           smem_bytes(False, d, ws * ws, C, itemsize)) > SMEM_LIMIT:
         return None
     n_win = (N // W // ws) * (W // ws)
     return next(g for g in WINDOWS_PER_BLOCK if n_win % g == 0)
@@ -254,6 +270,9 @@ def _lib() -> ctypes.CDLL:
     lib.eva_packed_fwd_launch.argtypes = ([ptr] * 5 + [i32] * 9
                                           + [ctypes.c_float, ptr])
     lib.eva_packed_fwd_launch.restype = i32
+    lib.eva_packed_fwd_mma_launch.argtypes = ([ptr] * 5 + [i32] * 8
+                                              + [ctypes.c_float, ptr])
+    lib.eva_packed_fwd_mma_launch.restype = i32
     lib.eva_packed_bwd_launch.argtypes = ([ptr] * 9 + [i32] * 9
                                           + [ctypes.c_float, ptr])
     lib.eva_packed_bwd_launch.restype = i32
@@ -262,10 +281,11 @@ def _lib() -> ctypes.CDLL:
     lib.eva_packed_bwd_mma_launch.restype = i32
     lib.eva_packed_smem_bytes.argtypes = [i32] * 5
     lib.eva_packed_smem_bytes.restype = i32
-    lib.bwd_uses_mma.argtypes = [i32] * 2
-    lib.bwd_uses_mma.restype = i32
-    lib.eva_packed_bwd_mma_blocks_per_sm.argtypes = [i32] * 3
-    lib.eva_packed_bwd_mma_blocks_per_sm.restype = i32
+    for gate in (lib.bwd_uses_mma, lib.fwd_uses_mma):
+        gate.argtypes = [i32] * 2
+        gate.restype = i32
+    lib.eva_packed_mma_blocks_per_sm.argtypes = [i32] * 4
+    lib.eva_packed_mma_blocks_per_sm.restype = i32
     lib.eva_packed_error_string.argtypes = [i32]
     lib.eva_packed_error_string.restype = ctypes.c_char_p
     return lib
@@ -312,33 +332,53 @@ def _check(rc: int, what: str) -> None:
                            f"{_lib().eva_packed_error_string(rc).decode()}")
 
 
-def _forward(qkv, rf, beta, bias, scale, num_heads, W, ws):
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned start (the tensor-core routes
+    copy rows 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _fwd_operands(qkv, rf, beta, bias, num_heads, W, ws, cuda_cores=False):
+    """The forward's checked operands, launch geometry and route (True for
+    the tensor-core one), or a ValueError before anything is launched."""
+    qkv, rf, beta, bias, geometry = _cuda_operands(qkv, rf, beta, bias,
+                                                   num_heads, W, ws)
+    uses_mma = not cuda_cores and fwd_uses_mma(geometry[3], qkv.element_size())
+    if uses_mma:
+        qkv, rf, beta = (_aligned16(t) for t in (qkv, rf, beta))
+    return qkv, rf, beta, bias, geometry, uses_mma
+
+
+def _forward(qkv, rf, beta, bias, scale, num_heads, W, ws,
+             cuda_cores: bool = False):
+    """The forward on the route ``fwd_uses_mma`` picks, or with
+    ``cuda_cores`` on the CUDA-core route whatever the type (to time and
+    check it beside the tensor-core one)."""
     if qkv.device.type == "cpu":
         return eva_packed_fwd_ref(qkv, rf, beta, scale, num_heads, W, ws, bias)
     if qkv.device.type != "cuda":
         raise ValueError(f"eva_packed runs on CUDA or CPU tensors, got {qkv.device}")
-    qkv, rf, beta, bias, (B, N, nh, d, C, wpb) = _cuda_operands(
-        qkv, rf, beta, bias, num_heads, W, ws)
+    qkv, rf, beta, bias, (B, N, nh, d, C, wpb), uses_mma = _fwd_operands(
+        qkv, rf, beta, bias, num_heads, W, ws, cuda_cores)
     out = torch.empty((B, N, nh * d), dtype=qkv.dtype, device=qkv.device)
     lib = _lib()
+    pointers = (qkv.data_ptr(), rf.data_ptr(), beta.data_ptr(),
+                None if bias is None else bias.data_ptr(), out.data_ptr())
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.eva_packed_fwd_launch(
-            qkv.data_ptr(), rf.data_ptr(), beta.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            B, N, W, ws, nh, d, C, wpb, int(qkv.dtype == torch.bfloat16),
-            float(scale), stream)
+        if uses_mma:
+            rc = lib.eva_packed_fwd_mma_launch(
+                *pointers, B, N, W, ws, nh, d, C, wpb, float(scale), stream)
+        else:
+            rc = lib.eva_packed_fwd_launch(
+                *pointers, B, N, W, ws, nh, d, C, wpb,
+                int(qkv.dtype == torch.bfloat16), float(scale), stream)
     _check(rc, "forward")
-    global LAUNCHES_FWD
+    global LAUNCHES_FWD, LAUNCHES_FWD_MMA
     LAUNCHES_FWD += 1
+    LAUNCHES_FWD_MMA += int(uses_mma)
     return out
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous with a 16-byte aligned start (the tensor-core route
-    copies rows 16 bytes at a time)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _backward(qkv, rf, beta, bias, g, scale, num_heads, W, ws,

@@ -99,15 +99,17 @@ def test_eva_packed_kernels_match_plain(cuda_device, geometry, dtype):
     B, g, ws, C, nh, d = geometry
     qkv, rf, beta, bias, grad = _k1_args(cuda_device, dtype, *geometry)
     scale = d ** -0.5
-    before = (K1.LAUNCHES_FWD, K1.LAUNCHES_BWD, K1.LAUNCHES_BWD_MMA)
+    counters = lambda: (K1.LAUNCHES_FWD, K1.LAUNCHES_FWD_MMA,  # noqa: E731
+                        K1.LAUNCHES_BWD, K1.LAUNCHES_BWD_MMA)
+    before = counters()
     leaves = [t.clone().requires_grad_() for t in (qkv, rf, beta, bias)]
     out = K1.eva_attention_packed(*leaves[:3], scale, nh, g, ws, bias=leaves[3])
     out.backward(grad)
     torch.cuda.synchronize()
-    # bf16 at head dims 16 and 64 takes the tensor-core backward
+    # bf16 at head dims 16 and 64 takes the tensor-core forward and backward
     mma = int(dtype == torch.bfloat16 and d % 16 == 0)
-    assert (K1.LAUNCHES_FWD, K1.LAUNCHES_BWD, K1.LAUNCHES_BWD_MMA) == (
-        before[0] + 1, before[1] + 1, before[2] + mma)
+    assert counters() == (before[0] + 1, before[1] + mma, before[2] + 1,
+                          before[3] + mma)
     ref = K1.eva_packed_fwd_ref(qkv, rf, beta, scale, nh, g, ws, bias)
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
@@ -161,6 +163,46 @@ def test_eva_packed_cuda_core_backward_takes_bf16_when_asked(cuda_device):
     want = K1.eva_packed_bwd_ref(qkv, rf, beta, bias, grad, 0.25, 3, 8, 4)
     for a, w in zip(got, want):
         assert (a.float() - w.float()).abs().max().item() <= _k1_tol(w.dtype, w)
+
+
+@pytest.mark.parametrize("geometry,with_bias", [
+    ((2, 28, 7, 49, 3, 64), True),    # the headline geometry
+    ((2, 56, 7, 49, 2, 32), True),    # PVT-B3 stage 1: heads of 32
+    ((3, 8, 4, 4, 3, 16), False),     # S + C = 20, not a multiple of 16
+    ((2, 28, 7, 196, 2, 16), True),   # 245 keys: a strip takes two passes
+])
+def test_eva_packed_mma_forward_matches_plain(cuda_device, geometry, with_bias):
+    """The tensor-core forward (bf16, head dims multiples of 16) against the
+    plain version, to one bf16 rounding of the output."""
+    from efficient_attention_torch.ops.kernels import eva_packed as K1
+
+    B, g, ws, C, nh, d = geometry
+    qkv, rf, beta, bias, _ = _k1_args(cuda_device, torch.bfloat16, *geometry)
+    bias = bias if with_bias else None
+    scale = d ** -0.5
+    before = (K1.LAUNCHES_FWD, K1.LAUNCHES_FWD_MMA)
+    out = K1._forward(qkv, rf, beta, bias, scale, nh, g, ws)
+    torch.cuda.synchronize()
+    assert (K1.LAUNCHES_FWD, K1.LAUNCHES_FWD_MMA) == (before[0] + 1, before[1] + 1)
+    ref = K1.eva_packed_fwd_ref(qkv, rf, beta, scale, nh, g, ws, bias)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref.dtype, ref)
+
+
+def test_eva_packed_cuda_core_forward_takes_bf16_when_asked(cuda_device):
+    """``cuda_cores=True`` runs the CUDA-core forward on bf16 (timed beside
+    the tensor-core route)."""
+    from efficient_attention_torch.ops.kernels import eva_packed as K1
+
+    geometry = (2, 28, 7, 49, 3, 64)
+    qkv, rf, beta, bias, _ = _k1_args(cuda_device, torch.bfloat16, *geometry)
+    before = (K1.LAUNCHES_FWD, K1.LAUNCHES_FWD_MMA)
+    out = K1._forward(qkv, rf, beta, bias, 0.125, 3, 28, 7, cuda_cores=True)
+    torch.cuda.synchronize()
+    assert (K1.LAUNCHES_FWD, K1.LAUNCHES_FWD_MMA) == (before[0] + 1, before[1])
+    ref = K1.eva_packed_fwd_ref(qkv, rf, beta, 0.125, 3, 28, 7, bias)
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref.dtype, ref)
 
 
 def test_eva_packed_kernel_raises_outside_its_gate(cuda_device):

@@ -179,6 +179,17 @@ def test_bwd_uses_mma_picks_the_route(d, itemsize, mma):
     assert K.bwd_uses_mma(d, itemsize) is mma
 
 
+@pytest.mark.parametrize("d,itemsize,mma", [
+    (16, 2, True), (32, 2, True), (64, 2, True),
+    (16, 4, False), (32, 4, False), (64, 4, False),
+    (12, 2, False), (12, 4, False),
+])
+def test_fwd_uses_mma_picks_the_route(d, itemsize, mma):
+    """bf16 at head dims that are multiples of 16 takes the tensor-core
+    forward; f32, and head dim 12, the CUDA-core one."""
+    assert K.fwd_uses_mma(d, itemsize) is mma
+
+
 # Hopper: 228 KB of shared memory an SM, 1 KB of it reserved for each block
 SM_SMEM = 233472
 BLOCK_RESERVED = 1024
@@ -193,9 +204,9 @@ def test_mma_backward_layout_fits_two_blocks_an_sm(what, d, S, C):
     assert mma <= K.SMEM_LIMIT, what
     assert 2 * (mma + BLOCK_RESERVED) <= SM_SMEM, what
     # the bf16 staging is smaller than the CUDA-core route's f32 one, which
-    # the other types keep
+    # the other types keep; the bf16 forward takes its own layout too
     assert mma < K.smem_bytes(True, d, S, C) == K.smem_bytes(True, d, S, C, 4)
-    assert K.smem_bytes(False, d, S, C, 2) == K.smem_bytes(False, d, S, C)
+    assert K.smem_bytes(False, d, S, C, 2) < K.smem_bytes(False, d, S, C)
 
 
 def test_mma_backward_layout_counts_each_region():
@@ -214,6 +225,82 @@ def test_mma_backward_layout_counts_each_region():
     for C, wpb in ((49, 4), (96, 4), (97, None), (170, None)):
         assert K.plan(128, 784, 28, 7, C, 3, 64, 2) == wpb
         assert K.plan(128, 784, 28, 7, C, 3, 64, 4) == wpb
+
+
+@pytest.mark.parametrize("what,d,S,C", [
+    ("headline: 28x28 tokens, window 7, 49 chunks, heads of 64", 64, 49, 49),
+    ("PVT-B3 stage 1: 56x56 tokens, window 7, 49 chunks, heads of 32", 32, 49, 49),
+])
+def test_mma_forward_layout_fits_three_blocks_an_sm(what, d, S, C):
+    fwd = K.smem_bytes(False, d, S, C, itemsize=2)
+    assert 3 * (fwd + BLOCK_RESERVED) <= SM_SMEM, what
+    # no logit matrix: smaller than the CUDA-core forward's f32 layout, which
+    # f32 keeps
+    assert fwd < K.smem_bytes(False, d, S, C) == K.smem_bytes(False, d, S, C, 4)
+
+
+def test_mma_forward_layout_counts_each_region():
+    """The layout twin of ``make_fwd_mma_layout``: bf16 q, k, v [S][d+8] in
+    two buffers each, rf and beta [C][d+8], then the f32 bias [S][S] and the
+    int32 token table [4][S], each 128-byte aligned."""
+    a = lambda n: -(-n // 128) * 128  # noqa: E731
+    # S=16, C=4, heads of 16: rows of 24 bf16
+    want = (6 * a(16 * 24 * 2) + 2 * a(4 * 24 * 2) + a(16 * 16 * 4)
+            + a(4 * 16 * 4))
+    assert K.smem_bytes(False, 16, 16, 4, 2) == want
+    # the headline: 49 + 49 keys, heads of 64
+    assert K.smem_bytes(False, 64, 49, 49, 2) == (
+        6 * 7168 + 2 * 7168 + 9728 + 896) == 67968
+    # the two-pass geometry (49 + 196 keys) holds only the chunk rows more
+    assert (K.smem_bytes(False, 16, 49, 196, 2) - K.smem_bytes(False, 16, 49, 49, 2)
+            == 2 * (a(196 * 24 * 2) - a(49 * 24 * 2)))
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(d=24), "cannot take"),
+    (dict(W=10), "does not split"),
+    (dict(rf_c=5), "beta"),
+    (dict(bias=(3, 16, 9)), "bias must be"),
+])
+def test_forward_launch_checks_raise_before_any_launch(change, match, monkeypatch):
+    """The forward's operand checks (run here on CPU tensors) raise before
+    the library is loaded or anything is launched."""
+    monkeypatch.setattr(K, "_lib", lambda: pytest.fail("loaded the library"))
+    nh, W = 3, change.get("W", 8)
+    d = change.get("d", 16)
+    dtype = change.get("dtype", torch.bfloat16)
+    qkv = torch.zeros(2, 64, 3 * nh * d, dtype=dtype)
+    rf = torch.zeros(2, change.get("rf_c", 4), nh * d, dtype=dtype)
+    beta = torch.zeros(2, 4, nh * d, dtype=dtype)
+    bias = torch.zeros(change["bias"]) if "bias" in change else None
+    before = (K.LAUNCHES_FWD, K.LAUNCHES_FWD_MMA)
+    with pytest.raises(ValueError, match=match):
+        K._fwd_operands(qkv, rf, beta, bias, nh, W, 4)
+    assert (K.LAUNCHES_FWD, K.LAUNCHES_FWD_MMA) == before
+
+
+@pytest.mark.parametrize("dtype,d,cuda_cores,mma", [
+    (torch.bfloat16, 16, False, True), (torch.bfloat16, 64, False, True),
+    (torch.bfloat16, 16, True, False), (torch.float32, 16, False, False),
+    (torch.bfloat16, 12, False, False),
+])
+def test_forward_route_and_operands(dtype, d, cuda_cores, mma):
+    """The route the forward takes, and its operands: contiguous, in qkv's
+    type (the bias in f32), 16-byte aligned on the tensor-core route."""
+    nh = 3
+    qkv = torch.zeros(2, 64, 3 * nh * d, dtype=dtype)
+    rf = torch.zeros(2, 4, nh * d)
+    beta = torch.zeros(2, 4, nh * d)
+    *ops, geometry, uses_mma = K._fwd_operands(
+        qkv, rf, beta, torch.zeros(nh, 16, 16, dtype=torch.float64), nh, 8, 4,
+        cuda_cores=cuda_cores)
+    assert uses_mma is mma
+    assert geometry == (2, 64, nh, d, 4, 4)
+    assert [t.dtype for t in ops] == [dtype] * 3 + [torch.float32]
+    assert all(t.is_contiguous() for t in ops)
+    if mma:
+        assert all(t.data_ptr() % 16 == 0 for t in ops[:3])
 
 
 @pytest.mark.parametrize("change,match", [
