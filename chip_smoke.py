@@ -50,15 +50,19 @@ Phases, each raising on failure:
 
 1. build: compile every kernel with nvcc (one process per source, all at
    once) and print the seconds, each kernel's registers and spills, and for
-   ``eva_packed``'s tensor-core forward and backward the blocks an SM; the
-   wrappers' twins of the kernels' shared-memory layouts and route choices;
+   ``eva_packed``'s tensor-core forward and backward and the tensor-core
+   route of ``eva_kernel`` and ``eva_rowmajor`` the blocks an SM (no spills
+   allowed there); the wrappers' twins of the kernels' shared-memory
+   layouts and route choices;
 2. kernels against their plain versions on the card: ``eva_single``;
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
    ``local_packed``; ``eva_1d`` at non-pad rows of random-length
    sentences; ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
    entry points; ``eva_kernel`` and ``eva_rowmajor`` (also at PVT-B3's
-   first stage, K11 in 1-D, and raising outside their gates); at the main
+   three stages, at heads of 48, where S + C is too wide for one-pass
+   strips, K11 in 1-D, and raising outside their gates; K11's output,
+   merged to token order, equal to K12's bit for bit); at the main
    paths' shapes in bf16 and f32 and at small odd geometries (K3-K12 in
    both types), and K8 at large-norm keys; K1 also at PVT-B3's first stage,
    without a bias where S + C is not a multiple of 16, and where S + C is
@@ -212,11 +216,16 @@ EVA_ROUTES = {
     "rowmajor": ({"impl": "rowmajor"}, ("eva_rowmajor",)),
 }
 # K11/K12 geometries (B, heads, grid rows, grid width, window, chunks, head
-# dim) and whether a bias is given: the headline cell, PVT-B3's first
-# stage, a small rectangular grid
+# dim) and whether a bias is given: the headline cell, PVT-B3's three EVA
+# stages, the auto fallback's heads of 48, a geometry whose strips take two
+# passes (S + C = 64 + 64 > 112) and a small rectangular grid
 WIN_CHECKS = (("main bf16", (128, 3, 28, 28, 7, 49, 64), "bfloat16", True),
               ("main f32", (128, 3, 28, 28, 7, 49, 64), "float32", True),
               ("pvt stage 1 bf16", (128, 2, 56, 56, 7, 49, 32), "bfloat16", True),
+              ("pvt stage 2 bf16", (128, 4, 28, 28, 7, 49, 32), "bfloat16", True),
+              ("pvt stage 3 bf16", (128, 10, 14, 14, 7, 49, 32), "bfloat16", True),
+              ("heads of 48 bf16", (16, 2, 28, 28, 7, 49, 48), "bfloat16", True),
+              ("two-pass bf16", (8, 2, 32, 32, 8, 64, 64), "bfloat16", True),
               ("small f32", (3, 3, 8, 12, 4, 6, 16), "float32", False),
               ("small bf16", (3, 3, 8, 12, 4, 6, 16), "bfloat16", False))
 # PVTv2-B3 (the reference's second ImageNet recipe, main.sh -m pvt_medium2
@@ -977,13 +986,38 @@ def main() -> int:
             raise AssertionError(f"{py.__name__}{args} {py(*args)} != the "
                                  f"kernel's {fn(*args)}")
     for d, S, C, itemsize in ((64, 49, 49, 2), (64, 49, 49, 4), (32, 49, 49, 2),
-                              (48, 49, 196, 2), (16, 8, 5, 4), (24, 16, 6, 2)):
+                              (48, 49, 49, 2), (48, 49, 196, 2), (64, 64, 64, 2),
+                              (128, 49, 49, 2), (16, 8, 5, 4), (16, 8, 5, 2),
+                              (24, 16, 6, 2)):
         want = k11.smem_bytes(d, S, C, itemsize)
         for fn in (k11._lib().eva_kernel_smem_bytes,
                    k12._lib().eva_rowmajor_smem_bytes):
             if fn(d, S, C, int(itemsize == 2)) != want:
                 raise AssertionError(f"eva_kernel smem_bytes{(d, S, C, itemsize)} "
                                      f"{want} != the kernel's {fn(d, S, C, itemsize == 2)}")
+    # K11 and K12's tensor-core route: its gate against the kernels', its
+    # registers and spills (none allowed) and blocks an SM (at least 3 at
+    # head dims 64 and 32)
+    for k, prefix in ((k11, "eva_kernel"), (k12, "eva_rowmajor")):
+        lib = k._lib()
+        for d in k11.HEAD_DIMS:
+            for itemsize in (2, 4):
+                if (bool(getattr(lib, f"{prefix}_uses_mma")(d, itemsize))
+                        != k11.uses_mma(d, itemsize)):
+                    raise AssertionError(f"{prefix} uses_mma({d}, {itemsize}): the "
+                                         f"kernel's and the wrapper's differ")
+        win_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k.NAME}.log",
+                                      "window_mma_kernel")
+        win_blocks = {f"d{d}": getattr(lib, f"{prefix}_mma_blocks_per_sm")(d, 49, 49)
+                      for d in (64, 48, 32, 16)}
+        log(f"[build] {prefix} tensor-core route, ptxas: {json.dumps(win_ptxas)}; "
+            f"blocks an SM at 49 + 49 keys (occupancy calculator): "
+            f"{json.dumps(win_blocks)}; {k11.smem_bytes(64, 49, 49, 2)} bytes of "
+            f"shared memory a block at head dim 64")
+        if any("0 bytes spill stores" not in v for v in win_ptxas.values()):
+            raise AssertionError(f"{prefix} tensor-core route spills: {win_ptxas}")
+        if min(win_blocks["d64"], win_blocks["d32"]) < 3:
+            raise AssertionError(f"{prefix} tensor-core route: {win_blocks} blocks an SM")
 
     # ---- 2. kernels against their plain versions
     errors = {}
@@ -1214,11 +1248,16 @@ def main() -> int:
             if not err <= tol:
                 raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
             win_errors[(name, label)] = err
+            # K11 and K12 run the same device code on the same rows: K11's
+            # output merged to token order equals K12's bit for bit
             if name == k11.NAME:
                 k11_out = merged(out)
             elif not torch.equal(k11_out, out):
-                log(f"[eva_rowmajor vs eva_kernel] {label}: max abs difference "
-                    f"{(k11_out.float() - out.float()).abs().max().item():.3e}")
+                raise AssertionError(
+                    f"eva_rowmajor {label} differs from eva_kernel's merged output "
+                    f"by {(k11_out.float() - out.float()).abs().max().item():.3e}")
+            else:
+                log(f"[eva_rowmajor vs eva_kernel] {label}: equal bit for bit")
         del a
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)

@@ -24,6 +24,17 @@ int eva_rowmajor_smem_bytes(int d, int S, int C, int is_bf16) {
   return eva_window::smem_bytes(d, S, C, is_bf16);
 }
 
+// Whether head dim d at element size itemsize takes the tensor-core route
+// (uses_mma in ops/kernels/eva_kernel.py).
+int eva_rowmajor_uses_mma(int d, int itemsize) {
+  return eva_window::uses_mma(d, itemsize == 2) ? 1 : 0;
+}
+
+// Blocks of the tensor-core kernel that fit one SM at (d, S, C), or -1.
+int eva_rowmajor_mma_blocks_per_sm(int d, int S, int C) {
+  return eva_window::mma_blocks_per_sm(d, S, C);
+}
+
 const char* eva_rowmajor_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -26,18 +26,30 @@
 // per block, a window's q, k, v rows once per window, all into shared memory.
 // Two routes, chosen by type and head dim (uses_mma):
 //  * CUDA cores (f32, or head dims that are not a multiple of 16): K1's
-//    forward (eva_packed.cu) on the rows held in f32: each product is a loop
-//    over shared memory in which a thread holds a register tile of outputs,
-//    rows of D padded to a stride of 4 (mod 8) floats;
-//  * tensor cores (bf16, head dims a multiple of 16): the rows held in bf16,
-//    padded with zero rows to multiples of 16 (the window to SP, window and
-//    chunks to SCP), both products as warp-level 16x16x16 bf16 MMA with f32
-//    accumulation (K7's route, local_packed.cu, with the chunk columns).
+//    CUDA-core forward (eva_packed.cu) on the rows held in f32: each product
+//    is a loop over shared memory in which a thread holds a register tile of
+//    outputs, rows of D padded to a stride of 4 (mod 8) floats;
+//  * tensor cores (bf16, head dims 16, 32, 48, 64 and 128): K1's tensor-core
+//    forward design (window_mma_kernel), on the strip tiles it shares with
+//    K1 (eva_strip.cuh).  A block of 4 warps stages in bf16, 16 bytes a
+//    cp.async: the chunk rows rf and beta [C][D+8] once a block; a window's
+//    q, k and v rows [S][D+8] in two buffers, the next window's loading
+//    while this one is computed, so one barrier a window; the bias in f32
+//    times log2 e, and a table of the block's token rows (token_row,
+//    computed once a block, not for every element).  A warp owns a strip of
+//    16 query rows: its logits as mma.sync m16n8k16 fragments in registers
+//    (one pass while S + C <= 112, two above), the softmax over the quad of
+//    threads that shares a row, P [v | beta] from P repacked in registers,
+//    out / denom staged in the strip's own q rows and stored 16 bytes a
+//    thread through the token table.  No logit matrix in shared memory:
+//    67,968 bytes a block at the DeiT-tiny-p8 shape, three blocks an SM.
 // Roundings follow the TPU kernel (_eva_kernel): logits in f32 with the f32
 // bias added, the numerators exp(l - max) rounded to the input type before
 // their product with [v | beta], the denominator summed in f32 from the
-// unrounded values, the output out / denom in f32, then cast.  No wgmma, TMA
-// or pipelining.
+// unrounded values, the output out / denom in f32, then cast.  The
+// tensor-core route holds the logits in base 2 (one ex2 an exp), which moves
+// the numerators by about 1e-7 relative, far below their bf16 rounding.  No
+// wgmma or TMA.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,18 +57,25 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "eva_strip.cuh"
+#include "mma_frag.cuh"
 #include "smem_tile.cuh"
 
 namespace eva_window {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// The tensor-core route: 4 warps a block, and at most kMaxWpb windows a
+// block (WINDOWS_PER_BLOCK in ops/kernels/eva_kernel.py), whose token rows
+// its table holds.
+constexpr int kMmaThreads = 128;
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMaxWpb = 4;
 
 using smem_tile::align128;
 using smem_tile::align16;
 using smem_tile::bf16;
 using smem_tile::from_f;
-using smem_tile::round16;
 using smem_tile::round_to;
 using smem_tile::to_f;
 using smem_tile::warp_max;
@@ -88,19 +107,21 @@ __device__ __forceinline__ int token_row(const Params& p, int g, int l) {
 // ops/kernels/eva_packed.py).  D is a multiple of 4.
 __host__ __device__ constexpr int row_stride(int D) { return ((D / 4 + 1) | 1) * 4; }
 
+// Whether (D, type) takes the tensor-core route (uses_mma in
+// ops/kernels/eva_kernel.py): bf16 and a head dim that is a multiple of 16
+// (of the instantiated ones, 16, 32, 48, 64 and 128).
 __host__ __device__ inline bool uses_mma(int D, bool is_bf16) {
   return is_bf16 && D % 16 == 0;
 }
 
-// Offsets (bytes) of the shared-memory regions of a block; the same layouts as
-// smem_bytes() in ops/kernels/eva_kernel.py.
+// Offsets (bytes) of the CUDA-core route's shared memory; the same layout as
+// smem_bytes() in ops/kernels/eva_kernel.py: keys [S+C][DP] (k | rf) and
+// values [S+C][DP] (v | beta), the query rows [S][DP], the logits
+// [S][S+C+1], the bias [S][S] and the denominators [S], all f32.
 struct Layout {
-  size_t q, keys, vals, F, P, bias, den, total;
+  size_t q, keys, vals, P, bias, den, total;
 };
 
-// CUDA-core route: keys [S+C][DP] (k | rf) and values [S+C][DP] (v | beta),
-// the query rows [S][DP], the logits [S][S+C+1], the bias [S][S] and the
-// denominators [S], all f32.
 __host__ __device__ inline Layout make_layout(int D, int S, int C) {
   const size_t DP = row_stride(D), SC = S + C;
   Layout L = {};
@@ -115,21 +136,27 @@ __host__ __device__ inline Layout make_layout(int D, int S, int C) {
   return L;
 }
 
-// Tensor-core route: q [SP][D+8], keys and values [SCP][D+8] and the rounded
-// numerators [SP][SCP+8] in bf16; an f32 region for the logits [SP][SCP+4]
-// or the output tile [SP][D+4]; the bias [S][S] and the denominators [SP].
-__host__ __device__ inline Layout make_mma_layout(int D, int S, int C) {
-  const size_t SP = round16(S), SCP = round16(S + C), DB = D + 8;
-  const size_t FS = SP * (SCP + 4) > SP * (D + 4) ? SP * (SCP + 4) : SP * (D + 4);
-  Layout L = {};
+// Offsets (bytes) of the tensor-core route's shared memory (K1's
+// make_fwd_mma_layout); the same layout as smem_bytes() in
+// ops/kernels/eva_kernel.py.  bf16: a window's q, k and v rows [S][D+8] in
+// two buffers each (buffer b at b * win), the chunk rows rf and beta
+// [C][D+8]; f32: the bias [S][S]; int32: the token table [kMaxWpb][S].
+struct MmaLayout {
+  size_t win, q, kw, vw, kc, vc, bias, tok, total;
+};
+
+__host__ __device__ inline MmaLayout make_mma_layout(int D, int S, int C) {
+  const size_t DB = D + 8;
+  MmaLayout L = {};
+  L.win = align128(S * DB * 2);
   size_t o = 0;
-  L.q = o;     o += align128(SP * DB * 2);
-  L.keys = o;  o += align128(SCP * DB * 2);
-  L.vals = o;  o += align128(SCP * DB * 2);
-  L.F = o;     o += align128(FS * 4);
-  L.P = o;     o += align128(SP * (SCP + 8) * 2);
+  L.q = o;     o += 2 * L.win;
+  L.kw = o;    o += 2 * L.win;
+  L.vw = o;    o += 2 * L.win;
+  L.kc = o;    o += align128(C * DB * 2);
+  L.vc = o;    o += align128(C * DB * 2);
   L.bias = o;  o += align128((size_t)S * S * 4);
-  L.den = o;   o += align128(SP * 4);
+  L.tok = o;   o += align128((size_t)kMaxWpb * S * 4);
   L.total = o;
   return L;
 }
@@ -302,101 +329,216 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(const Params p) {
   }
 }
 
-// Rows [0, rows) of a [rows][D] bf16 tile at src (row r at src_row(r) * D)
-// into dst [.][D + 8], 8 values a 16-byte load.
-template <int D, typename R>
-__device__ __forceinline__ void load_rows_bf16(const bf16* src, int rows, bf16* dst,
-                                               R&& src_row) {
-  constexpr int V8 = D / 8, DB = D + 8;
-  for (int e = threadIdx.x; e < rows * V8; e += kThreads) {
-    const int r = e / V8, c = e % V8;
-    *reinterpret_cast<uint4*>(dst + r * DB + 8 * c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)src_row(r) * D + 8 * c);
+// Blocks an SM that the tensor-core kernel's registers are sized for: three
+// (at most 168 registers a thread) at head dims 16, 32 and 64; two at head
+// dim 48, whose one-pass strip spills when held to 168; one at head dim
+// 128 (no path runs it; its shared memory allows one block at 49 + 49 keys
+// anyway).
+__host__ __device__ constexpr int mma_min_blocks(int D) {
+  return D == 128 ? 1 : D == 48 ? 2 : 3;
+}
+
+// A window's q, k and v rows into one buffer each with 16-byte asynchronous
+// copies; tok holds the window's token rows.
+template <int D>
+__device__ __forceinline__ void load_window(int S, const int* tok, const bf16* q,
+                                            const bf16* k, const bf16* v, bf16* qs, bf16* kw,
+                                            bf16* vw) {
+  using namespace mma_frag;
+  constexpr int DB = D + 8, V8 = D / 8;
+  for (int e = threadIdx.x; e < S * 3 * V8; e += kMmaThreads) {
+    const int c = e % V8, part = (e / V8) % 3, l = e / (3 * V8);
+    const bf16* src = part == 0 ? q : part == 1 ? k : v;
+    bf16* dst = part == 0 ? qs : part == 1 ? kw : vw;
+    cp_async16(dst + l * DB + 8 * c, src + (size_t)tok[l] * D + 8 * c);
+  }
+  cp_async_commit();
+}
+
+// Strip st (query rows 16 st .. 16 st + 15) of a window: its q rows qs, its
+// keys kw | kc and values vw | vc ([.][D+8] bf16 each), the bias bias_s
+// [S][S] in base 2; row i < S of the output goes to out + tok[i] * D.  The
+// strip body of K1's eva_packed_fwd_mma_kernel (eva_packed.cu), on the tiles
+// both share (eva_strip.cuh).  kOnePass: eva_strip::one_pass(S, C).
+template <int D, bool kOnePass>
+__device__ __forceinline__ void window_strip(const Params& p, int st, bf16* qs,
+                                             const bf16* kw, const bf16* vw, const bf16* kc,
+                                             const bf16* vc, const float* bias_s,
+                                             const int* tok, bf16* out) {
+  using namespace mma_frag;
+  using eva_strip::fwd_logits_tile;
+  using eva_strip::fwd_pv_tile;
+  using eva_strip::kResidentTiles;
+  constexpr int DB = D + 8, KD = D / 16, V8 = D / 8;
+  const int S = p.S, KT = eva_strip::round16(S + p.C) / 16;
+  const int lane = threadIdx.x & 31;
+  const int cq = 2 * (lane & 3);  // the thread's first column in an 8-column tile
+  const int row0 = 16 * st + (lane >> 2);  // the thread's rows: row0, row0 + 8
+  uint32_t qa[KD][4];
+  {
+    const int r = min(16 * st + row_r(lane), S - 1);
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) ldsm_x4(qa[kd], qs + r * DB + 16 * kd + col_r(lane));
+  }
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if constexpr (kOnePass) {
+    // the logits of every tile, then the row max over the quad, then the
+    // numerators and the value product tile by tile
+    float s[kResidentTiles][2][4];
+#pragma unroll
+    for (int kt = 0; kt < kResidentTiles; ++kt) {
+      if (kt >= KT) break;
+      fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s[kt]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        m[r] = fmaxf(m[r], fmaxf(fmaxf(s[kt][0][2 * r], s[kt][0][2 * r + 1]),
+                                 fmaxf(s[kt][1][2 * r], s[kt][1][2 * r + 1])));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
+#pragma unroll
+    for (int kt = 0; kt < kResidentTiles; ++kt) {
+      if (kt >= KT) break;
+      fwd_pv_tile<D>(p, kt, s[kt], m, l, vw, vc, o);
+    }
+  } else {
+    // pass 1: the row max; pass 2: the logits again, the numerators and the
+    // value product
+    for (int kt = 0; kt < KT; ++kt) {
+      float s[2][4];
+      fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        m[r] = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                 fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
+    for (int kt = 0; kt < KT; ++kt) {
+      float s[2][4];
+      fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s);
+      fwd_pv_tile<D>(p, kt, s, m, l, vw, vc, o);
+    }
+  }
+  // out / denom in f32, rounded to bf16 into the strip's own q rows (no
+  // other warp reads them), then 16 bytes a thread to the tokens
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = quad_sum(l[r]);
+    const int i = row0 + 8 * r;
+    if (i >= S) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(qs + i * DB + 8 * n + cq) =
+          pack_bf16(o[n][2 * r] / den, o[n][2 * r + 1] / den);
+  }
+  __syncwarp();
+  const int nr = min(16, S - 16 * st);
+  for (int e = lane; e < nr * V8; e += 32) {
+    const int i = 16 * st + e / V8, v = e % V8;
+    *reinterpret_cast<uint4*>(out + (size_t)tok[i] * D + 8 * v) =
+        *reinterpret_cast<const uint4*>(qs + i * DB + 8 * v);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2) fused_mma_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int DB = D + 8, KD = D + 4;
-  const int S = p.S, C = p.C, SC = S + C;
-  const int SP = round16(S), SCP = round16(SC), LS = SCP + 4, PS = SCP + 8;
-  const Layout L = make_mma_layout(D, S, C);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.q);       // [SP][DB]
-  bf16* keys = reinterpret_cast<bf16*>(smem + L.keys);  // [SCP][DB]: k | rf | 0
-  bf16* vals = reinterpret_cast<bf16*>(smem + L.vals);  // [SCP][DB]: v | beta | 0
-  float* F = reinterpret_cast<float*>(smem + L.F);      // [SP][LS] or [SP][KD]
-  bf16* P = reinterpret_cast<bf16*>(smem + L.P);        // [SP][PS]
-  float* bias_s = reinterpret_cast<float*>(smem + L.bias);  // [S][S]
-  float* den_s = reinterpret_cast<float*>(smem + L.den);    // [SP]
+// The tensor-core route (bf16, uses_mma): the design is in the header
+// comment.  A block takes wpb windows of one (image, head) in turn.
+// kOnePass: eva_strip::one_pass(S, C), a strip's logits stay in registers
+// between the row max and their use.
+template <int D, bool kOnePass>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks(D))
+    window_mma_kernel(const Params p) {
+  using namespace mma_frag;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int DB = D + 8, V8 = D / 8;
+  const int S = p.S, C = p.C;
+  const int NS = (S + 15) / 16;  // strips of 16 query rows
+  const MmaLayout L = make_mma_layout(D, S, C);
+  bf16* kc = reinterpret_cast<bf16*>(smem + L.kc);            // [C][DB]: rf
+  bf16* vc = reinterpret_cast<bf16*>(smem + L.vc);            // [C][DB]: beta
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);    // [S][S]
+  int* tok_s = reinterpret_cast<int*>(smem + L.tok);          // [kMaxWpb][S]
   const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const size_t bh = (size_t)b * p.H + h, rows = (size_t)p.G * S;
   const bf16* q = static_cast<const bf16*>(p.q) + bh * rows * D;
   const bf16* k = static_cast<const bf16*>(p.k) + bh * rows * D;
   const bf16* v = static_cast<const bf16*>(p.v) + bh * rows * D;
   bf16* out = static_cast<bf16*>(p.out) + bh * rows * D;
+  // buffer `buf` of a window's q, k or v rows ([S][DB] each)
+  auto buffer = [&](size_t region, int buf) {
+    return reinterpret_cast<bf16*>(smem + region + buf * L.win);
+  };
 
-  // the padded rows of q, keys and values and the padded rows and columns of
-  // P stay 0
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < SP * DB; e += kThreads) qs[e] = zero;
-  for (int e = threadIdx.x; e < SCP * DB; e += kThreads) keys[e] = vals[e] = zero;
-  for (int e = threadIdx.x; e < SP * PS; e += kThreads) P[e] = zero;
-  __syncthreads();
-  const auto chunk_row = [](int r) { return r; };
-  load_rows_bf16<D>(static_cast<const bf16*>(p.rf) + bh * C * D, C, keys + S * DB,
-                    chunk_row);
-  load_rows_bf16<D>(static_cast<const bf16*>(p.beta) + bh * C * D, C, vals + S * DB,
-                    chunk_row);
-  load_bias(p, h, bias_s);
-  for (int wi = 0; wi < p.wpb; ++wi) {
-    const int g = blockIdx.x * p.wpb + wi;
-    const auto win_row = [&](int l) { return token_row(p, g, l); };
-    load_rows_bf16<D>(q, S, qs, win_row);
-    load_rows_bf16<D>(k, S, keys, win_row);
-    load_rows_bf16<D>(v, S, vals, win_row);
-    __syncthreads();
-    smem_tile::mma_nt2(qs, keys, F, nullptr, nullptr, nullptr, DB, SP, SCP, D, LS);
-    __syncthreads();
-    for (int i = warp; i < S; i += kWarps) {
-      const float* row = F + i * LS;
-      float mx = -INFINITY;
-      for (int j = lane; j < SC; j += 32)
-        mx = fmaxf(mx, row[j] * p.scale + (j < S ? bias_s[i * S + j] : 0.f));
-      mx = warp_max(mx);
-      float den = 0.f;
-      for (int j = lane; j < SC; j += 32) {
-        const float x =
-            expf(row[j] * p.scale + (j < S ? bias_s[i * S + j] : 0.f) - mx);
-        den += x;
-        P[i * PS + j] = __float2bfloat16(x);
-      }
-      den = warp_sum(den);
-      if (lane == 0) den_s[i] = den;
+  {  // the block's chunk rows, bias and token table
+    const bf16* rf = static_cast<const bf16*>(p.rf) + bh * C * D;
+    const bf16* bt = static_cast<const bf16*>(p.beta) + bh * C * D;
+    for (int e = tid; e < C * V8; e += kMmaThreads) {
+      const int c = e / V8, x = e % V8;
+      cp_async16(kc + c * DB + 8 * x, rf + (size_t)c * D + 8 * x);
+      cp_async16(vc + c * DB + 8 * x, bt + (size_t)c * D + 8 * x);
     }
+    const float* bias = p.bias != nullptr ? p.bias + (size_t)h * S * S : nullptr;
+    for (int e = tid; e < S * S; e += kMmaThreads)
+      bias_s[e] = bias != nullptr ? eva_strip::kLog2e * bias[e] : 0.f;
+    for (int e = tid; e < p.wpb * S; e += kMmaThreads)
+      tok_s[e] = token_row(p, blockIdx.x * p.wpb + e / S, e % S);
     __syncthreads();
-    for (int f = warp; f < (SP / 16) * (D / 16); f += kWarps) {
-      const int i = f / (D / 16), j = f % (D / 16);
-      smem_tile::FragA a;
-      smem_tile::FragBr bv;
-      smem_tile::FragC c;
-      smem_tile::wm::fill_fragment(c, 0.f);
-      for (int kk = 0; kk < SCP; kk += 16) {
-        smem_tile::wm::load_matrix_sync(a, P + 16 * i * PS + kk, PS);
-        smem_tile::wm::load_matrix_sync(bv, vals + kk * DB + 16 * j, DB);
-        smem_tile::wm::mma_sync(c, a, bv, c);
-      }
-      smem_tile::wm::store_matrix_sync(F + 16 * i * KD + 16 * j, c, KD,
-                                       smem_tile::wm::mem_row_major);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < S * D; e += kThreads) {
-      const int i = e / D, x = e % D;
-      out[(size_t)token_row(p, g, i) * D + x] = __float2bfloat16(F[i * KD + x] / den_s[i]);
-    }
-    __syncthreads();  // q, k, v, F and P are rewritten by the next window
   }
+  // the first window's rows, in one group with the chunk rows
+  load_window<D>(S, tok_s, q, k, v, buffer(L.q, 0), buffer(L.kw, 0), buffer(L.vw, 0));
+  for (int wi = 0; wi < p.wpb; ++wi) {
+    const int buf = wi & 1;
+    const int* tok = tok_s + wi * S;
+    bf16* qs = buffer(L.q, buf);
+    const bf16* kw = buffer(L.kw, buf);
+    const bf16* vw = buffer(L.vw, buf);
+    // this window's rows have landed, and every warp is done with the other
+    // buffer, into which the next window's rows now load
+    cp_async_wait_all();
+    __syncthreads();
+    if (wi + 1 < p.wpb)
+      load_window<D>(S, tok + S, q, k, v, buffer(L.q, buf ^ 1), buffer(L.kw, buf ^ 1),
+                     buffer(L.vw, buf ^ 1));
+    for (int st = warp; st < NS; st += kMmaWarps)
+      window_strip<D, kOnePass>(p, st, qs, kw, vw, kc, vc, bias_s, tok, out);
+  }
+}
+
+// The tensor-core kernel of a geometry (one pass where a strip's tiles fit
+// the registers), prepared for its shared memory.
+template <int D>
+auto mma_kernel(int S, int C) {
+  return eva_strip::one_pass(S, C) ? window_mma_kernel<D, true> : window_mma_kernel<D, false>;
+}
+
+template <int D>
+cudaError_t prepare_mma(int S, int C) {
+  const auto kernel = mma_kernel<D>(S, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)make_mma_layout(D, S, C).total);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Blocks of the tensor-core kernel that fit one SM (registers and shared
+// memory), from the occupancy calculator, or -1.
+template <int D>
+int mma_blocks_per_sm(int S, int C) {
+  int blocks = 0;
+  if (prepare_mma<D>(S, C) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mma_kernel<D>(S, C), kMmaThreads,
+                                                    make_mma_layout(D, S, C).total) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 template <int D, typename T>
@@ -404,12 +546,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.G / p.wpb, p.H, p.B);
   if constexpr (D % 16 == 0) {  // uses_mma(D, true)
     if (sizeof(T) == 2) {
-      const Layout L = make_mma_layout(D, p.S, p.C);
-      auto kernel = fused_mma_kernel<D>;
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+      if (p.wpb > kMaxWpb) return cudaErrorInvalidValue;
+      cudaError_t err = prepare_mma<D>(p.S, p.C);
       if (err != cudaSuccess) return err;
-      kernel<<<grid, kThreads, L.total, stream>>>(p);
+      mma_kernel<D>(p.S, p.C)<<<grid, kMmaThreads, make_mma_layout(D, p.S, p.C).total,
+                                 stream>>>(p);
       return cudaGetLastError();
     }
   }
@@ -449,6 +590,18 @@ inline cudaError_t launch_any(const Params& p, int d, int is_bf16, cudaStream_t 
 inline int smem_bytes(int d, int S, int C, int is_bf16) {
   return (int)(uses_mma(d, is_bf16) ? make_mma_layout(d, S, C).total
                                     : make_layout(d, S, C).total);
+}
+
+// Blocks of the tensor-core kernel an SM at (d, S, C), or -1.
+inline int mma_blocks_per_sm(int d, int S, int C) {
+  switch (d) {
+    case 16: return mma_blocks_per_sm<16>(S, C);
+    case 32: return mma_blocks_per_sm<32>(S, C);
+    case 48: return mma_blocks_per_sm<48>(S, C);
+    case 64: return mma_blocks_per_sm<64>(S, C);
+    case 128: return mma_blocks_per_sm<128>(S, C);
+    default: return -1;
+  }
 }
 
 }  // namespace eva_window

@@ -22,7 +22,10 @@ is cast to the promoted type first, which is the same function.
 
 ``eva_attention_fused`` is a ``torch.autograd.Function``: for CUDA tensors
 its forward launches the kernel of ``csrc/eva_kernel.cu`` (device code in
-``csrc/eva_window.cuh``) or raises; for CPU tensors it computes the same
+``csrc/eva_window.cuh``) or raises: bfloat16 at head dims that are
+multiples of 16 (``uses_mma``) on tensor cores, with K1's tensor-core
+forward design and strip tiles (``csrc/eva_strip.cuh``), float32 and the
+other head dims on CUDA cores; for CPU tensors it computes the same
 function with ``eva_fused_ref``, the plain PyTorch version, which is also
 what the kernel is held against on the card.  Its gradient is autograd's
 over the plain version, as the JAX package's custom VJP differentiates its
@@ -62,7 +65,8 @@ def _align(n: int, a: int) -> int:
 def uses_mma(d: int, itemsize: int) -> bool:
     """Whether the kernel takes its bf16 tensor-core route (``uses_mma`` in
     ``csrc/eva_window.cuh``): bfloat16 and a head dim that is a multiple of
-    16."""
+    16 (of ``HEAD_DIMS``, 16, 32, 48, 64 and 128): K1's tensor-core forward
+    design, on the strip tiles it shares with K1 (``csrc/eva_strip.cuh``)."""
     return itemsize == 2 and d % 16 == 0
 
 
@@ -72,16 +76,14 @@ def smem_bytes(d: int, S: int, C: int, itemsize: int = 4) -> int:
     ``make_mma_layout`` in ``csrc/eva_window.cuh``.  CUDA-core route, all
     f32: keys ``[k | rf]`` and values ``[v | beta]`` (rows of d at
     ``row_stride(d)``), the query rows, the logits (rows of S + C + 1), the
-    bias and the denominators.  bf16 route: q (padded to SP, a multiple of
-    16, rows), keys and values (padded to SCP rows), rows of d + 8, and the
-    numerators (rows of SCP + 8) in bf16; an f32 region for the logits or
-    the output tile; the bias and the denominators."""
+    bias and the denominators.  Tensor-core route: a window's q, k and v
+    rows (rows of d + 8 bf16) in two buffers each, the chunk rows rf and
+    beta, the f32 bias and the int32 token table of ``max(WINDOWS_PER_BLOCK)``
+    windows, each region 128-byte aligned."""
     if uses_mma(d, itemsize):
-        SP, SCP = _align(S, 16), _align(S + C, 16)
-        FS = max(SP * (SCP + 4), SP * (d + 4))
-        return (_align(SP * (d + 8) * 2, 128) + 2 * _align(SCP * (d + 8) * 2, 128)
-                + _align(FS * 4, 128) + _align(SP * (SCP + 8) * 2, 128)
-                + _align(S * S * 4, 128) + _align(SP * 4, 128))
+        win = _align(S * (d + 8) * 2, 128)
+        return (6 * win + 2 * _align(C * (d + 8) * 2, 128) + _align(S * S * 4, 128)
+                + _align(max(WINDOWS_PER_BLOCK) * S * 4, 128))
     rows = lambda n: _align(n * row_stride(d) * 4, 16)  # noqa: E731
     return (2 * rows(S + C) + rows(S) + _align(S * (S + C + 1) * 4, 16)
             + _align(S * S * 4, 16) + _align(S * 4, 16))
@@ -147,6 +149,10 @@ def _lib() -> ctypes.CDLL:
     lib.eva_kernel_launch.restype = i32
     lib.eva_kernel_smem_bytes.argtypes = [i32] * 4
     lib.eva_kernel_smem_bytes.restype = i32
+    lib.eva_kernel_uses_mma.argtypes = [i32] * 2
+    lib.eva_kernel_uses_mma.restype = i32
+    lib.eva_kernel_mma_blocks_per_sm.argtypes = [i32] * 3
+    lib.eva_kernel_mma_blocks_per_sm.restype = i32
     lib.eva_kernel_error_string.argtypes = [i32]
     lib.eva_kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -154,12 +160,11 @@ def _lib() -> ctypes.CDLL:
 
 def kernel_operands(name: str, tensors, bias: Optional[torch.Tensor], nh: int,
                     S: int) -> Tuple[list, Optional[torch.Tensor]]:
-    """q, k, v, rf, beta checked to lie on one CUDA device, cast to their
+    """q, k, v, rf, beta checked to lie on one device, cast to their
     promoted float32 or bfloat16 type, contiguous and 16-byte aligned (the
-    kernels' vector loads), and the bias as f32 ``[nh, S, S]`` or None."""
+    kernels' vector loads), and the bias as f32 ``[nh, S, S]`` or None; a
+    ValueError before anything is launched."""
     dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {dev}")
     T = compute_dtype(*tensors)
     if T not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name} takes float32 or bfloat16, got {T}")
@@ -177,7 +182,16 @@ def kernel_operands(name: str, tensors, bias: Optional[torch.Tensor], nh: int,
     return out, bias
 
 
-def _launch(w_q, w_k, w_v, rf, beta, bias, scale):
+def check_cuda(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on a CUDA device (the kernels' only one)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {t.device}")
+
+
+def _operands(w_q, w_k, w_v, rf, beta, bias):
+    """The kernel's checked operands (q, k, v, rf, beta), bias and launch
+    geometry ``(B, H, G, S, C, d, wpb)``, or a ValueError before anything
+    is launched."""
     if w_q.dim() != 5 or w_k.shape != w_q.shape or w_v.shape != w_q.shape:
         raise ValueError(f"w_q, w_k, w_v must be one [B, H, G, S, D], got "
                          f"{tuple(w_q.shape)}, {tuple(w_k.shape)}, {tuple(w_v.shape)}")
@@ -187,13 +201,19 @@ def _launch(w_q, w_k, w_v, rf, beta, bias, scale):
         raise ValueError(f"rf_k_bar and beta must be one [{B}, {H}, C, {d}], got "
                          f"{tuple(rf.shape)}, {tuple(beta.shape)}")
     C = rf.shape[2]
-    (q, k, v, rf, beta), bias = kernel_operands(NAME, (w_q, w_k, w_v, rf, beta),
-                                                bias, H, S)
-    wpb = plan(B, G, S, C, H, d, q.element_size())
+    ops, bias = kernel_operands(NAME, (w_q, w_k, w_v, rf, beta), bias, H, S)
+    wpb = plan(B, G, S, C, H, d, ops[0].element_size())
     if wpb is None:
         raise ValueError(f"eva_kernel cannot take B={B}, {H} heads, {G} windows "
-                         f"of {S}, {C} chunks, head dim {d}, {q.dtype}; see "
+                         f"of {S}, {C} chunks, head dim {d}, {ops[0].dtype}; see "
                          "supports_fused")
+    return ops, bias, (B, H, G, S, C, d, wpb)
+
+
+def _launch(w_q, w_k, w_v, rf, beta, bias, scale):
+    check_cuda(NAME, w_q)
+    (q, k, v, rf, beta), bias, (B, H, G, S, C, d, wpb) = _operands(
+        w_q, w_k, w_v, rf, beta, bias)
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):

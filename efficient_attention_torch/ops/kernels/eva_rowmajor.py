@@ -13,8 +13,9 @@ and merge copies that K11's route pays for, and the TPU kernel's
 promotion of mixed input types are K11's.
 
 ``eva_attention_rowmajor`` launches the kernel of ``csrc/eva_rowmajor.cu``
-(device code shared with K11 in ``csrc/eva_window.cuh``) for CUDA tensors
-or raises; for CPU tensors it computes the same function with
+(device code shared with K11 in ``csrc/eva_window.cuh``, with K11's two
+routes and gate, ``eva_kernel.uses_mma``) for CUDA tensors or raises; for
+CPU tensors it computes the same function with
 ``eva_rowmajor_ref``, the plain version: the window partition, K11's plain
 version, the merge (the same function as the TPU kernel's
 ``_xla_reference_rowmajor`` without its ``[B, H, N, N]`` logits).  Its
@@ -32,6 +33,7 @@ import torch
 from efficient_attention_torch.ops import windows
 from efficient_attention_torch.ops.kernels import _build
 from efficient_attention_torch.ops.kernels.eva_kernel import (
+    check_cuda,
     eva_fused_ref,
     kernel_operands,
     plan,
@@ -88,12 +90,19 @@ def _lib() -> ctypes.CDLL:
     lib.eva_rowmajor_launch.restype = i32
     lib.eva_rowmajor_smem_bytes.argtypes = [i32] * 4
     lib.eva_rowmajor_smem_bytes.restype = i32
+    lib.eva_rowmajor_uses_mma.argtypes = [i32] * 2
+    lib.eva_rowmajor_uses_mma.restype = i32
+    lib.eva_rowmajor_mma_blocks_per_sm.argtypes = [i32] * 3
+    lib.eva_rowmajor_mma_blocks_per_sm.restype = i32
     lib.eva_rowmajor_error_string.argtypes = [i32]
     lib.eva_rowmajor_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, rf, beta, bias, scale, W, ws):
+def _operands(q, k, v, rf, beta, bias, W, ws):
+    """The kernel's checked operands (q, k, v, rf, beta), bias and launch
+    geometry ``(B, H, N, C, d, wpb)``, or a ValueError before anything is
+    launched."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be one [B, H, N, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -103,13 +112,19 @@ def _launch(q, k, v, rf, beta, bias, scale, W, ws):
         raise ValueError(f"rf_k_bar and beta must be one [{B}, {H}, C, {d}], got "
                          f"{tuple(rf.shape)}, {tuple(beta.shape)}")
     C = rf.shape[2]
-    (qc, kc, vc, rf, beta), bias = kernel_operands(NAME, (q, k, v, rf, beta), bias,
-                                                   H, ws * ws)
-    wpb = plan_rowmajor(B, N, W, ws, C, H, d, qc.element_size())
+    ops, bias = kernel_operands(NAME, (q, k, v, rf, beta), bias, H, ws * ws)
+    wpb = plan_rowmajor(B, N, W, ws, C, H, d, ops[0].element_size())
     if wpb is None:
         raise ValueError(f"eva_rowmajor cannot take B={B}, {H} heads, {N} tokens "
                          f"of a grid {W} wide, window {ws}, {C} chunks, head dim "
-                         f"{d}, {qc.dtype}; see supports_rowmajor")
+                         f"{d}, {ops[0].dtype}; see supports_rowmajor")
+    return ops, bias, (B, H, N, C, d, wpb)
+
+
+def _launch(q, k, v, rf, beta, bias, scale, W, ws):
+    check_cuda(NAME, q)
+    (qc, kc, vc, rf, beta), bias, (B, H, N, C, d, wpb) = _operands(
+        q, k, v, rf, beta, bias, W, ws)
     out = torch.empty_like(qc)
     lib = _lib()
     with torch.cuda.device(qc.device):

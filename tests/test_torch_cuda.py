@@ -593,11 +593,20 @@ def _k11_args(device, dtype, B, H, gh, gw, ws, C, d, seed=37):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("geometry", [(2, 3, 28, 28, 7, 49, 64),
-                                      (2, 2, 8, 12, 4, 6, 24)])
+@pytest.mark.parametrize("geometry", [
+    (2, 3, 28, 28, 7, 49, 64),    # the headline's windows
+    (2, 2, 8, 12, 4, 6, 24),      # a head dim off the tensor-core route
+    (2, 2, 28, 28, 7, 49, 48),    # the auto fallback's heads of 48
+    (2, 2, 32, 32, 8, 64, 64),    # S + C = 128: two-pass strips
+    (2, 4, 28, 28, 7, 49, 32),    # PVT-B3 stage 2
+    (2, 10, 14, 14, 7, 49, 32),   # PVT-B3 stage 3
+])
 def test_eva_window_kernels_match_plain(cuda_device, geometry, dtype):
     """K11 on the windows and K12 on the tokens against their plain versions
-    (relative to the largest output, as K1's)."""
+    (relative to the largest output, as K1's); K11's output merged to token
+    order equals K12's bit for bit (the same device code on the same
+    rows)."""
+    from efficient_attention_torch.ops import windows
     from efficient_attention_torch.ops.kernels import eva_kernel as K11
     from efficient_attention_torch.ops.kernels import eva_rowmajor as K12
 
@@ -613,6 +622,26 @@ def test_eva_window_kernels_match_plain(cuda_device, geometry, dtype):
     for out, ref in pairs:
         assert out.dtype == ref.dtype and out.shape == ref.shape
         assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
+    merged = windows.window_2d_merge(pairs[0][0], ws, (gh, gw)).reshape(B, H, -1, d)
+    assert torch.equal(merged, pairs[1][0])
+
+
+def test_eva_window_mma_route_gate_and_occupancy(cuda_device):
+    """The tensor-core route's gate in the kernels equals its Python twin,
+    and at 49 + 49 keys three blocks fit an SM at head dims 64 and 32."""
+    from efficient_attention_torch.ops.kernels import eva_kernel as K11
+    from efficient_attention_torch.ops.kernels import eva_rowmajor as K12
+
+    for k, prefix in ((K11, "eva_kernel"), (K12, "eva_rowmajor")):
+        lib = k._lib()
+        for d in K11.HEAD_DIMS:
+            for itemsize in (2, 4):
+                assert (bool(getattr(lib, f"{prefix}_uses_mma")(d, itemsize))
+                        == K11.uses_mma(d, itemsize))
+                assert (getattr(lib, f"{prefix}_smem_bytes")(d, 49, 49, int(itemsize == 2))
+                        == K11.smem_bytes(d, 49, 49, itemsize))
+        for d in (64, 32):
+            assert getattr(lib, f"{prefix}_mma_blocks_per_sm")(d, 49, 49) >= 3
 
 
 def test_eva_window_kernels_raise_outside_their_gates_or_without_their_library(

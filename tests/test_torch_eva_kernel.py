@@ -143,6 +143,114 @@ def test_gate():
     assert not K.supports_fused(2, 16, 49, 2000, 64, 4)  # shared memory
     assert not K.supports_fused(70000, 16, 49, 49, 64, 4)  # grid
     assert K.uses_mma(64, 2) and not K.uses_mma(24, 2) and not K.uses_mma(64, 4)
-    # two blocks an SM on the tensor-core route at the headline shape
-    assert 2 * (K.smem_bytes(64, 49, 49, 2) + 1024) <= 233472
+    # three blocks an SM on the tensor-core route at the headline shape
+    assert 3 * (K.smem_bytes(64, 49, 49, 2) + 1024) <= 233472
     assert K.smem_bytes(128, 49, 49, 4) <= K.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d,itemsize,mma", [
+    (16, 2, True), (32, 2, True), (48, 2, True), (64, 2, True), (128, 2, True),
+    (8, 2, False), (12, 2, False), (24, 2, False),
+    (16, 4, False), (48, 4, False), (64, 4, False), (128, 4, False), (12, 4, False),
+])
+def test_uses_mma_picks_the_route(d, itemsize, mma):
+    """bf16 at head dims that are multiples of 16 takes the tensor-core
+    kernel (the twin of ``uses_mma`` in ``csrc/eva_window.cuh``); f32, and
+    the other head dims, the CUDA-core one."""
+    assert K.uses_mma(d, itemsize) is mma
+
+
+def test_mma_layout_counts_each_region():
+    """The layout twin of ``make_mma_layout``: bf16 q, k, v [S][d+8] in two
+    buffers each, rf and beta [C][d+8], then the f32 bias [S][S] and the
+    int32 token table [4][S], each 128-byte aligned."""
+    a = lambda n: -(-n // 128) * 128  # noqa: E731
+    # S=16, C=6, heads of 16: rows of 24 bf16
+    assert K.smem_bytes(16, 16, 6, 2) == (6 * a(16 * 24 * 2) + 2 * a(6 * 24 * 2)
+                                          + a(16 * 16 * 4) + a(4 * 16 * 4))
+    # the headline: 49 + 49 keys, heads of 64 (K1's forward layout)
+    assert K.smem_bytes(64, 49, 49, 2) == 6 * 7168 + 2 * 7168 + 9728 + 896 == 67968
+    # head dim 48, the auto fallback's: rows of 56 bf16
+    assert K.smem_bytes(48, 49, 49, 2) == (8 * a(49 * 56 * 2) + a(49 * 49 * 4)
+                                           + a(4 * 49 * 4))
+    # the chunk rows alone grow with C
+    assert (K.smem_bytes(64, 64, 128, 2) - K.smem_bytes(64, 64, 64, 2)
+            == 2 * (a(128 * 72 * 2) - a(64 * 72 * 2)))
+    # f32 keeps the CUDA-core layout, larger at the headline
+    assert K.smem_bytes(64, 49, 49, 4) > K.smem_bytes(64, 49, 49, 2)
+
+
+# Hopper: 228 KB of shared memory an SM, 1 KB of it reserved for each block
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+
+
+@pytest.mark.parametrize("what,d,S,C", [
+    ("headline: window 7, 49 chunks, heads of 64", 64, 49, 49),
+    ("PVT-B3 stages 1-3: window 7, 49 chunks, heads of 32", 32, 49, 49),
+])
+def test_mma_layout_fits_three_blocks_an_sm(what, d, S, C):
+    assert 3 * (K.smem_bytes(d, S, C, 2) + BLOCK_RESERVED) <= SM_SMEM, what
+
+
+@pytest.mark.parametrize("what,B,G,S,C,nh,d,itemsize", [
+    ("headline", 128, 16, 49, 49, 3, 64, 2),
+    ("headline f32", 128, 16, 49, 49, 3, 64, 4),
+    ("PVT-B3 stage 1", 128, 64, 49, 49, 2, 32, 2),
+    ("PVT-B3 stage 2", 128, 16, 49, 49, 4, 32, 2),
+    ("PVT-B3 stage 3", 128, 4, 49, 49, 10, 32, 2),
+    ("1-D: 5 windows of 8", 2, 5, 8, 5, 3, 16, 2),
+    ("auto fallback: heads of 48", 16, 16, 49, 49, 2, 48, 2),
+    ("two passes: window 8, 64 chunks", 8, 16, 64, 64, 2, 64, 2),
+])
+def test_plan_fits_the_token_table(what, B, G, S, C, nh, d, itemsize):
+    """Every geometry a path runs gets a windows-per-block count that
+    divides its windows and fits the kernel's token table of 4 windows."""
+    wpb = K.plan(B, G, S, C, nh, d, itemsize)
+    assert wpb is not None and G % wpb == 0 and wpb <= 4, what
+    assert max(K.WINDOWS_PER_BLOCK) == 4
+
+
+def _cpu_operands(change):
+    d = change.get("d", 16)
+    dtype = change.get("dtype", torch.bfloat16)
+    wins = [torch.zeros(2, 3, 4, 16, d, dtype=dtype) for _ in range(3)]
+    rf = torch.zeros(2, 3, change.get("rf_c", 6), d, dtype=dtype)
+    beta = torch.zeros(2, 3, 6, d, dtype=dtype)
+    bias = torch.zeros(change["bias"]) if "bias" in change else None
+    return wins, rf, beta, bias
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(d=20), "cannot take"),
+    (dict(rf_c=5), "beta"),
+    (dict(bias=(3, 16, 9)), "bias must be"),
+])
+def test_launch_checks_raise_before_any_launch(change, match, monkeypatch):
+    """The kernel's operand checks (run here on CPU tensors) raise before
+    the library is loaded or anything is launched."""
+    monkeypatch.setattr(K, "_lib", lambda: pytest.fail("loaded the library"))
+    wins, rf, beta, bias = _cpu_operands(change)
+    before = K.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        K._operands(*wins, rf, beta, bias)
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,d,rf_dtype", [
+    (torch.bfloat16, 16, torch.bfloat16), (torch.bfloat16, 48, torch.float32),
+    (torch.float32, 12, torch.float32),
+])
+def test_launch_operands_and_geometry(dtype, d, rf_dtype, monkeypatch):
+    """The checked operands: contiguous, 16-byte aligned, in the promoted
+    type of the inputs (f32 summaries promote bf16 q, k, v), the bias in
+    f32; the geometry (B, H, G, S, C, d, windows a block)."""
+    monkeypatch.setattr(K, "_lib", lambda: pytest.fail("loaded the library"))
+    wins, rf, beta, _ = _cpu_operands(dict(dtype=dtype, d=d))
+    bias = torch.zeros(3, 16, 16, dtype=torch.float64)
+    ops, bias, geometry = K._operands(*wins, rf.to(rf_dtype), beta, bias)
+    assert geometry == (2, 3, 4, 16, 6, d, 4)
+    want = torch.promote_types(dtype, rf_dtype)
+    assert [t.dtype for t in ops] == [want] * 5 and bias.dtype == torch.float32
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)

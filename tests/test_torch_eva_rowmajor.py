@@ -112,3 +112,56 @@ def test_gate():
     assert not K.supports_rowmajor(2, 702, 26, 2, 49, 64)   # 27 rows
     assert not K.supports_rowmajor(2, 784, 28, 7, 49, 20)   # head dim 20
     assert not K.supports_rowmajor(2, 784, 28, 7, 49, 64, 1)
+
+
+@pytest.mark.parametrize("what,B,N,W,ws,C,nh,d", [
+    ("headline", 128, 784, 28, 7, 49, 3, 64),
+    ("PVT-B3 stage 1", 128, 3136, 56, 7, 49, 2, 32),
+    ("PVT-B3 stage 2", 128, 784, 28, 7, 49, 4, 32),
+    ("PVT-B3 stage 3", 128, 196, 14, 7, 49, 10, 32),
+    ("heads of 48", 16, 784, 28, 7, 49, 2, 48),
+    ("two passes: window 8, 64 chunks", 8, 1024, 32, 8, 64, 2, 64),
+    ("8x12 grid", 3, 96, 12, 4, 6, 3, 16),
+])
+def test_plan_fits_the_token_table(what, B, N, W, ws, C, nh, d):
+    """Every geometry a path runs gets a windows-per-block count that
+    divides its windows and fits the kernel's token table of 4 windows; the
+    tensor-core route's shared memory is K11's."""
+    wpb = K.plan_rowmajor(B, N, W, ws, C, nh, d, 2)
+    assert wpb is not None and (N // (ws * ws)) % wpb == 0 and wpb <= 4, what
+    assert K11.uses_mma(d, 2)
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(d=20), "cannot take"),
+    (dict(W=10), "cannot take"),
+    (dict(rf_c=5), "beta"),
+    (dict(bias=(3, 9, 9)), "bias must be"),
+])
+def test_launch_checks_raise_before_any_launch(change, match, monkeypatch):
+    """The kernel's operand checks (run here on CPU tensors) raise before
+    the library is loaded or anything is launched."""
+    monkeypatch.setattr(K, "_lib", lambda: pytest.fail("loaded the library"))
+    d, dtype = change.get("d", 16), change.get("dtype", torch.bfloat16)
+    q = torch.zeros(2, 3, 96, d, dtype=dtype)
+    rf = torch.zeros(2, 3, change.get("rf_c", 6), d, dtype=dtype)
+    beta = torch.zeros(2, 3, 6, d, dtype=dtype)
+    bias = torch.zeros(change["bias"]) if "bias" in change else None
+    before = K.LAUNCHES, K11.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        K._operands(q, q, q, rf, beta, bias, change.get("W", 12), 4)
+    assert (K.LAUNCHES, K11.LAUNCHES) == before
+
+
+def test_launch_operands_and_geometry(monkeypatch):
+    """The checked operands of an 8x12 grid in 4x4 windows: contiguous, in
+    q's bf16, the bias in f32; the geometry (B, H, N, C, d, windows a
+    block)."""
+    monkeypatch.setattr(K, "_lib", lambda: pytest.fail("loaded the library"))
+    q = torch.zeros(2, 3, 96, 16, dtype=torch.bfloat16)
+    rf = torch.zeros(2, 3, 6, 16, dtype=torch.bfloat16)
+    ops, bias, geometry = K._operands(q, q, q, rf, rf, torch.zeros(3, 16, 16), 12, 4)
+    assert geometry == (2, 3, 96, 6, 16, 2)
+    assert [t.dtype for t in ops] == [torch.bfloat16] * 5 and bias.dtype == torch.float32
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops)
