@@ -35,8 +35,9 @@ Two models, random weights from a seed:
   WikiText-103 recipe at B = 18 x 512 tokens in bf16 with NAG, cosine and
   clip 0.1, on dummy tokens, dropout 0.  Its training step runs
   ``causal_packed``'s forward and backward kernels (K3) in every layer (on
-  float32 activations: the adaptive input sums into float32, as in JAX);
-  its validation (on the float32 parameters) runs the K3 forward;
+  float32 activations: the adaptive input sums into float32, as in JAX),
+  the forward on its split-TF32 tensor-core route; its validation (on the
+  float32 parameters) runs the K3 forward;
 * ``transformer_wmt_en_de`` (6 + 6 layers, d=512, ffn 2048, 8 heads of 64,
   post-LN, shared embeddings over a joint vocabulary of 32,768 types) with
   1-D EVA in the encoder (window 8 with a halo of 4, 8 landmarks, T5 bias,
@@ -50,10 +51,11 @@ Phases, each raising on failure:
 
 1. build: compile every kernel with nvcc (one process per source, all at
    once) and print the seconds, each kernel's registers and spills, and for
-   ``eva_packed``'s tensor-core forward and backward and the tensor-core
-   route of ``eva_kernel`` and ``eva_rowmajor`` the blocks an SM (no spills
-   allowed there); the wrappers' twins of the kernels' shared-memory
-   layouts and route choices;
+   ``eva_packed``'s tensor-core forward and backward, the tensor-core
+   route of ``eva_kernel`` and ``eva_rowmajor`` and ``causal_packed``'s
+   split-TF32 forward the blocks an SM (no spills allowed there); the
+   wrappers' twins of the kernels' shared-memory layouts and route
+   choices;
 2. kernels against their plain versions on the card: ``eva_single``;
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
@@ -68,12 +70,15 @@ Phases, each raising on failure:
    without a bias where S + C is not a multiple of 16, and where S + C is
    too wide for its one-pass strips (its forward and backward on the
    tensor-core routes in bf16 at head dims 16, 32 and 64, asserted), and
-   its CUDA-core forward and backward in bf16 at the main shape;
+   its CUDA-core forward and backward in bf16 at the main shape; K3's
+   f32 forward on its split-TF32 route (asserted) and, forced, on the
+   CUDA-core kernel, bf16 on the CUDA-core kernel (asserted);
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
-   batch), finite losses, the peak device memory; then the f32 gradients of
-   a 2-layer full-width LM, kernel path against eager path;
+   batch, every forward on the split-TF32 route), finite losses, the peak
+   device memory; then the f32 gradients of a 2-layer full-width LM, kernel
+   path against eager path;
 4. the ViT serving path: ``cli.train_vit --eval`` in-process at batch 128
    in bf16, with the kernels' launch counts set to 0 just before and read
    just after, then f32 logits of the kernel path against the eager path;
@@ -99,8 +104,8 @@ Phases, each raising on failure:
    launches of K11 or K12, none of any other);
 7. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks; K1's forward and backward on both routes, K3 in bf16 and in
-   the f32 the
-   LM step runs; forward and train-step rates of both models, the forward
+   the f32 the LM step runs, its f32 forward on both routes; forward and
+   train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
    and 3136 tokens, K8-K10 and the forward rates of EVA's eval routes in
    turns with the default route and the eager path, K4 and the MT encoder,
@@ -277,13 +282,17 @@ K4_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2 ** -7}
 # f32 encoder states, kernel path vs eager path, through 6 layers
 ENC_TOL = 1e-4
 # causal_packed's main shape (B, T, heads, head dim, window, chunk) and the
-# small odd ones: T = w (window 0 alone) and T = 2w, each in bf16 and f32
+# small odd ones: T = w (window 0 alone) and T = 2w, each in bf16 and f32;
+# for the f32 forward's split-TF32 route also window 48 (a block of one
+# 16-row strip, 12 chunks: a partial chunk tile) and chunks of 16
 K3_CHECKS = (("main bf16", (18, 512, 8, 128, 128, 8), "bfloat16"),
              ("main f32", (18, 512, 8, 128, 128, 8), "float32"),
              ("T=w bf16", (2, 16, 2, 64, 16, 4), "bfloat16"),
              ("T=w f32", (2, 16, 2, 64, 16, 4), "float32"),
              ("T=2w bf16", (2, 32, 2, 64, 16, 4), "bfloat16"),
-             ("T=2w f32", (2, 32, 2, 64, 16, 4), "float32"))
+             ("T=2w f32", (2, 32, 2, 64, 16, 4), "float32"),
+             ("w=48 f32", (2, 96, 2, 64, 48, 8), "float32"),
+             ("cs=16 f32", (1, 256, 3, 128, 64, 16), "float32"))
 
 
 def log(msg):
@@ -830,9 +839,13 @@ def mma_kernel_report(log_path, tag):
             name = line.split("'")[1] if tag in line else None
             if name is not None:
                 # the template arguments of the mangled name, e.g.
-                # ...kernelILi64ELb1EEE...: D = 64, one pass (Lb0: two)
-                args = re.match(r"ILi(\d+)ELb([01])E", name[name.index(tag) + len(tag):])
-                name = f"D={args[1]} {'one' if args[2] == '1' else 'two'}-pass"
+                # ...kernelILi64ELb1EEE...: D = 64, one pass (Lb0: two);
+                # ...kernelILi64EEv...: D = 64 (no pass argument)
+                args = re.match(r"ILi(\d+)E(?:Lb([01])E)?",
+                                name[name.index(tag) + len(tag):])
+                name = f"D={args[1]}" + (
+                    "" if args[2] is None
+                    else f" {'one' if args[2] == '1' else 'two'}-pass")
                 report[name] = []
         elif name is not None and ("registers" in line or "spill" in line):
             report[name].append(line.replace("ptxas info    :", "").strip())
@@ -955,6 +968,30 @@ def main() -> int:
         if lib_smem != k3.smem_bytes(bool(backward), 128, 128, 64, qt):
             raise AssertionError(f"causal_packed gate's smem layout != kernel's "
                                  f"{lib_smem} (backward={backward})")
+    # K3's split-TF32 forward: its gate and layout against the kernel's,
+    # registers and spills (none allowed), blocks an SM (at least 3)
+    for d in (48, 64, 128):
+        for w in (8, 16, 48, 128):
+            for itemsize in (2, 4):
+                if (bool(k3._lib().causal_packed_fwd_uses_tf32x3(d, w, itemsize))
+                        != k3.fwd_uses_tf32x3(d, w, itemsize)):
+                    raise AssertionError(f"causal_packed fwd_uses_tf32x3{(d, w, itemsize)}:"
+                                         f" the kernel's and the wrapper's differ")
+    for d in k3.HEAD_DIMS:
+        if k3._lib().causal_packed_tf32_smem_bytes(d) != k3.tf32_smem_bytes(d):
+            raise AssertionError(f"causal_packed tf32_smem_bytes({d}) != the kernel's "
+                                 f"{k3._lib().causal_packed_tf32_smem_bytes(d)}")
+    k3_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k3.NAME}.log",
+                                 "causal_packed_fwd_tf32x3_kernel")
+    k3_blocks = {f"d{d}": k3._lib().causal_packed_tf32_blocks_per_sm(d)
+                 for d in k3.HEAD_DIMS}
+    log(f"[build] causal_packed split-TF32 forward, ptxas: {json.dumps(k3_ptxas)}; "
+        f"blocks an SM (occupancy calculator): {json.dumps(k3_blocks)}; "
+        f"{k3.tf32_smem_bytes(128)} bytes of shared memory a block at head dim 128")
+    if any("0 bytes spill stores" not in v for v in k3_ptxas.values()):
+        raise AssertionError(f"causal_packed split-TF32 forward spills: {k3_ptxas}")
+    if min(k3_blocks.values()) < 3:
+        raise AssertionError(f"causal_packed split-TF32 forward: {k3_blocks} blocks an SM")
     for k, fn, args, lib_args in (
             (k5, "lara_fused_smem_bytes", (64, 49, 2), (64, 49, 1)),
             (k5, "lara_fused_smem_bytes", (64, 49, 4), (64, 49, 0)),
@@ -1102,24 +1139,36 @@ def main() -> int:
                                      f"{err} > {tol}")
             k1_errors[(label, name)] = err
     k3_errors = {}
-    for label, (B, T, nh, d, w, cs), dtype_name in K3_CHECKS:
+    for i, (label, (B, T, nh, d, w, cs), dtype_name) in enumerate(K3_CHECKS):
         ops, grad = k3_inputs(B, T, nh, d, w, cs, getattr(torch, dtype_name),
-                              seed=30 + len(k3_errors))
+                              seed=30 + 7 * i)
         scale = d ** -0.5
+        # f32 takes the forward's split-TF32 route, bf16 the CUDA-core
+        # kernel; f32 is also held on the CUDA-core kernel, forced
+        tf32_before = k3.LAUNCHES_FWD_TF32
         got = [k3._forward(*ops, scale, nh, w, cs),
                *k3._backward(*ops, grad, scale, nh, w, cs)]
+        f32 = ops[0].dtype == torch.float32
+        if k3.LAUNCHES_FWD_TF32 - tf32_before != int(f32):
+            raise AssertionError(f"causal_packed {label}: the forward took the "
+                                 f"{'CUDA-core' if f32 else 'split-TF32'} route")
+        names = ["out", "dq", "dk", "dv", "drf", "dbeta", "dbias"]
+        if f32:
+            got.append(k3._forward(*ops, scale, nh, w, cs, cuda_cores=True))
+            names.append("out (CUDA cores)")
         torch.cuda.synchronize()
         want = [k3.causal_packed_fwd_ref(*ops, scale, nh, w, cs),
                 *k3.causal_packed_bwd_ref(*ops, grad, scale, nh, w, cs)]
-        for name, a, b in zip(("out", "dq", "dk", "dv", "drf", "dbeta", "dbias"),
-                              got, want):
+        want += want[:1] * f32
+        for name, a, b in zip(names, got, want):
             if a.shape != b.shape or a.dtype != b.dtype:
                 raise AssertionError(f"causal_packed {label} {name}: {a.shape} "
                                      f"{a.dtype} vs {b.shape} {b.dtype}")
             err = (a.float() - b.float()).abs().max().item()
             peak = b.float().abs().max().item()
-            # as eva_packed's: f32 to summation (and atomics) order, bf16 to
-            # one rounding; dbias stays f32 in both
+            # as eva_packed's: f32 to summation (and atomics) order and the
+            # split-TF32 products' dropped terms, bf16 to one rounding;
+            # dbias stays f32 in both
             tol = K1_TOL[str(ops[0].dtype)] * max(1.0, peak)
             log(f"[k3 vs plain] {label} {name}: max abs err {err:.3e} "
                 f"(tol {tol:.1e}), max |value| {peak:.3e}")
@@ -1292,15 +1341,17 @@ def main() -> int:
     # ---- 3. the LM training path, counts set to 0 just before and read after
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = 0
+    k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = k3.LAUNCHES_FWD_TF32 = 0
     t0 = time.perf_counter()
     lm_stats = train_lm.cli_main(LM_ARGV + LM_TRAIN_ARGV)
     torch.cuda.synchronize()
     lm_launches = {"causal_packed_fwd": k3.LAUNCHES_FWD,
                    "causal_packed_bwd": k3.LAUNCHES_BWD}
+    lm_fwd_tf32 = k3.LAUNCHES_FWD_TF32
     lm_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[lm-train] 8 steps + validation {json.dumps(lm_stats)} in "
-        f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(lm_launches)}")
+        f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(lm_launches)}, "
+        f"{lm_fwd_tf32} of the forwards on the split-TF32 route")
     log(f"[lm-train] peak device memory {lm_peak_gb:.3f} GiB "
         f"(torch.cuda.max_memory_allocated, train steps and validation)")
     for key in ("loss", "gnorm", "valid_loss"):
@@ -1312,6 +1363,9 @@ def main() -> int:
         raise AssertionError(f"launches {lm_launches} for 8 train steps and "
                              f"{lm_stats['valid_batches']} validation batches "
                              "of a 16-layer model")
+    if lm_fwd_tf32 != lm_launches["causal_packed_fwd"]:
+        raise AssertionError(f"{lm_fwd_tf32} of {lm_launches['causal_packed_fwd']} "
+                             "LM forwards on the split-TF32 route")
     # f32 gradients of a 2-layer full-width LM: the kernel path against the
     # eager path, train mode, zero proposal noise, dropout 0
     lm_args = train_lm.parse_args(LM_ARGV + ["--decoder-layers", "2"])
@@ -1893,7 +1947,8 @@ def main() -> int:
 
     # causal_packed at the LM's shape (B=18, T=512, 8 heads of 128, window
     # 128, chunk 8): kernels, plain versions, bounds, SDPA yardstick, in bf16
-    # (the kernels line) and in the f32 that the LM step runs
+    # and in the f32 that the LM step runs (the kernels line); the f32
+    # forward on the split-TF32 route and on the CUDA-core kernel in turns
     k3_shape = (18, 512, 8, 128, 128, 8)
     k3_geo = (128 ** -0.5, 8, 128, 8)
     for dtype in (bf16, torch.float32):
@@ -1905,13 +1960,17 @@ def main() -> int:
             "plain_bwd": cuda_ms(lambda: k3.causal_packed_bwd_ref(*ops, grad, *k3_geo),
                                  3),
         }
+        if dtype == torch.float32:
+            times["fwd_cuda_cores"] = cuda_ms(
+                lambda: k3._forward(*ops, *k3_geo, cuda_cores=True), 20)
+            times["fwd (second)"] = cuda_ms(lambda: k3._forward(*ops, *k3_geo), 20)
         bounds = {"fwd": k3_bound(ops[0], ops[3], 128, 8, 8, False),
                   "bwd": k3_bound(ops[0], ops[3], 128, 8, 8, True)}
         lib_ms = dict(zip(("fwd", "bwd", "fwd+bwd"), k3_sdpa(ops, grad, 8, 128, 8)))
         log(f"[time] causal_packed main shape {str(dtype)[6:]}: {json.dumps(times)} "
             f"ms, bounds {json.dumps(bounds)}, SDPA on pre-partitioned windows "
             f"{json.dumps(lib_ms)} ms; {card}")
-        if dtype == bf16:
+        if dtype == torch.float32:
             k3_ms, k3_bounds, k3_sdpa_ms = times, bounds, lib_ms
         del ops, grad
 
@@ -2188,7 +2247,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": k3.SOURCE,
             "replaces": replaces, "launches": lm_launches[name],
-            "max_abs_err": max(k3_errors[("main bf16", n)] for n in names),
+            "max_abs_err": max(k3_errors[("main f32", n)] for n in names),
             "ms": k3_ms[part], "plain_ms": k3_ms[f"plain_{part}"],
             "bound_ms": k3_bounds[part][0], "bound_by": k3_bounds[part][1],
             "library_ms": k3_sdpa_ms[part],

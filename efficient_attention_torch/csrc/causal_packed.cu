@@ -43,10 +43,52 @@
 // [B, C, H*D] (at most T/qt adds) and dbias partials [B, H, w, w] (T/w adds;
 // a tile owns its own rows of the table), which the wrapper sums over B and
 // H.  CUDA cores only: no wgmma, TMA or pipelining.
+//
+// The f32 forward has a second route on tensor cores, taken by f32 at head
+// dims 64 and 128 with w % 16 == 0 (uses_tf32x3; the LM step's shape):
+// causal_packed_fwd_tf32x3_kernel.  What bounds it: operations.  At the
+// LM shape in f32 the two products over the visible columns are 3.6 GFLOP,
+// 54 us at the 67 TFLOP/s f32 peak, against 48 us for the bytes.  Plain
+// TF32 would miss the f32 limit (logit errors about 5e-4 at head dim 128),
+// so each product is split TF32 (mma_frag.cuh): three mma.sync m16n8k8
+// products a fragment pair, f32 sums.  Design:
+//  * a block takes qt (16, 32 or 64) query rows of one window of one (row,
+//    head), a warp of 32 threads for each strip of 16 rows.  The block's
+//    q rows are staged once in f32 (a warp splits its own where used:
+//    held in registers, they took 64 more a thread and spilled at head dim
+//    128);
+//  * the keys and values come through a ring of two stages of 16 key rows
+//    and 16 value rows in f32 (cp.async, 16 bytes a copy): the window's
+//    local rows first, then the chunk rows rf / beta, so shared memory no
+//    longer grows with C (72,192 bytes at head dim 128 with the q rows,
+//    three blocks an SM).  Stage t + 1 loads while stage t is computed,
+//    one barrier a stage;
+//  * the block walks the tiles that its last row can see; a warp skips the
+//    tiles its strip cannot see (local tiles past its last row, chunk
+//    tiles at or past its last row's chunk limit), whose columns are
+//    masked for all its rows (exp of MASK_VAL + ... is 0 in f32).  Local
+//    key 0 comes first and every row sees it, so each row's running max is
+//    finite from its first tile;
+//  * a strip's logits are accumulator fragments (hi hi apart from the two
+//    smaller products); scale and the table or chunk mask are applied in
+//    base 2, then an online softmax in f32 (running max over the quad,
+//    the output rescaled when it rises, ex2);  P's fragments are the A
+//    operand of P [v | beta] with no shuffle (mma_frag.cuh), split too;
+//  * the k-index of Q K^T runs over d in the order each thread's float4
+//    holds it, and the n-index of P V over d likewise, so a thread loads
+//    its q, k and v operands 16 bytes at a time and stores 32 bytes of a
+//    row: q and k rows at a stride of D + 16 floats and v rows at D + 4
+//    put the eight 16-byte loads of each quarter warp in distinct banks;
+//  * the output is divided by the row sum once, in f32.
+// In f32 the TPU kernel rounds nothing (round_to<float> is the identity),
+// so the route differs from it by the split products' dropped terms and
+// the order of sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_frag.cuh"
 
 namespace {
 
@@ -446,6 +488,288 @@ __global__ void __launch_bounds__(kThreads) causal_packed_bwd_kernel(const Param
   });
 }
 
+// ---- the f32 forward in split TF32 on tensor cores (header comment)
+
+constexpr int kTf32Keys = 16;      // key (and value) rows a stage
+constexpr int kTf32N = kTf32Keys / 8;  // n-tiles of Q K^T, k-steps of P V
+constexpr int kTf32Stages = 2;
+constexpr int kTf32MaxRows = 64;   // query rows a block, at most
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Whether f32 at head dim D and window w takes the route (element size
+// `itemsize`): the twin of fwd_uses_tf32x3 in ops/kernels/causal_packed.py.
+__host__ __device__ inline bool uses_tf32x3(int D, int w, int itemsize) {
+  return itemsize == 4 && (D == 64 || D == 128) && w % 16 == 0;
+}
+
+// Row strides (floats) of the q and key rows (16 mod 32: a quarter warp
+// reads 16 floats of each of two rows) and of the value rows (4 mod 32: a
+// quarter warp reads 16 bytes at column 4g of rows 2c, g < 2, c < 4).
+__host__ __device__ constexpr int tf32_k_stride(int D) { return D + 16; }
+__host__ __device__ constexpr int tf32_v_stride(int D) { return D + 4; }
+
+// Offsets (bytes) of the q rows and of stage 0's key and value rows, a
+// stage's size and the total; the same layout as tf32_smem_bytes() in
+// ops/kernels/causal_packed.py.
+struct Tf32Layout {
+  size_t q, k, v, stage, total;
+};
+
+__host__ __device__ inline Tf32Layout make_tf32_layout(int D) {
+  Tf32Layout L;
+  L.q = 0;
+  L.k = (size_t)kTf32MaxRows * tf32_k_stride(D) * 4;
+  L.v = L.k + (size_t)kTf32Keys * tf32_k_stride(D) * 4;
+  L.stage = (size_t)kTf32Keys * (tf32_k_stride(D) + tf32_v_stride(D)) * 4;
+  L.total = L.k + kTf32Stages * L.stage;
+  return L;
+}
+
+// The chunks below the limit of window row `last` of window g.
+__device__ __forceinline__ int chunk_limit(const Params& p, int g, int last) {
+  return min(p.C, g * (p.w / p.cs) + last / p.cs);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, 3) causal_packed_fwd_tf32x3_kernel(const Params p) {
+  using namespace mma_frag;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int KS = tf32_k_stride(D), VS = tf32_v_stride(D), V4 = D / 4;
+  constexpr int KP = D / 16;  // pairs of k-steps of Q K^T
+  constexpr int NQ = D / 32;  // groups of four n-tiles of P V
+  const Tf32Layout L = make_tf32_layout(D);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int HD = p.nh * D;
+  const int t0 = blockIdx.x * p.qt, g = t0 / p.w, r0 = t0 % p.w;
+  const float* qg = static_cast<const float*>(p.q);
+  const float* kg = static_cast<const float*>(p.k);
+  const float* vg = static_cast<const float*>(p.v);
+  const float* rfg = static_cast<const float*>(p.rf);
+  const float* btg = static_cast<const float*>(p.beta);
+  const size_t win = ((size_t)b * p.T + (size_t)g * p.w) * HD + h * D;  // window's token 0
+  const size_t cd = (size_t)b * p.C * HD + h * D;
+  // the block's walk: local tiles to its last row, then the chunk tiles
+  const int nloc = (r0 + p.qt - 1) / kTf32Keys + 1;
+  const int ntiles = nloc + (chunk_limit(p, g, r0 + p.qt - 1) + kTf32Keys - 1) / kTf32Keys;
+  // the strip's: rows rs .. rs + 15; the thread's rows rs + gq and rs + gq + 8
+  const int rs = r0 + 16 * warp, last = rs + 15;
+  const int sloc = last / kTf32Keys + 1;
+  const int slim = chunk_limit(p, g, last);
+  const int sch = (slim + kTf32Keys - 1) / kTf32Keys;
+  float* qs = reinterpret_cast<float*>(smem + L.q);  // [qt][KS]
+
+  // stage `buf` <- tile t's key rows and value rows; rows past the window's
+  // w (or the C chunks) copy the last real row, finite, and their columns
+  // are masked to -inf
+  auto load_tile = [&](int t, int buf) {
+    float* ks = reinterpret_cast<float*>(smem + L.k + buf * L.stage);
+    float* vs = reinterpret_cast<float*>(smem + L.v + buf * L.stage);
+    const bool local = t < nloc;
+    const float* ksrc = local ? kg + win : rfg + cd;
+    const float* vsrc = local ? vg + win : btg + cd;
+    const int base = kTf32Keys * (local ? t : t - nloc), n = local ? p.w : p.C;
+    for (int e = tid; e < kTf32Keys * V4; e += blockDim.x) {
+      const int r = e / V4, c4 = e % V4;
+      const size_t src = (size_t)min(base + r, n - 1) * HD + 4 * c4;
+      cp_async16(ks + r * KS + 4 * c4, ksrc + src);
+      cp_async16(vs + r * VS + 4 * c4, vsrc + src);
+    }
+    cp_async_commit();
+  };
+  // the block's q rows, in one group with the first tile
+  for (int e = tid; e < p.qt * V4; e += blockDim.x) {
+    const int r = e / V4, c4 = e % V4;
+    cp_async16(qs + r * KS + 4 * c4, qg + win + (size_t)(r0 + r) * HD + 4 * c4);
+  }
+  load_tile(0, 0);
+  // o[nq][tt]: n-tile tt of group nq, its column n is d = 32nq + 4n + tt
+  float o[NQ][4][4];
+#pragma unroll
+  for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nq][tt][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float scale2 = p.scale * kLog2e;
+  const int climit[2] = {g * (p.w / p.cs) + (rs + gq) / p.cs,
+                         g * (p.w / p.cs) + (rs + gq + 8) / p.cs};
+
+  for (int t = 0; t < ntiles; ++t) {
+    // tile t has landed, and every warp is done with the other stage
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < ntiles) load_tile(t + 1, (t + 1) & 1);
+    const bool local = t < nloc;
+    const int u = local ? t : t - nloc;
+    if (local ? u >= sloc : u >= sch) continue;  // masked for the whole strip
+    const float* ks = reinterpret_cast<const float*>(smem + L.k + (t & 1) * L.stage);
+    const float* vs = reinterpret_cast<const float*>(smem + L.v + (t & 1) * L.stage);
+
+    // S = Q K^T over the tile's keys: hi hi into sb, hi lo + lo hi into ss
+    float sb[kTf32N][4], ss[kTf32N][4];
+#pragma unroll
+    for (int n = 0; n < kTf32N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sb[n][e] = ss[n][e] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < KP; ++kp) {
+      // rows rs + gq and rs + gq + 8, columns 16kp + 4cq .. + 3: k-step 2kp
+      // takes .x (A column cq) and .y (column cq + 4), k-step 2kp + 1 .z, .w
+      float4 qa[2];
+      const float* qr = qs + (16 * warp + gq) * KS + 16 * kp + 4 * cq;
+      qa[0] = *reinterpret_cast<const float4*>(qr);
+      qa[1] = *reinterpret_cast<const float4*>(qr + 8 * KS);
+      float4 kk[kTf32N];
+#pragma unroll
+      for (int n = 0; n < kTf32N; ++n)
+        kk[n] = *reinterpret_cast<const float4*>(ks + (8 * n + gq) * KS + 16 * kp + 4 * cq);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float av[4] = {half ? qa[0].z : qa[0].x, half ? qa[1].z : qa[1].x,
+                             half ? qa[0].w : qa[0].y, half ? qa[1].w : qa[1].y};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
+#pragma unroll
+        for (int n = 0; n < kTf32N; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(half ? kk[n].z : kk[n].x, bh0, bl0);
+          split_tf32(half ? kk[n].w : kk[n].y, bh1, bl1);
+          mma_tf32(ss[n], al, bh0, bh1);
+          mma_tf32(ss[n], ah, bl0, bl1);
+          mma_tf32(sb[n], ah, bh0, bh1);
+        }
+      }
+    }
+
+    // logits in base 2 with the table (local tiles: row rs + gq + 8r,
+    // columns kTf32Keys u + 8n + 2cq, + 1) or the chunk mask, the running
+    // max and the numerators; s[n][e] is row rs + gq + 8(e / 2), tile
+    // column 8n + 2cq + e % 2
+    float s[kTf32N][4], mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kTf32N; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = kTf32Keys * u + 8 * n + 2 * cq;
+        float2 add;
+        if (local) {
+          add = j < p.w ? __ldg(reinterpret_cast<const float2*>(
+                              p.tab + (size_t)(rs + gq + 8 * r) * p.w + j))
+                        : make_float2(-INFINITY, -INFINITY);
+        } else {
+          add.x = j >= p.C ? -INFINITY : (j >= climit[r] ? kMaskVal : 0.f);
+          add.y = j + 1 >= p.C ? -INFINITY : (j + 1 >= climit[r] ? kMaskVal : 0.f);
+        }
+        s[n][2 * r] = fmaf(sb[n][2 * r] + ss[n][2 * r], scale2, add.x * kLog2e);
+        s[n][2 * r + 1] = fmaf(sb[n][2 * r + 1] + ss[n][2 * r + 1], scale2, add.y * kLog2e);
+        mx[r] = fmaxf(mx[r], fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mx[r]));
+      const float alpha = exp2_approx(m[r] - mn);  // 0 on the first tile
+      m[r] = mn;
+      l[r] *= alpha;
+#pragma unroll
+      for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt) {
+          o[nq][tt][2 * r] *= alpha;
+          o[nq][tt][2 * r + 1] *= alpha;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < kTf32N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2_approx(s[n][e] - m[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+
+    // O += P [v | beta]: k-step j takes the tile's keys 8j .. 8j + 7, A
+    // column cq as key 8j + 2cq and column cq + 4 as key 8j + 2cq + 1
+#pragma unroll
+    for (int j = 0; j < kTf32N; ++j) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[j][0], ah[0], al[0]);
+      split_tf32(s[j][2], ah[1], al[1]);
+      split_tf32(s[j][1], ah[2], al[2]);
+      split_tf32(s[j][3], ah[3], al[3]);
+      const float* v0 = vs + (8 * j + 2 * cq) * VS + 4 * gq;
+#pragma unroll
+      for (int nq = 0; nq < NQ; ++nq) {
+        const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * nq);
+        const float4 x1 = *reinterpret_cast<const float4*>(v0 + VS + 32 * nq);
+        const float b0[4] = {x0.x, x0.y, x0.z, x0.w}, b1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b0[tt], bh0, bl0);
+          split_tf32(b1[tt], bh1, bl1);
+          mma_tf32(o[nq][tt], al, bh0, bh1);
+          mma_tf32(o[nq][tt], ah, bl0, bl1);
+          mma_tf32(o[nq][tt], ah, bh0, bh1);
+        }
+      }
+    }
+  }
+
+  // out = O / row sum in f32; a thread's 8 values of a row and group are
+  // columns 32nq + 8cq .. + 7
+  float* out = static_cast<float*>(p.out) + win;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = quad_sum(l[r]);
+    float* orow = out + (size_t)(rs + gq + 8 * r) * HD + 8 * cq;
+#pragma unroll
+    for (int nq = 0; nq < NQ; ++nq) {
+      *reinterpret_cast<float4*>(orow + 32 * nq) =
+          make_float4(o[nq][0][2 * r] / den, o[nq][1][2 * r] / den, o[nq][2][2 * r] / den,
+                      o[nq][3][2 * r] / den);
+      *reinterpret_cast<float4*>(orow + 32 * nq + 4) =
+          make_float4(o[nq][0][2 * r + 1] / den, o[nq][1][2 * r + 1] / den,
+                      o[nq][2][2 * r + 1] / den, o[nq][3][2 * r + 1] / den);
+    }
+  }
+}
+
+template <int D>
+cudaError_t prepare_tf32() {
+  const auto kernel = causal_packed_fwd_tf32x3_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)make_tf32_layout(D).total);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+cudaError_t launch_tf32(const Params& p, cudaStream_t stream) {
+  cudaError_t err = prepare_tf32<D>();
+  if (err != cudaSuccess) return err;
+  // a warp for each strip of 16 query rows
+  causal_packed_fwd_tf32x3_kernel<D><<<dim3(p.T / p.qt, p.nh, p.B), 2 * p.qt,
+                                       make_tf32_layout(D).total, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Blocks of the route's kernel that fit one SM at 64 query rows a block
+// (registers and shared memory), from the occupancy calculator, or -1.
+template <int D>
+int tf32_blocks_per_sm() {
+  int blocks = 0;
+  if (prepare_tf32<D>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, causal_packed_fwd_tf32x3_kernel<D>, 128,
+          make_tf32_layout(D).total) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
 template <int D, typename T>
 cudaError_t launch(const Params& p, bool backward, cudaStream_t stream) {
   const Layout L = make_layout(backward, D, p.w, p.C, p.qt);
@@ -492,6 +816,25 @@ int causal_packed_smem_bytes(int backward, int d, int w, int C, int qt) {
   return (int)make_layout(backward != 0, d, w, C, qt).total;
 }
 
+// Whether the forward at head dim d, window w and element size itemsize
+// takes the split-TF32 route (fwd_uses_tf32x3 in the wrapper).
+int causal_packed_fwd_uses_tf32x3(int d, int w, int itemsize) {
+  return uses_tf32x3(d, w, itemsize) ? 1 : 0;
+}
+
+// Shared memory of one block of the split-TF32 forward at head dim d (the
+// wrapper's tf32_smem_bytes); it does not depend on w, C or the rows.
+int causal_packed_tf32_smem_bytes(int d) { return (int)make_tf32_layout(d).total; }
+
+// Blocks of the split-TF32 forward that fit one SM at head dim d, or -1.
+int causal_packed_tf32_blocks_per_sm(int d) {
+  switch (d) {
+    case 64: return tf32_blocks_per_sm<64>();
+    case 128: return tf32_blocks_per_sm<128>();
+    default: return -1;
+  }
+}
+
 const char* causal_packed_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -506,6 +849,22 @@ int causal_packed_fwd_launch(const void* q, const void* k, const void* v, const 
   if (!make_params(p, B, T, nh, w, cs, C, qt, scale)) return cudaErrorInvalidValue;
   p.q = q; p.k = k; p.v = v; p.rf = rf; p.beta = beta; p.tab = tab; p.out = out;
   return dispatch(p, d, false, is_bf16, stream);
+}
+
+// The forward's split-TF32 route on `stream` (f32 operands; d 64 or 128,
+// w % 16 == 0, qt 16, 32 or 64): the same output as causal_packed_fwd_launch.
+// Returns a cudaError_t (0 on success).
+int causal_packed_fwd_tf32x3_launch(const void* q, const void* k, const void* v,
+                                    const void* rf, const void* beta, const float* tab,
+                                    void* out, int B, int T, int nh, int d, int w, int cs,
+                                    int C, int qt, float scale, void* stream) {
+  Params p = {};
+  if (!make_params(p, B, T, nh, w, cs, C, qt, scale) || !uses_tf32x3(d, w, 4) ||
+      qt % 16 || qt > 64)
+    return cudaErrorInvalidValue;
+  p.q = q; p.k = k; p.v = v; p.rf = rf; p.beta = beta; p.tab = tab; p.out = out;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch_tf32<64>(p, s) : launch_tf32<128>(p, s);
 }
 
 // Backward on `stream`: dq (input type) and, added into the zeroed f32

@@ -3,7 +3,9 @@
 // mma.sync m16n8k16 bf16 product with f32 accumulation, the repacking of
 // accumulator fragments into operand fragments, a fast 2^x, and reductions
 // over the four threads that share an accumulator row.  K1's tensor-core
-// backward (eva_packed.cu) uses them.
+// backward (eva_packed.cu) uses them.  For f32 kernels: the mma.sync m16n8k8
+// TF32 product and the split of an f32 value into two TF32 parts (K3's f32
+// forward, causal_packed.cu).
 //
 // Fragments of mma.sync.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), for lane l with g = l / 4 and c = l % 4:
@@ -29,6 +31,24 @@
 //  * row_c(l) = l % 8 + 8 (l / 16), col_c(l) = 8 ((l / 8) % 2): with
 //    X = [n][k] and no transpose, the B fragments of n-tiles n0 and n0 + 8
 //    (as above); with X = [k][m] and .trans, the A fragment of X^T.
+//
+// Fragments of mma.sync.m16n8k8 with .tf32 operands (PTX ISA, "Matrix
+// Fragments for mma.m16n8k8"), lane l, g = l / 4, c = l % 4, one value a
+// register:
+//  * A, 16 x 8: a0 = (row g, col c), a1 = (row g+8, col c),
+//    a2 = (row g, col c+4), a3 = (row g+8, col c+4);
+//  * B, 8 x 8: b0 = (row c, col g), b1 = (row c+4, col g);
+//  * C, 16 x 8 f32: as for m16n8k16 above.
+// A product may number its k-index in any order that A and B share.  With
+// A's column c taken as the C tile's column 2c and column c+4 as column
+// 2c+1, an accumulator tile {c0, c1, c2, c3} is the A fragment
+// {c0, c2, c1, c3} of the next product: no shuffle.
+//
+// Split TF32: x = hi + lo with hi = x rounded to TF32 and lo = x - hi
+// (exact in f32), of which an mma reads the 11 high bits (truncation).  a b
+// is taken as hi hi + hi lo + lo hi, which drops lo lo (2^-22 |a| |b|) and
+// lo's truncated bits (under 2^-21 |a| |b| each): about 2^-20 |a| |b| a
+// term at worst, against 2^-11 for one TF32 product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +97,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B for one 16 x 8 tile: TF32 operands (k = 8), f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo in TF32 (the split in the header comment): hi is x rounded
+// to nearest, ties away from zero, by one integer add (the bits of
+// cvt.rna.tf32.f32, which costs a compare-and-select sequence), its low bits
+// cleared; lo is the exact x - hi, whose low 13 bits the mma ignores.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // Two f32 values rounded to bf16 (round to nearest even), lo in the low half.

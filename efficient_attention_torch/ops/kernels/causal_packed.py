@@ -26,6 +26,15 @@ raise; for CPU tensors they compute the same function with
 versions (the backward in explicit formulas, not autograd), which are also
 what the kernels are held against on the card.  ``LAUNCHES_FWD`` and
 ``LAUNCHES_BWD`` count the kernels' launches.
+
+The forward has two routes.  float32 at head dims 64 and 128 with
+``w % 16 == 0`` (``fwd_uses_tf32x3``; the LM step) takes a tensor-core
+kernel in split TF32 (each product as three TF32 products, f32 sums) with
+an online softmax that skips the tiles the causal mask hides for a whole
+16-row strip; ``LAUNCHES_FWD_TF32`` counts it.  It relies on the table's
+strict upper triangle holding ``MASK_VAL`` (as ``causal_table`` makes
+it), whose columns contribute 0 in f32.  bf16 and the other float32
+geometries take the CUDA-core kernel, as does the backward.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from efficient_attention_torch.ops.kernels import _build
 
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FWD_TF32 = 0
 
 NAME = "causal_packed"
 SOURCE = "efficient_attention_torch/csrc/causal_packed.cu"
@@ -56,6 +66,10 @@ SMEM_LIMIT = 232448
 FWD_ROWS = (64, 32, 16, 8)
 BWD_ROWS = (32, 16, 8)
 _MAX_GRID_YZ = 65535
+# the split-TF32 forward's key (and value) rows a stage, of two stages, and
+# the query rows whose q it stages
+TF32_KEYS = 16
+TF32_MAX_ROWS = 64
 
 
 def _align16(n: int) -> int:
@@ -80,6 +94,32 @@ def smem_bytes(backward: bool, d: int, w: int, C: int, qt: int) -> int:
     if backward:
         return 2 * rows + kv + 2 * logits
     return rows + kv + logits
+
+
+def fwd_uses_tf32x3(d: int, w: int, itemsize: int) -> bool:
+    """Whether the forward takes the split-TF32 tensor-core kernel
+    (``uses_tf32x3`` in ``csrc/causal_packed.cu``): float32, a head dim it
+    is built for and windows of whole 16-row strips."""
+    return itemsize == 4 and d in HEAD_DIMS and w % 16 == 0
+
+
+def tf32_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block of the split-TF32 forward; the
+    same layout as ``make_tf32_layout`` in ``csrc/causal_packed.cu``: the
+    q rows of ``TF32_MAX_ROWS`` queries at a stride of ``d + 16`` floats,
+    then two stages of ``TF32_KEYS`` key rows at ``d + 16`` and as many
+    value rows at ``d + 4``, all f32.  It depends on nothing but ``d``."""
+    return (TF32_MAX_ROWS * (d + 16) + 2 * TF32_KEYS * ((d + 16) + (d + 4))) * 4
+
+
+def tf32_tiles(g: int, last: int, w: int, cs: int, C: int) -> Tuple[int, int]:
+    """Local and chunk tiles of ``TF32_KEYS`` columns that window row
+    ``last`` of window ``g`` can see, counted from the first: a block of the
+    split-TF32 forward walks those of its last row, a 16-row strip computes
+    those of its own last row and skips the rest (the kernel's ``nloc`` /
+    ``sloc`` and chunk tile counts)."""
+    limit = min(C, g * (w // cs) + last // cs)
+    return last // TF32_KEYS + 1, -(-limit // TF32_KEYS)
 
 
 def plan(B: int, T: int, w: int, cs: int, C: int, num_heads: int, d: int,
@@ -223,8 +263,17 @@ def _lib() -> ctypes.CDLL:
     lib.causal_packed_bwd_launch.argtypes = ([ptr] * 13 + [i32] * 9
                                              + [ctypes.c_float, ptr])
     lib.causal_packed_bwd_launch.restype = i32
+    lib.causal_packed_fwd_tf32x3_launch.argtypes = ([ptr] * 7 + [i32] * 8
+                                                    + [ctypes.c_float, ptr])
+    lib.causal_packed_fwd_tf32x3_launch.restype = i32
     lib.causal_packed_smem_bytes.argtypes = [i32] * 5
     lib.causal_packed_smem_bytes.restype = i32
+    lib.causal_packed_fwd_uses_tf32x3.argtypes = [i32] * 3
+    lib.causal_packed_fwd_uses_tf32x3.restype = i32
+    lib.causal_packed_tf32_smem_bytes.argtypes = [i32]
+    lib.causal_packed_tf32_smem_bytes.restype = i32
+    lib.causal_packed_tf32_blocks_per_sm.argtypes = [i32]
+    lib.causal_packed_tf32_blocks_per_sm.restype = i32
     lib.causal_packed_error_string.argtypes = [i32]
     lib.causal_packed_error_string.restype = ctypes.c_char_p
     return lib
@@ -274,7 +323,10 @@ def _check(rc: int, what: str) -> None:
                            f"{_lib().causal_packed_error_string(rc).decode()}")
 
 
-def _forward(q, k, v, rf, beta, bias_tab, scale, num_heads, w, cs):
+def _forward(q, k, v, rf, beta, bias_tab, scale, num_heads, w, cs,
+             cuda_cores=False):
+    """The forward on the route ``fwd_uses_tf32x3`` picks; ``cuda_cores``
+    forces the CUDA-core kernel (to time and check it beside the other)."""
     if q.device.type == "cpu":
         return causal_packed_fwd_ref(q, k, v, rf, beta, bias_tab, scale,
                                      num_heads, w, cs)
@@ -282,16 +334,26 @@ def _forward(q, k, v, rf, beta, bias_tab, scale, num_heads, w, cs):
         raise ValueError(f"causal_packed runs on CUDA or CPU tensors, got {q.device}")
     ops, (B, T, nh, d, C, (qt, _)) = _cuda_operands(
         q, k, v, rf, beta, bias_tab, num_heads, w, cs)
+    tf32 = not cuda_cores and fwd_uses_tf32x3(d, w, q.element_size())
+    if tf32:
+        # its 16-byte copies need 16-byte aligned rows
+        ops = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ops]
     out = torch.empty_like(ops[0])
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.causal_packed_fwd_launch(
-            *(t.data_ptr() for t in ops), out.data_ptr(), B, T, nh, d, w, cs,
-            C, qt, int(q.dtype == torch.bfloat16), float(scale), stream)
+        if tf32:
+            rc = lib.causal_packed_fwd_tf32x3_launch(
+                *(t.data_ptr() for t in ops), out.data_ptr(), B, T, nh, d, w,
+                cs, C, qt, float(scale), stream)
+        else:
+            rc = lib.causal_packed_fwd_launch(
+                *(t.data_ptr() for t in ops), out.data_ptr(), B, T, nh, d, w,
+                cs, C, qt, int(q.dtype == torch.bfloat16), float(scale), stream)
     _check(rc, "forward")
-    global LAUNCHES_FWD
+    global LAUNCHES_FWD, LAUNCHES_FWD_TF32
     LAUNCHES_FWD += 1
+    LAUNCHES_FWD_TF32 += int(tf32)
     return out
 
 

@@ -12,6 +12,8 @@ plain forward to 1e-5 abs / 1e-4 rel (the same float32 arithmetic in another
 order).  On CPU tensors the autograd Function takes the plain versions and
 launches nothing.
 """
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,3 +170,133 @@ def test_launch_checks_raise_before_any_launch(change, match):
     tab = torch.zeros(change.get("tab", W), change.get("tab", W))
     with pytest.raises(ValueError, match=match):
         K._cuda_operands(q, q, q, rf, beta, tab, NH, W, CS)
+
+
+# ---- the forward's split-TF32 route: its gate, layout, tile walk and
+# arithmetic (the kernel itself runs on the card only)
+
+
+def test_fwd_uses_tf32x3_gate():
+    """float32 at head dims 64 and 128 with whole 16-row strips takes the
+    route; bfloat16, other head dims and windows of 8 keep the CUDA-core
+    kernel."""
+    for d, w in ((64, 16), (128, 128), (128, 48), (64, 96)):
+        assert K.fwd_uses_tf32x3(d, w, 4)
+    assert not K.fwd_uses_tf32x3(128, 128, 2)   # bf16
+    assert not K.fwd_uses_tf32x3(48, 128, 4)    # head dim
+    assert not K.fwd_uses_tf32x3(64, 8, 4)      # window of 8
+    # the LM shape and every f32 geometry the card checks take it
+    for B, T, nh, d, w, cs in ((18, 512, 8, 128, 128, 8), (2, 16, 2, 64, 16, 4),
+                               (2, 96, 2, 64, 48, 8), (1, 256, 3, 128, 64, 16)):
+        assert K.plan(B, T, w, cs, T // cs, nh, d, 4) is not None
+        assert K.fwd_uses_tf32x3(d, w, 4)
+
+
+def test_tf32_smem_layout():
+    """The q rows and a ring of two 16-row key/value stages, f32: the same
+    bytes whatever C, three blocks an SM within Hopper's shared memory at
+    head dim 128, and less than the CUDA-core forward takes at the LM
+    shape."""
+    assert K.tf32_smem_bytes(128) == (64 * 144 + 2 * 16 * (144 + 132)) * 4
+    assert K.tf32_smem_bytes(64) == (64 * 80 + 2 * 16 * (80 + 68)) * 4
+    for d in K.HEAD_DIMS:
+        assert 3 * K.tf32_smem_bytes(d) <= K.SMEM_LIMIT
+        assert all(K.tf32_smem_bytes(d) < K.smem_bytes(False, d, 128, C, 64)
+                   for C in (8, 64, 512))
+
+
+def _tf32_visited(T, w, cs, qt):
+    """[G, w, w + C] bool: the columns the split-TF32 forward computes for
+    each window row, by ``tf32_tiles`` (a block's walk, then each 16-row
+    strip's own tiles)."""
+    C, G, n = T // cs, T // w, K.TF32_KEYS
+    seen = torch.zeros(G, w, w + C, dtype=torch.bool)
+    for g in range(G):
+        for r0 in range(0, w, qt):
+            b_loc, b_ch = K.tf32_tiles(g, r0 + qt - 1, w, cs, C)
+            for rs in range(r0, r0 + qt, 16):
+                s_loc, s_ch = K.tf32_tiles(g, rs + 15, w, cs, C)
+                assert s_loc <= b_loc and s_ch <= b_ch
+                seen[g, rs:rs + 16, :min(w, n * s_loc)] = True
+                seen[g, rs:rs + 16, w:w + min(C, n * s_ch)] = True
+    return seen
+
+
+@pytest.mark.parametrize("T,w,cs", [(64, 16, 4), (96, 48, 8), (256, 64, 16),
+                                    (512, 128, 8)])
+def test_tf32_tile_walk_drops_only_masked_columns(T, w, cs):
+    """Every column the route skips is masked for every row of its strip,
+    and the plain forward with the skipped columns taken out entirely (at
+    -inf) equals the full plain forward bit for bit in f32."""
+    nh, d = 1, 16
+    rng = np.random.default_rng(5)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    C = T // cs
+    qt = K.plan(1, T, w, cs, C, nh, 64, 4)[0]
+    seen = _tf32_visited(T, w, cs, qt)
+    tab = K.causal_table(w, 0.3 * f(w, w))
+    add = K._joint_add(tab, T // w, w, cs, C)
+    assert bool((add[~seen] <= K.MASK_VAL / 2).all())
+    # local key 0, which every row sees, is in every strip's first tile
+    assert bool(seen[:, :, 0].all())
+    ops = [f(1, T, nh * d), f(1, T, nh * d), f(1, T, nh * d), f(1, C, nh * d),
+           f(1, C, nh * d)]
+    full = K.causal_packed_fwd_ref(*ops, tab, d ** -0.5, nh, w, cs)
+    dropped = add.masked_fill(~seen, float("-inf"))
+    with mock.patch.object(K, "_joint_add", lambda *a: dropped):
+        walked = K.causal_packed_fwd_ref(*ops, tab, d ** -0.5, nh, w, cs)
+    torch.testing.assert_close(walked, full, rtol=0, atol=0)
+
+
+def _tf32(x):
+    """x rounded to TF32: nearest, ties away from zero, 10 mantissa bits (the
+    kernel's ``split_tf32`` hi, ``cvt.rna.tf32.f32``'s bits)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32x3(a, b):
+    """a @ b as the kernel's split-TF32 products take it: hi = tf32(x),
+    lo = x - hi read by the mma at TF32 width (its low 13 bits dropped),
+    hi hi + hi lo + lo hi with f32 sums."""
+    def split(x):
+        hi = _tf32(x)
+        lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+        return hi, lo
+    (ah, al), (bh, bl) = split(a), split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _fwd_products(q, k, v, rf, beta, tab, scale, nh, w, cs, mm):
+    """The plain forward with both products taken by ``mm``."""
+    qw, kw, vw = (K._windows(t, w, nh) for t in (q, k, v))
+    rfh, bth = K._heads(rf, nh), K._heads(beta, nh)
+    G, C = qw.shape[2], rfh.shape[2]
+    keys = torch.cat([kw, rfh[:, :, None].expand(-1, -1, G, -1, -1)], dim=3)
+    vals = torch.cat([vw, bth[:, :, None].expand(-1, -1, G, -1, -1)], dim=3)
+    logits = mm(qw, keys.transpose(-1, -2)) * scale + K._joint_add(tab, G, w, cs, C)
+    p = torch.softmax(logits, dim=-1)
+    return K._merge(mm(p, vals)), logits
+
+
+def test_split_tf32_products_hold_the_f32_limit_and_one_tf32_product_does_not():
+    """The route's precision argument on the CPU: with keys scaled so that
+    logits reach about 10, the forward with both products in split TF32 is
+    within the card's f32 limit (1e-5 relative to the output's largest
+    value) of the plain forward, and with one TF32 product each it is not."""
+    B, T, nh, d, w, cs = 2, 64, 2, 64, 16, 4
+    rng = np.random.default_rng(6)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    C = T // cs
+    q, v, beta = f(B, T, nh * d), f(B, T, nh * d), f(B, C, nh * d)
+    k, rf = 4 * f(B, T, nh * d), 4 * f(B, C, nh * d)
+    tab = K.causal_table(w, 0.3 * f(w, w))
+    scale = d ** -0.5
+    ref = K.causal_packed_fwd_ref(q, k, v, rf, beta, tab, scale, nh, w, cs)
+    tol = 1e-5 * max(1.0, ref.abs().max().item())
+    split, logits = _fwd_products(q, k, v, rf, beta, tab, scale, nh, w, cs,
+                                  _mm_tf32x3)
+    assert 8.0 < logits[logits > K.MASK_VAL / 2].abs().max().item() < 40.0
+    assert (split - ref).abs().max().item() <= tol / 3
+    one, _ = _fwd_products(q, k, v, rf, beta, tab, scale, nh, w, cs,
+                           lambda a, b: _tf32(a) @ _tf32(b))
+    assert (one - ref).abs().max().item() > 10 * tol

@@ -234,22 +234,29 @@ def _k3_args(device, dtype, B, T, nh, d, w, cs, seed=19):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("geometry", [(2, 512, 8, 128, 128, 8),
                                       (2, 64, 2, 64, 16, 4),
-                                      (3, 16, 2, 64, 16, 4)])
+                                      (3, 16, 2, 64, 16, 4),
+                                      (2, 96, 2, 64, 48, 8),
+                                      (1, 256, 3, 128, 64, 16)])
 def test_causal_packed_kernels_match_plain(cuda_device, geometry, dtype):
     """K3 forward and all six backward outputs against the plain versions:
-    f32 to summation order (and the order of the backward's f32 atomics),
-    bf16 to one rounding (_k1_tol)."""
+    f32 to summation order (and the order of the backward's f32 atomics;
+    the forward's split-TF32 products drop about 2^-20 of each term), bf16
+    to one rounding (_k1_tol).  Every geometry here sends f32 through the
+    forward's split-TF32 route and bf16 through the CUDA-core kernel."""
     from efficient_attention_torch.ops.kernels import causal_packed as K3
 
     B, T, nh, d, w, cs = geometry
     ops, grad = _k3_args(cuda_device, dtype, *geometry)
     scale = d ** -0.5
-    before = (K3.LAUNCHES_FWD, K3.LAUNCHES_BWD)
+    before = (K3.LAUNCHES_FWD, K3.LAUNCHES_BWD, K3.LAUNCHES_FWD_TF32)
     leaves = [t.clone().requires_grad_() for t in ops]
     out = K3.causal_eva_packed(*leaves[:5], scale, nh, w, cs, bias_tab=leaves[5])
     out.backward(grad)
     torch.cuda.synchronize()
-    assert (K3.LAUNCHES_FWD, K3.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    tf32 = int(dtype == torch.float32)
+    assert K3.fwd_uses_tf32x3(d, w, ops[0].element_size()) == bool(tf32)
+    assert (K3.LAUNCHES_FWD, K3.LAUNCHES_BWD, K3.LAUNCHES_FWD_TF32) == (
+        before[0] + 1, before[1] + 1, before[2] + tf32)
     ref = K3.causal_packed_fwd_ref(*ops, scale, nh, w, cs)
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
