@@ -36,8 +36,8 @@ Two models, random weights from a seed:
   clip 0.1, on dummy tokens, dropout 0.  Its training step runs
   ``causal_packed``'s forward and backward kernels (K3) in every layer (on
   float32 activations: the adaptive input sums into float32, as in JAX),
-  the forward on its split-TF32 tensor-core route; its validation (on the
-  float32 parameters) runs the K3 forward;
+  the forward and the backward on their split-TF32 tensor-core routes; its
+  validation (on the float32 parameters) runs the K3 forward;
 * ``transformer_wmt_en_de`` (6 + 6 layers, d=512, ffn 2048, 8 heads of 64,
   post-LN, shared embeddings over a joint vocabulary of 32,768 types) with
   1-D EVA in the encoder (window 8 with a halo of 4, 8 landmarks, T5 bias,
@@ -53,7 +53,8 @@ Phases, each raising on failure:
    once) and print the seconds, each kernel's registers and spills, and for
    ``eva_packed``'s tensor-core forward and backward, the tensor-core
    route of ``eva_kernel`` and ``eva_rowmajor`` and ``causal_packed``'s
-   split-TF32 forward the blocks an SM (no spills allowed there); the
+   split-TF32 forward and backward the blocks an SM (no spills allowed
+   there); the
    wrappers' twins of the kernels' shared-memory layouts and route
    choices;
 2. kernels against their plain versions on the card: ``eva_single``;
@@ -71,12 +72,14 @@ Phases, each raising on failure:
    too wide for its one-pass strips (its forward and backward on the
    tensor-core routes in bf16 at head dims 16, 32 and 64, asserted), and
    its CUDA-core forward and backward in bf16 at the main shape; K3's
-   f32 forward on its split-TF32 route (asserted) and, forced, on the
-   CUDA-core kernel, bf16 on the CUDA-core kernel (asserted);
+   f32 forward and backward on their split-TF32 routes (asserted) and,
+   forced, on the CUDA-core kernels, bf16 on the CUDA-core kernels
+   (asserted);
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
-   batch, every forward on the split-TF32 route), finite losses, the peak
+   batch, every forward and backward on the split-TF32 routes), finite
+   losses, the peak
    device memory; then the f32 gradients of a 2-layer full-width LM, kernel
    path against eager path;
 4. the ViT serving path: ``cli.train_vit --eval`` in-process at batch 128
@@ -104,7 +107,8 @@ Phases, each raising on failure:
    launches of K11 or K12, none of any other);
 7. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks; K1's forward and backward on both routes, K3 in bf16 and in
-   the f32 the LM step runs, its f32 forward on both routes; forward and
+   the f32 the LM step runs, its f32 forward and backward on both routes
+   in turns; forward and
    train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
    and 3136 tokens, K8-K10 and the forward rates of EVA's eval routes in
@@ -992,6 +996,32 @@ def main() -> int:
         raise AssertionError(f"causal_packed split-TF32 forward spills: {k3_ptxas}")
     if min(k3_blocks.values()) < 3:
         raise AssertionError(f"causal_packed split-TF32 forward: {k3_blocks} blocks an SM")
+    # and its split-TF32 backward: gate and layout, registers and spills
+    # (none allowed), blocks an SM (one: a block holds a window's q and g)
+    for d in (48, 64, 128):
+        for w in (8, 16, 48, 128, 144):
+            for itemsize in (2, 4):
+                if (bool(k3._lib().causal_packed_bwd_uses_tf32x3(d, w, itemsize))
+                        != k3.bwd_uses_tf32x3(d, w, itemsize)):
+                    raise AssertionError(f"causal_packed bwd_uses_tf32x3{(d, w, itemsize)}:"
+                                         f" the kernel's and the wrapper's differ")
+            if (w % 16 == 0 and w <= k3.TF32_BWD_MAX_W and d in k3.HEAD_DIMS
+                    and k3._lib().causal_packed_tf32_bwd_smem_bytes(d, w)
+                    != k3.tf32_bwd_smem_bytes(d, w)):
+                raise AssertionError(f"causal_packed tf32_bwd_smem_bytes({d}, {w}) != the "
+                                     f"kernel's")
+    k3b_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k3.NAME}.log",
+                                  "causal_packed_bwd_tf32x3_kernel")
+    k3b_blocks = {f"d{d}": k3._lib().causal_packed_tf32_bwd_blocks_per_sm(d)
+                  for d in k3.HEAD_DIMS}
+    log(f"[build] causal_packed split-TF32 backward, ptxas: {json.dumps(k3b_ptxas)}; "
+        f"blocks an SM at windows of 128 (occupancy calculator): "
+        f"{json.dumps(k3b_blocks)}; {k3.tf32_bwd_smem_bytes(128, 128)} bytes of shared "
+        f"memory a block at head dim 128")
+    if any("0 bytes spill stores" not in v for v in k3b_ptxas.values()):
+        raise AssertionError(f"causal_packed split-TF32 backward spills: {k3b_ptxas}")
+    if min(k3b_blocks.values()) < 1:
+        raise AssertionError(f"causal_packed split-TF32 backward: {k3b_blocks} blocks an SM")
     for k, fn, args, lib_args in (
             (k5, "lara_fused_smem_bytes", (64, 49, 2), (64, 49, 1)),
             (k5, "lara_fused_smem_bytes", (64, 49, 4), (64, 49, 0)),
@@ -1143,23 +1173,31 @@ def main() -> int:
         ops, grad = k3_inputs(B, T, nh, d, w, cs, getattr(torch, dtype_name),
                               seed=30 + 7 * i)
         scale = d ** -0.5
-        # f32 takes the forward's split-TF32 route, bf16 the CUDA-core
-        # kernel; f32 is also held on the CUDA-core kernel, forced
-        tf32_before = k3.LAUNCHES_FWD_TF32
+        # f32 takes the forward's and the backward's split-TF32 routes,
+        # bf16 the CUDA-core kernels; f32 is also held on the CUDA-core
+        # kernels, forced
+        tf32_before = (k3.LAUNCHES_FWD_TF32, k3.LAUNCHES_BWD_TF32)
         got = [k3._forward(*ops, scale, nh, w, cs),
                *k3._backward(*ops, grad, scale, nh, w, cs)]
         f32 = ops[0].dtype == torch.float32
-        if k3.LAUNCHES_FWD_TF32 - tf32_before != int(f32):
-            raise AssertionError(f"causal_packed {label}: the forward took the "
-                                 f"{'CUDA-core' if f32 else 'split-TF32'} route")
+        for part, before, after in zip(("forward", "backward"), tf32_before,
+                                       (k3.LAUNCHES_FWD_TF32, k3.LAUNCHES_BWD_TF32)):
+            if after - before != int(f32):
+                raise AssertionError(f"causal_packed {label}: the {part} took the "
+                                     f"{'CUDA-core' if f32 else 'split-TF32'} route")
         names = ["out", "dq", "dk", "dv", "drf", "dbeta", "dbias"]
+        grad_names = names[1:]
         if f32:
             got.append(k3._forward(*ops, scale, nh, w, cs, cuda_cores=True))
-            names.append("out (CUDA cores)")
+            got += k3._backward(*ops, grad, scale, nh, w, cs, cuda_cores=True)
+            names += ["out (CUDA cores)"] + [f"{n} (CUDA cores)" for n in grad_names]
+            if (k3.LAUNCHES_FWD_TF32, k3.LAUNCHES_BWD_TF32) != tuple(b + 1 for b in tf32_before):
+                raise AssertionError(f"causal_packed {label}: a forced CUDA-core call "
+                                     "took the split-TF32 route")
         torch.cuda.synchronize()
         want = [k3.causal_packed_fwd_ref(*ops, scale, nh, w, cs),
                 *k3.causal_packed_bwd_ref(*ops, grad, scale, nh, w, cs)]
-        want += want[:1] * f32
+        want += want * f32
         for name, a, b in zip(names, got, want):
             if a.shape != b.shape or a.dtype != b.dtype:
                 raise AssertionError(f"causal_packed {label} {name}: {a.shape} "
@@ -1341,17 +1379,18 @@ def main() -> int:
     # ---- 3. the LM training path, counts set to 0 just before and read after
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = k3.LAUNCHES_FWD_TF32 = 0
+    k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = k3.LAUNCHES_FWD_TF32 = k3.LAUNCHES_BWD_TF32 = 0
     t0 = time.perf_counter()
     lm_stats = train_lm.cli_main(LM_ARGV + LM_TRAIN_ARGV)
     torch.cuda.synchronize()
     lm_launches = {"causal_packed_fwd": k3.LAUNCHES_FWD,
                    "causal_packed_bwd": k3.LAUNCHES_BWD}
-    lm_fwd_tf32 = k3.LAUNCHES_FWD_TF32
+    lm_fwd_tf32, lm_bwd_tf32 = k3.LAUNCHES_FWD_TF32, k3.LAUNCHES_BWD_TF32
     lm_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[lm-train] 8 steps + validation {json.dumps(lm_stats)} in "
         f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(lm_launches)}, "
-        f"{lm_fwd_tf32} of the forwards on the split-TF32 route")
+        f"{lm_fwd_tf32} of the forwards and {lm_bwd_tf32} of the backwards on the "
+        f"split-TF32 routes")
     log(f"[lm-train] peak device memory {lm_peak_gb:.3f} GiB "
         f"(torch.cuda.max_memory_allocated, train steps and validation)")
     for key in ("loss", "gnorm", "valid_loss"):
@@ -1366,6 +1405,9 @@ def main() -> int:
     if lm_fwd_tf32 != lm_launches["causal_packed_fwd"]:
         raise AssertionError(f"{lm_fwd_tf32} of {lm_launches['causal_packed_fwd']} "
                              "LM forwards on the split-TF32 route")
+    if lm_bwd_tf32 != lm_launches["causal_packed_bwd"]:
+        raise AssertionError(f"{lm_bwd_tf32} of {lm_launches['causal_packed_bwd']} "
+                             "LM backwards on the split-TF32 route")
     # f32 gradients of a 2-layer full-width LM: the kernel path against the
     # eager path, train mode, zero proposal noise, dropout 0
     lm_args = train_lm.parse_args(LM_ARGV + ["--decoder-layers", "2"])
@@ -1948,7 +1990,8 @@ def main() -> int:
     # causal_packed at the LM's shape (B=18, T=512, 8 heads of 128, window
     # 128, chunk 8): kernels, plain versions, bounds, SDPA yardstick, in bf16
     # and in the f32 that the LM step runs (the kernels line); the f32
-    # forward on the split-TF32 route and on the CUDA-core kernel in turns
+    # forward and backward on the split-TF32 routes and on the CUDA-core
+    # kernels in turns
     k3_shape = (18, 512, 8, 128, 128, 8)
     k3_geo = (128 ** -0.5, 8, 128, 8)
     for dtype in (bf16, torch.float32):
@@ -1964,6 +2007,9 @@ def main() -> int:
             times["fwd_cuda_cores"] = cuda_ms(
                 lambda: k3._forward(*ops, *k3_geo, cuda_cores=True), 20)
             times["fwd (second)"] = cuda_ms(lambda: k3._forward(*ops, *k3_geo), 20)
+            times["bwd_cuda_cores"] = cuda_ms(
+                lambda: k3._backward(*ops, grad, *k3_geo, cuda_cores=True), 10)
+            times["bwd (second)"] = cuda_ms(lambda: k3._backward(*ops, grad, *k3_geo), 10)
         bounds = {"fwd": k3_bound(ops[0], ops[3], 128, 8, 8, False),
                   "bwd": k3_bound(ops[0], ops[3], 128, 8, 8, True)}
         lib_ms = dict(zip(("fwd", "bwd", "fwd+bwd"), k3_sdpa(ops, grad, 8, 128, 8)))
@@ -1973,6 +2019,18 @@ def main() -> int:
         if dtype == torch.float32:
             k3_ms, k3_bounds, k3_sdpa_ms = times, bounds, lib_ms
         del ops, grad
+    # the split-TF32 backward's tail: it takes a block a window at one block
+    # an SM, so B=18 is 576 blocks, 4.36 waves of the H100's 132 SMs; B=33
+    # is 1056 blocks, 8 whole waves
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops, grad = k3_inputs(33, *k3_shape[1:], torch.float32, seed=41)
+    t33 = cuda_ms(lambda: k3._backward(*ops, grad, *k3_geo), 10)
+    blocks = {B: B * 8 * 512 // 128 for B in (18, 33)}
+    log(f"[time] causal_packed f32 backward tail: {t33:.4f} ms at B=33 ({blocks[33]} "
+        f"blocks, {blocks[33] / sms:.2f} waves of {sms} SMs), {k3_ms['bwd']:.4f} ms at "
+        f"B=18 ({blocks[18]} blocks, {blocks[18] / sms:.2f} waves), "
+        f"{t33 * blocks[18] / blocks[33]:.4f} ms for B=18 at B=33's time a block; {card}")
+    del ops, grad
 
     # the LM train step at B=18 x 512 bf16, dropout 0, on one batch held on
     # the card: kernel path, eager path, eager, kernel; then a profile of 3

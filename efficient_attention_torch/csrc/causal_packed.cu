@@ -83,6 +83,41 @@
 // In f32 the TPU kernel rounds nothing (round_to<float> is the identity),
 // so the route differs from it by the split products' dropped terms and
 // the order of sums.
+//
+// The f32 backward has a second route on the same products, behind
+// bwd_uses_tf32x3 (the forward's gate and w <= 128; the LM step's shape):
+// causal_packed_bwd_tf32x3_kernel.  What bounds it: operations.  At the LM
+// shape the five products over the visible columns are 9.1 GFLOP, 135 us
+// at the f32 peak, against 85 us for the bytes; recomputing S and dP for
+// the row statistics adds two more products.  Design:
+//  * a block takes a whole window of one (row, head): grid (T/w, H, B), a
+//    warp of 32 threads for each strip of 16 rows (8 at w = 128).  The
+//    window's q and g rows are staged once in f32; keys [k | rf] and values
+//    [v | beta] come through the forward's ring of two 16-row cp.async
+//    stages, the walk twice over.  The q, g, key and value rows are not
+//    padded: their 16-byte chunks are XOR-swizzled by row (swz), because
+//    the keys are read both along d (Q K^T) and across rows (dS K) and no
+//    padding serves both without bank conflicts.  Two f32 tiles
+//    [16 keys][w + 8] take the tile's P and dS.  181,248 bytes at head dim
+//    128 and w = 128: one block an SM;
+//  * the block walks every local tile, then the chunk tiles its last row
+//    sees (the forward's walk for qt = w); a warp skips the tiles its strip
+//    cannot see.  Pass 1: a warp forms S = Q K^T and dP = G V^T in split
+//    TF32 (hi hi apart from the two smaller products) and keeps, in base
+//    2 and f32, each row's online max m, l = sum 2^(s - m) and
+//    D = sum 2^(s - m) dP, rescaled when m rises; D / l is the TPU
+//    kernel's ds = sum(P dP).  Pass 2, a tile at a time: S and dP again,
+//    bit for bit; P = 2^(s - m) / l and dS = P (dP - ds) in f32; the f32
+//    dS of the local columns added into the dbias partials; dq += dS keys
+//    from the accumulator fragments (mma_frag.cuh), 64 floats a thread at
+//    head dim 128; P and dS into their tiles.  After a barrier the warps
+//    split d in 8 column groups and form the tile's dk = scale dS^T q and
+//    dv = P^T g (drf and dbeta for a chunk tile) over the query rows of
+//    the strips that see it;
+//  * reductions: dq and a window's dk and dv are complete in their block
+//    and stored once, with no atomics and no zeroed buffers; drf and dbeta
+//    take f32 atomics into zeroed [B, C, H*D] buffers (T/w adds an
+//    address), the dbias partials [B, H, w, w] (T/w adds) as before.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -105,8 +140,8 @@ struct Params {
   const float* tab;   // [w, w]
   const void* g;      // backward: [B, T, nh*D], T
   void* out;          // forward: out; backward: dq; [B, T, nh*D], T
-  float* dk;          // backward: [B, T, nh*D], zeroed
-  float* dv;          // backward: [B, T, nh*D], zeroed
+  float* dk;          // backward: [B, T, nh*D], zeroed (CUDA-core kernel)
+  float* dv;          // backward: [B, T, nh*D], zeroed (CUDA-core kernel)
   float* drf;         // backward: [B, C, nh*D], zeroed
   float* dbeta;       // backward: [B, C, nh*D], zeroed
   float* dbias;       // backward: [B, nh, w, w] partials, zeroed
@@ -770,6 +805,475 @@ int tf32_blocks_per_sm() {
   return blocks;
 }
 
+// ---- the f32 backward in split TF32 on tensor cores (header comment)
+
+constexpr int kTf32BwdMaxW = 128;  // window rows a block, at most (a warp a strip)
+
+// Whether the f32 backward at head dim D and window w takes the route: the
+// twin of bwd_uses_tf32x3 in ops/kernels/causal_packed.py.
+__host__ __device__ inline bool bwd_uses_tf32x3(int D, int w, int itemsize) {
+  return uses_tf32x3(D, w, itemsize) && w <= kTf32BwdMaxW;
+}
+
+// Row stride (floats) of the P and dS tiles [16 keys][w queries]: 8 mod 16,
+// so that the float2 loads of a half warp (keys g < 4, queries 2c, c < 4)
+// fall in distinct banks.
+__host__ __device__ constexpr int tf32_bwd_tile_stride(int w) { return w + 8; }
+
+// Offsets (bytes) of the q and g rows, of stage 0's key and value rows, a
+// stage's size, the P and dS tiles and the total; the same layout as
+// tf32_bwd_smem_bytes() in ops/kernels/causal_packed.py.
+struct Tf32BwdLayout {
+  size_t q, g, k, v, stage, P, dS, total;
+};
+
+__host__ __device__ inline Tf32BwdLayout make_tf32_bwd_layout(int D, int w) {
+  Tf32BwdLayout L;
+  const size_t rows = (size_t)w * D * 4, tile = (size_t)kTf32Keys * tf32_bwd_tile_stride(w) * 4;
+  L.q = 0;
+  L.g = rows;
+  L.k = 2 * rows;
+  L.v = L.k + (size_t)kTf32Keys * D * 4;
+  L.stage = (size_t)kTf32Keys * 2 * D * 4;
+  L.P = L.k + kTf32Stages * L.stage;
+  L.dS = L.P + tile;
+  L.total = L.dS + tile;
+  return L;
+}
+
+// The q, g, key and value rows are D floats with no padding; chunk c (16
+// bytes) of row r sits at chunk c ^ swz(r).  Both ways the products read
+// them then fall in distinct banks: float4 of chunk 4k + c from rows g and
+// g + 1 (a quarter warp: swz differs in bit 2), and float4 of chunk 8n + g
+// (or float2 / float from it) from rows 2c and 2c + 1 (swz(2c) = 2c).
+__device__ __forceinline__ int swz(int r) { return (r & 6) ^ ((r & 1) << 2); }
+template <int D>
+__device__ __forceinline__ int swz_at(int r, int d) {
+  return r * D + ((((d >> 2) ^ swz(r)) << 2) | (d & 3));
+}
+
+// n consecutive floats (n = 1 or 2, 8-byte aligned) from shared memory.
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&x)[N]) {
+  if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) causal_packed_bwd_tf32x3_kernel(const Params p) {
+  using namespace mma_frag;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int V4 = D / 4;
+  constexpr int KP = D / 16;  // pairs of k-steps of Q K^T and G V^T
+  constexpr int NQ = D / 32;  // groups of four n-tiles of dS K
+  constexpr int NG = D / 64;  // n-tiles of a column group of dk / dv (8 groups)
+  const Tf32BwdLayout L = make_tf32_bwd_layout(D, p.w);
+  const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int HD = p.nh * D, SP = tf32_bwd_tile_stride(p.w);
+  const float* qg = static_cast<const float*>(p.q);
+  const float* kg = static_cast<const float*>(p.k);
+  const float* vg = static_cast<const float*>(p.v);
+  const float* rfg = static_cast<const float*>(p.rf);
+  const float* btg = static_cast<const float*>(p.beta);
+  const float* gg = static_cast<const float*>(p.g);
+  const size_t win = ((size_t)b * p.T + (size_t)g * p.w) * HD + h * D;  // window's token 0
+  const size_t cd = (size_t)b * p.C * HD + h * D;
+  // the block's walk (twice: pass 1, then pass 2): every local tile, then
+  // the chunk tiles its last row sees
+  const int nloc = p.w / kTf32Keys;
+  const int ntiles = nloc + (chunk_limit(p, g, p.w - 1) + kTf32Keys - 1) / kTf32Keys;
+  // the warp's strip: rows rs .. rs + 15, local tiles 0 .. warp, chunk
+  // tiles below sch; the thread's rows rs + gq and rs + gq + 8
+  const int rs = 16 * warp;
+  const int sch = (chunk_limit(p, g, rs + 15) + kTf32Keys - 1) / kTf32Keys;
+  float* qs = reinterpret_cast<float*>(smem + L.q);   // [w][D], swizzled
+  float* gs = reinterpret_cast<float*>(smem + L.g);   // [w][D], swizzled
+  float* Pt = reinterpret_cast<float*>(smem + L.P);   // [16 keys][SP]
+  float* Dt = reinterpret_cast<float*>(smem + L.dS);  // [16 keys][SP]
+
+  // stage i & 1 <- the key rows [k | rf] and value rows [v | beta] of step
+  // i's tile (step i of 2 ntiles); rows past the window's w (or the C
+  // chunks) copy the last real row, finite, and their columns are masked
+  // to -inf
+  auto load_tile = [&](int i) {
+    const int t = i < ntiles ? i : i - ntiles;
+    float* ks = reinterpret_cast<float*>(smem + L.k + (i & 1) * L.stage);
+    float* vs = reinterpret_cast<float*>(smem + L.v + (i & 1) * L.stage);
+    const bool local = t < nloc;
+    const float* ksrc = local ? kg + win : rfg + cd;
+    const float* vsrc = local ? vg + win : btg + cd;
+    const int base = kTf32Keys * (local ? t : t - nloc), n = local ? p.w : p.C;
+    for (int e = tid; e < kTf32Keys * V4; e += blockDim.x) {
+      const int r = e / V4, c4 = e % V4;
+      const size_t src = (size_t)min(base + r, n - 1) * HD + 4 * c4;
+      cp_async16(ks + swz_at<D>(r, 4 * c4), ksrc + src);
+      cp_async16(vs + swz_at<D>(r, 4 * c4), vsrc + src);
+    }
+    cp_async_commit();
+  };
+  // the window's q and g rows, in one group with the first tile
+  for (int e = tid; e < p.w * V4; e += blockDim.x) {
+    const int r = e / V4, c4 = e % V4;
+    cp_async16(qs + swz_at<D>(r, 4 * c4), qg + win + (size_t)r * HD + 4 * c4);
+    cp_async16(gs + swz_at<D>(r, 4 * c4), gg + win + (size_t)r * HD + 4 * c4);
+  }
+  load_tile(0);
+
+  const float scale2 = p.scale * kLog2e;
+  const int climit[2] = {g * (p.w / p.cs) + (rs + gq) / p.cs,
+                         g * (p.w / p.cs) + (rs + gq + 8) / p.cs};
+  const int xa = swz(gq);  // the swizzle of rows 8n + gq (and rs + gq + 8r)
+
+  // S = Q K^T and dP = G V^T of the strip over step i's tile, hi hi into
+  // sb / pb and hi lo + lo hi into ss / ps; then s = the logits in base 2
+  // with the table (local tiles) or the chunk mask.  s[n][e] is row
+  // rs + gq + 8(e / 2), tile column 8n + 2cq + e % 2.
+  auto products = [&](int i, float (&s)[2][4], float (&dp)[2][4]) {
+    const int t = i < ntiles ? i : i - ntiles;
+    const float* ks = reinterpret_cast<const float*>(smem + L.k + (i & 1) * L.stage);
+    const float* vs = reinterpret_cast<const float*>(smem + L.v + (i & 1) * L.stage);
+    float sb[2][4], ss[2][4], pb[2][4], ps[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sb[n][e] = ss[n][e] = pb[n][e] = ps[n][e] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < KP; ++kp) {
+      // columns 16kp + 4cq .. + 3: k-step 2kp takes .x (A column cq) and
+      // .y (column cq + 4), k-step 2kp + 1 .z, .w
+      const int off = ((4 * kp + cq) ^ xa) << 2;
+      float4 qa[2], ga[2], kk[2], vv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        qa[r] = *reinterpret_cast<const float4*>(qs + (rs + gq + 8 * r) * D + off);
+        ga[r] = *reinterpret_cast<const float4*>(gs + (rs + gq + 8 * r) * D + off);
+        kk[r] = *reinterpret_cast<const float4*>(ks + (8 * r + gq) * D + off);
+        vv[r] = *reinterpret_cast<const float4*>(vs + (8 * r + gq) * D + off);
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float av[4] = {half ? qa[0].z : qa[0].x, half ? qa[1].z : qa[1].x,
+                             half ? qa[0].w : qa[0].y, half ? qa[1].w : qa[1].y};
+        const float gv[4] = {half ? ga[0].z : ga[0].x, half ? ga[1].z : ga[1].x,
+                             half ? ga[0].w : ga[0].y, half ? ga[1].w : ga[1].y};
+        uint32_t ah[4], al[4], gh[4], gl[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          split_tf32(av[j], ah[j], al[j]);
+          split_tf32(gv[j], gh[j], gl[j]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(half ? kk[n].z : kk[n].x, bh0, bl0);
+          split_tf32(half ? kk[n].w : kk[n].y, bh1, bl1);
+          mma_tf32(ss[n], al, bh0, bh1);
+          mma_tf32(ss[n], ah, bl0, bl1);
+          mma_tf32(sb[n], ah, bh0, bh1);
+          split_tf32(half ? vv[n].z : vv[n].x, bh0, bl0);
+          split_tf32(half ? vv[n].w : vv[n].y, bh1, bl1);
+          mma_tf32(ps[n], gl, bh0, bh1);
+          mma_tf32(ps[n], gh, bl0, bl1);
+          mma_tf32(pb[n], gh, bh0, bh1);
+        }
+      }
+    }
+    const bool local = t < nloc;
+    const int u = local ? t : t - nloc;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = kTf32Keys * u + 8 * n + 2 * cq;
+        float2 add;
+        if (local) {
+          add = __ldg(reinterpret_cast<const float2*>(p.tab + (size_t)(rs + gq + 8 * r) * p.w + j));
+        } else {
+          add.x = j >= p.C ? -INFINITY : (j >= climit[r] ? kMaskVal : 0.f);
+          add.y = j + 1 >= p.C ? -INFINITY : (j + 1 >= climit[r] ? kMaskVal : 0.f);
+        }
+        s[n][2 * r] = fmaf(sb[n][2 * r] + ss[n][2 * r], scale2, add.x * kLog2e);
+        s[n][2 * r + 1] = fmaf(sb[n][2 * r + 1] + ss[n][2 * r + 1], scale2, add.y * kLog2e);
+        dp[n][2 * r] = pb[n][2 * r] + ps[n][2 * r];
+        dp[n][2 * r + 1] = pb[n][2 * r + 1] + ps[n][2 * r + 1];
+      }
+  };
+  // whether the strip sees step i's tile
+  auto visible = [&](int i) {
+    const int t = i < ntiles ? i : i - ntiles;
+    return t < nloc ? t <= warp : t - nloc < sch;
+  };
+
+  // ---- pass 1: each row's max m, sum l of 2^(s - m) and
+  // D = sum 2^(s - m) dP, online (rescaled when m rises), in f32
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  for (int i = 0; i < ntiles; ++i) {
+    // tile i has landed, and every warp is done with the other stage
+    cp_async_wait_all();
+    __syncthreads();
+    load_tile(i + 1);
+    if (!visible(i)) continue;  // masked for the whole strip
+    float s[2][4], dp[2][4];
+    products(i, s, dp);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                             fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+      const float mn = fmaxf(m[r], quad_max(mx));
+      const float alpha = exp2_approx(m[r] - mn);  // 0 on the first tile
+      m[r] = mn;
+      l[r] *= alpha;
+      dd[r] *= alpha;
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = exp2_approx(s[n][e] - m[e >> 1]);
+        l[e >> 1] += x;
+        dd[e >> 1] = fmaf(x, dp[n][e], dd[e >> 1]);
+      }
+  }
+  // 1 / l, and ds = D / l: the TPU kernel's sum(P * dP)
+  float il[2], ds[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = quad_sum(l[r]);
+    il[r] = 1.f / den;
+    ds[r] = quad_sum(dd[r]) / den;
+  }
+
+  // ---- pass 2, a tile at a time: P and dS; dbias; dq += dS keys; then,
+  // after a barrier, the tile's dk, dv (or drf, dbeta) from P and dS
+  // o[nq][tt]: n-tile tt of group nq of dq, its column n is d = 32nq + 4n + tt
+  float o[NQ][4][4];
+#pragma unroll
+  for (int nq = 0; nq < NQ; ++nq)
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nq][tt][e] = 0.f;
+  float* dbias = p.dbias + ((size_t)b * p.nh + h) * p.w * p.w;
+  for (int i = ntiles; i < 2 * ntiles; ++i) {
+    // tile i has landed; every warp is done with the other stage and with
+    // the P and dS tiles
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < 2 * ntiles) load_tile(i + 1);
+    const int t = i - ntiles;
+    const bool local = t < nloc;
+    const int u = local ? t : t - nloc;
+    if (visible(i)) {
+      float s[2][4], dp[2][4];
+      products(i, s, dp);
+      // s <- P = 2^(s - m) / l, dp <- dS = P (dP - ds), both f32
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2_approx(s[n][e] - m[e >> 1]) * il[e >> 1];
+          dp[n][e] = s[n][e] * (dp[n][e] - ds[e >> 1]);
+        }
+      if (local) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            atomicAdd(dbias + (size_t)(rs + gq + 8 * (e >> 1)) * p.w + kTf32Keys * u + 8 * n +
+                          2 * cq + (e & 1),
+                      dp[n][e]);
+      }
+      // dq += dS keys: k-step j takes the tile's keys 8j .. 8j + 7, A
+      // column cq as key 8j + 2cq and column cq + 4 as key 8j + 2cq + 1;
+      // the keys' row 8j + 2cq (+ 1) at chunk 8nq + gq holds columns
+      // d = 32nq + 4gq + tt of n-tiles tt
+      const float* ks = reinterpret_cast<const float*>(smem + L.k + (i & 1) * L.stage);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t ah[4], al[4];
+        split_tf32(dp[j][0], ah[0], al[0]);
+        split_tf32(dp[j][2], ah[1], al[1]);
+        split_tf32(dp[j][1], ah[2], al[2]);
+        split_tf32(dp[j][3], ah[3], al[3]);
+        const int r0 = 8 * j + 2 * cq;
+#pragma unroll
+        for (int nq = 0; nq < NQ; ++nq) {
+          const float4 x0 = *reinterpret_cast<const float4*>(ks + swz_at<D>(r0, 32 * nq + 4 * gq));
+          const float4 x1 =
+              *reinterpret_cast<const float4*>(ks + swz_at<D>(r0 + 1, 32 * nq + 4 * gq));
+          const float b0[4] = {x0.x, x0.y, x0.z, x0.w}, b1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int tt = 0; tt < 4; ++tt) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(b0[tt], bh0, bl0);
+            split_tf32(b1[tt], bh1, bl1);
+            mma_tf32(o[nq][tt], al, bh0, bh1);
+            mma_tf32(o[nq][tt], ah, bl0, bl1);
+            mma_tf32(o[nq][tt], ah, bh0, bh1);
+          }
+        }
+      }
+      // P and dS into the tiles, key-major: key 8n + 2cq + e % 2, query
+      // rs + gq + 8(e / 2)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int at = (8 * n + 2 * cq + (e & 1)) * SP + rs + gq + 8 * (e >> 1);
+          Pt[at] = s[n][e];
+          Dt[at] = dp[n][e];
+        }
+    }
+    __syncthreads();
+    // the tile's dk = scale dS^T q and dv = P^T g (chunk tiles: drf, dbeta)
+    // over the query rows of the strips that see it (a suffix of strips:
+    // local tile u is seen by strips u .., a chunk tile from the first
+    // strip whose chunk limit passes it); a warp takes column groups of
+    // 8 NG columns, group c holding d = 8 NG c + NG n + tt of n-tiles tt.
+    // k-step kk takes queries 8kk .. 8kk + 7, A column cq as query
+    // 8kk + 2cq and column cq + 4 as query 8kk + 2cq + 1
+    int first = u;
+    if (!local) {
+      first = 0;
+      while (16 * first + 15 < p.w &&
+             (chunk_limit(p, g, 16 * first + 15) + kTf32Keys - 1) / kTf32Keys <= u)
+        ++first;
+    }
+    for (int grp = warp; grp < 8; grp += nw) {
+      const int cb = 8 * NG * grp;
+      float kb[NG][4], kt[NG][4], vb[NG][4], vt[NG][4];
+#pragma unroll
+      for (int tt = 0; tt < NG; ++tt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kb[tt][e] = kt[tt][e] = vb[tt][e] = vt[tt][e] = 0.f;
+      for (int kk = 2 * first; kk < p.w / 8; ++kk) {
+        const int q0 = 8 * kk + 2 * cq;
+        const float2 d0 = *reinterpret_cast<const float2*>(Dt + gq * SP + q0);
+        const float2 d1 = *reinterpret_cast<const float2*>(Dt + (gq + 8) * SP + q0);
+        const float2 p0 = *reinterpret_cast<const float2*>(Pt + gq * SP + q0);
+        const float2 p1 = *reinterpret_cast<const float2*>(Pt + (gq + 8) * SP + q0);
+        uint32_t dh[4], dl[4], ph[4], pl[4];
+        split_tf32(d0.x, dh[0], dl[0]);
+        split_tf32(d1.x, dh[1], dl[1]);
+        split_tf32(d0.y, dh[2], dl[2]);
+        split_tf32(d1.y, dh[3], dl[3]);
+        split_tf32(p0.x, ph[0], pl[0]);
+        split_tf32(p1.x, ph[1], pl[1]);
+        split_tf32(p0.y, ph[2], pl[2]);
+        split_tf32(p1.y, ph[3], pl[3]);
+        float qa[NG], qb[NG], ga[NG], gb[NG];
+        load_n<NG>(qs + swz_at<D>(q0, cb + NG * gq), qa);
+        load_n<NG>(qs + swz_at<D>(q0 + 1, cb + NG * gq), qb);
+        load_n<NG>(gs + swz_at<D>(q0, cb + NG * gq), ga);
+        load_n<NG>(gs + swz_at<D>(q0 + 1, cb + NG * gq), gb);
+#pragma unroll
+        for (int tt = 0; tt < NG; ++tt) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(qa[tt], bh0, bl0);
+          split_tf32(qb[tt], bh1, bl1);
+          mma_tf32(kt[tt], dl, bh0, bh1);
+          mma_tf32(kt[tt], dh, bl0, bl1);
+          mma_tf32(kb[tt], dh, bh0, bh1);
+          split_tf32(ga[tt], bh0, bl0);
+          split_tf32(gb[tt], bh1, bl1);
+          mma_tf32(vt[tt], pl, bh0, bh1);
+          mma_tf32(vt[tt], ph, bl0, bl1);
+          mma_tf32(vb[tt], ph, bh0, bh1);
+        }
+      }
+      // the thread's row gq + 8r (a key of the tile), columns
+      // cb + 2 NG cq + x, x < 2 NG: x = NG (e % 2) + tt
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = kTf32Keys * u + gq + 8 * r;
+        float dkv[2 * NG], dvv[2 * NG];
+#pragma unroll
+        for (int tt = 0; tt < NG; ++tt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            dkv[NG * e + tt] = p.scale * (kb[tt][2 * r + e] + kt[tt][2 * r + e]);
+            dvv[NG * e + tt] = vb[tt][2 * r + e] + vt[tt][2 * r + e];
+          }
+        const int col = cb + 2 * NG * cq;
+        if (local) {
+          float* dk = p.dk + win + (size_t)key * HD + col;
+          float* dv = p.dv + win + (size_t)key * HD + col;
+          if constexpr (NG == 2) {
+            *reinterpret_cast<float4*>(dk) = make_float4(dkv[0], dkv[1], dkv[2], dkv[3]);
+            *reinterpret_cast<float4*>(dv) = make_float4(dvv[0], dvv[1], dvv[2], dvv[3]);
+          } else {
+            *reinterpret_cast<float2*>(dk) = make_float2(dkv[0], dkv[1]);
+            *reinterpret_cast<float2*>(dv) = make_float2(dvv[0], dvv[1]);
+          }
+        } else if (key < p.C) {
+#pragma unroll
+          for (int x = 0; x < 2 * NG; ++x) {
+            atomicAdd(p.drf + cd + (size_t)key * HD + col + x, dkv[x]);
+            atomicAdd(p.dbeta + cd + (size_t)key * HD + col + x, dvv[x]);
+          }
+        }
+      }
+    }
+  }
+
+  // dq = scale dS keys, complete in this block; a thread's 8 values of a
+  // row and group are columns 32nq + 8cq .. + 7
+  float* dq = static_cast<float*>(p.out) + win;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* orow = dq + (size_t)(rs + gq + 8 * r) * HD + 8 * cq;
+#pragma unroll
+    for (int nq = 0; nq < NQ; ++nq) {
+      *reinterpret_cast<float4*>(orow + 32 * nq) =
+          make_float4(p.scale * o[nq][0][2 * r], p.scale * o[nq][1][2 * r],
+                      p.scale * o[nq][2][2 * r], p.scale * o[nq][3][2 * r]);
+      *reinterpret_cast<float4*>(orow + 32 * nq + 4) =
+          make_float4(p.scale * o[nq][0][2 * r + 1], p.scale * o[nq][1][2 * r + 1],
+                      p.scale * o[nq][2][2 * r + 1], p.scale * o[nq][3][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t prepare_tf32_bwd() {
+  const auto kernel = causal_packed_bwd_tf32x3_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)make_tf32_bwd_layout(D, kTf32BwdMaxW).total);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
+cudaError_t launch_tf32_bwd(const Params& p, cudaStream_t stream) {
+  cudaError_t err = prepare_tf32_bwd<D>();
+  if (err != cudaSuccess) return err;
+  // a block a window, a warp for each strip of 16 of its rows
+  causal_packed_bwd_tf32x3_kernel<D><<<dim3(p.T / p.w, p.nh, p.B), 2 * p.w,
+                                       make_tf32_bwd_layout(D, p.w).total, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Blocks of the route's backward that fit one SM at windows of 128
+// (registers and shared memory), from the occupancy calculator, or -1.
+template <int D>
+int tf32_bwd_blocks_per_sm() {
+  int blocks = 0;
+  if (prepare_tf32_bwd<D>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, causal_packed_bwd_tf32x3_kernel<D>, 2 * kTf32BwdMaxW,
+          make_tf32_bwd_layout(D, kTf32BwdMaxW).total) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
 template <int D, typename T>
 cudaError_t launch(const Params& p, bool backward, cudaStream_t stream) {
   const Layout L = make_layout(backward, D, p.w, p.C, p.qt);
@@ -835,6 +1339,28 @@ int causal_packed_tf32_blocks_per_sm(int d) {
   }
 }
 
+// Whether the backward at head dim d, window w and element size itemsize
+// takes the split-TF32 route (bwd_uses_tf32x3 in the wrapper).
+int causal_packed_bwd_uses_tf32x3(int d, int w, int itemsize) {
+  return bwd_uses_tf32x3(d, w, itemsize) ? 1 : 0;
+}
+
+// Shared memory of one block of the split-TF32 backward at head dim d and
+// window w (the wrapper's tf32_bwd_smem_bytes).
+int causal_packed_tf32_bwd_smem_bytes(int d, int w) {
+  return (int)make_tf32_bwd_layout(d, w).total;
+}
+
+// Blocks of the split-TF32 backward that fit one SM at head dim d and
+// windows of 128, or -1.
+int causal_packed_tf32_bwd_blocks_per_sm(int d) {
+  switch (d) {
+    case 64: return tf32_bwd_blocks_per_sm<64>();
+    case 128: return tf32_bwd_blocks_per_sm<128>();
+    default: return -1;
+  }
+}
+
 const char* causal_packed_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -880,6 +1406,24 @@ int causal_packed_bwd_launch(const void* q, const void* k, const void* v, const 
   p.q = q; p.k = k; p.v = v; p.rf = rf; p.beta = beta; p.tab = tab; p.g = g;
   p.out = dq; p.dk = dk; p.dv = dv; p.drf = drf; p.dbeta = dbeta; p.dbias = dbias;
   return dispatch(p, d, true, is_bf16, stream);
+}
+
+// The backward's split-TF32 route on `stream` (f32 operands; d 64 or 128,
+// w % 16 == 0, w <= 128): dq, dk, dv (f32, stored whole) and, added into
+// the zeroed f32 outputs, drf, dbeta [B, C, nh*d] and the dbias partials
+// [B, nh, w, w].  Returns a cudaError_t (0 on success).
+int causal_packed_bwd_tf32x3_launch(const void* q, const void* k, const void* v,
+                                    const void* rf, const void* beta, const float* tab,
+                                    const void* g, void* dq, float* dk, float* dv, float* drf,
+                                    float* dbeta, float* dbias, int B, int T, int nh, int d,
+                                    int w, int cs, int C, float scale, void* stream) {
+  Params p = {};
+  if (!make_params(p, B, T, nh, w, cs, C, w, scale) || !bwd_uses_tf32x3(d, w, 4))
+    return cudaErrorInvalidValue;
+  p.q = q; p.k = k; p.v = v; p.rf = rf; p.beta = beta; p.tab = tab; p.g = g;
+  p.out = dq; p.dk = dk; p.dv = dv; p.drf = drf; p.dbeta = dbeta; p.dbias = dbias;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch_tf32_bwd<64>(p, s) : launch_tf32_bwd<128>(p, s);
 }
 
 }  // extern "C"

@@ -27,20 +27,23 @@ versions (the backward in explicit formulas, not autograd), which are also
 what the kernels are held against on the card.  ``LAUNCHES_FWD`` and
 ``LAUNCHES_BWD`` count the kernels' launches.
 
-The forward has two routes.  float32 at head dims 64 and 128 with
-``w % 16 == 0`` (``fwd_uses_tf32x3``; the LM step) takes a tensor-core
-kernel in split TF32 (each product as three TF32 products, f32 sums) with
-an online softmax that skips the tiles the causal mask hides for a whole
-16-row strip; ``LAUNCHES_FWD_TF32`` counts it.  It relies on the table's
-strict upper triangle holding ``MASK_VAL`` (as ``causal_table`` makes
-it), whose columns contribute 0 in f32.  bf16 and the other float32
-geometries take the CUDA-core kernel, as does the backward.
+The forward and the backward each have two routes.  float32 at head dims
+64 and 128 with ``w % 16 == 0`` (``fwd_uses_tf32x3``; the LM step) runs
+the forward on a tensor-core kernel in split TF32 (each product as three
+TF32 products, f32 sums) with an online softmax that skips the tiles the
+causal mask hides for a whole 16-row strip; ``LAUNCHES_FWD_TF32`` counts
+it.  The backward takes the same products where ``bwd_uses_tf32x3`` holds
+(also ``w <= 128``): a block a window, row statistics in a first pass, the
+five products in a second, dk and dv stored whole; ``LAUNCHES_BWD_TF32``
+counts it.  Both rely on the table's strict upper triangle holding
+``MASK_VAL`` (as ``causal_table`` makes it), whose columns contribute 0 in
+f32.  bf16 and the other float32 geometries take the CUDA-core kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -49,6 +52,7 @@ from efficient_attention_torch.ops.kernels import _build
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 LAUNCHES_FWD_TF32 = 0
+LAUNCHES_BWD_TF32 = 0
 
 NAME = "causal_packed"
 SOURCE = "efficient_attention_torch/csrc/causal_packed.cu"
@@ -70,6 +74,9 @@ _MAX_GRID_YZ = 65535
 # the query rows whose q it stages
 TF32_KEYS = 16
 TF32_MAX_ROWS = 64
+# the split-TF32 backward's widest window (a block takes one, a warp a
+# 16-row strip)
+TF32_BWD_MAX_W = 128
 
 
 def _align16(n: int) -> int:
@@ -120,6 +127,40 @@ def tf32_tiles(g: int, last: int, w: int, cs: int, C: int) -> Tuple[int, int]:
     ``sloc`` and chunk tile counts)."""
     limit = min(C, g * (w // cs) + last // cs)
     return last // TF32_KEYS + 1, -(-limit // TF32_KEYS)
+
+
+def bwd_uses_tf32x3(d: int, w: int, itemsize: int) -> bool:
+    """Whether the backward takes the split-TF32 tensor-core kernel
+    (``bwd_uses_tf32x3`` in ``csrc/causal_packed.cu``): the forward's gate
+    and windows of at most ``TF32_BWD_MAX_W`` rows, a block's."""
+    return fwd_uses_tf32x3(d, w, itemsize) and w <= TF32_BWD_MAX_W
+
+
+def tf32_bwd_smem_bytes(d: int, w: int) -> int:
+    """Dynamic shared memory of one block of the split-TF32 backward; the
+    same layout as ``make_tf32_bwd_layout`` in ``csrc/causal_packed.cu``:
+    the window's ``w`` q rows and ``w`` g rows of ``d`` floats, two stages
+    of ``TF32_KEYS`` key rows and as many value rows, then the P and dS
+    tiles of ``TF32_KEYS`` keys by ``w`` queries at a stride of ``w + 8``,
+    all f32."""
+    return (2 * w * d + 2 * TF32_KEYS * 2 * d + 2 * TF32_KEYS * (w + 8)) * 4
+
+
+def tf32_bwd_walk(g: int, w: int, cs: int, C: int) -> List[Tuple[bool, int, int]]:
+    """The tiles that a block of the split-TF32 backward (window ``g``, all
+    ``w`` rows) walks, in order, each as ``(local, u, first)``: local or
+    chunk tile ``u`` of ``TF32_KEYS`` columns, and the first window row of
+    the strips that compute it, whose rows to the window's end take part
+    in its dk and dv (drf and dbeta).  A 16-row strip computes the tiles
+    ``tf32_tiles`` gives for its last row; they form a suffix of strips."""
+    nloc, nch = tf32_tiles(g, w - 1, w, cs, C)
+    strips = [tf32_tiles(g, rs + 15, w, cs, C) for rs in range(0, w, 16)]
+    walk = []
+    for kind, (local, n) in enumerate(((True, nloc), (False, nch))):
+        for u in range(n):
+            first = next(s for s, seen in enumerate(strips) if u < seen[kind])
+            walk.append((local, u, 16 * first))
+    return walk
 
 
 def plan(B: int, T: int, w: int, cs: int, C: int, num_heads: int, d: int,
@@ -266,6 +307,9 @@ def _lib() -> ctypes.CDLL:
     lib.causal_packed_fwd_tf32x3_launch.argtypes = ([ptr] * 7 + [i32] * 8
                                                     + [ctypes.c_float, ptr])
     lib.causal_packed_fwd_tf32x3_launch.restype = i32
+    lib.causal_packed_bwd_tf32x3_launch.argtypes = ([ptr] * 13 + [i32] * 7
+                                                    + [ctypes.c_float, ptr])
+    lib.causal_packed_bwd_tf32x3_launch.restype = i32
     lib.causal_packed_smem_bytes.argtypes = [i32] * 5
     lib.causal_packed_smem_bytes.restype = i32
     lib.causal_packed_fwd_uses_tf32x3.argtypes = [i32] * 3
@@ -274,6 +318,12 @@ def _lib() -> ctypes.CDLL:
     lib.causal_packed_tf32_smem_bytes.restype = i32
     lib.causal_packed_tf32_blocks_per_sm.argtypes = [i32]
     lib.causal_packed_tf32_blocks_per_sm.restype = i32
+    lib.causal_packed_bwd_uses_tf32x3.argtypes = [i32] * 3
+    lib.causal_packed_bwd_uses_tf32x3.restype = i32
+    lib.causal_packed_tf32_bwd_smem_bytes.argtypes = [i32] * 2
+    lib.causal_packed_tf32_bwd_smem_bytes.restype = i32
+    lib.causal_packed_tf32_bwd_blocks_per_sm.argtypes = [i32]
+    lib.causal_packed_tf32_bwd_blocks_per_sm.restype = i32
     lib.causal_packed_error_string.argtypes = [i32]
     lib.causal_packed_error_string.restype = ctypes.c_char_p
     return lib
@@ -317,6 +367,12 @@ def _cuda_operands(q, k, v, rf, beta, bias_tab, num_heads, w, cs):
     return ops, (B, T, nh, d, C, rows)
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where it does not start 16-byte aligned: the
+    split-TF32 kernels copy rows 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"causal_packed {what} launch failed: "
@@ -336,8 +392,7 @@ def _forward(q, k, v, rf, beta, bias_tab, scale, num_heads, w, cs,
         q, k, v, rf, beta, bias_tab, num_heads, w, cs)
     tf32 = not cuda_cores and fwd_uses_tf32x3(d, w, q.element_size())
     if tf32:
-        # its 16-byte copies need 16-byte aligned rows
-        ops = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ops]
+        ops = [_aligned16(t) for t in ops]
     out = torch.empty_like(ops[0])
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -357,7 +412,10 @@ def _forward(q, k, v, rf, beta, bias_tab, scale, num_heads, w, cs,
     return out
 
 
-def _backward(q, k, v, rf, beta, bias_tab, g, scale, num_heads, w, cs):
+def _backward(q, k, v, rf, beta, bias_tab, g, scale, num_heads, w, cs,
+              cuda_cores=False):
+    """The backward on the route ``bwd_uses_tf32x3`` picks; ``cuda_cores``
+    forces the CUDA-core kernel (to time and check it beside the other)."""
     if q.device.type == "cpu":
         return causal_packed_bwd_ref(q, k, v, rf, beta, bias_tab, g, scale,
                                      num_heads, w, cs)
@@ -369,25 +427,38 @@ def _backward(q, k, v, rf, beta, bias_tab, g, scale, num_heads, w, cs):
         raise ValueError(f"g must be {tuple(q.shape)} on {q.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
     g = g.to(q.dtype).contiguous()
+    tf32 = not cuda_cores and bwd_uses_tf32x3(d, w, q.element_size())
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty_like(ops[0])
-    # dk, dv, drf, dbeta sum over query tiles and windows with f32 atomics
-    dk = torch.zeros((B, T, nh * d), **f32)
-    dv = torch.zeros_like(dk)
+    if tf32:
+        # its 16-byte copies need 16-byte aligned rows; a block stores its
+        # window's dk and dv whole
+        ops, g = [_aligned16(t) for t in ops], _aligned16(g)
+        dk, dv = torch.empty_like(ops[0]), torch.empty_like(ops[0])
+    else:
+        # dk, dv sum over query tiles with f32 atomics
+        dk = torch.zeros((B, T, nh * d), **f32)
+        dv = torch.zeros_like(dk)
+    # drf, dbeta sum over windows, the dbias partials over windows and
+    # query tiles, with f32 atomics
     drf = torch.zeros((B, C, nh * d), **f32)
     dbeta = torch.zeros_like(drf)
     dbias_part = torch.zeros((B, nh, w, w), **f32)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.causal_packed_bwd_launch(
-            *(t.data_ptr() for t in ops), g.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), drf.data_ptr(), dbeta.data_ptr(),
-            dbias_part.data_ptr(), B, T, nh, d, w, cs, C, qt,
-            int(q.dtype == torch.bfloat16), float(scale), stream)
+        ptrs = [t.data_ptr() for t in (*ops, g, dq, dk, dv, drf, dbeta, dbias_part)]
+        if tf32:
+            rc = lib.causal_packed_bwd_tf32x3_launch(
+                *ptrs, B, T, nh, d, w, cs, C, float(scale), stream)
+        else:
+            rc = lib.causal_packed_bwd_launch(
+                *ptrs, B, T, nh, d, w, cs, C, qt,
+                int(q.dtype == torch.bfloat16), float(scale), stream)
     _check(rc, "backward")
-    global LAUNCHES_BWD
+    global LAUNCHES_BWD, LAUNCHES_BWD_TF32
     LAUNCHES_BWD += 1
+    LAUNCHES_BWD_TF32 += int(tf32)
     # the per-(row, head) dbias partials are summed here, as the TPU
     # kernel's caller sums its batch-group partials
     return (dq, dk.to(q.dtype), dv.to(q.dtype), drf.to(rf.dtype),

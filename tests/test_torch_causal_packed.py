@@ -10,7 +10,10 @@ see no chunk); the plain backward in explicit formulas must give
 (``test_grads_match_reference``'s tolerance), and torch autograd through the
 plain forward to 1e-5 abs / 1e-4 rel (the same float32 arithmetic in another
 order).  On CPU tensors the autograd Function takes the plain versions and
-launches nothing.
+launches nothing.  The split-TF32 routes of the forward and the backward
+(whose kernels run on the card only) are held here by their gates,
+shared-memory layouts and tile walks, and by their arithmetic emulated with
+TF32-rounded operands against the f32 limit the card holds them to.
 """
 from unittest import mock
 
@@ -300,3 +303,146 @@ def test_split_tf32_products_hold_the_f32_limit_and_one_tf32_product_does_not():
     one, _ = _fwd_products(q, k, v, rf, beta, tab, scale, nh, w, cs,
                            lambda a, b: _tf32(a) @ _tf32(b))
     assert (one - ref).abs().max().item() > 10 * tol
+
+
+# ---- the backward's split-TF32 route: its gate, layout, tile walk and
+# arithmetic (the kernel itself runs on the card only)
+
+
+def test_bwd_uses_tf32x3_gate():
+    """The forward's gate, for windows of at most 128 rows (a block takes a
+    window, a warp each 16-row strip): bfloat16, other head dims, windows
+    of 8 and windows wider than 128 keep the CUDA-core kernel."""
+    for d, w in ((64, 16), (128, 128), (128, 48), (64, 96), (64, 128)):
+        assert K.bwd_uses_tf32x3(d, w, 4)
+    assert not K.bwd_uses_tf32x3(128, 128, 2)   # bf16
+    assert not K.bwd_uses_tf32x3(48, 128, 4)    # head dim
+    assert not K.bwd_uses_tf32x3(64, 8, 4)      # window of 8
+    assert not K.bwd_uses_tf32x3(64, 144, 4)    # wider than a block
+    assert K.fwd_uses_tf32x3(64, 144, 4)
+    # the LM shape and every f32 geometry the card checks take it
+    for B, T, nh, d, w, cs in ((18, 512, 8, 128, 128, 8), (2, 16, 2, 64, 16, 4),
+                               (2, 32, 2, 64, 16, 4), (2, 96, 2, 64, 48, 8),
+                               (1, 256, 3, 128, 64, 16)):
+        assert K.plan(B, T, w, cs, T // cs, nh, d, 4) is not None
+        assert K.bwd_uses_tf32x3(d, w, 4)
+
+
+def test_tf32_bwd_smem_layout():
+    """The window's q and g rows, two 16-row key/value stages and the P and
+    dS tiles, f32: one block an SM within Hopper's shared memory at head
+    dim 128 and every window the route takes, and less than the CUDA-core
+    backward takes at the LM shape."""
+    assert K.tf32_bwd_smem_bytes(128, 128) == (2 * 128 * 128 + 2 * 16 * 256
+                                               + 2 * 16 * 136) * 4 == 181248
+    assert K.tf32_bwd_smem_bytes(64, 128) == 99328
+    for d in K.HEAD_DIMS:
+        for w in range(16, K.TF32_BWD_MAX_W + 1, 16):
+            assert K.tf32_bwd_smem_bytes(d, w) <= K.SMEM_LIMIT
+    assert K.tf32_bwd_smem_bytes(128, 128) < K.smem_bytes(True, 128, 128, 64, 32)
+
+
+def _tf32_bwd_visited(T, w, cs):
+    """Two [G, w, w + C] bools: the columns the split-TF32 backward computes
+    for each window row in its strip's products (P, dS, dq) and in the
+    tiles' dk/dv (drf/dbeta) products, by ``tf32_bwd_walk`` and
+    ``tf32_tiles``; each tile of the walk is walked once."""
+    C, G, n = T // cs, T // w, K.TF32_KEYS
+    rows = torch.zeros(G, w, w + C, dtype=torch.bool)
+    cols = torch.zeros_like(rows)
+    for g in range(G):
+        walk = K.tf32_bwd_walk(g, w, cs, C)
+        assert len(set((local, u) for local, u, _ in walk)) == len(walk)
+        for rs in range(0, w, 16):
+            s_loc, s_ch = K.tf32_tiles(g, rs + 15, w, cs, C)
+            assert [(True, u) for u in range(s_loc)] + [(False, u) for u in range(s_ch)] == [
+                (local, u) for local, u, first in walk if first <= rs]
+            rows[g, rs:rs + 16, :min(w, n * s_loc)] = True
+            rows[g, rs:rs + 16, w:w + min(C, n * s_ch)] = True
+        for local, u, first in walk:
+            at = n * u + (0 if local else w)
+            cols[g, first:, at:min(at + n, w if local else w + C)] = True
+    return rows, cols
+
+
+@pytest.mark.parametrize("T,w,cs", [(64, 16, 4), (96, 48, 8), (256, 64, 16),
+                                    (512, 128, 8)])
+def test_tf32_bwd_tile_walk_drops_only_masked_columns(T, w, cs):
+    """Every column a row can see is computed once for its dq and once for
+    the dk/dv of the column's key; every column the route skips is masked
+    for every row of its strip, and the plain backward with the skipped
+    columns taken out entirely (at -inf) equals the full plain backward
+    bit for bit in f32."""
+    nh, d = 1, 16
+    rng = np.random.default_rng(7)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    C = T // cs
+    rows, cols = _tf32_bwd_visited(T, w, cs)
+    assert bool((rows == cols).all())
+    tab = K.causal_table(w, 0.3 * f(w, w))
+    add = K._joint_add(tab, T // w, w, cs, C)
+    assert bool((add[~rows] <= K.MASK_VAL / 2).all())
+    assert bool(rows[:, :, 0].all())
+    ops = [f(1, T, nh * d), f(1, T, nh * d), f(1, T, nh * d), f(1, C, nh * d),
+           f(1, C, nh * d), tab, f(1, T, nh * d)]
+    full = K.causal_packed_bwd_ref(*ops, d ** -0.5, nh, w, cs)
+    dropped = add.masked_fill(~rows, float("-inf"))
+    with mock.patch.object(K, "_joint_add", lambda *a: dropped):
+        walked = K.causal_packed_bwd_ref(*ops, d ** -0.5, nh, w, cs)
+    for name, a, b in zip(NAMES, walked, full):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+def _bwd_products(q, k, v, rf, beta, tab, g, scale, nh, w, cs, mm):
+    """The route's backward with its five products, and pass 1's S and
+    dP, taken by ``mm``: the row max m, l = sum exp(s - m) and
+    D = sum exp(s - m) dP first, then P = exp(s - m) / l,
+    dS = P (dP - D / l) and dq, dk, dv, drf, dbeta, dbias."""
+    qw, kw, vw, gw = (K._windows(t, w, nh) for t in (q, k, v, g))
+    rfh, bth = K._heads(rf, nh), K._heads(beta, nh)
+    G, C = qw.shape[2], rfh.shape[2]
+    keys = torch.cat([kw, rfh[:, :, None].expand(-1, -1, G, -1, -1)], dim=3)
+    vals = torch.cat([vw, bth[:, :, None].expand(-1, -1, G, -1, -1)], dim=3)
+    s = mm(qw, keys.transpose(-1, -2)) * scale + K._joint_add(tab, G, w, cs, C)
+    dP = mm(gw, vals.transpose(-1, -2))
+    x = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = x.sum(dim=-1, keepdim=True)  # noqa: E741
+    P = x / l
+    dS = P * (dP - (x * dP).sum(dim=-1, keepdim=True) / l)
+    dq = scale * mm(dS, keys)
+    dkc = scale * mm(dS.transpose(-1, -2), qw)
+    dvc = mm(P.transpose(-1, -2), gw)
+
+    def packed(t):  # [B, nh, C, d] summed over windows -> [B, C, nh*d]
+        return t.sum(dim=2).transpose(1, 2).reshape(t.shape[0], C, -1)
+
+    return (K._merge(dq), K._merge(dkc[..., :w, :]), K._merge(dvc[..., :w, :]),
+            packed(dkc[..., w:, :]), packed(dvc[..., w:, :]),
+            dS[..., :w].sum(dim=(0, 1, 2)), s)
+
+
+def test_split_tf32_backward_holds_the_f32_limit_and_one_tf32_product_does_not():
+    """The backward route's precision argument on the CPU: with keys scaled
+    so that logits reach about 10, the backward with pass 1's statistics
+    and all five products in split TF32 holds each of the six gradients
+    within the card's f32 limit (1e-5 relative to its largest value) of the
+    plain backward, and with one TF32 product each every one misses it."""
+    B, T, nh, d, w, cs = 2, 64, 2, 64, 16, 4
+    rng = np.random.default_rng(8)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    C = T // cs
+    q, v, beta, g = f(B, T, nh * d), f(B, T, nh * d), f(B, C, nh * d), f(B, T, nh * d)
+    k, rf = 4 * f(B, T, nh * d), 4 * f(B, C, nh * d)
+    tab = K.causal_table(w, 0.3 * f(w, w))
+    scale = d ** -0.5
+    ref = K.causal_packed_bwd_ref(q, k, v, rf, beta, tab, g, scale, nh, w, cs)
+    tols = [1e-5 * max(1.0, r.abs().max().item()) for r in ref]
+    *split, s = _bwd_products(q, k, v, rf, beta, tab, g, scale, nh, w, cs,
+                              _mm_tf32x3)
+    assert 8.0 < s[s > K.MASK_VAL / 2].abs().max().item() < 40.0
+    for name, a, b, tol in zip(NAMES, split, ref, tols):
+        assert (a - b).abs().max().item() <= tol / 3, name
+    *one, _ = _bwd_products(q, k, v, rf, beta, tab, g, scale, nh, w, cs,
+                            lambda a, b: _tf32(a) @ _tf32(b))
+    for name, a, b, tol in zip(NAMES, one, ref, tols):
+        assert (a - b).abs().max().item() > 10 * tol, name

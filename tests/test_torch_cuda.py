@@ -240,23 +240,25 @@ def _k3_args(device, dtype, B, T, nh, d, w, cs, seed=19):
 def test_causal_packed_kernels_match_plain(cuda_device, geometry, dtype):
     """K3 forward and all six backward outputs against the plain versions:
     f32 to summation order (and the order of the backward's f32 atomics;
-    the forward's split-TF32 products drop about 2^-20 of each term), bf16
-    to one rounding (_k1_tol).  Every geometry here sends f32 through the
-    forward's split-TF32 route and bf16 through the CUDA-core kernel."""
+    the split-TF32 products drop about 2^-20 of each term), bf16 to one
+    rounding (_k1_tol).  Every geometry here sends f32 through the
+    forward's and the backward's split-TF32 routes and bf16 through the
+    CUDA-core kernels."""
     from efficient_attention_torch.ops.kernels import causal_packed as K3
 
     B, T, nh, d, w, cs = geometry
     ops, grad = _k3_args(cuda_device, dtype, *geometry)
     scale = d ** -0.5
-    before = (K3.LAUNCHES_FWD, K3.LAUNCHES_BWD, K3.LAUNCHES_FWD_TF32)
+    counters = ("LAUNCHES_FWD", "LAUNCHES_BWD", "LAUNCHES_FWD_TF32", "LAUNCHES_BWD_TF32")
+    before = [getattr(K3, c) for c in counters]
     leaves = [t.clone().requires_grad_() for t in ops]
     out = K3.causal_eva_packed(*leaves[:5], scale, nh, w, cs, bias_tab=leaves[5])
     out.backward(grad)
     torch.cuda.synchronize()
     tf32 = int(dtype == torch.float32)
     assert K3.fwd_uses_tf32x3(d, w, ops[0].element_size()) == bool(tf32)
-    assert (K3.LAUNCHES_FWD, K3.LAUNCHES_BWD, K3.LAUNCHES_FWD_TF32) == (
-        before[0] + 1, before[1] + 1, before[2] + tf32)
+    assert K3.bwd_uses_tf32x3(d, w, ops[0].element_size()) == bool(tf32)
+    assert [getattr(K3, c) - b for c, b in zip(counters, before)] == [1, 1, tf32, tf32]
     ref = K3.causal_packed_fwd_ref(*ops, scale, nh, w, cs)
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
@@ -265,6 +267,26 @@ def test_causal_packed_kernels_match_plain(cuda_device, geometry, dtype):
         assert leaf.grad.dtype == w_.dtype and leaf.grad.shape == w_.shape
         err = (leaf.grad.float() - w_.float()).abs().max().item()
         assert err <= _k1_tol(dtype, w_)
+
+
+@pytest.mark.parametrize("geometry", [(2, 512, 8, 128, 128, 8),
+                                      (2, 96, 2, 64, 48, 8)])
+def test_causal_packed_cuda_core_backward_takes_f32_when_asked(cuda_device, geometry):
+    """``cuda_cores=True`` forces the CUDA-core backward on f32 inside the
+    split-TF32 route's gate; it holds the same limit as that route."""
+    from efficient_attention_torch.ops.kernels import causal_packed as K3
+
+    B, T, nh, d, w, cs = geometry
+    ops, grad = _k3_args(cuda_device, torch.float32, *geometry)
+    scale = d ** -0.5
+    before = (K3.LAUNCHES_BWD, K3.LAUNCHES_BWD_TF32)
+    got = K3._backward(*ops, grad, scale, nh, w, cs, cuda_cores=True)
+    torch.cuda.synchronize()
+    assert (K3.LAUNCHES_BWD, K3.LAUNCHES_BWD_TF32) == (before[0] + 1, before[1])
+    want = K3.causal_packed_bwd_ref(*ops, grad, scale, nh, w, cs)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert (a - b).abs().max().item() <= _k1_tol(torch.float32, b)
 
 
 def test_causal_packed_kernel_raises_outside_its_gate(cuda_device):
