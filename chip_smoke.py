@@ -52,9 +52,9 @@ Phases, each raising on failure:
 1. build: compile every kernel with nvcc (one process per source, all at
    once) and print the seconds, each kernel's registers and spills, and for
    ``eva_packed``'s tensor-core forward and backward, the tensor-core
-   route of ``eva_kernel`` and ``eva_rowmajor`` and ``causal_packed``'s
-   split-TF32 forward and backward the blocks an SM (no spills allowed
-   there); the
+   route of ``eva_kernel`` and ``eva_rowmajor``, ``local_packed``'s
+   tensor-core route and ``causal_packed``'s split-TF32 forward and
+   backward the blocks an SM (no spills allowed there); the
    wrappers' twins of the kernels' shared-memory layouts and route
    choices;
 2. kernels against their plain versions on the card: ``eva_single``;
@@ -74,7 +74,9 @@ Phases, each raising on failure:
    its CUDA-core forward and backward in bf16 at the main shape; K3's
    f32 forward and backward on their split-TF32 routes (asserted) and,
    forced, on the CUDA-core kernels, bf16 on the CUDA-core kernels
-   (asserted);
+   (asserted); ``local_packed`` also at ``K7_CHECKS``, with and without
+   its bias, bf16 at head dims 16, 32 and 64 on its tensor-core route
+   (ws 11: two passes), f32 and head dim 12 off it (asserted);
 3. the LM training path: ``cli.train_lm`` for 8 steps with the recipe's
    flags, then its validation, counts set to 0 just before and read just
    after (16 x 8 launches of each K3 kernel in training, 16 a validation
@@ -86,7 +88,8 @@ Phases, each raising on failure:
    in bf16, with the kernels' launch counts set to 0 just before and read
    just after, then f32 logits of the kernel path against the eager path;
    the same for the LARA, Performer and local cells (12 launches of the
-   cell's kernel a batch and none of any other), and for each of EVA's
+   cell's kernel a batch and none of any other; the local cell's all on
+   K7's tensor-core route), and for each of EVA's
    routes (12 launches of each of the route's kernels a batch and none of
    any other, K1's forward on the tensor-core route); K11 as EVA's ``auto`` fallback at a head dim (48) that K1
    and K2 are not built for, in eval and training, against the eager path
@@ -116,8 +119,9 @@ Phases, each raising on failure:
    the MT cell's sentences/s and hypothesis tokens/s with the kernel and the
    eager encoder in turns, K11 and K12 at the headline and PVT-B3 stage
    shapes, the headline train step on K11 against K1, PVT-B3's forward
-   images/s on its routes and the eager path in turns) and profiles of 3
-   train steps of each model, of one LARA-cell forward, one
+   images/s on its routes and the eager path in turns; K7 and SDPA in
+   turns, with K7's device time) and profiles of 3 train steps of each
+   model, of one LARA-cell and one local-cell forward, one
    ``two-kernel``-route forward (K1's forward alone), one megakernel-route
    forward, one PVT-B3 forward on K11 and one MT batch by op;
 8. the kernels line, the script's wall time, the card line, and the result
@@ -262,6 +266,15 @@ LIN_CHECKS = (("main bf16", (128, 28, 3, 64, 49, 64, 7), "bfloat16"),
               ("main f32", (128, 28, 3, 64, 49, 64, 7), "float32"),
               ("small bf16", (2, 14, 3, 64, 4, 16, 7), "bfloat16"),
               ("small f32", (2, 14, 3, 64, 4, 16, 7), "float32"))
+# K7's own geometries (B, grid side, heads, head dim, window), each with its
+# bias and without: bf16 at head dims 16, 32 and 64 on the tensor-core
+# route (ws 11: S = 121 > 112, two passes), head dim 12 and f32 off it
+K7_CHECKS = (("d16 ws4 bf16", (2, 8, 3, 16, 4), "bfloat16"),
+             ("d32 ws3 bf16", (2, 9, 2, 32, 3), "bfloat16"),
+             ("main bf16", (128, 28, 3, 64, 7), "bfloat16"),
+             ("two-pass ws11 bf16", (8, 22, 2, 64, 11), "bfloat16"),
+             ("d12 bf16", (2, 14, 4, 12, 7), "bfloat16"),
+             ("main f32", (128, 28, 3, 64, 7), "float32"))
 # the WMT14 EN-DE recipe (reference main.sh:87-123) served by cli.generate
 # on 256 dummy sentences over the BPE-32k joint vocabulary's size
 MT_VOCAB = 32768
@@ -670,8 +683,8 @@ def k4_sdpa(qkv, rf, beta, mask, bias, nh, ws, ext):
     return cuda_ms(fwd, 20), out
 
 
-def k4_device_ms(torch, call, n=20):
-    """Mean device time of the eva_1d kernel over ``n`` calls, from
+def device_ms(torch, call, tag, n=20):
+    """Mean device time of the kernels named ``tag`` over ``n`` calls, from
     torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -680,7 +693,7 @@ def k4_device_ms(torch, call, n=20):
             call()
         torch.cuda.synchronize()
     return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-               if "eva_1d_kernel" in e.key) / n / 1e3
+               if tag in e.key) / n / 1e3
 
 
 def eval_inputs(B, g, ws, j, nh, d, dtype, seed):
@@ -1030,9 +1043,33 @@ def main() -> int:
             (k6, "performer_fused_smem_bytes", (64, 64, 4), (64, 64, 0)),
             (k6, "performer_fused_smem_bytes", (12, 16, 2), (12, 16, 1)),
             (k7, "local_packed_smem_bytes", (64, 49, 2), (64, 49, 1)),
-            (k7, "local_packed_smem_bytes", (64, 49, 4), (64, 49, 0))):
+            (k7, "local_packed_smem_bytes", (64, 49, 4), (64, 49, 0)),
+            (k7, "local_packed_smem_bytes", (64, 121, 2), (64, 121, 1)),
+            (k7, "local_packed_smem_bytes", (32, 9, 2), (32, 9, 1)),
+            (k7, "local_packed_smem_bytes", (16, 16, 2), (16, 16, 1)),
+            (k7, "local_packed_smem_bytes", (12, 49, 2), (12, 49, 1))):
         if getattr(k._lib(), fn)(*lib_args) != k.smem_bytes(*args):
             raise AssertionError(f"{k.NAME} gate's smem layout != kernel's {args}")
+    # K7's tensor-core route: its gate against the kernel's, its registers
+    # and spills (none allowed), blocks an SM (at least 3 at head dim 64,
+    # S = 49)
+    for d in k7.HEAD_DIMS:
+        for itemsize in (2, 4):
+            if bool(k7._lib().local_packed_uses_mma(d, itemsize)) != k7.uses_mma(d, itemsize):
+                raise AssertionError(f"local_packed uses_mma({d}, {itemsize}): the "
+                                     f"kernel's and the wrapper's differ")
+    k7_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k7.NAME}.log",
+                                 "local_packed_fwd_mma_kernel")
+    k7_blocks = {f"d{d} S{S}": k7._lib().local_packed_mma_blocks_per_sm(d, S)
+                 for d, S in ((64, 49), (32, 49), (16, 49), (64, 121))}
+    log(f"[build] local_packed tensor-core route, ptxas: {json.dumps(k7_ptxas)}; "
+        f"blocks an SM (occupancy calculator): {json.dumps(k7_blocks)}; "
+        f"{k7.smem_bytes(64, 49, 2)} bytes of shared memory a block at head dim 64, "
+        f"S = 49")
+    if any("0 bytes spill stores" not in v for v in k7_ptxas.values()):
+        raise AssertionError(f"local_packed tensor-core route spills: {k7_ptxas}")
+    if k7_blocks["d64 S49"] < 3:
+        raise AssertionError(f"local_packed tensor-core route: {k7_blocks} blocks an SM")
     for args in ((64, 8, 4, 8, 4), (16, 8, 4, 5, 5), (128, 32, 16, 8, 1)):
         if k4._lib().eva_1d_smem_bytes(*args) != k4.smem_bytes(*args):
             raise AssertionError(f"eva_1d gate's smem layout != kernel's {args}")
@@ -1235,6 +1272,39 @@ def main() -> int:
             if not err <= tol:
                 raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
             lin_errors[(name, label)] = err
+        del a
+    # K7 at its own geometries: with and without the bias, the route
+    # counted (bf16 at head dims 16, 32, 64 on tensor cores, f32 and head
+    # dim 12 off them)
+    for label, (B, g, nh, d, ws), dtype_name in K7_CHECKS:
+        a = lin_inputs(B, g, nh, d, 4, 16, ws, getattr(torch, dtype_name),
+                       seed=90 + len(lin_errors))
+        on_route = k7.uses_mma(d, a["qkv"].element_size())
+        for bias in (a["bias"], None):
+            tag = f"{label} {'bias' if bias is not None else 'no bias'}"
+            before = (k7.LAUNCHES, k7.LAUNCHES_MMA)
+            out = k7.local_attention_packed(a["qkv"], d ** -0.5, nh, g, ws, bias=bias)
+            torch.cuda.synchronize()
+            if (k7.LAUNCHES, k7.LAUNCHES_MMA) != (before[0] + 1, before[1] + on_route):
+                raise AssertionError(f"local_packed {tag}: launched "
+                                     f"{k7.LAUNCHES - before[0]} times, "
+                                     f"{k7.LAUNCHES_MMA - before[1]} on the tensor-core "
+                                     f"route (want {int(on_route)})")
+            ref = k7.local_packed_ref(a["qkv"], d ** -0.5, nh, g, ws, bias)
+            if out.shape != ref.shape or out.dtype != ref.dtype:
+                raise AssertionError(f"local_packed {tag}: {out.shape} {out.dtype} vs "
+                                     f"{ref.shape} {ref.dtype}")
+            err = (out.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            tol = K1_TOL[f"torch.{dtype_name}"] * max(1.0, peak)
+            log(f"[local_packed vs plain] {tag} "
+                f"({'tensor cores' if on_route else 'CUDA cores'}): max abs err "
+                f"{err:.3e} (tol {tol:.1e}), mean abs err "
+                f"{(out.float() - ref.float()).abs().mean().item():.3e}, max |value| "
+                f"{peak:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"local_packed {tag}: max abs err {err} > {tol}")
+            lin_errors[(k7.NAME, tag)] = err
         del a
 
     k4_errors = {}
@@ -1481,17 +1551,22 @@ def main() -> int:
     for cell, flags in CELLS.items():
         for k in counted.values():
             k.LAUNCHES = 0
+        k7.LAUNCHES_MMA = 0
         k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
         k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = 0
         t0 = time.perf_counter()
         stats = train_vit.cli_main(CELL_ARGV + flags + ["--eval", "--bf16"])
         torch.cuda.synchronize()
         got = {name: k.LAUNCHES for name, k in counted.items()}
+        k7_mma = k7.LAUNCHES_MMA
         others = (k1.LAUNCHES_FWD + k1.LAUNCHES_BWD + k2.LAUNCHES
                   + k3.LAUNCHES_FWD + k3.LAUNCHES_BWD)
         log(f"[serve {cell}] eval {json.dumps(stats)} in "
             f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}, "
-            f"K1-K3 {others}")
+            f"local_packed on its tensor-core route {k7_mma}, K1-K3 {others}")
+        if k7_mma != got[k7.NAME]:
+            raise AssertionError(f"{cell}: {k7_mma} of {got[k7.NAME]} local_packed "
+                                 f"launches on its tensor-core route")
         if not all(math.isfinite(stats[k]) for k in ("acc1", "acc5", "loss")):
             raise AssertionError(f"non-finite {cell} eval stats {stats}")
         want = {name: 12 * stats["batches"] if name == cell_kernel[cell] else 0
@@ -2086,7 +2161,16 @@ def main() -> int:
     for name, (kernel, plain) in lin_calls(k5, k6, k7, a, 3, 28, 7).items():
         lin_ms[name] = {"ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
                         "bound": lin_bound(name, a, 3, 7), "library_ms": None}
-    lin_ms[k7.NAME]["library_ms"] = k7_sdpa(a, 3, 28, 7)
+    # K7 and SDPA in turns (kernel, SDPA, SDPA, kernel), and K7's device
+    # time: the wrapper's host work is of the kernel's order
+    k7_call = lin_calls(k5, k6, k7, a, 3, 28, 7)[k7.NAME][0]
+    k7_turns = {"kernel": [], "sdpa": []}
+    for which in ("kernel", "sdpa", "sdpa", "kernel"):
+        k7_turns[which].append(cuda_ms(k7_call, 50) if which == "kernel"
+                               else k7_sdpa(a, 3, 28, 7))
+    lin_ms[k7.NAME].update(
+        ms=sum(k7_turns["kernel"]) / 2, library_ms=sum(k7_turns["sdpa"]) / 2,
+        turns=k7_turns, device_ms=device_ms(torch, k7_call, "local_packed"))
     log(f"[time] K5-K7 main shape bf16: {json.dumps(lin_ms)}; {card}")
     del a
     # K6 against the eager Performer, module level (dim 192, 3 heads, 64
@@ -2131,6 +2215,20 @@ def main() -> int:
                 f"{128e3 / cell_rates['lara kernel']:.3f} ms a forward "
                 f"unprofiled), lara_fused {k5_total:.3f} ms "
                 f"({k5_total / busy:.3f} of busy)")
+            print(table, flush=True)
+            del xb
+        if cell == "local":
+            # one local-cell forward by op, with the device's idle share
+            xb = torch.randn(128, 224, 224, 3, generator=gen, device="cuda").to(bf16)
+            fwd_ms = 128e3 / cell_rates["local kernel"]
+            with torch.no_grad():
+                busy, k7_total, wall_ms, table = profile_steps(
+                    torch, train_vit._profiler, lambda: km(xb), "local_packed")
+            log(f"[profile] one local-cell forward at B=128 bf16: device busy "
+                f"{busy:.3f} ms ({wall_ms:.3f} ms wall while profiled, idle share "
+                f"{1 - busy / wall_ms:.3f}; {fwd_ms:.3f} ms a forward unprofiled, "
+                f"idle share {1 - busy / fwd_ms:.3f}), local_packed {k7_total:.3f} ms "
+                f"({k7_total / busy:.3f} of busy)")
             print(table, flush=True)
             del xb
         del km, em
@@ -2240,9 +2338,9 @@ def main() -> int:
                     # the kernel's own device time (the call's CUDA-event time
                     # above includes the wrapper's host work where the host
                     # is slower than the device)
-                    "device_ms": k4_device_ms(
+                    "device_ms": device_ms(
                         torch, lambda: k4.eva_attention_1d(
-                            qkv, rf, beta, mask, *geo, bias=bias))}
+                            qkv, rf, beta, mask, *geo, bias=bias), "eva_1d_kernel")}
     log(f"[time] eva_1d: {json.dumps(k4_ms)}; {card}")
     # the f32 encoder forward of one batch (64 x 32 tokens), kernel and
     # eager path in turns, and the generation rates of phase 5's runs

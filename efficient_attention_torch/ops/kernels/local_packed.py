@@ -13,15 +13,19 @@ logits, whose entries are exactly 0 after its softmax, so the window-local
 form here is the same function.  Roundings follow the TPU kernel: logits and
 the softmax are f32, the normalised probabilities are rounded to qkv's dtype
 before their product with v, the product sums in f32 and the output is cast
-last.  In bf16 (head dims that are multiples of 16) both products run on
-tensor cores.
+last.  In bf16 at head dims that are multiples of 16 (``uses_mma``) the
+kernel takes its tensor-core route, K1's mma.sync forward design without the
+chunk columns, with the probabilities normalised before they are rounded (K1
+rounds the numerators and divides after the product); f32 and other head
+dims take the CUDA-core kernel.
 
 ``local_attention_packed`` launches the CUDA kernel (``csrc/local_packed.cu``)
 for CUDA tensors and raises where it cannot take them; for CPU tensors it
 computes the same function with ``local_packed_ref``, the plain PyTorch
 version, which is also what the kernel is held against on the card.  Its
 gradient is autograd's over the plain version, as the JAX package takes the
-VJP of its ``_xla_rowmajor``.  ``LAUNCHES`` counts the kernel's launches.
+VJP of its ``_xla_rowmajor``.  ``LAUNCHES`` counts the kernel's launches on
+both routes, ``LAUNCHES_MMA`` those on the tensor-core route.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from efficient_attention_torch.ops.kernels.eva_packed import (
 )
 
 LAUNCHES = 0
+LAUNCHES_MMA = 0
 
 NAME = "local_packed"
 SOURCE = "efficient_attention_torch/csrc/local_packed.cu"
@@ -55,8 +60,8 @@ def _align16(n: int) -> int:
 
 
 def uses_mma(d: int, itemsize: int) -> bool:
-    """Whether the kernel takes its bf16 tensor-core route (``uses_mma`` in
-    ``csrc/local_packed.cu``): bfloat16 and a head dim that is a multiple of
+    """Whether the kernel takes its bf16 tensor-core route (the C export
+    ``local_packed_uses_mma``): bfloat16 and a head dim that is a multiple of
     16."""
     return itemsize == 2 and d % 16 == 0
 
@@ -70,14 +75,13 @@ def smem_bytes(d: int, S: int, itemsize: int = 4) -> int:
     takes; the same layouts as ``make_layout`` and ``make_mma_layout`` in
     ``csrc/local_packed.cu``.  CUDA-core route: a window's q, k and v rows
     (f32, rows of d at ``row_stride(d)``), its logits (rows of S + 1) and the
-    head's bias.  bf16 route: q, k, v (rows of d + 8) and P (rows of SP + 8)
-    in bf16 with the window padded to SP, a multiple of 16, rows, an f32
-    region for the logits or the output tile, and the bias."""
+    head's bias.  Tensor-core route: a window's q, k and v rows in bf16
+    (rows of d + 8) in two buffers each, the bias in f32 and the token table
+    of ``max(WINDOWS_PER_BLOCK)`` windows in int32."""
     if uses_mma(d, itemsize):
-        SP = -(-S // 16) * 16
-        FS = max(SP * (SP + 4), SP * (d + 4))
-        return (3 * _align128(SP * (d + 8) * 2) + _align128(FS * 4)
-                + _align128(SP * (SP + 8) * 2) + _align128(S * S * 4))
+        win = _align128(S * (d + 8) * 2)
+        return (6 * win + _align128(S * S * 4)
+                + _align128(max(WINDOWS_PER_BLOCK) * S * 4))
     rows = _align16(S * row_stride(d) * 4)
     return 3 * rows + _align16(S * (S + 1) * 4) + _align16(S * S * 4)
 
@@ -131,8 +135,12 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.local_packed_launch.argtypes = [ptr] * 3 + [i32] * 8 + [ctypes.c_float, ptr]
     lib.local_packed_launch.restype = i32
+    for fn in ("local_packed_uses_mma", "local_packed_smem_bytes",
+               "local_packed_mma_blocks_per_sm"):
+        getattr(lib, fn).restype = i32
+    lib.local_packed_uses_mma.argtypes = [i32, i32]
     lib.local_packed_smem_bytes.argtypes = [i32, i32, i32]
-    lib.local_packed_smem_bytes.restype = i32
+    lib.local_packed_mma_blocks_per_sm.argtypes = [i32, i32]
     lib.local_packed_error_string.argtypes = [i32]
     lib.local_packed_error_string.restype = ctypes.c_char_p
     return lib
@@ -172,8 +180,9 @@ def _launch(qkv, bias, scale, num_heads, W, ws):
     if rc != 0:
         raise RuntimeError("local_packed launch failed: "
                            f"{lib.local_packed_error_string(rc).decode()}")
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_MMA
     LAUNCHES += 1
+    LAUNCHES_MMA += uses_mma(d, qkv.element_size())
     return out
 
 

@@ -330,7 +330,7 @@ def test_linear_attention_kernels_match_plain(cuda_device, geometry, dtype):
     B, g, nh, d, C, m, ws = geometry
     a = _lin_args(cuda_device, dtype, *geometry)
     scale = d ** -0.5
-    before = (K5.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES)
+    before = (K5.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES, K7.LAUNCHES_MMA)
     pairs = [
         (K5.lara_attention_fused(a["qkv"], a["w"], a["qb"], a["bal"], a["lp"],
                                  scale, nh, alpha_coeff=2.0),
@@ -349,9 +349,34 @@ def test_linear_attention_kernels_match_plain(cuda_device, geometry, dtype):
     torch.cuda.synchronize()
     assert (K5.LAUNCHES, K6.LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert K7.LAUNCHES == before[2] + (d in K7.HEAD_DIMS)
+    # bf16 at head dim 64 on the tensor-core route; f32 and head dim 12 off it
+    assert K7.LAUNCHES_MMA == before[3] + (dtype == torch.bfloat16 and d == 64)
     for out, ref in pairs:
         assert out.dtype == ref.dtype and out.shape == ref.shape
         assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("geometry", [(2, 8, 3, 16, 4), (2, 9, 2, 32, 3),
+                                      (2, 14, 3, 64, 7), (2, 22, 2, 64, 11)])
+def test_local_packed_mma_route_matches_plain(cuda_device, geometry, with_bias):
+    """K7's bf16 tensor-core route (head dims 16, 32, 64; ws 11 takes two
+    passes) against the plain version on the same card inputs, to one bf16
+    rounding (_k1_tol), with and without the bias; one launch, counted on
+    the route."""
+    from efficient_attention_torch.ops.kernels import local_packed as K7
+
+    B, g, nh, d, ws = geometry
+    a = _lin_args(cuda_device, torch.bfloat16, B, g, nh, d, 4, 16, ws,
+                  seed=31 + ws)
+    bias = a["bias"] if with_bias else None
+    before = (K7.LAUNCHES, K7.LAUNCHES_MMA)
+    out = K7.local_attention_packed(a["qkv"], d ** -0.5, nh, g, ws, bias=bias)
+    torch.cuda.synchronize()
+    assert (K7.LAUNCHES, K7.LAUNCHES_MMA) == (before[0] + 1, before[1] + 1)
+    ref = K7.local_packed_ref(a["qkv"], d ** -0.5, nh, g, ws, bias)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(torch.bfloat16, ref)
 
 
 def test_linear_attention_wrappers_raise_without_their_library(

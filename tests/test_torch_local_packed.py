@@ -173,3 +173,113 @@ def test_gate():
     assert K.smem_bytes(64, 49) <= K.SMEM_LIMIT
     assert K.uses_mma(64, 2) and not K.uses_mma(12, 2) and not K.uses_mma(64, 4)
     assert 3 * (K.smem_bytes(64, 49, 2) + 1024) <= 233472
+
+
+# ---- the bf16 tensor-core route (csrc/local_packed.cu,
+# local_packed_fwd_mma_kernel): its layout, its gate and its arithmetic ----
+
+def test_mma_smem_layout_counts_each_region():
+    """A window's q, k and v rows [S][d + 8] in bf16, two buffers each, the
+    bias [S][S] in f32 and the token table [4][S] in int32, each region
+    128-byte aligned; three blocks an SM at the serving cell's S = 49, head
+    dim 64 (Hopper: 228 KB an SM, 1 KB of it reserved a block)."""
+    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    for d, S in ((64, 49), (32, 9), (16, 16), (64, 121)):
+        win = a128(S * (d + 8) * 2)
+        assert K.smem_bytes(d, S, 2) == 3 * 2 * win + a128(S * S * 4) + a128(4 * S * 4)
+    assert K.smem_bytes(64, 49, 2) == 53632
+    assert 3 * (K.smem_bytes(64, 49, 2) + 1024) <= 233472
+    # f32 keeps the CUDA-core route's layout
+    assert K.smem_bytes(64, 49, 4) == K.smem_bytes(64, 49)
+
+
+def _old_wmma_smem_bytes(d, S):
+    """Shared memory of the wmma route this kernel replaced: q, k, v
+    [SP][d + 8] and P [SP][SP + 8] in bf16 with the window padded to SP, a
+    multiple of 16, rows; an f32 region for the logits [SP][SP + 4] or the
+    output tile [SP][d + 4]; the bias [S][S] in f32; each 128-byte aligned."""
+    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    SP = -(-S // 16) * 16
+    return (3 * a128(SP * (d + 8) * 2) + a128(max(SP * (SP + 4), SP * (d + 4)) * 4)
+            + a128(SP * (SP + 8) * 2) + a128(S * S * 4))
+
+
+def test_plan_admits_every_bf16_window_the_old_layout_did():
+    for d in (16, 32, 64):
+        for ws in range(1, 12):
+            g = 2 * ws
+            old = _old_wmma_smem_bytes(d, ws * ws) <= K.SMEM_LIMIT
+            new = K.plan(2, g * g, g, ws, 3, d, 2) is not None
+            assert new or not old, (d, ws)
+            assert K.uses_mma(d, 2)
+    assert K.plan(2, 22 * 22, 22, 11, 3, 64, 2) is not None  # two passes
+    assert _old_wmma_smem_bytes(64, 144) > K.SMEM_LIMIT
+    assert K.plan(2, 24 * 24, 24, 12, 3, 64, 2) is not None  # now fits
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _strip_walk(qkv, scale, nh, W, ws, bias, k1_order=False):
+    """The tensor-core route's arithmetic on the CPU, window by window: rows
+    padded to 16-row strips and 16-column tiles by reading the last real row,
+    logits in base 2 (scale and bias times log2 e, from bf16 operands with
+    f32 sums), columns past S at -inf, the row max, the numerators
+    exp2(s - max), their f32 sum (in one pass where round16(S) <= 112, else
+    online over the tiles, rescaling only the sum), then P = numerator / sum
+    rounded to bf16 times v in f32, cast to bf16.  With ``k1_order`` the
+    value product takes K1's order instead: the numerators rounded to bf16,
+    divided by the sum after the product."""
+    from efficient_attention_torch.ops.kernels.eva_packed import _merge, _windows
+
+    gh = qkv.shape[1] // W
+    q, k, v = (_windows(t, gh, W, ws, nh).float() for t in qkv.chunk(3, dim=-1))
+    S = ws * ws
+    SP = -(-S // 16) * 16
+    rows = torch.clamp(torch.arange(SP), max=S - 1)
+    q, k, v = q[..., rows, :], k[..., rows, :], v[..., rows, :]
+    s = torch.einsum("bhgsd,bhgtd->bhgst", q, k) * (scale * _LOG2E)
+    b2 = torch.zeros(nh, SP, SP)
+    if bias is not None:
+        b2[:, :, :S] = _LOG2E * bias.float()[:, rows][:, :, :S]
+    s = s + b2[None, :, None]
+    s[..., S:] = -torch.inf
+    if SP <= 112:
+        m = s.amax(-1, keepdim=True)
+        x = torch.exp2(s - m)
+        den = x.sum(-1, keepdim=True)
+    else:
+        m = torch.full(s.shape[:-1] + (1,), -torch.inf)
+        den = torch.zeros_like(m)
+        for t in range(0, SP, 16):
+            tile = s[..., t:t + 16]
+            mn = torch.maximum(m, tile.amax(-1, keepdim=True))
+            den = den * torch.exp2(m - mn) + torch.exp2(tile - mn).sum(-1, keepdim=True)
+            m = mn
+        x = torch.exp2(s - m)
+    if k1_order:
+        out = torch.einsum("bhgst,bhgtd->bhgsd", x.bfloat16().float(), v) / den
+    else:
+        p = (x * (1.0 / den)).bfloat16().float()
+        out = torch.einsum("bhgst,bhgtd->bhgsd", p, v)
+    return _merge(out[..., :S, :], gh, W, ws).bfloat16()
+
+
+@pytest.mark.parametrize("ws", [7, 11])
+def test_mma_strip_walk_rounds_p_as_the_tpu_kernel(ws):
+    """The emulated walk at S = 49 (one pass) and S = 121 (two passes) gives
+    the plain version within the card's bf16 limit (2**-7 of the largest
+    value, at least 1), and the rounding order is pinned: its mean distance
+    from the plain version is at most a quarter of that of the same walk in
+    K1's order (numerators rounded, divided after the product)."""
+    W, nh, d = 2 * ws, 2, 32
+    qkv, bias, _ = map(torch.from_numpy, _inputs(W, ws, nh, d, seed=7))
+    qkv = qkv.bfloat16()
+    bias = 5 * bias  # 0.5 N(0, 1), as the card checks draw it
+    scale = d ** -0.5
+    ref = K.local_packed_ref(qkv, scale, nh, W, ws, bias).float()
+    walk = _strip_walk(qkv, scale, nh, W, ws, bias).float()
+    k1 = _strip_walk(qkv, scale, nh, W, ws, bias, k1_order=True).float()
+    assert (walk - ref).abs().max() <= 2 ** -7 * max(1.0, ref.abs().max().item())
+    near, far = (walk - ref).abs().mean(), (k1 - ref).abs().mean()
+    assert far > 0 and near <= far / 4, (near, far)
