@@ -52,12 +52,15 @@ Phases, each raising on failure:
 1. build: compile every kernel with nvcc (one process per source, all at
    once) and print the seconds, each kernel's registers and spills, and for
    ``eva_packed``'s tensor-core forward and backward, the tensor-core
-   route of ``eva_kernel`` and ``eva_rowmajor``, ``local_packed``'s
-   tensor-core route and ``causal_packed``'s split-TF32 forward and
-   backward the blocks an SM (no spills allowed there); the
+   routes of ``eva_single``, ``eva_kernel`` and ``eva_rowmajor``,
+   ``local_packed``'s tensor-core route and ``causal_packed``'s split-TF32
+   forward and backward the blocks an SM (no spills allowed there); the
    wrappers' twins of the kernels' shared-memory layouts and route
    choices;
-2. kernels against their plain versions on the card: ``eva_single``;
+2. kernels against their plain versions on the card: ``eva_single`` (its
+   tensor-core route in bf16 at ``K2_CHECKS``, with and without its bias
+   and LN, the CUDA-core kernel forced beside it, and both types at
+   large-norm keys);
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
    ``local_packed``; ``eva_1d`` at non-pad rows of random-length
@@ -86,7 +89,9 @@ Phases, each raising on failure:
    path against eager path;
 4. the ViT serving path: ``cli.train_vit --eval`` in-process at batch 128
    in bf16, with the kernels' launch counts set to 0 just before and read
-   just after, then f32 logits of the kernel path against the eager path;
+   just after (all 48 K2 launches on its tensor-core route), the same for
+   the tracked DeiT-tiny-p16 cell (``P16_ARGV``), then f32 logits of the
+   kernel path against the eager path;
    the same for the LARA, Performer and local cells (12 launches of the
    cell's kernel a batch and none of any other; the local cell's all on
    K7's tensor-core route), and for each of EVA's
@@ -109,7 +114,10 @@ Phases, each raising on failure:
    with ``impl='pallas'`` and ``impl='rowmajor'`` (12 x 8 + 12 x 4
    launches of K11 or K12, none of any other);
 7. timings with CUDA events (kernels, plain versions, bounds, SDPA
-   yardsticks; K1's forward and backward on both routes, K3 in bf16 and in
+   yardsticks; K2 at ``K2_SHAPES`` on both routes and K8 + K1 on the same
+   inputs in turns; one headline forward by op
+   with K2's share and the idle share; the DeiT-tiny-p16 cell's images/s
+   with the eager path in turns; K1's forward and backward on both routes, K3 in bf16 and in
    the f32 the LM step runs, its f32 forward and backward on both routes
    in turns; forward and
    train-step rates of both models, the forward
@@ -257,9 +265,36 @@ PVT_ROUTES = {"auto": "eva_single", "pallas": "eva_kernel",
 # its EVA stages at 224 px (B, heads, grid side, head dim)
 PVT_STAGES = (("pvt stage 1", (128, 2, 56, 32)), ("pvt stage 2", (128, 4, 28, 32)),
               ("pvt stage 3", (128, 10, 14, 32)))
-# K8's check at large-norm keys (keys x40, zero queries): the geometry of
+# K8's and K2's check at large-norm keys (keys x40, zero queries): the
+# geometry of
 # tests/test_torch_eva_single.py::test_large_norm_keys_stay_finite_and_match_eager
 LARGE_KEYS = (1, 8, 4, 4, 2, 16)
+# K2's tensor-core route (bf16, head dims 16/32/64) checked at (B, grid side,
+# window, chunk side, heads, head dim), with its bias and LN or without: the
+# headline, PVT-B3's three stages, DeiT-tiny-p16, chunks straddling blocks
+# (12x12, window 3, chunk 4) and a small one
+K2_CHECKS = (("main bias ln", (128, 28, 7, 4, 3, 64), True, True),
+             ("main no-bias no-ln", (8, 28, 7, 4, 3, 64), False, False),
+             ("pvt stage 1", (16, 56, 7, 8, 2, 32), True, True),
+             ("pvt stage 2", (16, 28, 7, 4, 4, 32), True, True),
+             ("pvt stage 3", (16, 14, 7, 2, 10, 32), True, True),
+             ("p16", (16, 14, 7, 2, 3, 64), True, True),
+             ("straddling d16", (4, 12, 3, 4, 2, 16), True, False),
+             ("small d16 no-bias", (2, 8, 4, 4, 3, 16), False, True))
+# K2 timed at (B, grid side, chunk side, heads, head dim), window 7: the
+# headline, PVT-B3's EVA stages and DeiT-tiny-p16
+K2_SHAPES = (("headline", (128, 28, 4, 3, 64)), ("pvt stage 1", (128, 56, 8, 2, 32)),
+             ("pvt stage 2", (128, 28, 4, 4, 32)), ("pvt stage 3", (128, 14, 2, 10, 32)),
+             ("p16", (128, 14, 2, 3, 64)))
+# the tracked DeiT-tiny-p16 cell (BASELINE.md "Tracked configs"): 14x14
+# tokens, the headline's EVA flags (49 landmarks: chunks of 2x2)
+P16_ARGV = [
+    "--model", "evit_tiny_p16", "--attn-name", "eva",
+    "--attn-window-size", "7", "--attn-num-landmarks", "49",
+    "--attn-attn-2d", "--attn-use-rpe", "--attn-adaptive-proj", "default",
+    "--input-size", "224", "--batch-size", "128", "--seed", "0",
+    "--device", "cuda",
+]
 # K5-K7 geometries (B, grid side, heads, head dim, landmarks, features,
 # window): the cells' main shape and a small odd one
 LIN_CHECKS = (("main bf16", (128, 28, 3, 64, 49, 64, 7), "bfloat16"),
@@ -331,7 +366,7 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def k2_inputs(B, g, ws, j, nh, d, dtype, seed):
+def k2_inputs(B, g, ws, j, nh, d, dtype, seed, use_ln=True):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -339,8 +374,10 @@ def k2_inputs(B, g, ws, j, nh, d, dtype, seed):
     qkv = r(B, g * g, 3 * nh * d).to(dtype)
     weights = [0.2 * r(d, d), 0.1 * r(d), 0.2 * r(d, d), 0.1 * r(d),
                1 + 0.1 * r(d), 0.1 * r(d), 1 + 0.1 * r(d), 0.1 * r(d)]
+    if not use_ln:
+        weights[4:] = [None] * 4
     bias = 0.5 * r(nh, ws * ws, ws * ws)
-    return (qkv, *weights, d ** -0.5, nh, g, ws, j, True), bias
+    return (qkv, *weights, d ** -0.5, nh, g, ws, j, use_ln), bias
 
 
 def k2_bound(args, bias, out):
@@ -353,7 +390,7 @@ def k2_bound(args, bias, out):
     d = three_hd // (3 * nh)
     S, C = ws * ws, (N // gw // j) * (gw // j)
     moved = (qkv.numel() * qkv.element_size() + out.numel() * out.element_size()
-             + sum(w.numel() * 4 for w in weights) + bias.numel() * 4)
+             + sum(w.numel() * 4 for w in weights if w is not None) + bias.numel() * 4)
     flops = B * nh * (4 * N * (S + C) * d      # q.k and p.v over S + C columns
                       + 4 * N * d               # chunk sums of q and k
                       + 4 * C * d * d           # the two adaptive Dense
@@ -947,6 +984,35 @@ def main() -> int:
     if lib_smem != k2.smem_bytes(98, 64, 2, 49, 7, 7):
         raise AssertionError(f"gate's smem layout {k2.smem_bytes(98, 64, 2, 49, 7, 7)}"
                              f" != kernel's {lib_smem}")
+    # K2's tensor-core route: its gate and layout against the kernel's, its
+    # registers and spills (none allowed), blocks an SM (at least 2 at the
+    # headline) at the cluster size plan() picks for each timed shape
+    for d in k2.HEAD_DIMS:
+        for itemsize in (2, 4):
+            if bool(k2._lib().eva_single_uses_mma(d, itemsize)) != k2.uses_mma(d, itemsize):
+                raise AssertionError(f"eva_single uses_mma({d}, {itemsize}): the kernel's "
+                                     f"and the wrapper's differ")
+    k2_plans = {label: k2.plan(B, nh, g, g, 7, j, d, 2)
+                for label, (B, g, j, nh, d) in K2_SHAPES}
+    for geo in ([(28, 28, 7, 4, 64, cs) for cs in (4, 8, 16)]
+                + [(56, 56, 7, 8, 32, 8), (56, 56, 7, 8, 32, 16), (28, 28, 7, 4, 32, 4),
+                   (14, 14, 7, 2, 32, 1), (14, 14, 7, 2, 32, 2), (14, 14, 7, 2, 64, 2),
+                   (14, 14, 7, 2, 64, 4), (12, 12, 3, 4, 16, 8), (8, 8, 4, 4, 16, 1)]):
+        if k2._lib().eva_single_mma_smem_bytes(*geo) != k2.mma_smem_bytes(*geo):
+            raise AssertionError(f"eva_single mma_smem_bytes{geo} {k2.mma_smem_bytes(*geo)}"
+                                 f" != the kernel's "
+                                 f"{k2._lib().eva_single_mma_smem_bytes(*geo)}")
+    k2_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k2.NAME}.log", "eva_single_mma_kernel")
+    k2_blocks = {label: k2._lib().eva_single_mma_blocks_per_sm(g, g, 7, j, d,
+                                                               k2_plans[label][0])
+                 for label, (B, g, j, nh, d) in K2_SHAPES}
+    log(f"[build] eva_single tensor-core route, ptxas: {json.dumps(k2_ptxas)}; plan "
+        f"(cluster, smem bytes, tensor cores) {json.dumps(k2_plans)}; blocks an SM "
+        f"(occupancy calculator) {json.dumps(k2_blocks)}")
+    if any("0 bytes spill stores" not in v for v in k2_ptxas.values()):
+        raise AssertionError(f"eva_single tensor-core route spills: {k2_ptxas}")
+    if k2_blocks["headline"] < 2:
+        raise AssertionError(f"eva_single tensor-core route: {k2_blocks} blocks an SM")
     for backward, d, S, C, itemsize in (
             (0, 64, 49, 49, 2), (0, 64, 49, 49, 4), (0, 32, 49, 49, 2),
             (0, 16, 16, 4, 2), (0, 16, 49, 196, 2), (0, 12, 49, 49, 2),
@@ -1128,8 +1194,12 @@ def main() -> int:
     for label, geo, dtype_name in CHECKS:
         dtype = getattr(torch, dtype_name)
         args, bias = k2_inputs(*geo, dtype, seed=len(errors))
+        before = k2.LAUNCHES_MMA
         out = k2.eva_attention_single(*args, bias=bias)
         torch.cuda.synchronize()
+        if k2.LAUNCHES_MMA - before != int(k2.uses_mma(geo[-1], out.element_size())):
+            raise AssertionError(f"eva_single {label}: {k2.LAUNCHES_MMA - before} "
+                                 f"tensor-core launches")
         ref = k2.eva_attention_single_ref(*args, bias=bias)
         if out.shape != ref.shape or out.dtype != ref.dtype:
             raise AssertionError(f"{label}: {out.shape} {out.dtype} vs "
@@ -1142,6 +1212,54 @@ def main() -> int:
         if not err <= tol:
             raise AssertionError(f"eva_single {label}: max abs err {err} > {tol}")
         errors[label] = err
+    # K2's tensor-core route in bf16 at K2_CHECKS, and the CUDA-core kernel
+    # forced on the same inputs; then both types at large-norm keys (keys
+    # x40, zero queries), where only a chunk softmax at its true maximum
+    # stays finite
+    k2_errors = {}
+    tol = TOL["torch.bfloat16"]
+    for label, geo, with_bias, use_ln in K2_CHECKS:
+        args, bias = k2_inputs(*geo, torch.bfloat16, seed=30 + len(k2_errors),
+                               use_ln=use_ln)
+        bias = bias if with_bias else None
+        before = k2.LAUNCHES_MMA
+        out = k2.eva_attention_single(*args, bias=bias)
+        old = k2.eva_attention_single(*args, bias=bias, cuda_cores=True)
+        torch.cuda.synchronize()
+        ref = k2.eva_attention_single_ref(*args, bias=bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        old_err = (old.float() - ref.float()).abs().max().item()
+        mean_err = (out.float() - ref.float()).abs().mean().item()
+        log(f"[k2 vs plain] {label} bf16 {geo} bias {with_bias} ln {use_ln}: tensor-core "
+            f"route (cluster {k2.plan(geo[0], geo[4], geo[1], geo[1], geo[2], geo[3], geo[5], 2)[0]})"
+            f" max abs err {err:.3e}, mean {mean_err:.3e}; CUDA-core kernel {old_err:.3e} "
+            f"(tol {tol:.1e})")
+        if k2.LAUNCHES_MMA - before != 1:
+            raise AssertionError(f"eva_single {label}: not on the tensor-core route")
+        if not (err <= tol and old_err <= tol):
+            raise AssertionError(f"eva_single {label}: max abs err {err}, {old_err} > {tol}")
+        k2_errors[label] = err
+    for dtype_name in ("bfloat16", "float32"):
+        B, g, ws, j, nh, d = LARGE_KEYS
+        args, bias = k2_inputs(B, g, ws, j, nh, d, torch.float32, seed=98)
+        qkv = args[0]
+        qkv[..., :nh * d] = 0.0
+        qkv[..., nh * d:2 * nh * d] *= 40.0
+        args = (qkv.to(getattr(torch, dtype_name)), *args[1:])
+        before = k2.LAUNCHES_MMA
+        out = k2.eva_attention_single(*args, bias=bias)
+        torch.cuda.synchronize()
+        ref = k2.eva_attention_single_ref(*args, bias=bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL[f"torch.{dtype_name}"]
+        log(f"[k2 vs plain] large-norm keys {dtype_name}: max abs err {err:.3e} (tol "
+            f"{tol:.1e}), max |value| {ref.float().abs().max().item():.3e}, tensor-core "
+            f"launches {k2.LAUNCHES_MMA - before}")
+        if not (torch.isfinite(out.float()).all() and err <= tol):
+            raise AssertionError(f"eva_single at large-norm keys {dtype_name}: err {err}")
+        if k2.LAUNCHES_MMA - before != int(dtype_name == "bfloat16"):
+            raise AssertionError(f"eva_single at large-norm keys {dtype_name}: wrong route")
+        k2_errors[f"large keys {dtype_name}"] = err
     k1_errors = {}
     for label, (B, g, ws, j, nh, d), dtype_name, with_bias in K1_CHECKS:
         dtype = getattr(torch, dtype_name)
@@ -1509,18 +1627,36 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. the serving path, counts set to 0 just before and read just after
-    k2.LAUNCHES = 0
+    k2.LAUNCHES = k2.LAUNCHES_MMA = 0
     t0 = time.perf_counter()
     stats = train_vit.cli_main(MAIN_ARGV + ["--eval", "--bf16"])
     torch.cuda.synchronize()
-    launches = k2.LAUNCHES
+    launches, launches_mma = k2.LAUNCHES, k2.LAUNCHES_MMA
     log(f"[serve] eval {json.dumps(stats)} in {time.perf_counter() - t0:.2f} s;"
-        f" eva_single launches {launches}")
+        f" eva_single launches {launches}, on the tensor-core route {launches_mma}")
     if not all(math.isfinite(stats[k]) for k in ("acc1", "acc5", "loss")):
         raise AssertionError(f"non-finite eval stats {stats}")
     if stats["batches"] != 4 or launches != 12 * stats["batches"]:
         raise AssertionError(f"{launches} eva_single launches for "
                              f"{stats['batches']} batches of a 12-block model")
+    if launches_mma != launches:
+        raise AssertionError(f"{launches_mma} of the {launches} bf16 eva_single launches "
+                             "took the tensor-core route")
+    # the tracked DeiT-tiny-p16 cell: 14x14 tokens, chunks of 2x2, K2 in
+    # every block; counts set to 0 just before and read just after
+    k2.LAUNCHES = k2.LAUNCHES_MMA = 0
+    t0 = time.perf_counter()
+    p16_stats = train_vit.cli_main(P16_ARGV + ["--eval", "--bf16"])
+    torch.cuda.synchronize()
+    p16_launches = (k2.LAUNCHES, k2.LAUNCHES_MMA)
+    log(f"[serve p16] eval {json.dumps(p16_stats)} in {time.perf_counter() - t0:.2f} s;"
+        f" eva_single launches {p16_launches[0]}, on the tensor-core route "
+        f"{p16_launches[1]}")
+    if not all(math.isfinite(p16_stats[k]) for k in ("acc1", "acc5", "loss")):
+        raise AssertionError(f"non-finite p16 eval stats {p16_stats}")
+    if p16_launches != (12 * p16_stats["batches"],) * 2 or p16_stats["batches"] != 4:
+        raise AssertionError(f"p16: eva_single launches {p16_launches} for "
+                             f"{p16_stats['batches']} batches of a 12-block model")
     # f32 logits: the kernel path against the eager path on the card
     args = train_vit.parse_args(MAIN_ARGV + ["--eval"])
     model = train_vit.build_model(args).cuda()
@@ -1626,7 +1762,7 @@ def main() -> int:
     for route, (toggles, route_kernels) in EVA_ROUTES.items():
         for k, attr, _ in counters:
             setattr(k, attr, 0)
-        k1.LAUNCHES_FWD_MMA = 0
+        k1.LAUNCHES_FWD_MMA = k2.LAUNCHES_MMA = 0
         t0 = time.perf_counter()
         stats = train_vit.main(route_args(["--eval", "--bf16"], toggles))
         torch.cuda.synchronize()
@@ -1641,7 +1777,11 @@ def main() -> int:
         if stats["batches"] != 4 or got != want:
             raise AssertionError(f"eva {route}: launches {got} for "
                                  f"{stats['batches']} batches, want {want}")
-        # every bf16 K1 forward on the tensor-core route
+        # every bf16 K1 and K2 launch on its tensor-core route
+        if k2.LAUNCHES_MMA != got.get(k2.NAME, 0):
+            raise AssertionError(f"eva {route}: {k2.LAUNCHES_MMA} of the "
+                                 f"{got.get(k2.NAME, 0)} eva_single launches took the "
+                                 f"tensor-core route")
         if fwd_mma != got.get("eva_packed_fwd", 0):
             raise AssertionError(f"eva {route}: {fwd_mma} of the "
                                  f"{got.get('eva_packed_fwd', 0)} bf16 eva_packed "
@@ -1729,10 +1869,15 @@ def main() -> int:
     for impl, kname in PVT_ROUTES.items():
         for k, attr, _ in counters:
             setattr(k, attr, 0)
+        k2.LAUNCHES_MMA = 0
         t0 = time.perf_counter()
         stats = train_vit.main(pvt_args(["--eval", "--bf16"], impl))
         torch.cuda.synchronize()
         got = launched()
+        if k2.LAUNCHES_MMA != got.get(k2.NAME, 0):
+            raise AssertionError(f"pvt {impl}: {k2.LAUNCHES_MMA} of the "
+                                 f"{got.get(k2.NAME, 0)} eva_single launches took the "
+                                 f"tensor-core route")
         log(f"[serve pvt {impl}] eval {json.dumps(stats)} in "
             f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}")
         if not all(math.isfinite(stats[k]) for k in ("acc1", "acc5", "loss")):
@@ -1742,6 +1887,8 @@ def main() -> int:
                                  f"{stats['batches']} batches of "
                                  f"{PVT_EVA_BLOCKS} EVA blocks")
         pvt_launches[impl] = got[kname]
+        if impl == "auto":
+            pvt_k2_mma = k2.LAUNCHES_MMA
     pvt = set_impl(train_vit.build_model(pvt_args(["--eval"], "xla")).cuda(),
                    EVA, "xla")
     with torch.no_grad():
@@ -1830,7 +1977,7 @@ def main() -> int:
         f"{mt_runs['kernel']['bleu']}, eager {mt_runs['eager']['bleu']}")
 
     # ---- 6. the training path, counts set to 0 just before and read after
-    k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
+    k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = k2.LAUNCHES_MMA = 0
     k1.LAUNCHES_FWD_MMA = k1.LAUNCHES_BWD_MMA = 0
     t0 = time.perf_counter()
     record = train_vit.cli_main(MAIN_ARGV + TRAIN_ARGV)
@@ -1854,6 +2001,9 @@ def main() -> int:
     log(f"[train] eva_packed launches on the tensor-core routes: forward "
         f"{fwd_mma_launches} of {train_launches['eva_packed_fwd']}, backward "
         f"{bwd_mma_launches} of {train_launches['eva_packed_bwd']}")
+    if k2.LAUNCHES_MMA:  # the end-of-epoch eval runs the f32 parameters
+        raise AssertionError(f"{k2.LAUNCHES_MMA} f32 eval eva_single launches took the "
+                             "tensor-core route")
     if (fwd_mma_launches, bwd_mma_launches) != (12 * 8, 12 * 8):
         raise AssertionError(f"{fwd_mma_launches} of the 96 bf16 eva_packed forward "
                              f"and {bwd_mma_launches} of the 96 backward launches "
@@ -1933,13 +2083,40 @@ def main() -> int:
         del model, eager
 
     # ---- 7. timings
-    args, bias = k2_inputs(128, 28, 7, 4, 3, 64, torch.bfloat16, seed=7)
-    out = k2.eva_attention_single(*args, bias=bias)
-    k2_ms = cuda_ms(lambda: k2.eva_attention_single(*args, bias=bias), 20)
-    plain_ms = cuda_ms(lambda: k2.eva_attention_single_ref(*args, bias=bias), 5)
-    bound_ms, bound_by = k2_bound(args, bias, out)
-    log(f"[time] eva_single main shape bf16: {k2_ms:.4f} ms, plain version "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); {card}")
+    # K2 in bf16 at the headline, PVT-B3's three EVA stages and DeiT-tiny-p16:
+    # its tensor-core route at plan()'s cluster size, the CUDA-core kernel
+    # forced, and K8 + K1 (the `summaries` route: the same function in two
+    # launches; no single PyTorch call computes it) on the same inputs, in
+    # turns; then the plain version and the bound (the route at each cluster
+    # size: scripts/torch_eva_single_phases.py)
+    k2_time = {}
+    for label, (B, g, j, nh, d) in K2_SHAPES:
+        args, bias = k2_inputs(B, g, 7, j, nh, d, torch.bfloat16, seed=7)
+        out = k2.eva_attention_single(*args, bias=bias)
+
+        def k8_k1():
+            rf, beta = k8.eva_summaries_packed(args[0], *args[1:9], nh, g, j, True)
+            return k1._forward(args[0], rf, beta, bias, d ** -0.5, nh, g, 7)
+
+        calls = {"tensor cores": lambda: k2.eva_attention_single(*args, bias=bias),
+                 "cuda cores": lambda: k2.eva_attention_single(*args, bias=bias,
+                                                              cuda_cores=True),
+                 "k8+k1": k8_k1}
+        turns = {}
+        for name in ("tensor cores", "cuda cores", "k8+k1", "k8+k1", "cuda cores",
+                     "tensor cores"):
+            turns.setdefault(name, []).append(
+                cuda_ms(calls[name], 5 if name == "cuda cores" else 20))
+        k2_time[label] = {
+            "ms": sum(turns["tensor cores"]) / 2, "turns": turns,
+            "plan": k2.plan(B, nh, g, g, 7, j, d, 2)[:2],
+            "plain_ms": cuda_ms(lambda: k2.eva_attention_single_ref(*args, bias=bias), 3),
+            "bound": k2_bound(args, bias, out)}
+        log(f"[time] eva_single {label} (B={B}, {g}x{g} tokens, chunks {j}x{j}, {nh} "
+            f"heads of {d}) bf16: {json.dumps(k2_time[label])}; {card}")
+        del args, bias, out
+    k2_ms, plain_ms = k2_time["headline"]["ms"], k2_time["headline"]["plain_ms"]
+    bound_ms, bound_by = k2_time["headline"]["bound"]
     tp_args = train_vit.parse_args(MAIN_ARGV + ["--throughput", "--bf16"])
     device, bf16 = torch.device("cuda"), torch.bfloat16
     kernel_model = train_vit.build_model(tp_args).to(device, bf16)
@@ -1962,6 +2139,33 @@ def main() -> int:
         f"eva_single share of the kernel-path forward "
         f"{12 * k2_ms / fwd_ms:.3f} (12 x {k2_ms:.4f} ms of {fwd_ms:.3f} ms);"
         f" {card}")
+    # one headline forward on K2's route by op: K2's share of device busy
+    # time and the device's idle share of an unprofiled forward
+    xb = torch.randn(128, 224, 224, 3, generator=torch.Generator(device="cuda").manual_seed(6),
+                     device="cuda").to(bf16)
+    with torch.no_grad():
+        kernel_model(xb)
+        busy, k2_total, wall_ms, table = profile_steps(
+            torch, train_vit._profiler, lambda: kernel_model(xb), "eva_single")
+    log(f"[profile] one headline forward on K2's route at B=128 bf16: device busy "
+        f"{busy:.3f} ms ({wall_ms:.3f} ms wall while profiled, {fwd_ms:.3f} ms a "
+        f"forward unprofiled, idle share {1 - busy / fwd_ms:.3f}), eva_single "
+        f"{k2_total:.3f} ms ({k2_total / busy:.3f} of busy)")
+    print(table, flush=True)
+    del xb
+    # the tracked DeiT-tiny-p16 cell's forward images/s, kernel path (K2)
+    # and eager path in turns
+    p16_tp = train_vit.parse_args(P16_ARGV + ["--throughput", "--bf16"])
+    p16_model = train_vit.build_model(p16_tp).to(device, bf16)
+    p16_eager = set_impl(copy.deepcopy(p16_model), EVA, "xla")
+    p16_rates = {}
+    for name, m in (("kernel", p16_model), ("eager", p16_eager), ("eager", p16_eager),
+                    ("kernel", p16_model)):
+        p16_rates.setdefault(name, []).append(train_vit.compute_throughput(
+            m, p16_tp, device, bf16)["images_per_sec"])
+    log(f"[time] DeiT-tiny-p16 + EVA forward B=128 bf16 images/s, in turns: "
+        f"{json.dumps(p16_rates)}; {card}")
+    del p16_model, p16_eager
 
     qkv, rf, beta, bias, grad = k1_inputs(128, 28, 7, 4, 3, 64, bf16, seed=20)
     k1_args = (qkv, rf, beta, bias, 64 ** -0.5, 3, 28, 7)
@@ -2451,6 +2655,11 @@ def main() -> int:
     log(f"[launches] eva_packed forward on the tensor-core route: training "
         f"{fwd_mma_launches} of {train_launches['eva_packed_fwd']}, EVA eval "
         f"routes {json.dumps(route_fwd_mma)} (48 a route)")
+    log(f"[launches] eva_single on the tensor-core route: headline serving "
+        f"{launches_mma} of {launches}, DeiT-tiny-p16 serving {p16_launches[1]} of "
+        f"{p16_launches[0]}, PVT-B3 `auto` {pvt_k2_mma} of {pvt_launches['auto']}, "
+        f"the megakernel-alone route {route_launches['megakernel alone']}; checks "
+        f"{json.dumps(k2_errors)}")
     serve_win = {r: route_launches[r] for r in ("pallas", "rowmajor")}
     log(f"[launches] K11 and K12's paths: headline serving "
         f"{json.dumps(serve_win)}, headline "

@@ -18,13 +18,19 @@ The per-chunk softmax is shifted by its true maximum over the chunk's
 members, as the JAX eager path does.  The TPU kernel shifts by the bound
 ``|mu|^2/(2 sqrt(d))`` instead, which underflows to ``beta = 0`` when every
 member lies far from ``mu``; the two agree wherever that exp does not
-underflow.
+underflow.  Phase 1 runs in f32 (the TPU kernel's bf16 operands there are no
+more exact).  In bf16 phase 2 rounds as the TPU kernel does: ``rf_k`` and
+``beta`` to bf16 as keys and values, the numerators ``exp(l - max)`` to
+bf16 for the value product, over the f32 sum of the unrounded ones.
 
 ``eva_attention_single`` launches the CUDA kernel (``csrc/eva_single.cu``)
-for a CUDA tensor, and raises where the kernel cannot take its input.  For a
+for a CUDA tensor, and raises where the kernel cannot take its input.  bf16
+at head dims 16, 32 and 64 (``uses_mma``) takes the tensor-core kernel,
+f32 and head dim 12 the CUDA-core one; ``plan`` names the route.  For a
 CPU tensor it computes the same function with ``eva_attention_single_ref``,
 the plain PyTorch version, which is also what the kernel is held against on
-the card.  ``LAUNCHES`` counts the kernel's launches.
+the card.  ``LAUNCHES`` counts the kernel's launches on either route,
+``LAUNCHES_MMA`` those of the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import torch.nn.functional as F
 from efficient_attention_torch.ops.kernels import _build
 
 LAUNCHES = 0
+LAUNCHES_MMA = 0
 
 NAME = "eva_single"
 SOURCE = "efficient_attention_torch/csrc/eva_single.cu"
@@ -45,11 +52,18 @@ REPLACES = "efficient_attention_tpu/ops/pallas/eva_single.py:388"
 
 # the kernel's own limits: head dims it is instantiated for, threads per
 # block, the shared memory a block may use on Hopper, and the cluster sizes
-# it tries (largest first; portable cluster sizes go up to 8)
+# it tries (largest first; portable cluster sizes go up to 8); the
+# tensor-core route's head dims and cluster sizes
 HEAD_DIMS = (12, 16, 32, 64)
 THREADS = 128
 SMEM_LIMIT = 232448
 CLUSTER_SIZES = (8, 4, 2, 1)
+MMA_HEAD_DIMS = (16, 32, 64)
+MMA_CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# a block's shared memory that leaves three, or two, blocks an SM (228 KB an
+# SM, 1 KB of it reserved a block); the kernel's 168 registers a thread
+# allow three
+MMA_SMEM_BLOCKS = {3: 233472 // 3 - 1024, 2: 233472 // 2 - 1024}
 _MAX_GRID_YZ = 65535
 
 
@@ -57,10 +71,54 @@ def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def uses_mma(d: int, itemsize: int) -> bool:
+    """Whether bf16 (itemsize 2) or f32 (4) at head dim ``d`` takes the
+    tensor-core kernel (``uses_mma`` in ``csrc/eva_single.cu``)."""
+    return itemsize == 2 and d in MMA_HEAD_DIMS
+
+
+def owned_chunks(cluster: int, wpb: int, nww: int, ws: int, j: int) -> int:
+    """The most chunks a block of the cluster owns on the tensor-core route
+    (``owned_chunks`` in ``csrc/eva_single.cu``): a chunk belongs to the
+    block that holds its first token, so window ``w`` brings the chunks whose
+    first row and column lie in it."""
+    def own(w):
+        wy, wx = (w // nww) * ws, (w % nww) * ws
+        return (((wy + ws + j - 1) // j - (wy + j - 1) // j)
+                * ((wx + ws + j - 1) // j - (wx + j - 1) // j))
+    return max(sum(own(w) for w in range(r * wpb, r * wpb + wpb))
+               for r in range(cluster))
+
+
+def mma_smem_bytes(gh: int, gw: int, ws: int, j: int, d: int,
+                   cluster: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core kernel; the
+    same layout as ``make_mma_layout`` in ``csrc/eva_single.cu``, each region
+    128-byte aligned: the block's q, k and v rows ``[T][d + 8]`` and the
+    chunk rows rf_k and beta ``[C][d + 8]`` in bf16; the bias ``[S][S]`` in
+    f32; the int32 token table ``[T]`` and owned chunks ``[CO]``; their
+    members ``[CO][j * j]`` in uint16; their means ``[CO][2][d]``, mu and
+    rf_k ``[CO][d]`` each and a warp's member weights ``[4][2][j * j]`` in
+    f32."""
+    nww = gw // ws
+    wpb = (gh // ws) * nww // cluster
+    S, T = ws * ws, wpb * ws * ws
+    C = (gh // j) * (gw // j)
+    CO, JJ, db = owned_chunks(cluster, wpb, nww, ws, j), j * j, d + 8
+    return (3 * _align128(T * db * 2) + 2 * _align128(C * db * 2)
+            + _align128(S * S * 4) + _align128(T * 4) + _align128(CO * 4)
+            + _align128(CO * JJ * 2) + _align128(CO * 2 * d * 4)
+            + 2 * _align128(CO * d * 4) + _align128(THREADS // 32 * 2 * JJ * 4))
+
+
 def smem_bytes(tokens: int, d: int, itemsize: int, chunks: int,
                own_chunks: int, ws: int) -> int:
-    """Dynamic shared memory of one block; the same layout as
-    ``make_layout`` in ``csrc/eva_single.cu``: the block's q/k/v rows, all
+    """Dynamic shared memory of one block of the CUDA-core kernel; the same
+    layout as ``make_layout`` in ``csrc/eva_single.cu``: the block's q/k/v rows, all
     chunk keys and values (f32), the chunks this block summarises (f32), the
     head's window bias (f32) and per-warp scratch."""
     warps = THREADS // 32
@@ -71,12 +129,20 @@ def smem_bytes(tokens: int, d: int, itemsize: int, chunks: int,
             + _align16(warps * 2 * d * 4))
 
 
+@functools.lru_cache(maxsize=1024)
 def plan(B: int, num_heads: int, gh: int, gw: int, ws: int, j: int, d: int,
-         itemsize: int) -> Optional[Tuple[int, int]]:
-    """``(cluster_size, smem_bytes)`` for a launch, or None where the
-    kernel cannot take it.  A cluster of blocks shares one (image, head):
-    each block holds ``windows / cluster`` whole windows, so the largest
-    cluster size that divides the window count gives the least memory."""
+         itemsize: int, *, cuda_cores: bool = False) -> Optional[Tuple[int, int, bool]]:
+    """``(cluster_size, smem_bytes, tensor_cores)`` for a launch, or None
+    where the kernel cannot take it.  A cluster of blocks shares one (image,
+    head), each block holding ``windows / cluster`` whole windows.  The
+    CUDA-core kernel takes the largest cluster size (up to 8) that divides
+    the window count, the least memory, and the geometries it fits are the
+    ones K2 takes.  bf16 at head dims 16, 32 and 64 (``uses_mma``) takes the
+    tensor-core kernel; a geometry whose padded rows fit a block at no
+    cluster size (blocks of hundreds of tokens, or one-token chunks) keeps
+    the CUDA-core kernel.  ``cuda_cores`` forces the CUDA-core kernel, to
+    time it beside the default.  Cached: the model's blocks ask at every
+    forward."""
     if not 1 <= B <= _MAX_GRID_YZ or not 1 <= num_heads <= _MAX_GRID_YZ:
         return None
     if ws <= 0 or j <= 0 or gh % ws or gw % ws or gh % j or gw % j:
@@ -88,7 +154,29 @@ def plan(B: int, num_heads: int, gh: int, gw: int, ws: int, j: int, d: int,
     cs = next(c for c in CLUSTER_SIZES if n_win % c == 0)
     smem = smem_bytes(n_win // cs * ws * ws, d, itemsize, chunks,
                       -(-chunks // cs), ws)
-    return (cs, smem) if smem <= SMEM_LIMIT else None
+    if smem > SMEM_LIMIT:  # the geometries K2 takes stay what they were
+        return None
+    if uses_mma(d, itemsize) and not cuda_cores:
+        # the cluster sizes whose padded rows fit a block, smallest first (a
+        # member is rank << 12 | slot in 16 bits)
+        fits = [(c, m) for c in MMA_CLUSTER_SIZES
+                if n_win % c == 0 and n_win // c * ws * ws <= 4096
+                for m in (mma_smem_bytes(gh, gw, ws, j, d, c),) if m <= SMEM_LIMIT]
+        # the most windows a block among blocks of two windows or more, then
+        # of one, that leave three blocks an SM, else two; else the least
+        # memory.  A block's summaries and cluster barriers are a fixed cost
+        # that its strips share (a window of 49 rows has 4).  At the models'
+        # five shapes on the H100 this picks the fastest cluster size that
+        # scripts/torch_eva_single_phases.py measures (PERF.md)
+        for windows, blocks in ((2, 3), (2, 2), (1, 3), (1, 2)):
+            ok = [(c, m) for c, m in fits
+                  if n_win // c >= windows and m <= MMA_SMEM_BLOCKS[blocks]]
+            if ok:
+                return ok[0][0], ok[0][1], True
+        if fits:
+            c, m = min(fits, key=lambda f: f[1])
+            return c, m, True
+    return (cs, smem, False) if smem <= SMEM_LIMIT else None
 
 
 def supports_single(B: int, gh: int, gw: int, ws: int, j: int,
@@ -118,7 +206,11 @@ def eva_attention_single_ref(
     bias: Optional[torch.Tensor] = None,  # [H, S, S] window RPE bias
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function in f32 tensor
-    ops, output in the input dtype.  Returns ``[B, N, H*D]``."""
+    ops, output in the input dtype.  Below f32 it rounds as the TPU kernel
+    does: ``rf_k`` and ``beta`` to the input dtype as keys and values, the
+    numerators ``exp(l - max)`` to it for the value product, divided after
+    the product by the f32 sum of the unrounded ones.  Returns
+    ``[B, N, H*D]``."""
     B, N, three_hd = qkv.shape
     nh = num_heads
     hd = three_hd // 3
@@ -155,14 +247,26 @@ def eva_attention_single_ref(
         return (t.reshape(B, gwin_h, ws, gwin_w, ws, nh, d)
                 .permute(0, 5, 1, 3, 2, 4, 6).reshape(B, nh, -1, S, d))
 
+    low = qkv.dtype != torch.float32
+    if low:  # the TPU kernel's keys and values: rfh.astype(kh.dtype)
+        rf_k = rf_k.to(qkv.dtype).float()
+        beta = beta.to(qkv.dtype).float()
     w_q, w_k, w_v = windows(q), windows(k), windows(v)
     local = torch.einsum("bhgsd,bhgtd->bhgst", w_q, w_k) * scale
     if bias is not None:
         local = local + f32(bias)[None, :, None]
     chunk = torch.einsum("bhgsd,bhcd->bhgsc", w_q, rf_k) * scale
-    attn = torch.softmax(torch.cat([local, chunk], dim=-1), dim=-1)
-    out = (torch.einsum("bhgst,bhgtd->bhgsd", attn[..., :S], w_v)
-           + torch.einsum("bhgsc,bhcd->bhgsd", attn[..., S:], beta))
+    logits = torch.cat([local, chunk], dim=-1)
+    if low:  # p.astype(vals.dtype) before the value product, f32 denominator
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        pr = p.to(qkv.dtype).float()
+        out = (torch.einsum("bhgst,bhgtd->bhgsd", pr[..., :S], w_v)
+               + torch.einsum("bhgsc,bhcd->bhgsd", pr[..., S:], beta)
+               ) / p.sum(dim=-1, keepdim=True)
+    else:
+        attn = torch.softmax(logits, dim=-1)
+        out = (torch.einsum("bhgst,bhgtd->bhgsd", attn[..., :S], w_v)
+               + torch.einsum("bhgsc,bhcd->bhgsd", attn[..., S:], beta))
     out = (out.reshape(B, nh, gwin_h, gwin_w, ws, ws, d)
            .permute(0, 2, 4, 3, 5, 1, 6).reshape(B, N, hd))
     return out.to(qkv.dtype)
@@ -174,8 +278,16 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.eva_single_launch.argtypes = [ptr] * 11 + [i32] * 10 + [ctypes.c_float, ptr]
     lib.eva_single_launch.restype = i32
+    lib.eva_single_mma_launch.argtypes = [ptr] * 11 + [i32] * 9 + [ctypes.c_float, ptr]
+    lib.eva_single_mma_launch.restype = i32
     lib.eva_single_smem_bytes.argtypes = [i32] * 6
     lib.eva_single_smem_bytes.restype = i32
+    lib.eva_single_uses_mma.argtypes = [i32] * 2
+    lib.eva_single_uses_mma.restype = i32
+    lib.eva_single_mma_smem_bytes.argtypes = [i32] * 6
+    lib.eva_single_mma_smem_bytes.restype = i32
+    lib.eva_single_mma_blocks_per_sm.argtypes = [i32] * 6
+    lib.eva_single_mma_blocks_per_sm.restype = i32
     lib.eva_single_error_string.argtypes = [i32]
     lib.eva_single_error_string.restype = ctypes.c_char_p
     return lib
@@ -194,11 +306,15 @@ def eva_attention_single(
     j: int,                              # chunk side
     use_ln: bool,
     bias: Optional[torch.Tensor] = None,  # [H, S, S] window RPE bias
+    *,
+    cuda_cores: bool = False,
 ) -> torch.Tensor:
     """Single-pass EVA eval forward; returns ``[B, N, H*D]`` in qkv's dtype.
 
     A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    kernel of the route ``plan`` names or raises.  ``cuda_cores`` forces the
+    CUDA-core kernel, to time it beside the default; nothing on a model's
+    path sets it."""
     args = (qkv, wq, bq, wk, bk, lnq_scale, lnq_bias, lnk_scale, lnk_bias,
             scale, num_heads, gw, ws, j, use_ln)
     if qkv.device.type == "cpu":
@@ -218,12 +334,13 @@ def eva_attention_single(
                          f"heads over a grid of width {gw}")
     d = three_hd // (3 * nh)
     gh = N // gw
-    geometry = plan(B, nh, gh, gw, ws, j, d, qkv.element_size())
+    geometry = plan(B, nh, gh, gw, ws, j, d, qkv.element_size(),
+                    cuda_cores=cuda_cores)
     if geometry is None:
         raise ValueError(
             f"eva_single cannot take B={B}, grid {gh}x{gw}, window {ws}, "
             f"chunk {j}, head dim {d}, {qkv.dtype}; see supports_single")
-    cluster, _ = geometry
+    cluster, _, mma = geometry
 
     def operand(t, shape, what):
         if t is None:
@@ -246,16 +363,20 @@ def eva_attention_single(
     ptrs = [t.data_ptr() for t in weights] + [None] * (8 - len(weights))
     out = torch.empty((B, N, nh * d), dtype=qkv.dtype, device=qkv.device)
     lib = _lib()
+    operands = (qkv.data_ptr(), out.data_ptr(), *ptrs,
+                None if bias is None else bias.data_ptr(),
+                B, N, gw, ws, j, nh, d, cluster, int(use_ln))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.eva_single_launch(
-            qkv.data_ptr(), out.data_ptr(), *ptrs,
-            None if bias is None else bias.data_ptr(),
-            B, N, gw, ws, j, nh, d, cluster, int(use_ln),
-            int(qkv.dtype == torch.bfloat16), float(scale), stream)
+        if mma:
+            rc = lib.eva_single_mma_launch(*operands, float(scale), stream)
+        else:
+            rc = lib.eva_single_launch(*operands, int(qkv.dtype == torch.bfloat16),
+                                       float(scale), stream)
     if rc != 0:
         raise RuntimeError(
             f"eva_single launch failed: {lib.eva_single_error_string(rc).decode()}")
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_MMA
     LAUNCHES += 1
+    LAUNCHES_MMA += int(mma)
     return out

@@ -63,6 +63,68 @@ def test_eva_single_kernel_matches_plain(cuda_device, geometry, dtype, tol):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("use_ln", [True, False])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("geometry", [(2, 28, 7, 4, 3, 64), (2, 28, 7, 4, 4, 32),
+                                      (2, 14, 7, 2, 3, 64), (2, 8, 4, 4, 3, 16),
+                                      (2, 12, 3, 4, 2, 16)])
+def test_eva_single_mma_route_matches_plain(cuda_device, geometry, with_bias, use_ln):
+    """bf16 at head dims 16, 32 and 64 takes the tensor-core kernel (counted
+    by LAUNCHES_MMA) and matches the plain version to one rounding of
+    outputs below 4 (2**-6); the CUDA-core kernel forced on the same inputs
+    stays off the route and within the same limit."""
+    args, bias = _k2_args(cuda_device, torch.bfloat16, *geometry, use_ln)
+    bias = bias if with_bias else None
+    ref = K.eva_attention_single_ref(*args, bias=bias)
+    before = (K.LAUNCHES, K.LAUNCHES_MMA)
+    out = K.eva_attention_single(*args, bias=bias)
+    old = K.eva_attention_single(*args, bias=bias, cuda_cores=True)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES, K.LAUNCHES_MMA) == (before[0] + 2, before[1] + 1)
+    for got in (out, old):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert (got.float() - ref.float()).abs().max().item() <= 2 ** -6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_eva_single_large_norm_keys_match_plain(cuda_device, dtype):
+    """Keys x40 and zero queries: every member lies far from mu, so only a
+    chunk softmax at its true maximum stays finite; bf16 on the tensor-core
+    kernel, f32 on the CUDA-core one."""
+    args, bias = _k2_args(cuda_device, torch.float32, 1, 8, 4, 4, 2, 16, True)
+    qkv = args[0].clone()
+    qkv[..., :32] = 0.0
+    qkv[..., 32:64] *= 40.0
+    args = (qkv.to(dtype), *args[1:])
+    before = K.LAUNCHES_MMA
+    out = K.eva_attention_single(*args, bias=bias)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_MMA - before == int(dtype == torch.bfloat16)
+    ref = K.eva_attention_single_ref(*args, bias=bias)
+    assert torch.isfinite(out.float()).all()
+    tol = 2 ** -6 if dtype == torch.bfloat16 else 1e-5
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_eva_single_off_the_mma_route(cuda_device):
+    """f32, head dim 12, and bf16 whose padded rows fit a block at no cluster
+    size (21x21 tokens in one-token chunks, head dim 16) keep the CUDA-core
+    kernel: no LAUNCHES_MMA, and the plain version's result."""
+    before = (K.LAUNCHES, K.LAUNCHES_MMA)
+    geometries = ((torch.float32, (2, 28, 7, 4, 3, 64), 1e-5),
+                  (torch.bfloat16, (2, 14, 7, 2, 4, 12), 2 ** -6),
+                  (torch.bfloat16, (2, 21, 7, 1, 2, 16), 2 ** -6))
+    for dtype, geometry, tol in geometries:
+        B, g, ws, j, nh, d = geometry
+        assert K.plan(B, nh, g, g, ws, j, d, torch.finfo(dtype).bits // 8)[2] is False
+        args, bias = _k2_args(cuda_device, dtype, *geometry, True)
+        out = K.eva_attention_single(*args, bias=bias)
+        torch.cuda.synchronize()
+        ref = K.eva_attention_single_ref(*args, bias=bias)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (K.LAUNCHES, K.LAUNCHES_MMA) == (before[0] + len(geometries), before[1])
+
+
 def test_eva_single_kernel_raises_outside_its_gate(cuda_device):
     args, bias = _k2_args(cuda_device, torch.float32, 1, 8, 4, 4, 2, 24, True)
     with pytest.raises(ValueError, match="cannot take"):  # head dim 24
