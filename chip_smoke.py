@@ -54,9 +54,11 @@ Phases, each raising on failure:
    ``eva_packed``'s tensor-core forward and backward, the tensor-core
    routes of ``eva_single``, ``eva_kernel`` and ``eva_rowmajor``,
    ``local_packed``'s tensor-core route and ``causal_packed``'s split-TF32
-   forward and backward the blocks an SM (no spills allowed there); the
-   wrappers' twins of the kernels' shared-memory layouts and route
-   choices;
+   forward and backward the blocks an SM (no spills allowed there), and
+   for the tensor-core route of ``eva_packed_out`` and ``eva_mega``'s
+   attention (``eva_out_mma_kernel``) the blocks an SM and the layout its
+   plan picks; the wrappers' twins of the kernels' shared-memory layouts
+   and route choices;
 2. kernels against their plain versions on the card: ``eva_single`` (its
    tensor-core route in bf16 at ``K2_CHECKS``, with and without its bias
    and LN, the CUDA-core kernel forced beside it, and both types at
@@ -65,7 +67,8 @@ Phases, each raising on failure:
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
    ``local_packed``; ``eva_1d`` at non-pad rows of random-length
    sentences; ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
-   entry points; ``eva_kernel`` and ``eva_rowmajor`` (also at PVT-B3's
+   entry points, and the last two's attention on its bf16 tensor-core route
+   at ``OUT_CHECKS``, with and without the bias (asserted on the route); ``eva_kernel`` and ``eva_rowmajor`` (also at PVT-B3's
    three stages, at heads of 48, where S + C is too wide for one-pass
    strips, K11 in 1-D, and raising outside their gates; K11's output,
    merged to token order, equal to K12's bit for bit); at the main
@@ -96,7 +99,8 @@ Phases, each raising on failure:
    cell's kernel a batch and none of any other; the local cell's all on
    K7's tensor-core route), and for each of EVA's
    routes (12 launches of each of the route's kernels a batch and none of
-   any other, K1's forward on the tensor-core route); K11 as EVA's ``auto`` fallback at a head dim (48) that K1
+   any other, K1's forward, K9 and K10's attention on their tensor-core
+   routes); K11 as EVA's ``auto`` fallback at a head dim (48) that K1
    and K2 are not built for, in eval and training, against the eager path
    in f32; then PVT-B3 served by ``cli.train_vit --eval`` on each of its
    three routes (25 launches of the route's kernel a batch, none of any
@@ -122,7 +126,9 @@ Phases, each raising on failure:
    in turns; forward and
    train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
-   and 3136 tokens, K8-K10 and the forward rates of EVA's eval routes in
+   and 3136 tokens, K8-K10 (K9 and K10's attention in turns with their
+   yardsticks: K1's forward and an addmm, an addmm and K9) and the forward
+   rates of EVA's eval routes in
    turns with the default route and the eager path, K4 and the MT encoder,
    the MT cell's sentences/s and hypothesis tokens/s with the kernel and the
    eager encoder in turns, K11 and K12 at the headline and PVT-B3 stage
@@ -184,6 +190,17 @@ K1_CHECKS = tuple((label, geo, dtype, True) for label, geo, dtype in CHECKS) + (
     ("pvt stage 1 bf16", (128, 56, 7, 8, 2, 32), "bfloat16", True),
     ("odd no-bias bf16", (3, 8, 4, 4, 3, 16), "bfloat16", False),
     ("two-pass bf16", (8, 28, 7, 2, 2, 16), "bfloat16", True))
+# K9 and K10's attention on their bf16 tensor-core route, each with its bias
+# and without: the headline shape, K1's other bf16 geometries (PVT-B3's
+# first stage, the odd one, strips of two passes), PVT-B3's third stage,
+# whose ten heads are staged a few at a time with Wo streamed, and the small
+# and base EVA ViTs (6 and 12 heads of 64), whose window rows are staged a
+# few heads at a time beside a buffer of attention rows
+OUT_CHECKS = (("main bf16", CHECKS[0][1]),) + tuple(
+    (label, geo) for label, geo, _, _ in K1_CHECKS[len(CHECKS):]) + (
+    ("pvt stage 3 bf16", (16, 14, 7, 2, 10, 32)),
+    ("evit_small p8 bf16", (16, 28, 7, 4, 6, 64)),
+    ("evit_base p16 bf16", (16, 14, 7, 2, 12, 64)))
 TRAIN_ARGV = ["--bf16", "--epochs", "1", "--max-steps-per-epoch", "8",
               "--warmup-epochs", "0", "--output-dir", "build/smoke_train"]
 # the WikiText-103 recipe (configs/wikitext103_causal_eva.yaml's attention
@@ -884,9 +901,11 @@ def set_impl(model, eva_cls, impl):
     return model
 
 
-def mma_kernel_report(log_path, tag):
+def mma_kernel_report(log_path, tag, split_last=False):
     """What ``nvcc -Xptxas -v`` said of each instantiation of the kernel
-    named ``tag`` (registers, stack, spills), by its template arguments."""
+    named ``tag`` (registers, stack, spills), by its template arguments;
+    with ``split_last`` the last bool is the layout's split (named
+    "split"), the pass the one before it."""
     report, name = {}, None
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
@@ -894,12 +913,16 @@ def mma_kernel_report(log_path, tag):
             if name is not None:
                 # the template arguments of the mangled name, e.g.
                 # ...kernelILi64ELb1EEE...: D = 64, one pass (Lb0: two);
-                # ...kernelILi64EEv...: D = 64 (no pass argument)
-                args = re.match(r"ILi(\d+)E(?:Lb([01])E)?",
+                # ...kernelILi64EEv...: D = 64 (no pass argument); where
+                # there are several bools, the pass is the last
+                args = re.match(r"ILi(\d+)E((?:Lb[01]E)*)",
                                 name[name.index(tag) + len(tag):])
+                bools = re.findall(r"Lb([01])E", args[2])
+                split = split_last and bools.pop() == "1"
                 name = f"D={args[1]}" + (
-                    "" if args[2] is None
-                    else f" {'one' if args[2] == '1' else 'two'}-pass")
+                    "" if not bools
+                    else f" {'one' if bools[-1] == '1' else 'two'}-pass") + (
+                    " split" if split else "")
                 report[name] = []
         elif name is not None and ("registers" in line or "spill" in line):
             report[name].append(line.replace("ptxas info    :", "").strip())
@@ -1155,6 +1178,45 @@ def main() -> int:
         if fn(*args) != py(*args):
             raise AssertionError(f"{py.__name__}{args} {py(*args)} != the "
                                  f"kernel's {fn(*args)}")
+    # K9 and K10's attention on their tensor-core route: the layouts
+    # out_mma_plan picks at the geometries it serves (the headline, PVT-B3's
+    # three stages, two-pass strips, the odd one, the small and base EVA
+    # ViTs), registers and spills for head dims 64, 32 and 16, blocks an SM
+    # (one of 12 warps)
+    for d, S, C, nh in ((64, 49, 49, 3), (32, 49, 49, 2), (32, 49, 49, 4),
+                        (32, 49, 49, 10), (16, 49, 196, 2), (16, 16, 4, 3),
+                        (64, 49, 49, 6), (64, 49, 49, 12)):
+        for fn, xdim in ((k1._lib_out().eva_packed_out_smem_bytes, 0),
+                         (k10._lib().eva_mega_attention_smem_bytes, nh * d)):
+            if fn(d, S, C, nh, 2, xdim) != k1.smem_bytes_out(d, S, C, nh, 2, xdim):
+                raise AssertionError(f"smem_bytes_out{(d, S, C, nh, 2, xdim)} "
+                                     f"{k1.smem_bytes_out(d, S, C, nh, 2, xdim)} != the "
+                                     f"kernel's {fn(d, S, C, nh, 2, xdim)}")
+    out_ptxas = {name: mma_kernel_report(_build.BUILD_DIR / f"{name}.log",
+                                         "eva_out_mma_kernel", split_last=True)
+                 for name in (k1.NAME_OUT, k10.NAME)}
+    out_blocks = {
+        f"{name} d{d}": fn(d, 49, C, nh, *xd)
+        for d, C, nh in ((64, 49, 3), (32, 49, 2), (16, 196, 2))
+        for name, fn, xd in (("K9", k1._lib_out().eva_packed_out_mma_blocks_per_sm, ()),
+                             ("K10b", k10._lib().eva_mega_attention_mma_blocks_per_sm,
+                              (nh * d,)))}
+    out_plans = {f"{name} xdim {xdim}": k1.out_mma_plan(64, 49, 49, 3, xdim)
+                 for name, xdim in (("K9", 0), ("K10b", 192))}
+    log(f"[build] eva_out_mma_kernel (K9 and K10's attention), ptxas: "
+        f"{json.dumps(out_ptxas)}; blocks an SM (occupancy calculator): "
+        f"{json.dumps(out_blocks)}; plan at the headline (heads staged at once, "
+        f"Wo whole, split, slab rows, bytes a block): {json.dumps(out_plans)}")
+    if min(out_blocks.values()) < 1:
+        raise AssertionError(f"eva_out_mma_kernel: {out_blocks} blocks an SM")
+    # its one-pass strips at head dim 64 (and 32) spill a few registers at
+    # the 168 that 384 threads leave (16-32 bytes, PERF.md §6, where the
+    # two-pass strips that do not spill are timed against them): more than
+    # 64 bytes is a regression
+    out_spills = [int(m) for report in out_ptxas.values() for v in report.values()
+                  for m in re.findall(r"(\d+) bytes spill stores", v)]
+    if len(out_spills) != 24 or max(out_spills) > 64:
+        raise AssertionError(f"eva_out_mma_kernel spills: {out_ptxas}")
     for d, S, C, itemsize in ((64, 49, 49, 2), (64, 49, 49, 4), (32, 49, 49, 2),
                               (48, 49, 49, 2), (48, 49, 196, 2), (64, 64, 64, 2),
                               (128, 49, 49, 2), (16, 8, 5, 4), (16, 8, 5, 2),
@@ -1478,6 +1540,33 @@ def main() -> int:
                 raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
             eval_errors[(name, label)] = err
         del a
+    # K9 and K10's attention on their tensor-core route at OUT_CHECKS, with
+    # the bias and without, in K1's terms, one launch each on the route
+    out_errors = {}
+    for label, (B, g, ws, j, nh, d) in OUT_CHECKS:
+        a = eval_inputs(B, g, ws, j, nh, d, torch.bfloat16, seed=120 + len(out_errors))
+        for with_bias in (True, False):
+            calls = eval_calls(k8, k1, k10, a if with_bias else dict(a, bias=None),
+                               nh, g, ws, j)
+            for name in (k1.NAME_OUT, k10.NAME_ATTENTION):
+                kernel, plain = calls[name]
+                before = k1.LAUNCHES_OUT_MMA + k10.LAUNCHES_ATTENTION_MMA
+                with torch.no_grad():
+                    out = kernel()
+                    torch.cuda.synchronize()
+                    ref = plain()
+                mma = k1.LAUNCHES_OUT_MMA + k10.LAUNCHES_ATTENTION_MMA - before
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = K1_TOL["torch.bfloat16"] * max(1.0, ref.float().abs().max().item())
+                log(f"[{name} tensor-core route vs plain] {label} "
+                    f"{'bias' if with_bias else 'no bias'}: max abs err {err:.3e} "
+                    f"(tol {tol:.1e}), launches on the route {mma}")
+                if not (out.shape == ref.shape and err <= tol and mma == 1):
+                    raise AssertionError(f"{name} tensor-core route {label} bias="
+                                         f"{with_bias}: err {err} > {tol} or {mma} "
+                                         f"launches on the route")
+                out_errors[(name, label, with_bias)] = err
+        del a
     # K8 where the TPU kernel's bound-shifted chunk softmax underflows: keys
     # x40 and zero queries; the true-max shift stays finite
     for dtype_name in ("float32", "bfloat16"):
@@ -1758,11 +1847,12 @@ def main() -> int:
             setattr(rargs.attn_specific_args, key, value)
         return rargs
 
-    route_launches, route_fwd_mma = {}, {}
+    route_launches, route_fwd_mma, route_out_mma = {}, {}, {}
     for route, (toggles, route_kernels) in EVA_ROUTES.items():
         for k, attr, _ in counters:
             setattr(k, attr, 0)
         k1.LAUNCHES_FWD_MMA = k2.LAUNCHES_MMA = 0
+        k1.LAUNCHES_OUT_MMA = k10.LAUNCHES_ATTENTION_MMA = 0
         t0 = time.perf_counter()
         stats = train_vit.main(route_args(["--eval", "--bf16"], toggles))
         torch.cuda.synchronize()
@@ -1786,6 +1876,14 @@ def main() -> int:
             raise AssertionError(f"eva {route}: {fwd_mma} of the "
                                  f"{got.get('eva_packed_fwd', 0)} bf16 eva_packed "
                                  f"forward launches took the tensor-core route")
+        # and every bf16 K9 and K10 attention launch on theirs
+        out_mma = {k1.NAME_OUT: k1.LAUNCHES_OUT_MMA,
+                   k10.NAME_ATTENTION: k10.LAUNCHES_ATTENTION_MMA}
+        if any(n != got.get(name, 0) for name, n in out_mma.items()):
+            raise AssertionError(f"eva {route}: {out_mma} of the launches {got} took "
+                                 f"the tensor-core route")
+        if any(name in route_kernels for name in out_mma):
+            route_out_mma[route] = out_mma
         route_launches[route] = got
         if "eva_packed_fwd" in route_kernels:
             route_fwd_mma[route] = fwd_mma
@@ -2440,10 +2538,23 @@ def main() -> int:
         f"{json.dumps(cell_rates)}; {card}")
 
     # K8, K9 and K10's entry points at the EVA cell's shape in bf16: kernel,
-    # plain version, bound; then the forward images/s of EVA's eval routes in
-    # turns with the default K2 route and the eager path, and one
+    # plain version, bound; K9 and K10's attention also in turns with their
+    # yardsticks, as no one library call computes either (K9: K1's forward,
+    # then attn Wo + bo in one addmm; K10's: x Wqkv + bqkv in one addmm,
+    # then K9; all in bf16); then the forward images/s of EVA's eval routes
+    # in turns with the default K2 route and the eager path, and one
     # megakernel-route forward by op
     a = eval_inputs(128, 28, 7, 4, 3, 64, bf16, seed=95)
+    wo16, bo16 = a["wo"].to(bf16), a["bo"].to(bf16)
+    wqkv16, bqkv16 = a["wqkv"].to(bf16), a["bqkv"].to(bf16)
+    yardsticks = {
+        k1.NAME_OUT: lambda: torch.addmm(bo16, k1.eva_attention_packed(
+            a["qkv"], a["rf"], a["beta"], 64 ** -0.5, 3, 28, 7, a["bias"]).view(-1, 192),
+            wo16),
+        k10.NAME_ATTENTION: lambda: k1.eva_attention_packed_out(
+            torch.addmm(bqkv16, a["x"].view(-1, 192), wqkv16).view(128, 784, 576),
+            a["rf"], a["beta"], a["wo"], a["bo"], 64 ** -0.5, 3, 28, 7, a["bias"]),
+    }
     eval_ms = {}
     with torch.no_grad():
         for name, (kernel, plain) in eval_calls(k8, k1, k10, a, 3, 28, 7,
@@ -2452,7 +2563,13 @@ def main() -> int:
                              "plain_ms": cuda_ms(plain, 5),
                              "bound": eval_bound(name, a, 3, 7),
                              "library_ms": None}
-    log(f"[time] K8-K10 main shape bf16: {json.dumps(eval_ms)}; {card}")
+            if name in yardsticks:
+                eval_ms[name]["yardstick_ms"] = [cuda_ms(yardsticks[name], 20),
+                                                 cuda_ms(yardsticks[name], 20)]
+                eval_ms[name]["ms_again"] = cuda_ms(kernel, 20)
+    log(f"[time] K8-K10 main shape bf16 (yardstick_ms: K9's K1 forward + addmm, "
+        f"K10 attention's addmm + K9, timed kernel, yardstick, yardstick, kernel): "
+        f"{json.dumps(eval_ms)}; {card}")
     del a
     route_models = {
         route: train_vit.build_model(route_args(["--throughput", "--bf16"],
@@ -2652,6 +2769,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
         })
+    log(f"[launches] K9 and K10's attention on their tensor-core route in the "
+        f"4-batch evals: {json.dumps(route_out_mma)} (48 a route); checks "
+        f"{json.dumps({f'{n} {l} bias={b}': e for (n, l, b), e in out_errors.items()})}")
     log(f"[launches] eva_packed forward on the tensor-core route: training "
         f"{fwd_mma_launches} of {train_launches['eva_packed_fwd']}, EVA eval "
         f"routes {json.dumps(route_fwd_mma)} (48 a route)")

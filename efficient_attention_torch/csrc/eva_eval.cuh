@@ -13,12 +13,14 @@
 //
 // Each .cu file instantiates the forms it launches and exports a plain C
 // interface.  The products that take a weight (the qkv projection of K10 and
-// the output projection of K9 and K10) run in project(): in bf16 on tensor
-// cores (16x16x16 warp MMA, f32 accumulation) where every width is a multiple
-// of 16, else on CUDA cores in f32.  The weight is read from device memory as
-// it is needed, not staged: every block of a launch reads the same weight,
-// which stays in L2 (221 KB for the cell's Wqkv in bf16), and shared memory is
-// left to the tiles.
+// the output projection of K9 and K10) run on tensor cores in bf16 where
+// every width is a multiple of 16, else on CUDA cores in f32 (project_cc,
+// the weight read from device memory as it is needed).  On tensor cores,
+// K10's summaries take project() (16x16x16 warp MMA, the weight read from
+// L2 one fragment at a time) and the joint softmax takes
+// eva_out_mma_kernel's products (mma.sync m16n8k16, Wo whole in shared
+// memory where it fits, else the weight streamed through a ring of two
+// slabs of 96 rows, or 16, that every warp of the block reads).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +29,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "eva_strip.cuh"
+#include "mma_frag.cuh"
 #include "smem_tile.cuh"
 
 namespace eva_eval {
@@ -565,6 +569,10 @@ struct OutParams {
   int S;               // tokens per window
   int nww;             // windows per grid row
   float scale;
+  // the tensor-core route (launch_out_mma): its layout's heads a group, Wo
+  // whole and slab rows (OutMmaLayout; its split is the kernel's kSplit),
+  // and windows a block
+  int hg, wo_whole, slab, wpb;
 };
 
 struct OutLayout {
@@ -693,181 +701,587 @@ __global__ void __launch_bounds__(kThreads) eva_out_kernel(const OutParams p) {
 // ---- the same on tensor cores: bf16 inputs, head dims (and XD) multiples
 // of 16
 //
-// Per head, the window's q, k, v rows and the head's chunk rows are held in
-// bf16 (rows padded with zeros: q to SP = round16(S), keys and values to KP =
-// round16(S + C)); the logits q [k | rf]^T and the product of the rounded
-// numerators with [v | beta] run as 16x16x16 warp MMAs with f32
-// accumulation.  Their operands are bf16 values already (q, k, v, and the
-// numerators rounded as on the CUDA-core route), so only the order of the f32
-// sums differs from it.  The numerators overwrite the keys, which are dead
-// once the logits are in; K10's x rows are staged per head inside the logits'
-// region, which is dead while q, k, v are projected.  That keeps a block near
-// 100 KB, two blocks an SM.
+// K1's forward strips (eva_strip.cuh) with both projections on mma.sync
+// m16n8k16.  A block of 12 warps takes wpb windows of one image in turn,
+// every head of each, hg heads at a time (a head group):
+//  * staging (16-byte cp.async): the window's q, k and v rows (K9: read
+//    from qkv; K10: projected from its x rows [S][XD + 8], staged once a
+//    window), the chunk rows rf and beta [hg][C][D + 8] and the bias
+//    [hg][S][S] (f32, times log2 e) of a head group, the weights and the
+//    bias vectors.  Where every head fits (hg = H) the chunk rows and the
+//    bias are staged once a block.  Fragment loads past the last real row
+//    read the last real row; nothing is zero-filled;
+//  * where the attention rows go (the layout's split, the kernel's
+//    kSplit): either into the same head's q columns of the strip's rows,
+//    which no other warp reads, with every head's q, k and v rows
+//    [S][3*H*D + 8] staged at once; or into a buffer of their own
+//    [S][H*D + 8], with the window's q, k and v rows staged a head group at
+//    a time [S][3*hg*D + 8] (K10: projected a group at a time), so that
+//    wide models fit;
+//  * attention: a warp a (head, 16-row strip) job, K1's one-pass or
+//    two-pass strip body with the logits in registers (no logit matrix in
+//    shared memory, no block-wide step between heads); o / l rounded to
+//    bf16;
+//  * the products that take a weight: A from shared memory through
+//    ldmatrix, the weight [K][N] through ldmatrix.trans, f32 sums in
+//    registers, a warp a 32 x 32 tile of each pass of 64 rows and
+//    kProjCols columns; the epilogue takes the sums straight from the
+//    fragments: K10's qkv = x Wqkv + bqkv rounded to bf16 into the window's
+//    rows, the output attn Wo + bo rounded to bf16 into out[b, token(i)],
+//    two values a store.  Wo lies whole in shared memory where it fits
+//    (wo_whole: K9 loads it once a block, K10 once a window over the Wqkv
+//    ring, while the strips run) and its product takes no barrier
+//    (smem_product); Wqkv, and Wo where it does not fit, stream through a
+//    ring of two slabs of kSlabRows rows (kSmallSlabRows where the larger
+//    ring does not fit) that every warp reads, one barrier a slab
+//    (ring_product).
+// The roundings are the TPU kernels': qkv rounded (K10), the unnormalised
+// numerators rounded to bf16 as the value product's operand over the f32
+// sum of the unrounded ones, out / denom rounded, the projection summed in
+// f32 plus bo, then rounded.
 
 __host__ __device__ inline bool out_uses_mma(int D, int esize, int XD) {
   return esize == 2 && D % 16 == 0 && XD % 16 == 0;
 }
 
+constexpr int kMmaThreads = 384;
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMaxWpb = 8;         // windows a block takes in turn
+constexpr int kSlabRows = 96;      // weight rows a slab holds (a multiple of 16)
+constexpr int kSmallSlabRows = 16;  // the same where a ring of kSlabRows does not fit
+constexpr int kProjRowTiles = 4;   // 16-row tiles a product pass holds
+// a warp's tile of a pass: kWarpRowTiles x kWarpColTiles tiles of 16 x 16,
+// the warps in kColGroups columns of tiles
+constexpr int kWarpRowTiles = 2, kWarpColTiles = 2;
+constexpr int kColGroups = kMmaWarps * kWarpRowTiles / kProjRowTiles;
+constexpr int kProjCols = kColGroups * kWarpColTiles * 16;  // columns a pass holds
+constexpr size_t kSmemLimit = 232448;  // a block's shared memory on Hopper
+
 struct OutMmaLayout {
-  size_t q, keys, vals, F, xs, den, attn, total;
+  size_t win, x, attn, kc, vc, bias, wgt, vec, tok, total;
+  int hg;            // heads a group
+  int wo_whole;      // Wo [H*D][H*D + 8] whole in the weight region
+  int split;         // attention rows in their own buffer, window rows a group
+  int slab;          // rows of a ring slab
 };
 
-// The same layout as smem_bytes_out() in ops/kernels/eva_packed.py for this
-// route: q [SP][D+8], keys then numerators (the larger of [KP][D+8] and
-// [SP][KP+8]), values [KP][D+8] and the output rows [SP][H*D+8] in bf16; the
-// logits [SP][KP+4] in f32, a region which also holds K10's x rows [SP][XD+8]
-// (bf16) and, after them (at xs), the per-warp MMA scratch; the row sums.
-__host__ __device__ inline OutMmaLayout make_out_mma_layout(int D, int S, int C, int nh,
-                                                            int XD) {
-  const size_t SP = round16(S), KP = round16(S + C), DB = D + 8, HD = (size_t)nh * D;
-  const size_t xbytes = XD > 0 ? align128(SP * (XD + 8) * 2) : 0;
-  const size_t logits = SP * (KP + 4) * 4, scratch = (size_t)kWarps * 256 * 4;
+// The same layout as out_mma_layout() in ops/kernels/eva_packed.py: the
+// window's q, k, v rows ([S][3*H*D + 8], or with split [S][3*hg*D + 8]),
+// K10's x rows [S][XD + 8], with split the attention rows [S][H*D + 8], the
+// chunk rows rf and beta [hg][C][D + 8] (all bf16), the bias [hg][S][S]
+// (f32), the weight region (bf16: the ring [2][slab][kProjCols + 8], or Wo
+// whole, or the larger of the two), the bias vectors (f32: K10's bqkv
+// [3*H*D], then bo [H*D]) and the token table [kMaxWpb][S] (int32), each
+// region 128-byte aligned.
+__host__ __device__ inline OutMmaLayout out_mma_layout(int D, int S, int C, int nh, int XD,
+                                                       int hg, int wo_whole, int split,
+                                                       int slab) {
+  const size_t HD = (size_t)nh * D, DB = D + 8;
+  // a ring where a product streams: K10's qkv projection, K9's without Wo
+  // whole
+  const bool streams = XD > 0 || !wo_whole;
+  const size_t ring = streams ? (size_t)2 * slab * (kProjCols + 8) * 2 : 0;
+  const size_t whole = wo_whole ? HD * (HD + 8) * 2 : 0;
   OutMmaLayout L = {};
+  L.hg = hg;
+  L.wo_whole = wo_whole;
+  L.split = split;
+  L.slab = slab;
   size_t o = 0;
-  L.q = o;    o += align128(SP * DB * 2);
-  L.keys = o; o += align128((KP * DB > SP * (KP + 8) ? KP * DB : SP * (KP + 8)) * 2);
-  L.vals = o; o += align128(KP * DB * 2);
-  L.F = o;    o += align128(logits > xbytes + scratch ? logits : xbytes + scratch);
-  L.xs = xbytes;
-  L.den = o;  o += align128(SP * 4);
-  L.attn = o; o += align128(SP * (HD + 8) * 2);
+  L.win = o;  o += align128((size_t)S * (3 * (split ? (size_t)hg * D : HD) + 8) * 2);
+  L.x = o;    o += XD > 0 ? align128((size_t)S * (XD + 8) * 2) : 0;
+  L.attn = o; o += split ? align128((size_t)S * (HD + 8) * 2) : 0;
+  L.kc = o;   o += align128((size_t)hg * C * DB * 2);
+  L.vc = o;   o += align128((size_t)hg * C * DB * 2);
+  L.bias = o; o += align128((size_t)hg * S * S * 4);
+  L.wgt = o;  o += align128(ring > whole ? ring : whole);
+  L.vec = o;  o += align128((XD > 0 ? 4 : 1) * HD * 4);
+  L.tok = o;  o += align128((size_t)kMaxWpb * S * 4);
   L.total = o;
   return L;
 }
 
-__host__ __device__ inline size_t out_smem_bytes(int D, int S, int C, int nh, int esize,
-                                                 int XD) {
-  return out_uses_mma(D, esize, XD) ? make_out_mma_layout(D, S, C, nh, XD).total
-                                    : make_out_layout(D, S, C, nh, esize, XD).total;
+// The layout a launch takes, the first that fits of: the attention rows
+// over the q columns, then in their own buffer (split), then that with the
+// small ring; in each, every head in one group where it fits, else the most
+// heads that fit, and for those Wo whole in shared memory where it fits,
+// else streamed.  false (L the last layout tried) where none fits.
+__host__ __device__ inline bool out_mma_plan(int D, int S, int C, int nh, int XD,
+                                             OutMmaLayout& L) {
+  const int modes[3][2] = {{0, kSlabRows}, {1, kSlabRows}, {1, kSmallSlabRows}};
+  for (const auto& mode : modes)
+    for (int hg = nh; hg >= 1; --hg)
+      for (int wo_whole = 1; wo_whole >= 0; --wo_whole) {
+        L = out_mma_layout(D, S, C, nh, XD, hg, wo_whole, mode[0], mode[1]);
+        if (L.total <= kSmemLimit) return true;
+      }
+  return false;
 }
 
-template <int D, bool FROM_X>
-__global__ void __launch_bounds__(kThreads, 2) eva_out_mma_kernel(const OutParams p) {
-  namespace wm = nvcuda::wmma;
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int DB = D + 8;
-  const int S = p.S, C = p.C, SC = S + C, SP = round16(S), KP = round16(SC);
-  const int FS = KP + 4, PS = KP + 8;
-  const int HD = p.nh * D, AP = HD + 8;
-  const OutMmaLayout L = make_out_mma_layout(D, S, C, p.nh, FROM_X ? p.XD : 0);
-  bf16* q = reinterpret_cast<bf16*>(smem + L.q);        // [SP][DB]
-  bf16* keys = reinterpret_cast<bf16*>(smem + L.keys);  // [KP][DB]: k | rf | 0
-  bf16* P = keys;                                        // [SP][PS], once the logits are in
-  bf16* vals = reinterpret_cast<bf16*>(smem + L.vals);  // [KP][DB]: v | beta | 0
-  float* F = reinterpret_cast<float*>(smem + L.F);      // [SP][FS] logits
-  bf16* xs = reinterpret_cast<bf16*>(smem + L.F);       // [SP][XD + 8], K10
-  float* scratch = reinterpret_cast<float*>(smem + L.F + L.xs);  // [warps][16][16]
-  float* den_s = reinterpret_cast<float*>(smem + L.den);  // [SP]
-  bf16* attn = reinterpret_cast<bf16*>(smem + L.attn);  // [SP][AP]
-  const int w = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  auto token = [&](int l) {
-    return ((w / p.nww) * p.ws + l / p.ws) * p.gw + (w % p.nww) * p.ws + l % p.ws;
-  };
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < SP * DB; e += kThreads) q[e] = zero;
-  for (int e = threadIdx.x; e < (SP - S) * AP; e += kThreads) attn[S * AP + e] = zero;
-  const bf16* rf = static_cast<const bf16*>(p.rf) + (size_t)b * C * HD;
-  const bf16* bt = static_cast<const bf16*>(p.beta) + (size_t)b * C * HD;
-  const float* bias = p.bias;
-  for (int h = 0; h < p.nh; ++h) {
-    __syncthreads();  // the zeroed q rows; the previous head's P and attn work
-    // rows < S of q, k, v of head h
-    if constexpr (FROM_X) {
-      const int ld = p.XD + 8;
-      stage_rows(static_cast<const bf16*>(p.x) + (size_t)b * p.N * p.XD, p.XD, p.XD, S, SP,
-                 xs, ld, token);
+__host__ __device__ inline size_t out_smem_bytes(int D, int S, int C, int nh, int esize,
+                                                 int XD) {
+  if (!out_uses_mma(D, esize, XD)) return make_out_layout(D, S, C, nh, esize, XD).total;
+  OutMmaLayout L;
+  out_mma_plan(D, S, C, nh, XD, L);
+  return L.total;
+}
+
+// Built with -DEVA_OUT_PHASES (scripts/torch_eva_out_check.py), the
+// tensor-core kernel sums, in thread 0 of each block, the clock64() cycles
+// of its phases over the block's windows (with a barrier after the strips,
+// so that each phase ends when every warp is done) into g_out_phases[2..5]
+// [block] (staging: a head group's chunk rows and the waits for its window
+// rows; the qkv projection; the strips; the output projection) and the global
+// timer at the block's start and end into g_out_phases[0] and [1]; the
+// .cu files' *_phases_copy read them back.  Without it the marks compile to
+// nothing.
+#ifdef EVA_OUT_PHASES
+constexpr int kPhaseBlocks = 16384;
+__device__ unsigned long long g_out_phases[6][kPhaseBlocks];
+struct OutPhases {
+  long long last = 0, sum[4] = {0, 0, 0, 0};
+  unsigned long long t0 = 0;
+  __device__ static unsigned long long timer() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ void start() {
+    t0 = timer();
+    last = clock64();
+  }
+  __device__ void mark(int phase, bool barrier = false) {
+    if (barrier) __syncthreads();
+    const long long t = clock64();
+    sum[phase] += t - last;
+    last = t;
+  }
+  __device__ void end() {
+    const unsigned blk = blockIdx.x + gridDim.x * blockIdx.y;
+    if (threadIdx.x != 0 || blk >= kPhaseBlocks) return;
+    g_out_phases[0][blk] = t0;
+    g_out_phases[1][blk] = timer();
+    for (int k = 0; k < 4; ++k) g_out_phases[2 + k][blk] = sum[k];
+  }
+};
+#else
+struct OutPhases {
+  __device__ void start() {}
+  __device__ void mark(int, bool = false) {}
+  __device__ void end() {}
+};
+#endif
+enum { kPhaseStage, kPhaseProj, kPhaseStrips, kPhaseOut };
+
+// Grid token of local position l of window w.
+__device__ __forceinline__ int out_token(const OutParams& p, int w, int l) {
+  return ((w / p.nww) * p.ws + l / p.ws) * p.gw + (w % p.nww) * p.ws + l % p.ws;
+}
+
+// ---- the products that take a weight: y = A W for the rows i < S of A
+// [S][K] (bf16, shared memory, rows lda apart; row tiles past S read row
+// S - 1) and W [K][N] (bf16; K and N multiples of 16), to epi(i, n,
+// y[i][n], y[i][n + 1]) for even n, in f32.  A pass holds up to
+// kProjRowTiles row tiles and kProjCols columns (NT column tiles of 16), a
+// warp its kWarpRowTiles x kWarpColTiles tiles of them.
+
+using ProjAcc = float[kWarpRowTiles][kWarpColTiles][2][4];
+
+// The warp's first row tile (from the pass's r0) and first column tile.
+__device__ __forceinline__ int proj_row_tile(int r0) {
+  return r0 + (threadIdx.x >> 5) / kColGroups * kWarpRowTiles;
+}
+__device__ __forceinline__ int proj_col_tile() {
+  return (threadIdx.x >> 5) % kColGroups * kWarpColTiles;
+}
+
+// acc += A[the warp's rows][k, k + 16) W[k, k + 16)[the warp's columns],
+// wk pointing at W's row k, the pass's first column, rows ldr apart in
+// shared memory.
+__device__ __forceinline__ void proj_kstep(ProjAcc& acc, const bf16* A, int lda, int S, int r0,
+                                           int MT, int NT, int k, const bf16* wk, int ldr) {
+  using namespace mma_frag;
+  const int lane = threadIdx.x & 31, rt = proj_row_tile(r0), ct = proj_col_tile();
+  uint32_t a[kWarpRowTiles][4], bw[kWarpColTiles][4];
+#pragma unroll
+  for (int t = 0; t < kWarpRowTiles; ++t)
+    if (rt + t < MT)
+      ldsm_x4(a[t], A + min(16 * (rt + t) + row_r(lane), S - 1) * lda + k + col_r(lane));
+#pragma unroll
+  for (int u = 0; u < kWarpColTiles; ++u)
+    if (ct + u < NT)
+      ldsm_x4_trans(bw[u], wk + row_r(lane) * ldr + 16 * (ct + u) + col_r(lane));
+#pragma unroll
+  for (int t = 0; t < kWarpRowTiles; ++t)
+#pragma unroll
+    for (int u = 0; u < kWarpColTiles; ++u)
+      if (rt + t < MT && ct + u < NT) {
+        mma_bf16(acc[t][u][0], a[t], bw[u][0], bw[u][1]);
+        mma_bf16(acc[t][u][1], a[t], bw[u][2], bw[u][3]);
+      }
+}
+
+__device__ __forceinline__ void proj_zero(ProjAcc& acc) {
+#pragma unroll
+  for (int t = 0; t < kWarpRowTiles; ++t)
+#pragma unroll
+    for (int u = 0; u < kWarpColTiles; ++u)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][u][n][e] = 0.f;
+}
+
+template <typename Epi>
+__device__ __forceinline__ void proj_store(const ProjAcc& acc, int S, int r0, int MT, int NT,
+                                           int c0, Epi&& epi) {
+  const int lane = threadIdx.x & 31, rt = proj_row_tile(r0), ct = proj_col_tile();
+#pragma unroll
+  for (int t = 0; t < kWarpRowTiles; ++t)
+#pragma unroll
+    for (int u = 0; u < kWarpColTiles; ++u) {
+      if (rt + t >= MT || ct + u >= NT) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 16 * (rt + t) + (lane >> 2) + 8 * r;
+        if (i >= S) continue;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          epi(i, c0 + 16 * (ct + u) + 8 * n + 2 * (lane & 3), acc[t][u][n][2 * r],
+              acc[t][u][n][2 * r + 1]);
+      }
+    }
+}
+
+// W [K][N] (device memory, rows N apart) whole into shared memory at ws,
+// rows N + 8 apart, 16 bytes a copy, in the caller's commit group.
+__device__ __forceinline__ void load_weight(const bf16* W, int K, int N, bf16* ws) {
+  const int V8 = N / 8;
+  for (int e = threadIdx.x; e < K * V8; e += kMmaThreads) {
+    const int r = e / V8, v = e % V8;
+    mma_frag::cp_async16(ws + r * (N + 8) + 8 * v, W + (size_t)r * N + 8 * v);
+  }
+}
+
+// The product with W whole in shared memory (ws, rows N + 8 apart): no
+// barrier, so A and W must be visible to every warp before the call.
+template <typename Epi>
+__device__ __forceinline__ void smem_product(const bf16* A, int lda, int S, int K,
+                                             const bf16* ws, int N, Epi&& epi) {
+  const int MT = (S + 15) / 16;
+  for (int r0 = 0; r0 < MT; r0 += kProjRowTiles)
+    for (int c0 = 0; c0 < N; c0 += kProjCols) {
+      const int NT = min(kProjCols, N - c0) / 16;
+      ProjAcc acc;
+      proj_zero(acc);
+      for (int k = 0; k < K; k += 16)
+        proj_kstep(acc, A, lda, S, r0, MT, NT, k, ws + k * (N + 8) + c0, N + 8);
+      proj_store(acc, S, r0, MT, NT, c0, epi);
+    }
+}
+
+// The product with W [K][ldw] in device memory (its columns col(n) for n <
+// N), streamed through the ring's two buffers in slabs of `slab` rows of
+// one pass's columns, the passes' slabs one stream, each loading while the
+// one before is in use.  A is read only after a barrier, so the caller's
+// writes to it need none of their own; it ends with one, after which the
+// ring may be refilled.
+template <typename Col, typename Epi>
+__device__ __forceinline__ void ring_product(const bf16* A, int lda, int S, int K,
+                                             const bf16* W, int ldw, int N, Col&& col,
+                                             int slab, bf16* ring, Epi&& epi) {
+  using namespace mma_frag;
+  const int KS = (K + slab - 1) / slab, MT = (S + 15) / 16;
+  const int NP = (N + kProjCols - 1) / kProjCols;  // column passes
+  const int buf = slab * (kProjCols + 8);           // a ring buffer's elements
+  for (int r0 = 0; r0 < MT; r0 += kProjRowTiles) {
+    // slab t of the stream (pass t / KS, its rows slab (t % KS)..) into
+    // its ring buffer, one commit group a slab (empty past the last)
+    auto issue = [&](int t) {
+      if (t < NP * KS) {
+        const int c0 = (t / KS) * kProjCols, s = t % KS;
+        const int nw = min(kProjCols, N - c0), V8 = nw / 8;
+        const int rows = min(slab, K - slab * s);
+        bf16* dst = ring + (t & 1) * buf;
+        for (int e = threadIdx.x; e < rows * V8; e += kMmaThreads) {
+          const int r = e / V8, v = e % V8;
+          cp_async16(dst + r * (nw + 8) + 8 * v,
+                     W + (size_t)(slab * s + r) * ldw + col(c0 + 8 * v));
+        }
+      }
+      cp_async_commit();
+    };
+    issue(0);
+    ProjAcc acc;
+    for (int t = 0; t < NP * KS; ++t) {
+      const int c0 = (t / KS) * kProjCols, s = t % KS;
+      const int nw = min(kProjCols, N - c0);
+      if (s == 0) proj_zero(acc);
+      // slab t has landed, and every warp is done with the buffer that
+      // slab t + 1 now loads into
+      cp_async_wait_all();
       __syncthreads();
-      const Cols cols{D, HD, h * D};
-      project_mma(xs, ld, S, SP, p.XD, static_cast<const bf16*>(p.wqkv), 3 * HD, cols,
-                  3 * D, scratch, [&](int i, int n, float v) {
-                    const int part = n / D, dd = n % D;
-                    (part == 0 ? q : part == 1 ? keys : vals)[i * DB + dd] =
-                        __float2bfloat16(v + p.bqkv[cols(n)]);
-                  });
-    } else {
-      constexpr int V8 = D / 8;
-      const bf16* qkv = static_cast<const bf16*>(p.qkv) + (size_t)b * p.N * 3 * HD + h * D;
-      for (int e = threadIdx.x; e < S * 3 * V8; e += kThreads) {
-        const int v = e % V8, part = (e / V8) % 3, l = e / (3 * V8);
-        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-            qkv + (size_t)token(l) * 3 * HD + part * HD) + v);
-        *reinterpret_cast<uint4*>((part == 0 ? q : part == 1 ? keys : vals) + l * DB + 8 * v) = u;
-      }
-    }
-    // rows [S, KP) of the keys and values: the head's chunk rows, then zeros
-    for (int e = threadIdx.x; e < (KP - S) * (D / 8); e += kThreads) {
-      const int c = e / (D / 8), v = e % (D / 8);
-      uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-      if (c < C) {
-        kr = __ldg(reinterpret_cast<const uint4*>(rf + (size_t)c * HD + h * D) + v);
-        vr = __ldg(reinterpret_cast<const uint4*>(bt + (size_t)c * HD + h * D) + v);
-      }
-      *reinterpret_cast<uint4*>(keys + (S + c) * DB + 8 * v) = kr;
-      *reinterpret_cast<uint4*>(vals + (S + c) * DB + 8 * v) = vr;
-    }
-    __syncthreads();
-    smem_tile::mma_nt2(q, keys, F, nullptr, nullptr, nullptr, DB, SP, KP, D, FS);
-    __syncthreads();
-    // softmax numerators exp(l - max), rounded to bf16 into P (zero past the
-    // S + C columns and on the padded rows); the f32 sums of the unrounded.
-    // Eight lanes a row, four rows a warp at once (SP, a multiple of 16, holds
-    // whole groups of four rows).
-    const float* bh = bias != nullptr ? bias + (size_t)h * S * S : nullptr;
-    const int sub = lane >> 3, sl = lane & 7;
-    for (int i0 = 4 * warp; i0 < SP; i0 += 4 * kWarps) {
-      const int i = i0 + sub;
-      const bool valid = i < S;
-      bf16* prow = P + i * PS;
-      float* row = F + i * FS;
-      float mx = -INFINITY;
-      if (valid) {
-        for (int j = sl; j < SC; j += 8) {
-          const float l =
-              row[j] * p.scale + (j < S && bh != nullptr ? __ldg(bh + i * S + j) : 0.f);
-          row[j] = l;
-          mx = fmaxf(mx, l);
-        }
-      }
+      issue(t + 1);
+      const bf16* sl = ring + (t & 1) * buf;
 #pragma unroll
-      for (int o = 4; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      float den = 0.f;
-      for (int j = sl; j < KP; j += 8) {
-        float e = 0.f;
-        if (valid && j < SC) {
-          e = expf(row[j] - mx);
-          den += e;
-        }
-        prow[j] = __float2bfloat16(e);
+      for (int kk = 0; kk < kSlabRows; kk += 16) {
+        if (kk >= slab || slab * s + kk >= K) break;
+        proj_kstep(acc, A, lda, S, r0, MT, nw / 16, slab * s + kk, sl + kk * (nw + 8), nw + 8);
       }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) den += __shfl_xor_sync(0xffffffffu, den, o);
-      if (valid && sl == 0) den_s[i] = den;
+      if (s == KS - 1) proj_store(acc, S, r0, MT, nw / 16, c0, epi);
     }
-    __syncthreads();
-    // out = P [v | beta] / den, rounded to bf16 into the window's output rows
-    for (int f = warp; f < (SP / 16) * (D / 16); f += kWarps) {
-      const int ti = f / (D / 16), tj = f % (D / 16);
-      smem_tile::FragA a;
-      smem_tile::FragBr bv;
-      smem_tile::FragC c;
-      wm::fill_fragment(c, 0.f);
-      for (int k = 0; k < KP; k += 16) {
-        wm::load_matrix_sync(a, P + 16 * ti * PS + k, PS);
-        wm::load_matrix_sync(bv, vals + k * DB + 16 * tj, DB);
-        wm::mma_sync(c, a, bv, c);
-      }
-      tile_out(c, scratch + warp * 256, 16 * ti, 16 * tj, S, [&](int i, int n, float v) {
-        attn[i * AP + h * D + n] = __float2bfloat16(v / den_s[i]);
-      });
+    __syncthreads();  // the ring is refilled next
+  }
+}
+
+// One (head, 16-row strip st) job: K1's forward strip (eva_packed.cu) over
+// the head's q, k, v columns of the window's rows (rows ldw apart), its
+// chunk rows kc, vc and its bias; o / l rounded to bf16 into the strip's
+// rows of ao (rows ldo apart), which may be its own q rows.
+template <int D, bool kOnePass>
+__device__ __forceinline__ void out_strip(const OutParams& p, int st, const bf16* qw,
+                                          const bf16* kw, const bf16* vw, int ldw,
+                                          const bf16* kc, const bf16* vc, const float* bias_s,
+                                          bf16* ao, int ldo) {
+  using namespace mma_frag;
+  using eva_strip::fwd_logits_tile;
+  using eva_strip::fwd_pv_tile;
+  using eva_strip::kResidentTiles;
+  constexpr int KD = D / 16;
+  const int lane = threadIdx.x & 31, S = p.S, KT = round16(S + p.C) / 16;
+  const int row0 = 16 * st + (lane >> 2);  // the thread's rows: row0, row0 + 8
+  uint32_t qa[KD][4];
+  {
+    const int r = min(16 * st + row_r(lane), S - 1);
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) ldsm_x4(qa[kd], qw + r * ldw + 16 * kd + col_r(lane));
+  }
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if constexpr (kOnePass) {
+    float s[kResidentTiles][2][4];
+#pragma unroll
+    for (int kt = 0; kt < kResidentTiles; ++kt) {
+      if (kt >= KT) break;
+      fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s[kt], ldw);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        m[r] = fmaxf(m[r], fmaxf(fmaxf(s[kt][0][2 * r], s[kt][0][2 * r + 1]),
+                                 fmaxf(s[kt][1][2 * r], s[kt][1][2 * r + 1])));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
+#pragma unroll
+    for (int kt = 0; kt < kResidentTiles; ++kt) {
+      if (kt >= KT) break;
+      fwd_pv_tile<D>(p, kt, s[kt], m, l, vw, vc, o, ldw);
+    }
+  } else {
+    // the row max, then the logits again at the final max (no running
+    // rescale), as K1's two-pass strip
+    for (int kt = 0; kt < KT; ++kt) {
+      float s[2][4];
+      fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s, ldw);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        m[r] = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                 fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
+    for (int kt = 0; kt < KT; ++kt) {
+      float s[2][4];
+      fwd_logits_tile<D>(p, kt, row0, qa, kw, kc, bias_s, s, ldw);
+      fwd_pv_tile<D>(p, kt, s, m, l, vw, vc, o, ldw);
     }
   }
+  __syncwarp();  // every lane's q fragments are in
+  const int cq = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = quad_sum(l[r]);
+    const int i = row0 + 8 * r;
+    if (i >= S) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(ao + i * ldo + 8 * n + cq) =
+          pack_bf16(o[n][2 * r] / den, o[n][2 * r + 1] / den);
+  }
+}
+
+// The design is in the comment at the head of this section.  kOnePass: S + C
+// <= 16 * kResidentTiles, a strip's logits stay in registers.  kSplit: the
+// layout's split (the attention rows in their own buffer, the window's q, k
+// and v rows a head group at a time).
+template <int D, bool FROM_X, bool kOnePass, bool kSplit>
+__global__ void __launch_bounds__(kMmaThreads, 1) eva_out_mma_kernel(const OutParams p) {
+  using namespace mma_frag;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int DB = D + 8, V8 = D / 8;
+  const int S = p.S, C = p.C, nh = p.nh, HD = nh * D;
+  const int LW = 3 * (kSplit ? p.hg * D : HD) + 8;  // the window rows' stride
+  const int NS = (S + 15) / 16;  // strips of 16 query rows
+  const int XD = FROM_X ? p.XD : 0;
+  const int slab = kSplit ? p.slab : kSlabRows;
+  const OutMmaLayout L = out_mma_layout(D, S, C, nh, XD, p.hg, p.wo_whole, kSplit, slab);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.x);           // K10: [S][XD + 8]
+  bf16* win = reinterpret_cast<bf16*>(smem + L.win);        // [S][LW]: q, k, v
+  bf16* attn_s = reinterpret_cast<bf16*>(smem + L.attn);    // kSplit: [S][HD + 8]
+  bf16* kc = reinterpret_cast<bf16*>(smem + L.kc);          // [hg][C][DB]: rf
+  bf16* vc = reinterpret_cast<bf16*>(smem + L.vc);          // [hg][C][DB]: beta
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);  // [hg][S][S]
+  bf16* wgt = reinterpret_cast<bf16*>(smem + L.wgt);        // the ring, or Wo whole
+  int* tok_s = reinterpret_cast<int*>(smem + L.tok);        // [wpb][S]
+  float* bqkv_s = reinterpret_cast<float*>(smem + L.vec);   // K10: [3 HD]
+  float* bo_s = bqkv_s + (FROM_X ? 3 * HD : 0);             // [HD]
+  const int b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5;
+  // (device pointers are formed from the parameters where they are used,
+  // so that no register holds them through the strips)
+
+  // the chunk rows and bias of heads [h0, h0 + hg) (the chunk rows in the
+  // caller's commit group)
+  auto stage_heads = [&](int h0) {
+    const bf16* rf = static_cast<const bf16*>(p.rf) + (size_t)b * C * HD;
+    const bf16* bt = static_cast<const bf16*>(p.beta) + (size_t)b * C * HD;
+    const int n = min(p.hg, nh - h0);
+    for (int e = tid; e < n * C * V8; e += kMmaThreads) {
+      const int v = e % V8, c = (e / V8) % C, h = e / (V8 * C);
+      const size_t src = (size_t)c * HD + (h0 + h) * D + 8 * v;
+      cp_async16(kc + (h * C + c) * DB + 8 * v, rf + src);
+      cp_async16(vc + (h * C + c) * DB + 8 * v, bt + src);
+    }
+    const float* bh = p.bias != nullptr ? p.bias + (size_t)h0 * S * S : nullptr;
+    for (int e = tid; e < n * S * S; e += kMmaThreads)
+      bias_s[e] = bh != nullptr ? eva_strip::kLog2e * bh[e] : 0.f;
+  };
+  // column n (< 3G) of the window's rows as a column of qkv (and of Wqkv):
+  // with kSplit the q, k and v columns of the G / D heads from h0, else n
+  auto qkv_col = [&](int n, int G, int h0) {
+    return kSplit ? n / G * HD + h0 * D + n % G : n;
+  };
+  // window wi's rows (K9: q, k, v of the G / D heads from h0 from qkv into
+  // win; K10: x into xs), in the caller's commit group
+  auto load_rows = [&](int wi, int G, int h0) {
+    const int* tok = tok_s + wi * S;
+    if constexpr (FROM_X) {
+      const bf16* x = static_cast<const bf16*>(p.x) + (size_t)b * p.N * XD;
+      const int V = XD / 8;
+      for (int e = tid; e < S * V; e += kMmaThreads) {
+        const int l = e / V, v = e % V;
+        cp_async16(xs + l * (XD + 8) + 8 * v, x + (size_t)tok[l] * XD + 8 * v);
+      }
+    } else {
+      const bf16* qkv = static_cast<const bf16*>(p.qkv) + (size_t)b * p.N * 3 * HD;
+      const int V = 3 * G / 8;
+      for (int e = tid; e < S * V; e += kMmaThreads) {
+        const int l = e / V, v = e % V;
+        cp_async16(win + l * LW + 8 * v,
+                   qkv + (size_t)tok[l] * 3 * HD + qkv_col(8 * v, G, h0));
+      }
+    }
+  };
+  // q, k, v = x Wqkv + bqkv of the G / D heads from h0, rounded to bf16
+  // into the window's rows
+  auto project_qkv = [&](int G, int h0) {
+    ring_product(xs, XD + 8, S, XD, static_cast<const bf16*>(p.wqkv), 3 * HD, 3 * G,
+                 [&](int n) { return qkv_col(n, G, h0); }, slab, wgt,
+                 [&](int i, int n, float y0, float y1) {
+                   const int c = qkv_col(n, G, h0);
+                   *reinterpret_cast<uint32_t*>(win + i * LW + n) =
+                       pack_bf16(y0 + bqkv_s[c], y1 + bqkv_s[c + 1]);
+                 });
+  };
+
+  OutPhases phases;
+  phases.start();
+  for (int e = tid; e < p.wpb * S; e += kMmaThreads)
+    tok_s[e] = out_token(p, blockIdx.x * p.wpb + e / S, e % S);
+  // the epilogues read the bias vectors from here, not from device memory
+  // behind their own stores
+  for (int e = tid; e < HD; e += kMmaThreads) bo_s[e] = p.bo[e];
+  if constexpr (FROM_X)
+    for (int e = tid; e < 3 * HD; e += kMmaThreads) bqkv_s[e] = p.bqkv[e];
   __syncthreads();
-  bf16* out = static_cast<bf16*>(p.out) + (size_t)b * p.N * HD;
-  project_mma(attn, AP, S, SP, HD, static_cast<const bf16*>(p.wo), HD, Cols{HD, 0, 0}, HD,
-              scratch, [&](int i, int n, float v) {
-                out[(size_t)token(i) * HD + n] = __float2bfloat16(v + p.bo[n]);
-              });
+  const bool one_group = p.hg >= nh;
+  if (one_group) stage_heads(0);
+  if (!FROM_X && p.wo_whole)  // K9: Wo once a block
+    load_weight(static_cast<const bf16*>(p.wo), HD, HD, wgt);
+  if (FROM_X || !kSplit) load_rows(0, HD, 0);
+  cp_async_commit();
+  bf16* ao = kSplit ? attn_s : win;  // the attention rows
+  const int ldo = kSplit ? HD + 8 : LW;
+  for (int wi = 0; wi < p.wpb; ++wi) {
+    const int* tok = tok_s + wi * S;
+    if (!FROM_X && !kSplit && wi > 0) {
+      load_rows(wi, HD, 0);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    phases.mark(kPhaseStage);
+    if constexpr (FROM_X && !kSplit) {
+      // every head's q, k, v; then Wo over the ring and the next window's x
+      // rows over this one's
+      project_qkv(HD, 0);
+      phases.mark(kPhaseProj);
+      if (p.wo_whole) load_weight(static_cast<const bf16*>(p.wo), HD, HD, wgt);
+      if (wi + 1 < p.wpb) load_rows(wi + 1, HD, 0);
+      cp_async_commit();
+    }
+    // attention, hg heads at a time
+    for (int h0 = 0; h0 < nh; h0 += p.hg) {
+      const int G = kSplit ? min(p.hg, nh - h0) * D : HD;  // a third of the rows
+      if (!one_group || (!FROM_X && kSplit)) {
+        __syncthreads();  // every warp is done with the previous group
+        if (!one_group) stage_heads(h0);
+        if (!FROM_X && kSplit) load_rows(wi, G, h0);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        phases.mark(kPhaseStage);
+      }
+      if constexpr (FROM_X && kSplit) {
+        // the group's q, k, v; after the last group, Wo over the ring and
+        // the next window's x rows over this one's
+        project_qkv(G, h0);
+        phases.mark(kPhaseProj);
+        if (h0 + p.hg >= nh) {
+          if (p.wo_whole) load_weight(static_cast<const bf16*>(p.wo), HD, HD, wgt);
+          if (wi + 1 < p.wpb) load_rows(wi + 1, HD, 0);
+          cp_async_commit();
+        }
+      }
+      const int jobs = min(p.hg, nh - h0) * NS;
+      for (int job = warp; job < jobs; job += kMmaWarps) {
+        const int hl = job / NS, h = h0 + hl;
+        const int c = (kSplit ? hl : h) * D;  // the head's q column in the rows
+        out_strip<D, kOnePass>(p, job % NS, win + c, win + G + c, win + 2 * G + c, LW,
+                               kc + hl * C * DB, vc + hl * C * DB,
+                               bias_s + (size_t)hl * S * S, ao + h * D, ldo);
+      }
+      phases.mark(kPhaseStrips, true);
+    }
+    // out = attn Wo + bo
+    auto store_out = [&](int i, int n, float y0, float y1) {
+      bf16* out = static_cast<bf16*>(p.out) + ((size_t)b * p.N + tok[i]) * HD;
+      *reinterpret_cast<uint32_t*>(out + n) = pack_bf16(y0 + bo_s[n], y1 + bo_s[n + 1]);
+    };
+    if (p.wo_whole) {
+      if (FROM_X) cp_async_wait_all();  // Wo (and the next x rows)
+      __syncthreads();  // every head's attention rows, Wo
+      smem_product(ao, ldo, S, HD, wgt, HD, store_out);
+      __syncthreads();  // the rows (and K10's weight region) are rewritten next
+    } else {
+      ring_product(ao, ldo, S, HD, static_cast<const bf16*>(p.wo), HD, HD,
+                   [](int n) { return n; }, slab, wgt, store_out);
+    }
+    phases.mark(kPhaseOut);
+  }
+  phases.end();
 }
 
 // Fills p's geometry; false where the kernel cannot take it.
@@ -895,17 +1309,104 @@ cudaError_t launch_out_kernel(Kernel kernel, size_t smem, const OutParams& p,
   return cudaGetLastError();
 }
 
+// Windows a block of the tensor-core route takes in turn: the most (up to
+// kMaxWpb, dividing an image's windows) that leave a block or more for each
+// SM.
+inline int out_windows_per_block(const OutParams& p, int sms) {
+  const int n_win = (p.N / p.gw / p.ws) * p.nww;
+  for (int wpb = kMaxWpb; wpb > 1; wpb /= 2)
+    if (n_win % wpb == 0 && (long long)p.B * (n_win / wpb) >= sms) return wpb;
+  return 1;
+}
+
+// The tensor-core kernel of a geometry and its layout L: one pass where a
+// strip's logits fit the registers.  Built with -DEVA_OUT_TWO_PASS
+// (scripts/torch_eva_out_check.py, to time the one-pass strips, which
+// spill, against strips that do not), always two passes.
+template <int D, bool FROM_X>
+auto out_mma_kernel(int S, int C, const OutMmaLayout& L) {
+#ifdef EVA_OUT_TWO_PASS
+  if (false)
+#else
+  if (eva_strip::one_pass(S, C))
+#endif
+    return L.split ? eva_out_mma_kernel<D, FROM_X, true, true>
+                   : eva_out_mma_kernel<D, FROM_X, true, false>;
+  return L.split ? eva_out_mma_kernel<D, FROM_X, false, true>
+                 : eva_out_mma_kernel<D, FROM_X, false, false>;
+}
+
+template <int D, bool FROM_X>
+cudaError_t prepare_out_mma(int S, int C, int nh, int XD, OutMmaLayout& L) {
+  if (!out_mma_plan(D, S, C, nh, XD, L)) return cudaErrorInvalidValue;
+  const auto kernel = out_mma_kernel<D, FROM_X>(S, C, L);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D, bool FROM_X>
+cudaError_t launch_out_mma(OutParams p, cudaStream_t stream) {
+  OutMmaLayout L;
+  cudaError_t err = prepare_out_mma<D, FROM_X>(p.S, p.C, p.nh, FROM_X ? p.XD : 0, L);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return err;
+  p.hg = L.hg;
+  p.wo_whole = L.wo_whole;
+  p.slab = L.slab;
+  p.wpb = out_windows_per_block(p, sms);
+  const int n_win = (p.N / p.gw / p.ws) * p.nww;
+  const auto kernel = out_mma_kernel<D, FROM_X>(p.S, p.C, L);
+  kernel<<<dim3(n_win / p.wpb, p.B), kMmaThreads, L.total, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Blocks of the tensor-core kernel that fit one SM (registers and shared
+// memory, from the occupancy calculator), or -1.
+template <bool FROM_X>
+int out_mma_blocks_per_sm(int d, int S, int C, int nh, int XD) {
+  auto blocks = [&](auto kernel, cudaError_t prepared, size_t smem) {
+    int n = 0;
+    if (prepared != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kMmaThreads, smem) !=
+            cudaSuccess)
+      return -1;
+    return n;
+  };
+  OutMmaLayout L;
+  switch (d) {
+    case 16: {
+      const cudaError_t err = prepare_out_mma<16, FROM_X>(S, C, nh, XD, L);
+      return blocks(out_mma_kernel<16, FROM_X>(S, C, L), err, L.total);
+    }
+    case 32: {
+      const cudaError_t err = prepare_out_mma<32, FROM_X>(S, C, nh, XD, L);
+      return blocks(out_mma_kernel<32, FROM_X>(S, C, L), err, L.total);
+    }
+    case 64: {
+      const cudaError_t err = prepare_out_mma<64, FROM_X>(S, C, nh, XD, L);
+      return blocks(out_mma_kernel<64, FROM_X>(S, C, L), err, L.total);
+    }
+    default: return -1;
+  }
+}
+
 // The tensor-core route where the inputs are bf16 and the head dim (and XD)
 // are multiples of 16 (out_uses_mma), else the CUDA-core route.
 template <int D, bool FROM_X>
 cudaError_t launch_out_d(const OutParams& p, int is_bf16, cudaStream_t stream) {
   const int XD = FROM_X ? p.XD : 0;
-  const size_t smem = out_smem_bytes(D, p.S, p.C, p.nh, is_bf16 ? 2 : 4, XD);
-  if (!is_bf16) return launch_out_kernel(eva_out_kernel<D, float, FROM_X>, smem, p, stream);
   if constexpr (D % 16 == 0) {
-    if (out_uses_mma(D, 2, XD))
-      return launch_out_kernel(eva_out_mma_kernel<D, FROM_X>, smem, p, stream);
+    if (is_bf16 && out_uses_mma(D, 2, XD)) return launch_out_mma<D, FROM_X>(p, stream);
   }
+  const size_t smem = make_out_layout(D, p.S, p.C, p.nh, is_bf16 ? 2 : 4, XD).total;
+  if (!is_bf16) return launch_out_kernel(eva_out_kernel<D, float, FROM_X>, smem, p, stream);
   return launch_out_kernel(eva_out_kernel<D, bf16, FROM_X>, smem, p, stream);
 }
 

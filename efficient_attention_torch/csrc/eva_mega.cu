@@ -26,14 +26,23 @@
 // Design.  The summaries block (one chunk-row strip of one head and image)
 // stages the strip's 112 x rows, projects them to the head's q, k, v in the
 // block (112 x 192 outputs, K = 192), rounds them to the input type into K8's
-// staged strip, and runs K8's per-chunk body.  The attention block (one
-// window of one image) stages the window's 49 x rows once and, for each head,
-// projects them to that head's q, k, v (49 x 192 outputs) into K9's tiles
-// before K9's per-head body; then K9's output projection.  Every projection
-// runs on tensor cores in bf16 (wmma 16x16x16, f32 accumulation; rows padded
-// to 16 with zeros) where the widths are multiples of 16, else on CUDA cores
-// in f32.  Wqkv (221 KB in bf16) cannot sit whole beside the tiles; it is read
-// from L2, which every block shares, one 16x16 fragment at a time.
+// staged strip, and runs K8's per-chunk body; the projection runs on tensor
+// cores in bf16 (wmma 16x16x16, f32 accumulation; rows padded to 16 with
+// zeros) where the widths are multiples of 16, else on CUDA cores in f32,
+// Wqkv (221 KB in bf16) read from L2 one 16x16 fragment at a time.  The
+// attention runs K9's kernels (eva_eval.cuh) with the qkv projection in
+// front.  On K9's tensor-core route (bf16, head dims and XD multiples of
+// 16) a block of 12 warps takes up to 8 windows of one image in turn: it
+// stages a window's x rows once (cp.async; the next window's while this
+// one's attention runs), projects them to q, k, v on mma.sync m16n8k16 with
+// Wqkv streamed through a ring of two 96-row slabs in shared memory that
+// every warp reads (f32 sums, + bqkv, rounded to bf16 from the fragments
+// into the window's rows), then runs K9's strips, each writing its
+// attention rows over its own q columns, and the output projection, Wo
+// loaded whole over the ring while the strips run.  Wider models project
+// and attend a few heads at a time, with the attention rows in a buffer of
+// their own (out_mma_plan picks the layout; its bytes a block are in
+// PERF.md).  Otherwise one window a block on CUDA cores in f32.
 #include "eva_eval.cuh"
 
 using namespace eva_eval;
@@ -48,6 +57,11 @@ int eva_mega_summaries_smem_bytes(int rows, int d, int esize, int xdim) {
 
 int eva_mega_attention_smem_bytes(int d, int S, int C, int nh, int esize, int xdim) {
   return (int)out_smem_bytes(d, S, C, nh, esize, xdim);
+}
+
+// Blocks of the attention's tensor-core route that fit one SM, or -1.
+int eva_mega_attention_mma_blocks_per_sm(int d, int S, int C, int nh, int xdim) {
+  return out_mma_blocks_per_sm<true>(d, S, C, nh, xdim);
 }
 
 const char* eva_mega_error_string(int code) {
@@ -87,5 +101,13 @@ int eva_mega_attention_launch(const void* x, const void* wqkv, const float* bqkv
     return cudaErrorInvalidValue;
   return launch_out<true>(p, d, is_bf16, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef EVA_OUT_PHASES
+// Copies g_out_phases ([6][16384] uint64) to host memory at dst; a
+// cudaError_t.
+int eva_mega_phases_copy(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, g_out_phases, sizeof(g_out_phases));
+}
+#endif
 
 }  // extern "C"

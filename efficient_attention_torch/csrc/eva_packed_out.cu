@@ -19,15 +19,24 @@
 // writes the output (38.5 MB): ~47 us at 3.35 TB/s, against ~15 us for its
 // 15 GFLOP (7.5 of attention, 7.4 of projection) at the bf16 tensor-core peak.
 //
-// Design.  A token's projection needs every head's output, so a block owns a
-// window of one image for all heads: it runs K1's per-window forward for each
-// head in turn (CUDA cores, f32, K1's rounding points) into the window's
-// output rows in shared memory (49 x 192 in the input type), then the
-// projection of those rows.  In bf16 with head dims that are multiples of 16
-// the projection runs on tensor cores (wmma 16x16x16, f32 accumulation; its
-// operands are bf16 values already, so only the order of the sums differs from
-// the plain version); otherwise on CUDA cores in f32.  Wo (74 KB in bf16) is
-// read from L2, which every block shares, rather than staged beside the tiles.
+// Design.  A token's projection needs every head's output, so a block owns
+// windows of one image, every head of each (eva_out_kernel and
+// eva_out_mma_kernel in eva_eval.cuh, where the design is set out).  In bf16
+// with head dims that are multiples of 16 (out_uses_mma) a block of 12 warps
+// takes up to 8 windows in turn and runs on tensor cores (mma.sync
+// m16n8k16, f32 sums): the window's q, k and v rows are staged with
+// cp.async, the chunk rows and the bias once a block where every head fits;
+// a warp runs K1's forward strip (eva_strip.cuh) for one (head, 16-row
+// strip) with the logits in registers and writes o / l, rounded, to the
+// window's attention rows, a buffer of their own (so that the next window's
+// rows load during this window's output projection); then the projection
+// of those rows, Wo held whole in shared memory where it fits (else
+// streamed through a ring of two slabs), the sums written from the
+// fragments with bo to the tokens.  Wider models stage the window's rows,
+// chunk rows and bias a few heads at a time (out_mma_plan picks the layout;
+// its bytes a block are in PERF.md).  Otherwise one window a block on CUDA
+// cores in f32 (K1's CUDA-core forward per head, then the projection, Wo
+// read from L2).
 #include "eva_eval.cuh"
 
 using namespace eva_eval;
@@ -38,6 +47,11 @@ extern "C" {
 // own copy of the layout against.
 int eva_packed_out_smem_bytes(int d, int S, int C, int nh, int esize, int xdim) {
   return (int)out_smem_bytes(d, S, C, nh, esize, xdim);
+}
+
+// Blocks of the tensor-core route that fit one SM, or -1.
+int eva_packed_out_mma_blocks_per_sm(int d, int S, int C, int nh) {
+  return out_mma_blocks_per_sm<false>(d, S, C, nh, 0);
 }
 
 const char* eva_packed_out_error_string(int code) {
@@ -56,5 +70,13 @@ int eva_packed_out_launch(const void* qkv, const void* rf, const void* beta,
   if (!out_geometry(p, B, N, gw, ws, nh, C, 0, scale)) return cudaErrorInvalidValue;
   return launch_out<false>(p, d, is_bf16, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef EVA_OUT_PHASES
+// Copies g_out_phases ([6][16384] uint64) to host memory at dst; a
+// cudaError_t.
+int eva_packed_out_phases_copy(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, g_out_phases, sizeof(g_out_phases));
+}
+#endif
 
 }  // extern "C"

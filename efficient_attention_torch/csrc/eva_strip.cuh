@@ -1,7 +1,8 @@
 // Tiles of the EVA joint softmax's forward strip on bf16 tensor cores
 // (mma.sync m16n8k16, f32 sums), shared by K1's tensor-core forward
-// (eva_packed_fwd_mma_kernel, eva_packed.cu) and K11/K12's tensor-core
-// kernel (window_mma_kernel, eva_window.cuh), with the constants that K1's
+// (eva_packed_fwd_mma_kernel, eva_packed.cu), K11/K12's tensor-core
+// kernel (window_mma_kernel, eva_window.cuh) and K9/K10's
+// (eva_out_mma_kernel, eva_eval.cuh), with the constants that K1's
 // backward uses too.  Each kernel stages a window's q, k and v rows [S][D+8],
 // the chunk rows rf and beta [C][D+8] and the bias [S][S] (f32, times
 // log2 e) in shared memory; a warp owns a strip of 16 query rows and calls
@@ -46,22 +47,26 @@ __host__ __device__ inline bool one_pass(int S, int C) {
 }
 
 // Row j of a window's [k | rf] or [v | beta]: window row j < S from the
-// window's buffer, chunk row j - S from the block's.
+// window's buffer (rows ldw apart), chunk row j - S from the block's (rows
+// D + 8 apart).
 template <int D>
 __device__ __forceinline__ const bf16* joint_row(const bf16* win, const bf16* chunk, int j,
-                                                 int S) {
-  return j < S ? win + j * (D + 8) : chunk + (j - S) * (D + 8);
+                                                 int S, int ldw = D + 8) {
+  return j < S ? win + j * ldw : chunk + (j - S) * (D + 8);
 }
 
 // One 16-column tile kt of a strip's logits in base 2 (scaled by p.scale,
 // the bias added on the window's p.S columns, -inf past p.S + p.C) from the
 // strip's q fragments qa.  Rows are the thread's row0 and row0 + 8; s[n][e]
-// is column kt*16 + 8n + 2(lane%4) + e%2 of row row0 + 8 (e / 2).
+// is column kt*16 + 8n + 2(lane%4) + e%2 of row row0 + 8 (e / 2).  The
+// window's key rows are ldw apart (D + 8 unless the kernel keeps every
+// head's q, k and v in one row, as K9 and K10's tensor-core kernel does).
 template <int D, typename P>
 __device__ __forceinline__ void fwd_logits_tile(const P& p, int kt, int row0,
                                                 const uint32_t (&qa)[D / 16][4],
                                                 const bf16* kw, const bf16* kc,
-                                                const float* bias_s, float (&s)[2][4]) {
+                                                const float* bias_s, float (&s)[2][4],
+                                                int ldw = D + 8) {
   using namespace mma_frag;
   const int lane = threadIdx.x & 31, SC = p.S + p.C;
 #pragma unroll
@@ -69,7 +74,7 @@ __device__ __forceinline__ void fwd_logits_tile(const P& p, int kt, int row0,
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
   const bf16* kr =
-      joint_row<D>(kw, kc, min(kt * 16 + row_c(lane), SC - 1), p.S) + col_c(lane);
+      joint_row<D>(kw, kc, min(kt * 16 + row_c(lane), SC - 1), p.S, ldw) + col_c(lane);
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
     uint32_t bk[4];
@@ -96,12 +101,13 @@ __device__ __forceinline__ void fwd_logits_tile(const P& p, int kt, int row0,
 
 // Tile kt of a strip from its logits s and row max m: the numerators
 // x = exp(s - m) added into the f32 row sums l, then o += x [v | beta] with
-// x rounded to bf16 as the product's A operand.
+// x rounded to bf16 as the product's A operand.  The window's value rows
+// are ldw apart.
 template <int D, typename P>
 __device__ __forceinline__ void fwd_pv_tile(const P& p, int kt, float (&s)[2][4],
                                             const float (&m)[2], float (&l)[2],
                                             const bf16* vw, const bf16* vc,
-                                            float (&o)[D / 8][4]) {
+                                            float (&o)[D / 8][4], int ldw = D + 8) {
   using namespace mma_frag;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -114,7 +120,8 @@ __device__ __forceinline__ void fwd_pv_tile(const P& p, int kt, float (&s)[2][4]
   uint32_t a[4];
   c_to_a(s[0], s[1], a);
   const bf16* vr =
-      joint_row<D>(vw, vc, min(kt * 16 + row_r(lane), p.S + p.C - 1), p.S) + col_r(lane);
+      joint_row<D>(vw, vc, min(kt * 16 + row_r(lane), p.S + p.C - 1), p.S, ldw) +
+      col_r(lane);
 #pragma unroll
   for (int nd = 0; nd < D / 16; ++nd) {
     uint32_t bv[4];

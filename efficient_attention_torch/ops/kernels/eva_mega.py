@@ -20,7 +20,8 @@ For CUDA tensors the wrappers launch the kernels of ``csrc/eva_mega.cu`` or
 raise; for CPU tensors they compute the same functions with
 ``eva_summaries_from_x_ref`` and ``eva_attention_from_x_ref``, which are also
 what the kernels are held against on the card.  ``LAUNCHES_SUMMARIES`` and
-``LAUNCHES_ATTENTION`` count the kernels' launches.
+``LAUNCHES_ATTENTION`` count the kernels' launches, ``LAUNCHES_ATTENTION_MMA``
+those of the attention on K9's tensor-core route (``out_uses_mma``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from efficient_attention_torch.ops.kernels import eva_summaries as k8
 
 LAUNCHES_SUMMARIES = 0
 LAUNCHES_ATTENTION = 0
+LAUNCHES_ATTENTION_MMA = 0
 
 NAME = "eva_mega"
 NAME_SUMMARIES = "eva_summaries_from_x"
@@ -108,6 +110,8 @@ def _lib() -> ctypes.CDLL:
     lib.eva_mega_summaries_smem_bytes.restype = i32
     lib.eva_mega_attention_smem_bytes.argtypes = [i32] * 6
     lib.eva_mega_attention_smem_bytes.restype = i32
+    lib.eva_mega_attention_mma_blocks_per_sm.argtypes = [i32] * 5
+    lib.eva_mega_attention_mma_blocks_per_sm.restype = i32
     lib.eva_mega_error_string.argtypes = [i32]
     lib.eva_mega_error_string.restype = ctypes.c_char_p
     return lib
@@ -223,6 +227,7 @@ def eva_attention_from_x(
             wo.data_ptr(), bo.data_ptr(), out.data_ptr(), B, N, xd, W, ws, nh, d,
             C, int(x.dtype == torch.bfloat16), float(scale), stream)
     _check(rc, "eva_attention_from_x")
-    global LAUNCHES_ATTENTION
+    global LAUNCHES_ATTENTION, LAUNCHES_ATTENTION_MMA
     LAUNCHES_ATTENTION += 1
+    LAUNCHES_ATTENTION_MMA += int(k9.out_uses_mma(d, x.element_size(), xd))
     return out

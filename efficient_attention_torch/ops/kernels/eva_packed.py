@@ -36,8 +36,9 @@ K9 ``eva_packed_out`` (``csrc/eva_packed_out.cu``) replaces
 ``out Wo + bo`` in the kernel (the attention output rounded to qkv's dtype
 first, the projection summed in f32), so the ``[B, N, H*D]`` intermediate
 never reaches device memory.  ``eva_attention_packed_out`` has no gradient;
-its plain version is ``eva_packed_out_ref`` and ``LAUNCHES_OUT`` counts its
-launches.
+its plain version is ``eva_packed_out_ref``, ``LAUNCHES_OUT`` counts its
+launches and ``LAUNCHES_OUT_MMA`` those on its tensor-core route
+(``out_uses_mma``: bf16, head dims a multiple of 16).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ LAUNCHES_FWD_MMA = 0
 LAUNCHES_BWD = 0
 LAUNCHES_BWD_MMA = 0
 LAUNCHES_OUT = 0
+LAUNCHES_OUT_MMA = 0
 
 NAME = "eva_packed"
 SOURCE = "efficient_attention_torch/csrc/eva_packed.cu"
@@ -479,28 +481,72 @@ def out_uses_mma(d: int, itemsize: int, xdim: int = 0) -> bool:
     return itemsize == 2 and d % 16 == 0 and xdim % 16 == 0
 
 
+# the tensor-core route's constants (csrc/eva_eval.cuh): the rows of each of
+# the ring's two weight slabs (the small ring's where the other does not
+# fit), the columns a product pass holds and the most windows a block takes
+OUT_SLAB_ROWS = 96
+OUT_SMALL_SLAB_ROWS = 16
+OUT_PROJ_COLS = 192
+OUT_MAX_WPB = 8
+
+
+def out_mma_layout(d: int, S: int, C: int, num_heads: int, xdim: int, hg: int,
+                   wo_whole: bool, split: bool, slab: int) -> int:
+    """Shared memory of one block of K9's (K10's with ``xdim > 0``)
+    tensor-core route, ``out_mma_layout`` in ``csrc/eva_eval.cuh``: the
+    window's q, k, v rows ``[S][3*H*d + 8]`` (with ``split`` those of
+    ``hg`` heads, ``[S][3*hg*d + 8]``), K10's x rows ``[S][xdim + 8]``, with
+    ``split`` the attention rows ``[S][H*d + 8]``, the chunk rows rf and
+    beta of ``hg`` heads ``[hg][C][d + 8]`` (all bf16), their bias
+    ``[hg][S][S]`` (f32), the weight region (bf16: the ring ``[2][slab]
+    [OUT_PROJ_COLS + 8]`` where a product streams, Wo ``[H*d][H*d + 8]``
+    with ``wo_whole``, or the larger of the two), the bias vectors (f32:
+    K10's bqkv ``[3*H*d]``, then bo ``[H*d]``) and the token table
+    ``[8][S]`` (int32), each region 128-byte aligned."""
+    hd = num_heads * d
+    streams = bool(xdim) or not wo_whole
+    ring = 2 * slab * (OUT_PROJ_COLS + 8) * 2 if streams else 0
+    whole = hd * (hd + 8) * 2 if wo_whole else 0
+    return (_align128(S * (3 * (hg * d if split else hd) + 8) * 2)
+            + (_align128(S * (xdim + 8) * 2) if xdim else 0)
+            + (_align128(S * (hd + 8) * 2) if split else 0)
+            + 2 * _align128(hg * C * (d + 8) * 2) + _align128(hg * S * S * 4)
+            + _align128(max(ring, whole)) + _align128((4 if xdim else 1) * hd * 4)
+            + _align128(OUT_MAX_WPB * S * 4))
+
+
+def out_mma_plan(d: int, S: int, C: int, num_heads: int,
+                 xdim: int = 0) -> Tuple[int, bool, bool, int, int]:
+    """``(hg, wo_whole, split, slab, bytes)`` of a tensor-core launch,
+    ``out_mma_plan`` in ``csrc/eva_eval.cuh``, the first layout that fits
+    of: the attention rows over the q columns, then in a buffer of their
+    own (``split``), then that with the small ring; in each, every head in
+    one group where it fits, else the most heads that fit, and for those Wo
+    whole in shared memory where it fits, else streamed.  Where none fits,
+    the last layout tried (over ``SMEM_LIMIT``)."""
+    for split, slab in ((False, OUT_SLAB_ROWS), (True, OUT_SLAB_ROWS),
+                        (True, OUT_SMALL_SLAB_ROWS)):
+        for hg in range(num_heads, 0, -1):
+            for wo_whole in (True, False):
+                smem = out_mma_layout(d, S, C, num_heads, xdim, hg, wo_whole, split, slab)
+                if smem <= SMEM_LIMIT:
+                    return hg, wo_whole, split, slab, smem
+    return hg, wo_whole, split, slab, smem
+
+
 def smem_bytes_out(d: int, S: int, C: int, num_heads: int, itemsize: int,
                    xdim: int = 0) -> int:
     """Dynamic shared memory of one K9 block (or, with ``xdim > 0``, one
     ``eva_attention_from_x`` block of K10); the same layouts as
-    ``make_out_layout`` and ``make_out_mma_layout`` in ``csrc/eva_eval.cuh``.
+    ``make_out_layout`` and ``out_mma_plan`` in ``csrc/eva_eval.cuh``.
     CUDA-core route: keys ``[k | rf]``, values ``[v | beta]``, the query
     rows, the logits, the bias and the row sums of one head in f32 (as in
     ``smem_bytes``), the window's output rows of every head in the input
     type, the window's x rows for K10.  Tensor-core route:
-    q, keys (then the numerators) and values of one head in bf16 with rows
-    padded to 16, the f32 logits (a region that also holds K10's x rows and
-    the per-warp MMA scratch), the row sums, the output rows."""
-    SP, hd = _round16(S), num_heads * d
+    ``out_mma_layout`` at the plan ``out_mma_plan`` picks."""
     if out_uses_mma(d, itemsize, xdim):
-        KP, DB = _round16(S + C), d + 8
-        xbytes = _align128(SP * (xdim + 8) * 2) if xdim else 0
-        return (_align128(SP * DB * 2)
-                + _align128(max(KP * DB, SP * (KP + 8)) * 2)
-                + _align128(KP * DB * 2)
-                + _align128(max(SP * (KP + 4) * 4, xbytes + 8 * 256 * 4))
-                + _align128(SP * 4) + _align128(SP * (hd + 8) * 2))
-    DP = row_stride(d)
+        return out_mma_plan(d, S, C, num_heads, xdim)[-1]
+    hd, DP = num_heads * d, row_stride(d)
     total = (2 * _align128((S + C) * DP * 4) + _align128(S * DP * 4)
              + _align128(S * (S + C + 1) * 4) + _align128(S * S * 4)
              + _align128(S * 4) + _align128(S * (hd + 8) * itemsize))
@@ -587,6 +633,8 @@ def _lib_out() -> ctypes.CDLL:
     lib.eva_packed_out_launch.restype = i32
     lib.eva_packed_out_smem_bytes.argtypes = [i32] * 6
     lib.eva_packed_out_smem_bytes.restype = i32
+    lib.eva_packed_out_mma_blocks_per_sm.argtypes = [i32] * 4
+    lib.eva_packed_out_mma_blocks_per_sm.restype = i32
     lib.eva_packed_out_error_string.argtypes = [i32]
     lib.eva_packed_out_error_string.restype = ctypes.c_char_p
     return lib
@@ -644,6 +692,7 @@ def eva_attention_packed_out(
     if rc != 0:
         raise RuntimeError(f"eva_packed_out launch failed: "
                            f"{lib.eva_packed_out_error_string(rc).decode()}")
-    global LAUNCHES_OUT
+    global LAUNCHES_OUT, LAUNCHES_OUT_MMA
     LAUNCHES_OUT += 1
+    LAUNCHES_OUT_MMA += int(out_uses_mma(d, qkv.element_size()))
     return out

@@ -4,13 +4,21 @@ Inputs and weights are made with numpy from a seed and handed to both
 packages.  JAX runs on the CPU at ``highest`` matmul precision
 (``conftest.py``); the torch side is pinned to full float32 by
 ``exact_float32``.
+
+Importing this module caps torch's intra-op threads at a sixth of the CPU's
+cores (at least one): the suite runs in six processes at once, and torch's
+default of one thread a core in each made them contend (a 60-step training
+replay took minutes instead of seconds).
 """
 import contextlib
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // 6))
 
 
 @contextlib.contextmanager

@@ -640,6 +640,57 @@ def test_eval_kernels_match_plain(cuda_device, geometry, dtype):
         assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
 
 
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("geometry", [(2, 28, 7, 4, 3, 64), (2, 56, 7, 8, 2, 32),
+                                      (2, 14, 7, 2, 10, 32), (2, 28, 7, 2, 2, 16),
+                                      (3, 8, 4, 4, 3, 16), (2, 18, 9, 3, 2, 32),
+                                      (2, 28, 7, 4, 6, 64), (2, 14, 7, 2, 12, 64)])
+def test_eval_out_mma_route_matches_plain(cuda_device, geometry, with_bias):
+    """K9 and K10's attention on their bf16 tensor-core route against their
+    plain versions (_k1_tol: one rounding), with the RPE bias and without:
+    the DeiT-tiny-p8 shape, PVT-B3's first and third stages (heads of 32;
+    the third's 10 heads staged a few at a time, Wo streamed), strips of
+    two passes (196 chunks of head dim 16), an 8x8 grid of windows of 4,
+    windows of 81 rows (more than a product pass's 64), and the small and
+    base EVA ViTs (6 and 12 heads of 64, the window rows staged a few heads
+    at a time, the base's K10 on the small ring); one launch each, on the
+    route."""
+    from efficient_attention_torch.ops.kernels import eva_mega as K10
+    from efficient_attention_torch.ops.kernels import eva_packed as K9
+
+    B, g, ws, j, nh, d = geometry
+    a = _eval_operands(cuda_device, torch.bfloat16, *geometry)
+    att = (a["rf"], a["beta"], a["wo"], a["bo"], d ** -0.5, nh, g, ws,
+           a["bias"] if with_bias else None)
+    tok = (a["x"], a["wqkv"], a["bqkv"])
+    before = (K9.LAUNCHES_OUT_MMA, K10.LAUNCHES_ATTENTION_MMA)
+    got = [K9.eva_attention_packed_out(a["qkv"], *att), K10.eva_attention_from_x(*tok, *att)]
+    torch.cuda.synchronize()
+    assert (K9.LAUNCHES_OUT_MMA, K10.LAUNCHES_ATTENTION_MMA) == tuple(n + 1 for n in before)
+    want = [K9.eva_packed_out_ref(a["qkv"], *att), K10.eva_attention_from_x_ref(*tok, *att)]
+    for out, ref in zip(got, want):
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(torch.bfloat16, ref)
+
+
+def test_eval_out_mma_layout_and_occupancy(cuda_device):
+    """The kernels' shared-memory layouts equal the wrappers' copies at the
+    tensor-core route's geometries, and a block of the route fits an SM."""
+    from efficient_attention_torch.ops.kernels import eva_mega as K10
+    from efficient_attention_torch.ops.kernels import eva_packed as K9
+
+    for d, S, C, nh in ((64, 49, 49, 3), (32, 49, 49, 2), (32, 49, 49, 10),
+                        (16, 49, 196, 2), (16, 16, 4, 3), (64, 49, 49, 6),
+                        (64, 49, 49, 12)):
+        xdim = nh * d
+        assert (K9._lib_out().eva_packed_out_smem_bytes(d, S, C, nh, 2, 0)
+                == K9.smem_bytes_out(d, S, C, nh, 2))
+        assert (K10._lib().eva_mega_attention_smem_bytes(d, S, C, nh, 2, xdim)
+                == K9.smem_bytes_out(d, S, C, nh, 2, xdim))
+        assert K9._lib_out().eva_packed_out_mma_blocks_per_sm(d, S, C, nh) >= 1
+        assert K10._lib().eva_mega_attention_mma_blocks_per_sm(d, S, C, nh, xdim) >= 1
+
+
 def test_eval_kernels_raise_outside_their_gates(cuda_device):
     from efficient_attention_torch.ops.kernels import eva_mega as K10
     from efficient_attention_torch.ops.kernels import eva_packed as K9
