@@ -57,15 +57,18 @@ Phases, each raising on failure:
    forward and backward the blocks an SM (no spills allowed there), and
    for the tensor-core route of ``eva_packed_out`` and ``eva_mega``'s
    attention (``eva_out_mma_kernel``) the blocks an SM and the layout its
-   plan picks; the wrappers' twins of the kernels' shared-memory layouts
-   and route choices;
+   plan picks, and for ``lara_fused``'s cluster route the clusters that fit
+   the card at once (no spills allowed there); the wrappers' twins of the
+   kernels' shared-memory layouts and route choices (``lara_fused``'s plan
+   over a sweep of geometries);
 2. kernels against their plain versions on the card: ``eva_single`` (its
    tensor-core route in bf16 at ``K2_CHECKS``, with and without its bias
    and LN, the CUDA-core kernel forced beside it, and both types at
    large-norm keys);
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
-   ``local_packed``; ``eva_1d`` at non-pad rows of random-length
+   ``local_packed``; ``lara_fused``'s bf16 routes at ``K5_CHECKS`` (each
+   asserted on its route); ``eva_1d`` at non-pad rows of random-length
    sentences; ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
    entry points, and the last two's attention on its bf16 tensor-core route
    at ``OUT_CHECKS``, with and without the bias (asserted on the route); ``eva_kernel`` and ``eva_rowmajor`` (also at PVT-B3's
@@ -96,8 +99,9 @@ Phases, each raising on failure:
    the tracked DeiT-tiny-p16 cell (``P16_ARGV``), then f32 logits of the
    kernel path against the eager path;
    the same for the LARA, Performer and local cells (12 launches of the
-   cell's kernel a batch and none of any other; the local cell's all on
-   K7's tensor-core route), and for each of EVA's
+   cell's kernel a batch and none of any other; the LARA cell's all on K5's
+   cluster route, the local cell's on K7's tensor-core route), and for each
+   of EVA's
    routes (12 launches of each of the route's kernels a batch and none of
    any other, K1's forward, K9 and K10's attention on their tensor-core
    routes); K11 as EVA's ``auto`` fallback at a head dim (48) that K1
@@ -318,6 +322,28 @@ LIN_CHECKS = (("main bf16", (128, 28, 3, 64, 49, 64, 7), "bfloat16"),
               ("main f32", (128, 28, 3, 64, 49, 64, 7), "float32"),
               ("small bf16", (2, 14, 3, 64, 4, 16, 7), "bfloat16"),
               ("small f32", (2, 14, 3, 64, 4, 16, 7), "float32"))
+# K5's bf16 routes (B, tokens, heads, head dim, landmarks, key scale, the
+# route plan picks).  The cluster route: the LARA cell's headline,
+# DeiT-tiny-p16's 196 tokens, PVT-B3 stage 1's 3136 with one head of 64 (a
+# cluster of 8), head dims 16 and 32 (the cell's width in 12 and 6 heads),
+# 1 and 64 landmarks, an odd 1-D length with an odd landmark count, and
+# keys scaled x30 (far from every landmark).  The wmma kernel at what the
+# cluster route leaves it: head dims 512 and 128, 100 landmarks, more
+# tokens than 16 blocks hold; the CUDA-core kernel at head dim 12
+K5_CHECKS = (("headline", (128, 784, 3, 64, 49), 1.0, "cluster"),
+             ("p16", (128, 196, 3, 64, 49), 1.0, "cluster"),
+             ("pvt stage 1", (128, 3136, 1, 64, 49), 1.0, "cluster"),
+             ("d16", (16, 784, 12, 16, 49), 1.0, "cluster"),
+             ("d32", (16, 784, 6, 32, 49), 1.0, "cluster"),
+             ("C=1", (16, 784, 3, 64, 1), 1.0, "cluster"),
+             ("C=64", (16, 784, 3, 64, 64), 1.0, "cluster"),
+             ("1-D N=37 C=17", (8, 37, 2, 64, 17), 1.0, "cluster"),
+             ("keys x30", (128, 784, 3, 64, 49), 30.0, "cluster"),
+             ("d512 C=16", (2, 784, 1, 512, 16), 1.0, "wmma"),
+             ("d128", (16, 784, 2, 128, 49), 1.0, "wmma"),
+             ("C=100", (16, 196, 3, 64, 100), 1.0, "wmma"),
+             ("N=20000", (2, 20000, 1, 64, 49), 1.0, "wmma"),
+             ("d12", (16, 784, 4, 12, 49), 1.0, "cuda-cores"))
 # K7's own geometries (B, grid side, heads, head dim, window), each with its
 # bias and without: bf16 at head dims 16, 32 and 64 on the tensor-core
 # route (ws 11: S = 121 > 112, two passes), head dim 12 and f32 off it
@@ -583,6 +609,18 @@ def lin_inputs(B, g, nh, d, C, m, ws, dtype, seed):
             "k5": (0.5 * r(B, nh, C, d), 0.5 * r(B, nh, C, d),
                    torch.softmax(r(B, nh, C), -1), r(B, nh, C)),
             "proj": r(nh, m, d), "bias": 0.5 * r(nh, ws * ws, ws * ws)}
+
+
+def k5_inputs(B, N, nh, d, C, key_scale, seed):
+    """bf16 qkv (keys times ``key_scale``) and K5's landmark operands."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    qkv = r(B, N, 3 * nh * d)
+    qkv[..., nh * d:2 * nh * d] *= key_scale
+    return (qkv.to(torch.bfloat16), 0.5 * r(B, nh, C, d), 0.5 * r(B, nh, C, d),
+            torch.softmax(r(B, nh, C), -1), r(B, nh, C))
 
 
 def lin_calls(k5, k6, k7, a, nh, g, ws):
@@ -1125,9 +1163,13 @@ def main() -> int:
     if min(k3b_blocks.values()) < 1:
         raise AssertionError(f"causal_packed split-TF32 backward: {k3b_blocks} blocks an SM")
     for k, fn, args, lib_args in (
-            (k5, "lara_fused_smem_bytes", (64, 49, 2), (64, 49, 1)),
-            (k5, "lara_fused_smem_bytes", (64, 49, 4), (64, 49, 0)),
-            (k5, "lara_fused_smem_bytes", (12, 4, 2), (12, 4, 1)),
+            (k5, "lara_fused_smem_bytes", (64, 49, 2, 392, 2), (64, 49, 1, 392, 2)),
+            (k5, "lara_fused_smem_bytes", (64, 49, 2, 196, 1), (64, 49, 1, 196, 1)),
+            (k5, "lara_fused_smem_bytes", (64, 64, 2, 392, 8), (64, 64, 1, 392, 8)),
+            (k5, "lara_fused_smem_bytes", (16, 1, 2, 5, 16), (16, 1, 1, 5, 16)),
+            (k5, "lara_fused_smem_bytes", (512, 16, 2), (512, 16, 1, 0, 1)),
+            (k5, "lara_fused_smem_bytes", (64, 49, 4), (64, 49, 0, 0, 1)),
+            (k5, "lara_fused_smem_bytes", (12, 4, 2), (12, 4, 1, 0, 1)),
             (k6, "performer_fused_smem_bytes", (64, 64, 2), (64, 64, 1)),
             (k6, "performer_fused_smem_bytes", (64, 64, 4), (64, 64, 0)),
             (k6, "performer_fused_smem_bytes", (12, 16, 2), (12, 16, 1)),
@@ -1139,6 +1181,31 @@ def main() -> int:
             (k7, "local_packed_smem_bytes", (12, 49, 2), (12, 49, 1))):
         if getattr(k._lib(), fn)(*lib_args) != k.smem_bytes(*args):
             raise AssertionError(f"{k.NAME} gate's smem layout != kernel's {args}")
+    # K5's routes: the wrapper's plan against the kernel's (cluster size,
+    # 0 the CUDA-core kernel, -1 the wmma kernel, -2 none), the cluster
+    # kernel's registers and spills (none allowed) and how many clusters of
+    # the headline's size fit the card at once
+    for N in (1, 37, 50, 196, 784, 3136, 6272, 20000):
+        for d in (12, 16, 32, 48, 64, 512):
+            for C in (1, 16, 17, 49, 64, 65):
+                for itemsize in (2, 4):
+                    route = k5.plan(1, N, 1, d, C, itemsize)
+                    want = -2 if route is None else route[0]
+                    got = k5._lib().lara_fused_plan(N, d, C, int(itemsize == 2))
+                    if got != want:
+                        raise AssertionError(f"lara_fused plan{(N, d, C, itemsize)}: the "
+                                             f"kernel's {got}, the wrapper's {want}")
+    k5_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k5.NAME}.log",
+                                 "lara_fused_cluster_kernel")
+    k5_plan = k5.plan(128, 784, 3, 64, 49, 2)
+    k5_clusters = k5._lib().lara_fused_max_active_clusters(784, 64, 49, k5_plan[0])
+    log(f"[build] lara_fused cluster route, ptxas: {json.dumps(k5_ptxas)}; plan at the "
+        f"headline (ranks, smem bytes, route) {json.dumps(k5_plan)}; clusters at once "
+        f"(occupancy calculator) {k5_clusters}")
+    if any("0 bytes spill stores" not in v for v in k5_ptxas.values()):
+        raise AssertionError(f"lara_fused cluster route spills: {k5_ptxas}")
+    if k5_clusters < 1:
+        raise AssertionError(f"lara_fused: {k5_clusters} clusters fit the card")
     # K7's tensor-core route: its gate against the kernel's, its registers
     # and spills (none allowed), blocks an SM (at least 3 at head dim 64,
     # S = 49)
@@ -1453,6 +1520,36 @@ def main() -> int:
                 raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
             lin_errors[(name, label)] = err
         del a
+    # K5's bf16 routes at their own geometries, each launch counted on its
+    # route, within one bf16 spacing of the output's largest value
+    k5_errors = {}
+    for label, (B, N, nh, d, C), key_scale, want_route in K5_CHECKS:
+        a = k5_inputs(B, N, nh, d, C, key_scale, seed=70 + len(k5_errors))
+        route = k5.plan(B, N, nh, d, C, 2)
+        if route[2] != want_route:
+            raise AssertionError(f"lara_fused {label}: plan {route}, not {want_route}")
+        before = (k5.LAUNCHES, k5.LAUNCHES_MMA)
+        out = k5.lara_attention_fused(a[0], *a[1:], d ** -0.5, nh, 2.0)
+        torch.cuda.synchronize()
+        counts = (k5.LAUNCHES - before[0], k5.LAUNCHES_MMA - before[1])
+        if counts != (1, int(want_route == "cluster")):
+            raise AssertionError(f"lara_fused {label}: {counts[0]} launches, "
+                                 f"{counts[1]} on the cluster route")
+        ref = k5.lara_fused_ref(a[0], *a[1:], d ** -0.5, nh, 2.0)
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            raise AssertionError(f"lara_fused {label}: {out.shape} {out.dtype} vs "
+                                 f"{ref.shape} {ref.dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        tol = K1_TOL["torch.bfloat16"] * peak
+        log(f"[lara_fused vs plain] {label} ({route[2]} route, ranks {route[0]}, "
+            f"{route[1]} bytes a block): max abs err {err:.3e} (tol {tol:.1e}), mean abs "
+            f"err {(out.float() - ref.float()).abs().mean().item():.3e}, max |value| "
+            f"{peak:.3e}")
+        if not err <= tol or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"lara_fused {label}: max abs err {err} > {tol}")
+        k5_errors[label] = err
+        del a, out, ref
     # K7 at its own geometries: with and without the bias, the route
     # counted (bf16 at head dims 16, 32, 64 on tensor cores, f32 and head
     # dim 12 off them)
@@ -1776,19 +1873,25 @@ def main() -> int:
     for cell, flags in CELLS.items():
         for k in counted.values():
             k.LAUNCHES = 0
-        k7.LAUNCHES_MMA = 0
+        k5.LAUNCHES_MMA = k7.LAUNCHES_MMA = 0
         k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
         k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = 0
         t0 = time.perf_counter()
         stats = train_vit.cli_main(CELL_ARGV + flags + ["--eval", "--bf16"])
         torch.cuda.synchronize()
         got = {name: k.LAUNCHES for name, k in counted.items()}
-        k7_mma = k7.LAUNCHES_MMA
+        k5_mma, k7_mma = k5.LAUNCHES_MMA, k7.LAUNCHES_MMA
         others = (k1.LAUNCHES_FWD + k1.LAUNCHES_BWD + k2.LAUNCHES
                   + k3.LAUNCHES_FWD + k3.LAUNCHES_BWD)
         log(f"[serve {cell}] eval {json.dumps(stats)} in "
             f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}, "
-            f"local_packed on its tensor-core route {k7_mma}, K1-K3 {others}")
+            f"lara_fused on its cluster route {k5_mma}, local_packed on its "
+            f"tensor-core route {k7_mma}, K1-K3 {others}")
+        if k5_mma != got[k5.NAME]:
+            raise AssertionError(f"{cell}: {k5_mma} of {got[k5.NAME]} lara_fused "
+                                 f"launches on its cluster route")
+        if cell == "lara":
+            lara_mma = k5_mma
         if k7_mma != got[k7.NAME]:
             raise AssertionError(f"{cell}: {k7_mma} of {got[k7.NAME]} local_packed "
                                  f"launches on its tensor-core route")
@@ -2769,6 +2872,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
         })
+    log(f"[launches] lara_fused on its cluster route in the LARA cell's 4-batch "
+        f"eval: {lara_mma} of {cell_launches[k5.NAME]}; checks {json.dumps(k5_errors)}")
     log(f"[launches] K9 and K10's attention on their tensor-core route in the "
         f"4-batch evals: {json.dumps(route_out_mma)} (48 a route); checks "
         f"{json.dumps({f'{n} {l} bias={b}': e for (n, l, b), e in out_errors.items()})}")

@@ -418,6 +418,64 @@ def test_linear_attention_kernels_match_plain(cuda_device, geometry, dtype):
         assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
 
 
+def _k5_tol(ref):
+    """One bf16 spacing (2^-7) of K5's largest output, with no floor at 1:
+    its outputs are means of v rows, well below 1."""
+    return 2 ** -7 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("key_scale", [1.0, 30.0])
+@pytest.mark.parametrize("geometry", [(4, 28, 3, 64, 49), (4, 14, 3, 64, 49),
+                                      (2, 8, 2, 32, 17), (2, 28, 4, 16, 1),
+                                      (1, 56, 1, 64, 64)])
+def test_lara_fused_cluster_route_matches_plain(cuda_device, geometry, key_scale):
+    """K5's bf16 cluster route (head dims 16, 32, 64; 1 to 64 landmarks;
+    one to eight blocks a cluster) against the plain version on the same
+    card inputs, to one bf16 spacing (2^-7) of the output's largest value,
+    also with keys scaled x30; one launch, counted on the route."""
+    from efficient_attention_torch.ops.kernels import lara_fused as K5
+
+    B, g, nh, d, C = geometry
+    a = _lin_args(cuda_device, torch.bfloat16, B, g, nh, d, C, 16, 7, seed=41 + C)
+    a["qkv"][..., nh * d:2 * nh * d] *= key_scale
+    assert K5.plan(B, g * g, nh, d, C, 2)[2] == "cluster"
+    before = (K5.LAUNCHES, K5.LAUNCHES_MMA)
+    out = K5.lara_attention_fused(a["qkv"], a["w"], a["qb"], a["bal"], a["lp"],
+                                  d ** -0.5, nh, alpha_coeff=2.0)
+    torch.cuda.synchronize()
+    assert (K5.LAUNCHES, K5.LAUNCHES_MMA) == (before[0] + 1, before[1] + 1)
+    ref = K5.lara_fused_ref(a["qkv"], a["w"], a["qb"], a["bal"], a["lp"],
+                            d ** -0.5, nh, 2.0)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _k5_tol(ref)
+
+
+@pytest.mark.parametrize("geometry", [(2, 784, 1, 512, 16), (2, 784, 2, 128, 49),
+                                      (2, 196, 3, 64, 100), (1, 3200, 1, 48, 17)])
+def test_lara_fused_wmma_route_matches_plain(cuda_device, geometry):
+    """K5's bf16 wmma kernel at geometries the cluster route leaves it (head
+    dims 512, 128 and 48, 100 landmarks) against the plain version, to one
+    bf16 spacing of the output's largest value; one launch, not counted on
+    the cluster route."""
+    from efficient_attention_torch.ops.kernels import lara_fused as K5
+
+    B, N, nh, d, C = geometry
+    rng = np.random.default_rng(43 + d)
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda_device)
+    qkv = t(B, N, 3 * nh * d).to(torch.bfloat16)
+    w, qb = 0.5 * t(B, nh, C, d), 0.5 * t(B, nh, C, d)
+    bal, lp = torch.softmax(t(B, nh, C), -1), t(B, nh, C)
+    assert K5.plan(B, N, nh, d, C, 2)[2] == "wmma"
+    before = (K5.LAUNCHES, K5.LAUNCHES_MMA)
+    out = K5.lara_attention_fused(qkv, w, qb, bal, lp, d ** -0.5, nh, alpha_coeff=2.0)
+    torch.cuda.synchronize()
+    assert (K5.LAUNCHES, K5.LAUNCHES_MMA) == (before[0] + 1, before[1])
+    ref = K5.lara_fused_ref(qkv, w, qb, bal, lp, d ** -0.5, nh, 2.0)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _k5_tol(ref)
+
+
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("geometry", [(2, 8, 3, 16, 4), (2, 9, 2, 32, 3),
                                       (2, 14, 3, 64, 7), (2, 22, 2, 64, 11)])

@@ -320,3 +320,120 @@ def test_gate():
     assert not K.supports_lara_fused(128, 784, 576, 3, 49, 1)   # element size
     assert not K.supports_lara_fused(128, 784, 577, 3, 49, 2)   # heads
     assert not K.supports_lara_fused(2, 784, 3 * 1024, 1, 400, 4)  # smem
+
+
+# ---- K5's routes: the cluster route's plan and layout, the gate's sweep,
+# and a CPU model of the cluster's partition ----
+
+# (B, N, heads, head dim, landmarks, itemsize) -> (ranks, shared memory,
+# route): the DeiT-tiny-p8 headline, DeiT-tiny-p16's 196 tokens, PVT-B3
+# stage 1's 3136 with one head of 64, a 1-D N = 50, C = 1, 49 and 64,
+# head dims 16, 32 and 64; then the bf16 geometries the cluster route
+# leaves to the wmma kernel (head dims 48 and 512, 65 landmarks, more tokens
+# than 16 blocks hold) and those left to the CUDA-core kernel (f32, head
+# dim 12, kv tiles beyond the wmma kernel's accumulators)
+PLANS = [
+    ((128, 784, 3, 64, 49, 2), (2, 221568, "cluster")),
+    ((128, 196, 3, 64, 49, 2), (1, 137344, "cluster")),
+    ((128, 3136, 1, 64, 49, 2), (8, 224640, "cluster")),
+    ((2, 50, 3, 64, 49, 2), (1, 74496, "cluster")),
+    ((128, 784, 3, 64, 1, 2), (2, 185984, "cluster")),
+    ((128, 784, 3, 64, 64, 2), (2, 225152, "cluster")),
+    ((128, 784, 3, 16, 49, 2), (1, 134912, "cluster")),
+    ((128, 784, 3, 32, 49, 2), (1, 219392, "cluster")),
+    ((128, 784, 3, 48, 49, 2), (-1, 57984, "wmma")),
+    ((128, 784, 3, 64, 65, 2), (-1, 80512, "wmma")),
+    ((2, 20000, 1, 64, 49, 2), (-1, 67200, "wmma")),
+    ((2, 784, 1, 512, 16, 2), (-1, 217984, "wmma")),
+    ((128, 784, 3, 64, 49, 4), (0, 69552, "cuda-cores")),
+    ((128, 784, 4, 12, 49, 2), (0, 25664, "cuda-cores")),
+    ((2, 784, 1, 96, 128, 2), (0, 211840, "cuda-cores")),
+]
+
+
+@pytest.mark.parametrize("geometry,want", PLANS)
+def test_plan_picks_the_smallest_cluster_that_fits(geometry, want):
+    B, N, nh, d, C, itemsize = geometry
+    got = K.plan(B, N, nh, d, C, itemsize)
+    assert got == want
+    assert K.supports_lara_fused(B, N, 3 * nh * d, nh, C, itemsize)
+    R, smem, route = got
+    assert smem <= K.SMEM_LIMIT
+    if route == "cluster":
+        rows = -(-N // R)
+        assert K.uses_mma(d, C, itemsize) and (R - 1) * rows < N  # no empty block
+        assert smem == K.smem_bytes(d, C, 2, rows, R)
+        # every smaller cluster's blocks exceed shared memory or leave one empty
+        for r in range(1, R):
+            rw = -(-N // r)
+            assert (r - 1) * rw >= N or K.smem_bytes(d, C, 2, rw, r) > K.SMEM_LIMIT
+    else:
+        assert smem == K.smem_bytes(d, C, 4 if route == "cuda-cores" else 2)
+        assert (route == "wmma") == K.uses_wmma(d, C, itemsize)
+
+
+def _old_gate_smem(d, C, itemsize):
+    """The shared memory of the block the gate of the wmma/CUDA-core kernel
+    pair held each geometry to before the cluster route (its smem_bytes)."""
+    TT, a16 = 32, lambda n: -(-n // 16) * 16  # noqa: E731
+    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    if itemsize == 2 and d % 16 == 0 and (a16(C) // 16) * (d // 16) <= 32:
+        CP, DB = a16(C), d + 8
+        LF = max(CP * (TT + 4), TT * (CP + 4))
+        FS = max(2 * LF, CP * (d + 4), TT * (d + 4))
+        PB = max(CP * (TT + 8), TT * (CP + 8))
+        return (3 * a128(CP * DB * 2) + 3 * a128(TT * DB * 2) + a128(FS * 4)
+                + a128(PB * 2) + a128(8 * CP * 4) + a128(TT * 4))
+    DP = d + 1
+    logits = a16(max(C * (TT + 1), TT * (C + 1)) * 4)
+    return (3 * a16(C * DP * 4) + 2 * a16(TT * DP * 4) + 2 * logits
+            + a16(8 * C * 4) + a16(TT * 4))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_gate_still_takes_every_geometry_it_took(itemsize):
+    """Every (head dim, landmarks, tokens) the gate took before the cluster
+    route still passes it, and where the cluster route does not take it,
+    it keeps the kernel it ran on before (wmma where ``uses_wmma``); bf16
+    takes all three routes, f32 the CUDA-core one."""
+    routes = set()
+    for d in [*range(1, 130), 192, 256, 384, 512, 768, 1024]:
+        for C in [*range(1, 80), 96, 128, 192, 256, 400, 512]:
+            if _old_gate_smem(d, C, itemsize) > K.SMEM_LIMIT:
+                continue
+            old = "wmma" if K.uses_wmma(d, C, itemsize) else "cuda-cores"
+            for N in (1, 50, 784, 20000):
+                got = K.plan(128, N, 1, d, C, itemsize)
+                assert got is not None, (d, C, N)
+                assert K.supports_lara_fused(128, N, 3 * d, 1, C, itemsize)
+                assert got[2] in ("cluster", old), (d, C, N, got)
+                routes.add(got[2])
+    assert routes == ({"cluster", "cuda-cores", "wmma"} if itemsize == 2
+                      else {"cuda-cores"})
+
+
+@pytest.mark.parametrize("key_scale", [1.0, 40.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ranks", [1, 4, 7, 8, 16])
+def test_split_partition_matches_plain(ranks, dtype, key_scale):
+    """The cluster route's partition (per-block maxima, sums and kv over
+    slices padded to 16 rows, combined in rank order) gives the plain
+    version: 1e-5 relative to the output's largest value in f32, one bf16
+    rounding (2^-7) in bf16; also with keys far from every landmark (the
+    large-norm case of test_large_norm_keys_match_the_eager_module)."""
+    B, H, d, N, c = 2, 2, 16, 95, 12  # no slice empty at 16 ranks
+    arrays = [torch.from_numpy(a) for a in
+              _kernel_inputs(B, H, d, N, c, seed=11, key_scale=key_scale)]
+    arrays[0] = arrays[0].to(dtype)
+    want = K.lara_fused_ref(*arrays, d ** -0.5, H, 2.0).float()
+    got = K.lara_fused_split_ref(*arrays, d ** -0.5, H, 2.0, ranks=ranks).float()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_split_partition_refuses_an_empty_block():
+    arrays = [torch.from_numpy(a) for a in _kernel_inputs(1, 1, 16, 50, 4, seed=12)]
+    with pytest.raises(ValueError, match="empty"):
+        K.lara_fused_split_ref(*arrays, 0.25, 1, 2.0, ranks=16)
