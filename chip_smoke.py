@@ -58,9 +58,13 @@ Phases, each raising on failure:
    for the tensor-core route of ``eva_packed_out`` and ``eva_mega``'s
    attention (``eva_out_mma_kernel``) the blocks an SM and the layout its
    plan picks, and for ``lara_fused``'s cluster route the clusters that fit
-   the card at once (no spills allowed there); the wrappers' twins of the
-   kernels' shared-memory layouts and route choices (``lara_fused``'s plan
-   over a sweep of geometries);
+   the card at once (no spills allowed there), and for the persistent route
+   of ``eva_summaries`` and ``eva_mega``'s summaries
+   (``eva_summaries_mma_kernel``, ``eva_summaries_ws_kernel``) the
+   registers (no spills allowed), the layout ``mma_plan`` picks at each
+   ``SUM_CHECKS`` geometry and the blocks an SM that fit it;
+   the wrappers' twins of the kernels' shared-memory layouts and route
+   choices (``lara_fused``'s plan over a sweep of geometries);
 2. kernels against their plain versions on the card: ``eva_single`` (its
    tensor-core route in bf16 at ``K2_CHECKS``, with and without its bias
    and LN, the CUDA-core kernel forced beside it, and both types at
@@ -71,9 +75,13 @@ Phases, each raising on failure:
    asserted on its route); ``eva_1d`` at non-pad rows of random-length
    sentences; ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
    entry points, and the last two's attention on its bf16 tensor-core route
-   at ``OUT_CHECKS``, with and without the bias (asserted on the route); ``eva_kernel`` and ``eva_rowmajor`` (also at PVT-B3's
-   three stages, at heads of 48, where S + C is too wide for one-pass
-   strips, K11 in 1-D, and raising outside their gates; K11's output,
+   at ``OUT_CHECKS``, with and without the bias (asserted on the route);
+   ``eva_summaries`` and ``eva_mega``'s summaries in bf16 at ``SUM_CHECKS``,
+   each output within 2**-7 of its peak, on the persistent route exactly
+   where ``mma_plan`` takes the geometry (asserted); ``eva_kernel`` and
+   ``eva_rowmajor`` (also at PVT-B3's three stages, at heads of 48, where
+   S + C is too wide for one-pass strips, K11 in 1-D, and raising outside
+   their gates; K11's output,
    merged to token order, equal to K12's bit for bit); at the main
    paths' shapes in bf16 and f32 and at small odd geometries (K3-K12 in
    both types), and K8 at large-norm keys; K1 also at PVT-B3's first stage,
@@ -104,7 +112,8 @@ Phases, each raising on failure:
    of EVA's
    routes (12 launches of each of the route's kernels a batch and none of
    any other, K1's forward, K9 and K10's attention on their tensor-core
-   routes); K11 as EVA's ``auto`` fallback at a head dim (48) that K1
+   routes, K8 and K10's summaries on their persistent route); K11 as EVA's
+   ``auto`` fallback at a head dim (48) that K1
    and K2 are not built for, in eval and training, against the eager path
    in f32; then PVT-B3 served by ``cli.train_vit --eval`` on each of its
    three routes (25 launches of the route's kernel a batch, none of any
@@ -131,7 +140,9 @@ Phases, each raising on failure:
    train-step rates of both models, the forward
    rates of the three serving cells, K6 against the eager Performer at 784
    and 3136 tokens, K8-K10 (K9 and K10's attention in turns with their
-   yardsticks: K1's forward and an addmm, an addmm and K9) and the forward
+   yardsticks: K1's forward and an addmm, an addmm and K9; K8 and K10's
+   summaries in turns with the first kernel forced, K10's also with an
+   addmm and K8) and the forward
    rates of EVA's eval routes in
    turns with the default route and the eager path, K4 and the MT encoder,
    the MT cell's sentences/s and hypothesis tokens/s with the kernel and the
@@ -141,7 +152,8 @@ Phases, each raising on failure:
    turns, with K7's device time) and profiles of 3 train steps of each
    model, of one LARA-cell and one local-cell forward, one
    ``two-kernel``-route forward (K1's forward alone), one megakernel-route
-   forward, one PVT-B3 forward on K11 and one MT batch by op;
+   forward (with K10's summaries' share), one PVT-B3 forward on K11 and one
+   MT batch by op;
 8. the kernels line, the script's wall time, the card line, and the result
    line, last.
 
@@ -290,6 +302,30 @@ PVT_STAGES = (("pvt stage 1", (128, 2, 56, 32)), ("pvt stage 2", (128, 4, 28, 32
 # geometry of
 # tests/test_torch_eva_single.py::test_large_norm_keys_stay_finite_and_match_eager
 LARGE_KEYS = (1, 8, 4, 4, 2, 16)
+# K8 and K10a's persistent tensor-core route (bf16, head dims 16/32/64) at
+# (B, grid side, chunk side, heads, head dim), with LN or without (no-ln),
+# keys x40 with zero queries or not, each held to 2**-7 of each output's
+# peak on the route mma_plan picks (asserted): the headline with LN and
+# without, PVT-B3's three EVA stages at K2_CHECKS' shapes (x of width 64,
+# 128 and 320), DeiT-tiny-p16, head dim 16 (the cell's width in 12 heads),
+# a batch of 1 (fewer items than SMs), large-norm keys at the headline's
+# strips and at LARGE_KEYS; and where mma_plan leaves a launch to the first
+# kernel: K8 at strips of fewer than 56 rows (PVT-B3's third stage,
+# DeiT-tiny-p16, LARGE_KEYS), K10a at the base ViT's x of width 768 and
+# both at head dim 12
+SUM_CHECKS = (("headline ln", (128, 28, 4, 3, 64), True, False),
+              ("headline no-ln", (128, 28, 4, 3, 64), False, False),
+              ("pvt stage 1", (16, 56, 8, 2, 32), True, False),
+              ("pvt stage 2", (16, 28, 4, 4, 32), True, False),
+              ("pvt stage 3", (16, 14, 2, 10, 32), True, False),
+              ("p16", (16, 14, 2, 3, 64), True, False),
+              ("d16", (16, 28, 4, 12, 16), True, False),
+              ("B=1", (1, 28, 4, 3, 64), True, False),
+              ("large-norm keys headline", (8, 28, 4, 3, 64), True, True),
+              ("large-norm keys", tuple(LARGE_KEYS[i] for i in (0, 1, 3, 4, 5)), True, True),
+              ("evit_base p16 xdim 768", (2, 14, 2, 12, 64), True, False),
+              ("d12", (2, 14, 2, 4, 12), True, False))
+SUM_TOL = 2 ** -7
 # K2's tensor-core route (bf16, head dims 16/32/64) checked at (B, grid side,
 # window, chunk side, heads, head dim), with its bias and LN or without: the
 # headline, PVT-B3's three stages, DeiT-tiny-p16, chunks straddling blocks
@@ -939,11 +975,12 @@ def set_impl(model, eva_cls, impl):
     return model
 
 
-def mma_kernel_report(log_path, tag, split_last=False):
+def mma_kernel_report(log_path, tag, split_last=False, names=None):
     """What ``nvcc -Xptxas -v`` said of each instantiation of the kernel
     named ``tag`` (registers, stack, spills), by its template arguments;
     with ``split_last`` the last bool is the layout's split (named
-    "split"), the pass the one before it."""
+    "split"), the pass the one before it; ``names(D, bools, ints)`` names
+    the instantiation instead where given."""
     report, name = {}, None
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
@@ -953,14 +990,17 @@ def mma_kernel_report(log_path, tag, split_last=False):
                 # ...kernelILi64ELb1EEE...: D = 64, one pass (Lb0: two);
                 # ...kernelILi64EEv...: D = 64 (no pass argument); where
                 # there are several bools, the pass is the last
-                args = re.match(r"ILi(\d+)E((?:Lb[01]E)*)",
+                args = re.match(r"ILi(\d+)E((?:Lb[01]E)*)((?:Li\d+E)*)",
                                 name[name.index(tag) + len(tag):])
                 bools = re.findall(r"Lb([01])E", args[2])
-                split = split_last and bools.pop() == "1"
-                name = f"D={args[1]}" + (
-                    "" if not bools
-                    else f" {'one' if bools[-1] == '1' else 'two'}-pass") + (
-                    " split" if split else "")
+                if names is not None:
+                    name = names(args[1], bools, re.findall(r"Li(\d+)E", args[3]))
+                else:
+                    split = split_last and bools.pop() == "1"
+                    name = f"D={args[1]}" + (
+                        "" if not bools
+                        else f" {'one' if bools[-1] == '1' else 'two'}-pass") + (
+                        " split" if split else "")
                 report[name] = []
         elif name is not None and ("registers" in line or "spill" in line):
             report[name].append(line.replace("ptxas info    :", "").strip())
@@ -970,8 +1010,9 @@ def mma_kernel_report(log_path, tag, split_last=False):
 
 
 def profile_steps(torch, prof_factory, run, kernel_tag):
-    """Device busy time, its share in kernels named ``kernel_tag``, and the
-    op table of ``run()`` (3 train steps) under ``torch.profiler``."""
+    """Device busy time, its share in kernels named ``kernel_tag`` (a tuple
+    of tags: a tuple of shares), and the op table of ``run()`` (3 train
+    steps) under ``torch.profiler``."""
     prof = prof_factory(torch.device("cuda"))
     with prof:
         t0 = time.perf_counter()
@@ -984,7 +1025,9 @@ def profile_steps(torch, prof_factory, run, kernel_tag):
     self_ms = lambda e: getattr(  # noqa: E731
         e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
     busy = sum(self_ms(e) for e in kernels_only)
-    tagged = sum(self_ms(e) for e in kernels_only if kernel_tag in e.key)
+    tags = kernel_tag if isinstance(kernel_tag, tuple) else (kernel_tag,)
+    tagged = tuple(sum(self_ms(e) for e in kernels_only if tag in e.key) for tag in tags)
+    tagged = tagged if isinstance(kernel_tag, tuple) else tagged[0]
     return busy, tagged, wall_ms, events.table(sort_by="self_device_time_total",
                                                row_limit=20)
 
@@ -1245,6 +1288,39 @@ def main() -> int:
         if fn(*args) != py(*args):
             raise AssertionError(f"{py.__name__}{args} {py(*args)} != the "
                                  f"kernel's {fn(*args)}")
+    # K8 and K10a's persistent route: its layout against the kernel's, at
+    # the SUM_CHECKS geometries it takes the layout mma_plan picks there;
+    # registers and spills; its blocks an SM (the occupancy calculator) at
+    # least the plan's
+    sum_plans = {}
+    for label, (B, g, j, nh, d), _, _ in SUM_CHECKS:
+        for name, fn, fn_bps, xdim in (
+                ("K8", k8._lib().eva_summaries_mma_smem_bytes,
+                 k8._lib().eva_summaries_mma_blocks_per_sm, 0),
+                ("K10a", k10._lib().eva_mega_summaries_mma_smem_bytes,
+                 k10._lib().eva_mega_summaries_mma_blocks_per_sm, nh * d)):
+            cfg = k8.mma_plan(B, nh, g, g, j, d, 2, xdim=xdim)
+            if cfg is None:
+                continue
+            args = (j * g, d, xdim, g // j, j * j, cfg.stages, cfg.teams)
+            fits = fn_bps(d, cfg.warps, cfg.teams, cfg.smem)
+            if not fn(*args) == k8.mma_smem_bytes(*args) == cfg.smem or fits < cfg.bps:
+                raise AssertionError(f"{name} {label}: layout {args} {fn(*args)} vs the "
+                                     f"wrapper's {k8.mma_smem_bytes(*args)}, {fits} blocks "
+                                     f"an SM for the plan's {cfg}")
+            sum_plans[f"{name} {label}"] = list(cfg) + [fits]
+    sum_ptxas = {
+        f"{name} {tag}": mma_kernel_report(
+            _build.BUILD_DIR / f"{name}.log", tag,
+            names=lambda d, bools, ints: f"D={d} {ints[0]} warps" if ints else f"D={d}")
+        for name, tag in ((k8.NAME, "eva_summaries_mma_kernel"),
+                          (k10.NAME, "eva_summaries_mma_kernel"),
+                          (k10.NAME, "eva_summaries_ws_kernel"))}
+    log(f"[build] eva_summaries_mma_kernel (K8 and K10a's persistent route), ptxas: "
+        f"{json.dumps(sum_ptxas)}; plans at SUM_CHECKS (warps, stages, blocks an SM, "
+        f"teams, bytes a block, blocks an SM that fit): {json.dumps(sum_plans)}")
+    if any("0 bytes spill stores" not in v for r in sum_ptxas.values() for v in r.values()):
+        raise AssertionError(f"the persistent summaries kernels spill: {sum_ptxas}")
     # K9 and K10's attention on their tensor-core route: the layouts
     # out_mma_plan picks at the geometries it serves (the headline, PVT-B3's
     # three stages, two-pass strips, the odd one, the small and base EVA
@@ -1684,6 +1760,55 @@ def main() -> int:
             f"{err:.3e} (tol {tol:.1e}), max |value| {peak:.3e}")
         if not (all(torch.isfinite(o.float()).all() for o in out) and err <= tol):
             raise AssertionError(f"eva_summaries at large-norm keys: err {err}")
+    # K8 and K10a at SUM_CHECKS in bf16: one launch each, on the persistent
+    # route exactly where mma_plan takes the geometry, each output within
+    # SUM_TOL of its peak; large-norm keys: q zeroed and k x40 in qkv, and
+    # in Wqkv's and bqkv's columns for K10a
+    sum_errors = {}
+    for label, (B, g, j, nh, d), use_ln, large in SUM_CHECKS:
+        a = eval_inputs(B, g, 7, j, nh, d, torch.bfloat16, seed=140 + len(sum_errors))
+        hd = nh * d
+        if large:
+            qkv = a["qkv"].float()
+            qkv[..., :hd] = 0.0
+            qkv[..., hd:2 * hd] *= 40.0
+            a["qkv"] = qkv.to(torch.bfloat16)
+            for w in (a["wqkv"].T, a["bqkv"]):
+                w[:hd] = 0.0
+                w[hd:2 * hd] *= 40.0
+        summ = (*a["adaptive"][:4], *(a["adaptive"][4:] if use_ln else [None] * 4), nh,
+                g, j, use_ln)
+        tok = (a["x"], a["wqkv"], a["bqkv"])
+        calls = {
+            k8.NAME: (lambda: k8.eva_summaries_packed(a["qkv"], *summ),
+                      lambda: k8.eva_summaries_packed_ref(a["qkv"], *summ),
+                      lambda: k8.LAUNCHES_MMA, 0),
+            k10.NAME_SUMMARIES: (lambda: k10.eva_summaries_from_x(*tok, *summ),
+                                 lambda: k10.eva_summaries_from_x_ref(*tok, *summ),
+                                 lambda: k10.LAUNCHES_SUMMARIES_MMA, hd)}
+        for name, (kernel, plain, on_route, xdim) in calls.items():
+            route = k8.mma_plan(B, nh, g, g, j, d, 2, xdim=xdim)
+            before = on_route()
+            with torch.no_grad():
+                out = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+            launched_route = on_route() - before
+            errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(out, ref)]
+            peaks = [r.float().abs().max().item() for r in ref]
+            finite = all(bool(torch.isfinite(o.float()).all()) for o in out)
+            log(f"[{name} vs plain] {label}: route "
+                f"{'persistent ' + str(tuple(route[:4])) if route else 'first kernel'}, "
+                f"launches on the persistent route {launched_route}; rf_k, beta max abs err "
+                f"{errs[0]:.3e}, {errs[1]:.3e} against peaks {peaks[0]:.3e}, {peaks[1]:.3e} "
+                f"(tol {SUM_TOL:.4g} of the peak)")
+            if not (finite and launched_route == int(route is not None)
+                    and all(e <= SUM_TOL * pk for e, pk in zip(errs, peaks))):
+                raise AssertionError(f"{name} {label}: errors {errs}, peaks {peaks}, "
+                                     f"{launched_route} launches on the route, want "
+                                     f"{int(route is not None)}")
+            sum_errors[(name, label)] = max(e / pk for e, pk in zip(errs, peaks))
+        del a
 
     # K11 on the windows and K12 on the same q, k, v in token order, in K1's
     # terms; K11 also in 1-D (5 windows of 8, 5 chunks)
@@ -1950,12 +2075,13 @@ def main() -> int:
             setattr(rargs.attn_specific_args, key, value)
         return rargs
 
-    route_launches, route_fwd_mma, route_out_mma = {}, {}, {}
+    route_launches, route_fwd_mma, route_out_mma, route_sum_mma = {}, {}, {}, {}
     for route, (toggles, route_kernels) in EVA_ROUTES.items():
         for k, attr, _ in counters:
             setattr(k, attr, 0)
         k1.LAUNCHES_FWD_MMA = k2.LAUNCHES_MMA = 0
         k1.LAUNCHES_OUT_MMA = k10.LAUNCHES_ATTENTION_MMA = 0
+        k8.LAUNCHES_MMA = k10.LAUNCHES_SUMMARIES_MMA = 0
         t0 = time.perf_counter()
         stats = train_vit.main(route_args(["--eval", "--bf16"], toggles))
         torch.cuda.synchronize()
@@ -1979,6 +2105,14 @@ def main() -> int:
             raise AssertionError(f"eva {route}: {fwd_mma} of the "
                                  f"{got.get('eva_packed_fwd', 0)} bf16 eva_packed "
                                  f"forward launches took the tensor-core route")
+        # every K8 and K10a launch on the persistent route
+        sum_mma = {k8.NAME: k8.LAUNCHES_MMA,
+                   k10.NAME_SUMMARIES: k10.LAUNCHES_SUMMARIES_MMA}
+        if any(n != got.get(name, 0) for name, n in sum_mma.items()):
+            raise AssertionError(f"eva {route}: {sum_mma} of the launches {got} took "
+                                 f"the persistent summaries route")
+        if any(name in route_kernels for name in sum_mma):
+            route_sum_mma[route] = sum_mma
         # and every bf16 K9 and K10 attention launch on theirs
         out_mma = {k1.NAME_OUT: k1.LAUNCHES_OUT_MMA,
                    k10.NAME_ATTENTION: k10.LAUNCHES_ATTENTION_MMA}
@@ -2658,6 +2792,17 @@ def main() -> int:
             torch.addmm(bqkv16, a["x"].view(-1, 192), wqkv16).view(128, 784, 576),
             a["rf"], a["beta"], a["wo"], a["bo"], 64 ** -0.5, 3, 28, 7, a["bias"]),
     }
+    # K8 and K10a: also the first kernel (a block a strip, head and image,
+    # forced) in turns with the persistent route, and K10a's yardstick:
+    # x Wqkv + bqkv in one addmm, then K8 on its persistent route
+    summ = (*a["adaptive"], 3, 28, 4, True)
+    firsts = {
+        k8.NAME: lambda: k8.eva_summaries_packed(a["qkv"], *summ, config=0),
+        k10.NAME_SUMMARIES: lambda: k10.eva_summaries_from_x(
+            a["x"], a["wqkv"], a["bqkv"], *summ, config=0),
+    }
+    sum_yardstick = lambda: k8.eva_summaries_packed(  # noqa: E731
+        torch.addmm(bqkv16, a["x"].view(-1, 192), wqkv16).view(128, 784, 576), *summ)
     eval_ms = {}
     with torch.no_grad():
         for name, (kernel, plain) in eval_calls(k8, k1, k10, a, 3, 28, 7,
@@ -2670,9 +2815,18 @@ def main() -> int:
                 eval_ms[name]["yardstick_ms"] = [cuda_ms(yardsticks[name], 20),
                                                  cuda_ms(yardsticks[name], 20)]
                 eval_ms[name]["ms_again"] = cuda_ms(kernel, 20)
+            if name in firsts:
+                seq = [("first kernel", firsts[name]), ("persistent", kernel)]
+                if name == k10.NAME_SUMMARIES:
+                    seq.append(("addmm + K8", sum_yardstick))
+                turns = {}
+                for key, call in seq + seq[::-1]:
+                    turns.setdefault(key, []).append(cuda_ms(call, 50))
+                eval_ms[name]["turns"] = turns
     log(f"[time] K8-K10 main shape bf16 (yardstick_ms: K9's K1 forward + addmm, "
-        f"K10 attention's addmm + K9, timed kernel, yardstick, yardstick, kernel): "
-        f"{json.dumps(eval_ms)}; {card}")
+        f"K10 attention's addmm + K9, timed kernel, yardstick, yardstick, kernel; "
+        f"turns: K8 and K10a's first kernel, persistent route and K10a's addmm + K8, "
+        f"in turns): {json.dumps(eval_ms)}; {card}")
     del a
     route_models = {
         route: train_vit.build_model(route_args(["--throughput", "--bf16"],
@@ -2702,14 +2856,14 @@ def main() -> int:
         f"of busy)")
     print(table, flush=True)
     with torch.no_grad():
-        busy, k10_total, wall_ms, table = profile_steps(
+        busy, (k10_total, k10a_total), wall_ms, table = profile_steps(
             torch, train_vit._profiler, lambda: route_models["megakernel"](xb),
-            "eva_eval::")
+            ("eva_eval::", "eva_eval::eva_summaries"))
     log(f"[profile] one megakernel-route forward at B=128 bf16: device busy "
         f"{busy:.3f} ms ({wall_ms:.3f} ms wall while profiled, "
         f"{128e3 / route_rates['megakernel'][0]:.3f} ms a forward unprofiled), "
         f"the two eva_mega kernels {k10_total:.3f} ms ({k10_total / busy:.3f} "
-        f"of busy)")
+        f"of busy), K10a {k10a_total:.3f} ms ({k10a_total / busy:.3f} of busy)")
     print(table, flush=True)
     del route_models, xb
     # PVT-B3's forward images/s at B=128 bf16 on its routes and the eager
@@ -2874,6 +3028,9 @@ def main() -> int:
         })
     log(f"[launches] lara_fused on its cluster route in the LARA cell's 4-batch "
         f"eval: {lara_mma} of {cell_launches[k5.NAME]}; checks {json.dumps(k5_errors)}")
+    log(f"[launches] K8 and K10a on their persistent route in the 4-batch evals: "
+        f"{json.dumps(route_sum_mma)} (48 a route); checks "
+        f"{json.dumps({f'{n} {l}': e for (n, l), e in sum_errors.items()})} (error / peak)")
     log(f"[launches] K9 and K10's attention on their tensor-core route in the "
         f"4-batch evals: {json.dumps(route_out_mma)} (48 a route); checks "
         f"{json.dumps({f'{n} {l} bias={b}': e for (n, l, b), e in out_errors.items()})}")

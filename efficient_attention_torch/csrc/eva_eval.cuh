@@ -5,7 +5,11 @@
 //                         strip of one (image, head): from a strip of qkv
 //                         staged in shared memory (K8), or from the strip's
 //                         tokens x projected to q, k, v inside the block (K10,
-//                         eva_summaries_from_x);
+//                         eva_summaries_from_x); in bf16 where the wrapper's
+//                         mma_plan takes the launch, eva_summaries_mma_kernel
+//                         instead: persistent blocks that walk the strips
+//                         with a cp.async ring, K10's projection on mma.sync
+//                         from the head's Wqkv columns held in shared memory;
 //   eva_out_kernel        the joint softmax of one window over every head, then
 //                         the output projection of the window's rows (K9),
 //                         with q, k, v read from qkv or projected from x inside
@@ -16,8 +20,10 @@
 // the output projection of K9 and K10) run on tensor cores in bf16 where
 // every width is a multiple of 16, else on CUDA cores in f32 (project_cc,
 // the weight read from device memory as it is needed).  On tensor cores,
-// K10's summaries take project() (16x16x16 warp MMA, the weight read from
-// L2 one fragment at a time) and the joint softmax takes
+// K10's summaries take sum_project() in the persistent kernel (mma.sync
+// m16n8k16, the weight resident in shared memory) or, where mma_plan leaves
+// the launch to the first kernel, project() (16x16x16 warp MMA, the weight
+// read from L2 one fragment at a time), and the joint softmax takes
 // eva_out_mma_kernel's products (mma.sync m16n8k16, Wo whole in shared
 // memory where it fits, else the weight streamed through a ring of two
 // slabs of 96 rows, or 16, that every warp of the block reads).
@@ -336,11 +342,65 @@ struct SumParams {
   int B, N, gw, j, nh, XD;
   int wc, C, R;        // chunks per grid row, chunks, tokens per strip (j * gw)
   int use_ln;
+  int stages;          // the persistent route's ring of item buffers
 };
 
 struct SumLayout {
   size_t tok, mean, x, scratch, total;
 };
+
+// Built with -DEVA_SUM_PHASES (scripts/torch_eva_summaries_check.py), the
+// summaries kernels record, from thread 0 of each block (and the two-team
+// kernel from its first body thread too), the clock64()
+// cycles of their phases into g_sum_phases[2..7][block] (summed over a
+// persistent block's items) and the global timer at the block's start and
+// end into g_sum_phases[0] and [1]; the .cu files' *_sum_phases_copy read
+// them back.  Without it the marks compile to nothing.
+enum { kSumStage, kSumProj, kSumMeans, kSumDense, kSumLogits, kSumWrites, kSumPhaseCount };
+#ifdef EVA_SUM_PHASES
+constexpr int kSumPhaseBlocks = 16384;
+__device__ unsigned long long g_sum_phases[2 + kSumPhaseCount][kSumPhaseBlocks];
+struct SumPhases {
+  long long last = 0, sum[kSumPhaseCount] = {};
+  unsigned long long t0 = 0;
+  __device__ static unsigned long long timer() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ void start() {
+    t0 = timer();
+    last = clock64();
+  }
+  __device__ void mark(int phase, bool barrier = false) {
+    if (barrier) __syncthreads();
+    const long long t = clock64();
+    sum[phase] += t - last;
+    last = t;
+  }
+  // thread 0 writes every phase; then thread `second` (> 0: the two-team
+  // kernel's first body thread) the phases it marked
+  __device__ void end(int second = 0) {
+    __syncthreads();
+    const unsigned blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    if (threadIdx.x == 0 && blk < kSumPhaseBlocks) {
+      g_sum_phases[0][blk] = t0;
+      g_sum_phases[1][blk] = timer();
+      for (int k = 0; k < kSumPhaseCount; ++k) g_sum_phases[2 + k][blk] = sum[k];
+    }
+    __syncthreads();
+    if (second > 0 && threadIdx.x == second && blk < kSumPhaseBlocks)
+      for (int k = 0; k < kSumPhaseCount; ++k)
+        if (sum[k] != 0) g_sum_phases[2 + k][blk] = sum[k];
+  }
+};
+#else
+struct SumPhases {
+  __device__ void start() {}
+  __device__ void mark(int, bool = false) {}
+  __device__ void end(int = 0) {}
+};
+#endif
 
 // Offsets (bytes) of the shared-memory regions; the same layout as
 // smem_bytes() in ops/kernels/eva_summaries.py.  XD = 0 for K8.
@@ -375,6 +435,8 @@ __global__ void __launch_bounds__(kThreads) eva_summaries_kernel(const SumParams
   const int HD = p.nh * D;
   const int t0 = hr * p.R;  // the strip's first token
   auto strip_row = [&](int r) { return t0 + r; };
+  SumPhases phases;
+  phases.start();
   if constexpr (FROM_X) {
     // q, k, v of head h = x Wqkv[:, its columns] + bqkv, rounded to T (JAX's
     // order: project, round, then take the means)
@@ -383,6 +445,7 @@ __global__ void __launch_bounds__(kThreads) eva_summaries_kernel(const SumParams
     stage_rows(static_cast<const T*>(p.x) + (size_t)b * p.N * p.XD, p.XD, p.XD, p.R,
                round16(p.R), xs, ld, strip_row);
     __syncthreads();
+    phases.mark(kSumStage);
     const Cols cols{D, HD, h * D};
     project<T, MMA>(xs, ld, p.R, round16(p.R), p.XD, static_cast<const T*>(p.wqkv),
                     3 * HD, cols, 3 * D, reinterpret_cast<float*>(smem + L.scratch),
@@ -407,6 +470,7 @@ __global__ void __launch_bounds__(kThreads) eva_summaries_kernel(const SumParams
     }
   }
   __syncthreads();
+  phases.mark(FROM_X ? kSumProj : kSumStage);
 
   constexpr int DPL = (D + 31) / 32;  // dims per lane
   const float dn = 1.f / sqrtf((float)D);
@@ -443,6 +507,7 @@ __global__ void __launch_bounds__(kThreads) eva_summaries_kernel(const SumParams
       }
     }
     __syncwarp();
+    phases.mark(kSumMeans);
     float rq[DPL], rk[DPL], mu[DPL];
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
@@ -464,6 +529,7 @@ __global__ void __launch_bounds__(kThreads) eva_summaries_kernel(const SumParams
       warp_layer_norm<D, DPL>(rq, p.lnq_s, p.lnq_b, lane);
       warp_layer_norm<D, DPL>(rk, p.lnk_s, p.lnk_b, lane);
     }
+    phases.mark(kSumDense);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) mu[i] = 0.5f * (rq[i] + rk[i]);
     float mx = -INFINITY, den = 0.f, pv[DPL];
@@ -491,6 +557,7 @@ __global__ void __launch_bounds__(kThreads) eva_summaries_kernel(const SumParams
       for (int i = 0; i < DPL; ++i) pv[i] = fmaf(pv[i], corr, e * vv[i]);
       mx = mnew;
     }
+    phases.mark(kSumLogits);
     const size_t c = (size_t)hr * p.wc + cx;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
@@ -500,7 +567,9 @@ __global__ void __launch_bounds__(kThreads) eva_summaries_kernel(const SumParams
         beta_out[c * HD + dd] = from_f<T>(pv[i] / den);
       }
     }
+    phases.mark(kSumWrites);
   }
+  phases.end();
 }
 
 // Fills p's geometry; false where the kernel cannot take it.
@@ -540,8 +609,25 @@ cudaError_t launch_sum_d(const SumParams& p, int is_bf16, cudaStream_t stream) {
   return launch_sum_inst<D, bf16, FROM_X, false>(p, stream);
 }
 
+// The launch's route and layout, as the wrapper's mma_plan() picks them:
+// warps 0 the first kernel (eva_summaries_kernel), else the persistent
+// tensor-core kernel with `warps` warps a block (8 or 16), a ring of
+// `stages` item buffers, `bps` blocks an SM, and teams 2 for K10's two-team
+// kernel (eva_summaries_ws_kernel: 16 warps, one stage, one block an SM).
+struct SumConfig {
+  int warps, stages, bps, teams;
+};
+
 template <bool FROM_X>
-cudaError_t launch_summaries(const SumParams& p, int d, int is_bf16, cudaStream_t stream) {
+cudaError_t launch_sum_mma(SumParams p, int d, const SumConfig& cfg, cudaStream_t stream);
+
+template <bool FROM_X>
+cudaError_t launch_summaries(const SumParams& p, int d, int is_bf16, const SumConfig& cfg,
+                             cudaStream_t stream) {
+  if (cfg.warps != 0) {
+    if (!is_bf16) return cudaErrorInvalidValue;
+    return launch_sum_mma<FROM_X>(p, d, cfg, stream);
+  }
   switch (d) {
     case 12: return launch_sum_d<12, FROM_X>(p, is_bf16, stream);
     case 16: return launch_sum_d<16, FROM_X>(p, is_bf16, stream);
@@ -1419,6 +1505,764 @@ cudaError_t launch_out(const OutParams& p, int d, int is_bf16, cudaStream_t stre
     case 64: return launch_out_d<64, FROM_X>(p, is_bf16, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---- the persistent tensor-core summaries (bf16)
+
+constexpr int kSumDenseThreads = 256;  // threads of one Dense partition
+constexpr int kSumProjCols = 48;       // columns of one projection job: three 16-wide tiles
+
+struct SumMmaLayout {
+  size_t w, ring, stage, tok, tok_stage, vec, mean, part, lw, moff, total;
+};
+
+// Offsets (bytes) of the persistent kernel's shared memory; the same layout
+// as mma_smem_bytes() in ops/kernels/eva_summaries.py: K10's Wqkv columns of
+// the block's head [XD][3D + 8] (bf16), the ring of `stages` item buffers
+// (K8: the strip's q | k | v rows of one head [R][3D + 8]; K10: its x rows
+// [R][XD + 8]), K10's projected rows [R][3D + 8], the f32 vectors (the
+// adaptive biases and LN; K10's bqkv columns), the chunks' means [wc][2][D],
+// the Dense's partial sums [256 / 2D][wc][2D], the members' weights
+// [wc][JJ] and their row offsets [wc][JJ] (int), each 128-byte aligned.
+// XD = 0 for K8.  K10's two-team kernel (teams 2) keeps two buffers of
+// projected rows.
+__host__ __device__ inline SumMmaLayout sum_mma_layout(int R, int D, int XD, int wc, int JJ,
+                                                       int stages, int teams = 1) {
+  const size_t LT = 3 * D + 8;
+  SumMmaLayout L = {};
+  size_t o = 0;
+  L.w = o;     o += align128((size_t)XD * LT * 2);
+  L.stage = align128((size_t)R * (XD > 0 ? XD + 8 : LT) * 2);
+  L.ring = o;  o += stages * L.stage;
+  L.tok_stage = align128((size_t)R * LT * 2);
+  L.tok = o;   o += XD > 0 ? teams * L.tok_stage : 0;
+  L.vec = o;   o += align128((size_t)(6 * D + (XD > 0 ? 3 * D : 0)) * 4);
+  L.mean = o;  o += align128((size_t)wc * 2 * D * 4);
+  L.part = o;  o += align128((size_t)kSumDenseThreads * wc * 4);
+  L.lw = o;    o += align128((size_t)wc * JJ * 4);
+  L.moff = o;  o += align128((size_t)wc * JJ * 4);
+  L.total = o;
+  return L;
+}
+
+// cp.async.wait_group n for n in 0..2 (the ring's depth less one or two).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n <= 0) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float2 ld_bf2(const bf16* x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x));
+}
+
+// Blocks of a persistent launch (mma_blocks() in the wrapper): a multiple of
+// the heads, at most bps an SM, and no more than there are items.
+__host__ __device__ inline int sum_mma_blocks(int B, int nh, int strips, int sms, int bps) {
+  const long long fit = (long long)sms * bps / nh, items = (long long)strips * B;
+  return nh * (int)(fit < 1 ? 1 : (items < fit ? items : fit));
+}
+
+// K10's projection of one item: tok[i][n] = x[i] . W[:, n] + bias[n], summed
+// in f32 and rounded to bf16, for the strip's rows i < R and the head's 3D
+// columns n (q | k | v), on mma.sync m16n8k16.  x [R][XD + 8] and the
+// head's Wqkv columns W [XD][3D + 8] lie in shared memory; a warp's job is
+// RT 16-row tiles by 16 CT columns over the whole sum (each W fragment
+// feeds every row tile), rows past R reading row R - 1 (their outputs
+// dropped), the fragments rounded straight into the rows.
+template <int D, int RT, int CT, bool PIPE>
+__device__ __forceinline__ void sum_project_jobs(const bf16* xs, int XD, int R, const bf16* wsl,
+                                                 const float* bias, bf16* tok, int rt0, int MT,
+                                                 int warp, int NW) {
+  using namespace mma_frag;
+  constexpr int LT = 3 * D + 8, NG = 3 * D / (16 * CT);
+  const int lane = threadIdx.x & 31, ldx = XD + 8;
+  for (int job = warp; job < (MT - rt0 + RT - 1) / RT * NG; job += NW) {
+    const int rt = rt0 + RT * (job / NG), c0 = (job % NG) * 16 * CT;
+    float acc[RT][2 * CT][4];
+#pragma unroll
+    for (int t = 0; t < RT; ++t)
+#pragma unroll
+      for (int n = 0; n < 2 * CT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][n][e] = 0.f;
+    const bf16* ar[RT];
+#pragma unroll
+    for (int t = 0; t < RT; ++t)
+      ar[t] = xs + min(16 * (rt + t) + row_r(lane), R - 1) * ldx + col_r(lane);
+    const bf16* br = wsl + row_r(lane) * LT + c0 + col_r(lane);
+    if constexpr (PIPE) {
+      // the next k-step's fragments load while this one's products run
+      uint32_t a0[RT][4], a1[RT][4], b0[CT][4], b1[CT][4];
+      auto load = [&](uint32_t(&aa)[RT][4], uint32_t(&bb)[CT][4], int k) {
+#pragma unroll
+        for (int t = 0; t < RT; ++t)
+          if (rt + t < MT) ldsm_x4(aa[t], ar[t] + k);
+#pragma unroll
+        for (int u = 0; u < CT; ++u) ldsm_x4_trans(bb[u], br + k * LT + 16 * u);
+      };
+      auto products = [&](const uint32_t(&aa)[RT][4], const uint32_t(&bb)[CT][4]) {
+#pragma unroll
+        for (int u = 0; u < CT; ++u)
+#pragma unroll
+          for (int t = 0; t < RT; ++t)
+            if (rt + t < MT) {
+              mma_bf16(acc[t][2 * u], aa[t], bb[u][0], bb[u][1]);
+              mma_bf16(acc[t][2 * u + 1], aa[t], bb[u][2], bb[u][3]);
+            }
+      };
+      load(a0, b0, 0);
+      for (int k = 0; k < XD; k += 32) {
+        if (k + 16 < XD) load(a1, b1, k + 16);
+        products(a0, b0);
+        if (k + 32 < XD) load(a0, b0, k + 32);
+        if (k + 16 < XD) products(a1, b1);
+      }
+    } else {
+      for (int k = 0; k < XD; k += 16) {
+        uint32_t a[RT][4];
+#pragma unroll
+        for (int t = 0; t < RT; ++t)
+          if (rt + t < MT) ldsm_x4(a[t], ar[t] + k);
+#pragma unroll
+        for (int u = 0; u < CT; ++u) {
+          uint32_t bw[4];
+          ldsm_x4_trans(bw, br + k * LT + 16 * u);
+#pragma unroll
+          for (int t = 0; t < RT; ++t)
+            if (rt + t < MT) {
+              mma_bf16(acc[t][2 * u], a[t], bw[0], bw[1]);
+              mma_bf16(acc[t][2 * u + 1], a[t], bw[2], bw[3]);
+            }
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      if (rt + t >= MT) continue;  // past the range (its accumulators are zero)
+      const int r0 = 16 * (rt + t) + (lane >> 2);
+#pragma unroll
+      for (int n = 0; n < 2 * CT; ++n) {
+        const int col = c0 + 8 * n + 2 * (lane & 3);
+        const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (r0 + 8 * r < R)
+            *reinterpret_cast<uint32_t*>(tok + (r0 + 8 * r) * LT + col) =
+                pack_bf16(acc[t][n][2 * r] + b0, acc[t][n][2 * r + 1] + b1);
+      }
+    }
+  }
+}
+
+// Row tiles [rt0, MT) (the item's R rows end in tile MT - 1) by NW warps
+// (warp the caller's index among them): jobs of two row tiles by 48
+// columns where there are as many as warps (the headline's 112 rows: 16
+// jobs), else of one tile by 16 columns (PVT-B3's third stage: 28 rows, 12
+// jobs), so that every warp has one.
+template <int D, bool PIPE = false>
+__device__ __forceinline__ void sum_project(const bf16* xs, int XD, int R, const bf16* wsl,
+                                            const float* bias, bf16* tok, int rt0, int MT,
+                                            int warp, int NW) {
+  if ((MT - rt0 + 1) / 2 * (3 * D / kSumProjCols) >= NW)
+    sum_project_jobs<D, 2, 3, PIPE>(xs, XD, R, wsl, bias, tok, rt0, MT, warp, NW);
+  else
+    sum_project_jobs<D, 1, 1, PIPE>(xs, XD, R, wsl, bias, tok, rt0, MT, warp, NW);
+}
+
+// LayerNorm of two rows of D values a warp holds, DPL per lane
+// (lane-strided), their reductions interleaved (eva_single.cu's).
+template <int D, int DPL>
+__device__ __forceinline__ void warp_layer_norm2(float (&x)[DPL], const float* xs,
+                                                 const float* xb, float (&y)[DPL],
+                                                 const float* ys, const float* yb, int lane) {
+  float sx = 0.f, sy = 0.f;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i)
+    if (lane + 32 * i < D) {
+      sx += x[i];
+      sy += y[i];
+    }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sx += __shfl_xor_sync(0xffffffffu, sx, o);
+    sy += __shfl_xor_sync(0xffffffffu, sy, o);
+  }
+  const float mx = sx / D, my = sy / D;
+  float qx = 0.f, qy = 0.f;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i)
+    if (lane + 32 * i < D) {
+      qx += (x[i] - mx) * (x[i] - mx);
+      qy += (y[i] - my) * (y[i] - my);
+    }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    qx += __shfl_xor_sync(0xffffffffu, qx, o);
+    qy += __shfl_xor_sync(0xffffffffu, qy, o);
+  }
+  const float ix = rsqrtf(qx / D + kLnEps), iy = rsqrtf(qy / D + kLnEps);
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    const int o = lane + 32 * i;
+    if (o < D) {
+      x[i] = (x[i] - mx) * ix * xs[o] + xb[o];
+      y[i] = (y[i] - my) * iy * ys[o] + yb[o];
+    }
+  }
+}
+
+// <mu, k> and |k|^2 over the dimensions 8 t0 .. 8 (t0 + n) of a member's k
+// row (bf16) and mu (f32), in two sums each.
+__device__ __forceinline__ void logit_sums(const bf16* k, const float* mu, int t0, int n,
+                                           float& dot_out, float& nrm_out) {
+  const uint4* kr = reinterpret_cast<const uint4*>(k);
+  float dot[2] = {0.f, 0.f}, nrm[2] = {0.f, 0.f};
+#pragma unroll 2
+  for (int t8 = t0; t8 < t0 + n; ++t8) {
+    const uint4 ut = kr[t8];
+    const __nv_bfloat162* e2 = reinterpret_cast<const __nv_bfloat162*>(&ut);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float4 m4 = reinterpret_cast<const float4*>(mu)[2 * t8 + hh];
+      const float2 k0 = __bfloat1622float2(e2[2 * hh]);
+      const float2 k1 = __bfloat1622float2(e2[2 * hh + 1]);
+      dot[hh] = fmaf(m4.w, k1.y, fmaf(m4.z, k1.x, fmaf(m4.y, k0.y, fmaf(m4.x, k0.x, dot[hh]))));
+      nrm[hh] = fmaf(k1.y, k1.y, fmaf(k1.x, k1.x, fmaf(k0.y, k0.y, fmaf(k0.x, k0.x, nrm[hh]))));
+    }
+  }
+  dot_out = dot[0] + dot[1];
+  nrm_out = nrm[0] + nrm[1];
+}
+
+// The max and the sum of v over lane groups of `width` (a power of two):
+// the members of one chunk.
+__device__ __forceinline__ float group_max(float v, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float group_sum(float v, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The summaries of one item from its rows [R][3D + 8] (q | k | v of head
+// h), by a team of NW warps (warp and ttid its warp and thread index in the
+// team) whose barrier is sync(): the means, the adaptive Dense, then a warp
+// a chunk LN, mu, the logits, softmax and beta (the design at
+// eva_summaries_mma_kernel); rf_k and beta of the item's chunks, strip hr
+// of image b, rounded to bf16 into device memory.
+struct SumCtx {
+  const float* vec;  // bq, bk, lnq s/b, lnk s/b [6][D]
+  float* mean;       // [wc][2][D] means of q, k; then mu
+  float* part;       // [KG][wc][2D] Dense partial sums
+  float* lw;         // [wc][JJ] members' weights
+  const int* moff;   // [wc][JJ] members' row offsets
+  int h, wc, JJ, width;
+  float dn;
+};
+
+// A thread's slice of its Dense column (sum_body's dcol, dgrp): inputs
+// [dgrp DK, dgrp DK + DK) of column dcol of wq (dcol < D) or wk.
+template <int D>
+__device__ __forceinline__ void sum_dense_slice(const SumParams& p, int ttid,
+                                                float (&wr)[D * D / 128]) {
+  constexpr int DK = D * D / 128;
+  const int dcol = ttid % (2 * D), dgrp = (ttid % kSumDenseThreads) / (2 * D);
+  const float* W = (dcol < D ? p.wq : p.wk) + dcol % D;
+#pragma unroll
+  for (int k = 0; k < DK; ++k) wr[k] = W[(dgrp * DK + k) * D];
+}
+
+// The Dense: a partition of kSumDenseThreads threads takes every CH-th
+// chunk; in it thread (g, column) sums inputs [g DK, g DK + DK) of its
+// column, KG groups of the 2D columns of rf_q and rf_k.
+template <int D, int NW, typename Sync>
+__device__ __forceinline__ void sum_body(const SumParams& p, const SumCtx& x, const bf16* rows,
+                                         int hr, int b, int warp, int ttid,
+                                         const float (&wr)[D * D / 128], Sync&& sync,
+                                         SumPhases& phases) {
+  using namespace mma_frag;
+  constexpr int V8 = D / 8, NP = D / 2, DPL = (D + 31) / 32;
+  constexpr int KG = kSumDenseThreads / (2 * D), DK = D / KG, CH = 32 * NW / kSumDenseThreads;
+  const int lane = threadIdx.x & 31, wc = x.wc, JJ = x.JJ, HD = p.nh * D, h = x.h;
+  const int dcol = ttid % (2 * D), dgrp = (ttid % kSumDenseThreads) / (2 * D);
+  const int dpart = ttid / kSumDenseThreads, width = x.width;
+  const float* vec = x.vec;
+  float* mean = x.mean;
+  float* part = x.part;
+  float* lw = x.lw;
+  const int* moff = x.moff;
+  const float dn = x.dn;
+  // the means of q and k, a warp a chunk, a lane a dimension pair
+  for (int c = warp; c < wc; c += NW) {
+    if (lane < NP) {
+      float2 sq = make_float2(0.f, 0.f), sk = make_float2(0.f, 0.f);
+#pragma unroll 4
+      for (int m = 0; m < JJ; ++m) {
+        const bf16* row = rows + moff[c * JJ + m] + 2 * lane;
+        const float2 a = ld_bf2(row), k2 = ld_bf2(row + D);
+        sq.x += a.x;
+        sq.y += a.y;
+        sk.x += k2.x;
+        sk.y += k2.y;
+      }
+      *reinterpret_cast<float2*>(mean + c * 2 * D + 2 * lane) =
+          make_float2(sq.x / JJ, sq.y / JJ);
+      *reinterpret_cast<float2*>(mean + c * 2 * D + D + 2 * lane) =
+          make_float2(sk.x / JJ, sk.y / JJ);
+    }
+  }
+  sync();
+  phases.mark(kSumMeans);
+  // the adaptive Dense's partial sums, two chunks at a time (two sums
+  // each, over even and odd inputs)
+  {
+    const float* mcol = mean + (dcol / D) * D + dgrp * DK;
+    for (int c = dpart; c < wc; c += 2 * CH) {
+      const int c2 = c + CH;
+      const bool has2 = c2 < wc;
+      float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < DK; k += 2) {
+        const float2 m0 = *reinterpret_cast<const float2*>(mcol + c * 2 * D + k);
+        s0[0] = fmaf(m0.x, wr[k], s0[0]);
+        s0[1] = fmaf(m0.y, wr[k + 1], s0[1]);
+        if (has2) {
+          const float2 m1 = *reinterpret_cast<const float2*>(mcol + c2 * 2 * D + k);
+          s1[0] = fmaf(m1.x, wr[k], s1[0]);
+          s1[1] = fmaf(m1.y, wr[k + 1], s1[1]);
+        }
+      }
+      part[(dgrp * wc + c) * 2 * D + dcol] = s0[0] + s0[1];
+      if (has2) part[(dgrp * wc + c2) * 2 * D + dcol] = s1[0] + s1[1];
+    }
+  }
+  sync();
+  phases.mark(kSumDense);
+  // a warp a chunk: the Dense's sums, LN, mu, the logits, softmax and
+  // beta, and the writes
+  bf16* rf_out = static_cast<bf16*>(p.rf) + ((size_t)b * p.C + (size_t)hr * wc) * HD + h * D;
+  bf16* beta_out =
+      static_cast<bf16*>(p.beta) + ((size_t)b * p.C + (size_t)hr * wc) * HD + h * D;
+  for (int c = warp; c < wc; c += NW) {
+    float rq[DPL], rk[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int dd = lane + 32 * i;
+      rq[i] = rk[i] = 0.f;
+      if (dd < D) {
+        rq[i] = vec[dd];
+        rk[i] = vec[D + dd];
+#pragma unroll
+        for (int g = 0; g < KG; ++g) {
+          rq[i] += part[(g * wc + c) * 2 * D + dd];
+          rk[i] += part[(g * wc + c) * 2 * D + D + dd];
+        }
+      }
+    }
+    if (p.use_ln)
+      warp_layer_norm2<D, DPL>(rq, vec + 2 * D, vec + 3 * D, rk, vec + 4 * D, vec + 5 * D,
+                               lane);
+    float* mu = mean + c * 2 * D;  // the chunk's means are spent
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int dd = lane + 32 * i;
+      if (dd < D) {
+        mu[dd] = 0.5f * (rq[i] + rk[i]);
+        rf_out[(size_t)c * HD + dd] = __float2bfloat16_rn(rk[i]);
+      }
+    }
+    __syncwarp();
+    // <mu, k>/sqrt(d) - |k|^2/(2 sqrt(d)): with at most 16 members two
+    // lanes a member, each over half of the dimensions, else a lane a
+    // member
+    const int* mo = moff + c * JJ;
+    float* lwc = lw + c * JJ;
+    float mx = -INFINITY;
+    if (JJ <= 16) {
+      const int m = lane & 15;
+      float dot = 0.f, nrm = 0.f;
+      if (m < JJ) logit_sums(rows + mo[m] + D, mu, (lane >> 4) * V8 / 2, V8 / 2, dot, nrm);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 16);
+      nrm += __shfl_xor_sync(0xffffffffu, nrm, 16);
+      if (m < JJ) {
+        mx = dn * dot - 0.5f * dn * nrm;
+        if (lane < 16) lwc[m] = mx;
+      }
+    } else {
+      for (int m = lane; m < JJ; m += 32) {
+        float dot = 0.f, nrm = 0.f;
+        logit_sums(rows + mo[m] + D, mu, 0, V8, dot, nrm);
+        const float l = dn * dot - 0.5f * dn * nrm;
+        lwc[m] = l;
+        mx = fmaxf(mx, l);
+      }
+    }
+    mx = group_max(mx, width);
+    float sum = 0.f;
+    for (int m = lane; m < JJ; m += 32) {
+      const float e = expf(lwc[m] - mx);
+      lwc[m] = e;
+      sum += e;
+    }
+    sum = __shfl_sync(0xffffffffu, group_sum(sum, width), 0);  // to every lane
+    __syncwarp();
+    // beta = sum of the weights times v, over their sum, a lane a pair
+    if (lane < NP) {
+      float2 acc = make_float2(0.f, 0.f);
+#pragma unroll 4
+      for (int m = 0; m < JJ; ++m) {
+        const float x = lwc[m];
+        const float2 vv = ld_bf2(rows + mo[m] + 2 * D + 2 * lane);
+        acc.x = fmaf(x, vv.x, acc.x);
+        acc.y = fmaf(x, vv.y, acc.y);
+      }
+      *reinterpret_cast<uint32_t*>(beta_out + (size_t)c * HD + 2 * lane) =
+          pack_bf16(acc.x / sum, acc.y / sum);
+    }
+  }
+}
+
+// The persistent summaries kernel (bf16; D 16, 32 or 64; chunks of at most
+// 64 members; 256 or 512 threads).  Block k keeps head h = k % nh for its
+// life and takes the (strip, image) pairs k / nh, k / nh + gridDim / nh, ...
+// (mma_walk() in the wrapper), so the blocks of one pair's heads run side by
+// side and read its rows from device memory about once.  An item's rows
+// (K8: the strip's q, k, v columns of head h; K10: its x rows) arrive in a
+// ring of `stages` buffers by cp.async, 16 bytes a thread, while earlier
+// items are computed.  K10 holds the head's Wqkv columns in shared memory
+// for the block's life and projects each item on mma.sync into [R][3D + 8]
+// rows.  The chunk body is K2's phase 1 (eva_single.cu): the q and k sums
+// a warp a chunk, a lane a dimension pair; the adaptive Dense a thread an
+// output column, its slice of wq or wk held in registers for the block's
+// life, over every chunk of the item (partial sums over slices of the input
+// dimension, added in the next phase); then, a warp a chunk, LN, mu, the
+// members' logits (two lanes a member, each over half the dimensions, where
+// a chunk has at most 16; else a lane a member), their true max, exp and
+// sum, and beta a lane a dimension pair.  All of it in f32; rf_k and beta
+// rounded to bf16 into device memory.  Built with -DEVA_SUM_PHASES the
+// block's thread 0 sums its cycles by phase (SumPhases), each phase ending
+// at a barrier.
+// The blocks an SM a kernel of NW warps is built for (its registers): two
+// of 8 warps, one of 16.  mma_plan() in the wrapper keeps a launch's
+// blocks an SM within it.
+__host__ __device__ constexpr int sum_mma_max_bps(int NW) { return NW == 16 ? 1 : 2; }
+
+template <int D, bool FROM_X, int NW>
+__global__ void __launch_bounds__(32 * NW, sum_mma_max_bps(NW))
+    eva_summaries_mma_kernel(const SumParams p) {
+  using namespace mma_frag;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LT = 3 * D + 8, V8 = D / 8, DK = D * D / 128, NT = 32 * NW;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int R = p.R, j = p.j, JJ = j * j, wc = p.wc, nh = p.nh, HD = nh * D;
+  const int XD = FROM_X ? p.XD : 0, S = p.stages;
+  const SumMmaLayout L = sum_mma_layout(R, D, XD, wc, JJ, S);
+  bf16* wsl = reinterpret_cast<bf16*>(smem + L.w);        // K10: [XD][LT], head h's q | k | v
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);    // [S] items' rows
+  bf16* tok = reinterpret_cast<bf16*>(smem + L.tok);      // K10: [R][LT] projected
+  float* vec = reinterpret_cast<float*>(smem + L.vec);    // bq, bk, lnq s/b, lnk s/b; K10 bqkv's
+  float* mean = reinterpret_cast<float*>(smem + L.mean);  // [wc][2][D] means of q, k; then mu
+  float* part = reinterpret_cast<float*>(smem + L.part);  // [KG][wc][2D] Dense partial sums
+  float* lw = reinterpret_cast<float*>(smem + L.lw);      // [wc][JJ] members' weights
+  int* moff = reinterpret_cast<int*>(smem + L.moff);      // [wc][JJ] members' row offsets
+  const size_t stage_elems = L.stage / 2;
+  const int h = blockIdx.x % nh, strips = p.N / R, pairs = strips * p.B;
+  const int q0 = blockIdx.x / nh, qstep = gridDim.x / nh;
+  const int items = q0 < pairs ? (pairs - q0 + qstep - 1) / qstep : 0;
+  // column n < 3D of head h's q | k | v as a column of qkv and of Wqkv
+  auto qkv_col = [&](int n) { return (n / D) * HD + h * D + n % D; };
+  // item t's rows into ring buffer t % S, one commit group an item (empty
+  // past the last)
+  auto issue = [&](int t) {
+    if (t < items) {
+      const int q = q0 + t * qstep, hr = q % strips, b = q / strips;
+      bf16* dst = ring + (size_t)(t % S) * stage_elems;
+      if constexpr (FROM_X) {
+        const bf16* src =
+            static_cast<const bf16*>(p.x) + ((size_t)b * p.N + (size_t)hr * R) * XD;
+        const int V = XD / 8;
+        for (int e = tid; e < R * V; e += NT) {
+          const int r = e / V, v = e % V;
+          cp_async16(dst + r * (XD + 8) + 8 * v, src + (size_t)r * XD + 8 * v);
+        }
+      } else {
+        const bf16* src =
+            static_cast<const bf16*>(p.qkv) + ((size_t)b * p.N + (size_t)hr * R) * 3 * HD;
+        for (int e = tid; e < R * 3 * V8; e += NT) {
+          const int r = e / (3 * V8), c = e % (3 * V8);
+          cp_async16(dst + r * LT + 8 * c, src + (size_t)r * 3 * HD + qkv_col(8 * c));
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  SumPhases phases;
+  phases.start();
+  // the block's constants, landed by the first item's wait
+  for (int e = tid; e < D; e += NT) {
+    vec[e] = p.bq[e];
+    vec[D + e] = p.bk[e];
+    if (p.use_ln) {
+      vec[2 * D + e] = p.lnq_s[e];
+      vec[3 * D + e] = p.lnq_b[e];
+      vec[4 * D + e] = p.lnk_s[e];
+      vec[5 * D + e] = p.lnk_b[e];
+    }
+  }
+  for (int e = tid; e < wc * JJ; e += NT) {
+    // member m of chunk c is strip row (m / j) gw + c j + m % j
+    const int c = e / JJ, m = e % JJ;
+    moff[e] = ((m / j) * p.gw + c * j + m % j) * LT;
+  }
+  if constexpr (FROM_X) {
+    for (int e = tid; e < 3 * D; e += NT) vec[6 * D + e] = p.bqkv[qkv_col(e)];
+    const bf16* w = static_cast<const bf16*>(p.wqkv);
+    for (int e = tid; e < XD * 3 * V8; e += NT) {
+      const int k = e / (3 * V8), c = e % (3 * V8);
+      cp_async16(wsl + k * LT + 8 * c, w + (size_t)k * 3 * HD + qkv_col(8 * c));
+    }
+  }
+  float wr[DK];  // the thread's slice of its Dense column, for the block's life
+  sum_dense_slice<D>(p, tid, wr);
+  // K10 fills every buffer ahead (one frees once projected), K8 all but the
+  // one the next item reads from
+  for (int s = 0; s < (FROM_X ? S : S - 1); ++s) issue(s);
+
+  int width = 1;  // lanes a chunk's members span: a power of two, at most 32
+  while (width < JJ && width < 32) width <<= 1;
+  const SumCtx ctx{vec, mean, part, lw, moff, h, wc, JJ, width, 1.f / sqrtf((float)D)};
+  for (int t = 0; t < items; ++t) {
+    const int q = q0 + t * qstep, hr = q % strips, b = q / strips;
+    const bf16* stage = ring + (size_t)(t % S) * stage_elems;
+    cp_async_wait_n(FROM_X ? S - 1 : S - 2);  // item t has landed
+    __syncthreads();                          // ... for every thread; item t - 1 is done
+    if constexpr (!FROM_X) issue(t + S - 1);  // into item t - 1's buffer
+    phases.mark(kSumStage);
+    const bf16* rows = stage;  // [R][LT]: q | k | v of head h
+    if constexpr (FROM_X) {
+      sum_project<D>(stage, XD, R, wsl, vec + 6 * D, tok, 0, (R + 15) / 16, warp, NW);
+      __syncthreads();
+      issue(t + S);  // into this item's x buffer
+      phases.mark(kSumProj);
+      rows = tok;
+    }
+
+    sum_body<D, NW>(p, ctx, rows, hr, b, warp, tid, wr, [] { __syncthreads(); }, phases);
+    phases.mark(kSumLogits, true);
+  }
+  phases.end();
+}
+
+// cp.async.wait_group 1: all but the newest commit group have landed.
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Named barriers (bar.sync / bar.arrive) among n threads of the block.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// K10's two-team persistent kernel (bf16; 16 warps; the layout with two
+// buffers of projected rows and one of x rows): warps 0-7 project item t
+// into rows buffer t % 2 while warps 8-15 summarise item t - 1 from the
+// other, so the body overlaps the projection.  The projectors load the x
+// rows in two halves (rows [0, 64) and [64, R)), each refilled for the next
+// item as soon as both halves' projection is past it, so the next item's
+// loads overlap this item's projection.  Named barriers: 1 among the
+// projectors, 2 among the body's warps, FULL (3, 4: a rows buffer is
+// projected) and EMPTY (5, 6: the body is done with it) between the teams.
+// The body is sum_body's; the arithmetic is eva_summaries_mma_kernel's.
+template <int D>
+__global__ void __launch_bounds__(512, 1) eva_summaries_ws_kernel(const SumParams p) {
+  using namespace mma_frag;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LT = 3 * D + 8, V8 = D / 8, DK = D * D / 128;
+  constexpr int kTeam = 256, kFull = 3, kEmpty = 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const bool projector = tid < kTeam;
+  const int R = p.R, j = p.j, JJ = j * j, wc = p.wc, nh = p.nh, HD = nh * D, XD = p.XD;
+  const SumMmaLayout L = sum_mma_layout(R, D, XD, wc, JJ, 1, 2);
+  bf16* wsl = reinterpret_cast<bf16*>(smem + L.w);        // [XD][LT], head h's q | k | v
+  bf16* xs = reinterpret_cast<bf16*>(smem + L.ring);      // [R][XD + 8] an item's x rows
+  bf16* tok = reinterpret_cast<bf16*>(smem + L.tok);      // [2][R][LT] projected
+  float* vec = reinterpret_cast<float*>(smem + L.vec);    // bq, bk, lnq s/b, lnk s/b, bqkv's
+  float* mean = reinterpret_cast<float*>(smem + L.mean);  // [wc][2][D]
+  float* part = reinterpret_cast<float*>(smem + L.part);  // [KG][wc][2D]
+  float* lw = reinterpret_cast<float*>(smem + L.lw);      // [wc][JJ]
+  int* moff = reinterpret_cast<int*>(smem + L.moff);      // [wc][JJ]
+  const size_t tok_elems = L.tok_stage / 2;
+  const int h = blockIdx.x % nh, strips = p.N / R, pairs = strips * p.B;
+  const int q0 = blockIdx.x / nh, qstep = gridDim.x / nh;
+  const int items = q0 < pairs ? (pairs - q0 + qstep - 1) / qstep : 0;
+  // x's halves: rows [0, R1) (row tiles [0, MT1)) and [R1, R)
+  const int MT = (R + 15) / 16, MT1 = min(MT, 4), R1 = min(R, 16 * MT1);
+  auto qkv_col = [&](int n) { return (n / D) * HD + h * D + n % D; };
+  // rows [r0, r1) of item t's x by the projectors, one commit group (empty
+  // past the last item)
+  auto issue = [&](int t, int r0, int r1) {
+    if (t < items) {
+      const int q = q0 + t * qstep, hr = q % strips, b = q / strips;
+      const bf16* src = static_cast<const bf16*>(p.x) + ((size_t)b * p.N + (size_t)hr * R) * XD;
+      const int V = XD / 8;
+      for (int e = tid; e < (r1 - r0) * V; e += kTeam) {
+        const int r = r0 + e / V, v = e % V;
+        cp_async16(xs + r * (XD + 8) + 8 * v, src + (size_t)r * XD + 8 * v);
+      }
+    }
+    cp_async_commit();
+  };
+
+  SumPhases phases;
+  phases.start();
+  for (int e = tid; e < D; e += 2 * kTeam) {
+    vec[e] = p.bq[e];
+    vec[D + e] = p.bk[e];
+    if (p.use_ln) {
+      vec[2 * D + e] = p.lnq_s[e];
+      vec[3 * D + e] = p.lnq_b[e];
+      vec[4 * D + e] = p.lnk_s[e];
+      vec[5 * D + e] = p.lnk_b[e];
+    }
+  }
+  for (int e = tid; e < wc * JJ; e += 2 * kTeam) {
+    const int c = e / JJ, m = e % JJ;
+    moff[e] = ((m / j) * p.gw + c * j + m % j) * LT;
+  }
+  for (int e = tid; e < 3 * D; e += 2 * kTeam) vec[6 * D + e] = p.bqkv[qkv_col(e)];
+  float wr[DK];  // a body thread's slice of its Dense column
+  if (projector) {
+    const bf16* w = static_cast<const bf16*>(p.wqkv);
+    for (int e = tid; e < XD * 3 * V8; e += kTeam) {
+      const int k = e / (3 * V8), c = e % (3 * V8);
+      cp_async16(wsl + k * LT + 8 * c, w + (size_t)k * 3 * HD + qkv_col(8 * c));
+    }
+    issue(0, 0, R1);  // with Wqkv's columns
+    issue(0, R1, R);
+  } else {
+    sum_dense_slice<D>(p, tid - kTeam, wr);
+  }
+  __syncthreads();  // the constants
+  int width = 1;
+  while (width < JJ && width < 32) width <<= 1;
+  const SumCtx ctx{vec, mean, part, lw, moff, h, wc, JJ, width, 1.f / sqrtf((float)D)};
+  if (projector) {
+    for (int t = 0; t < items; ++t) {
+      bf16* out = tok + (size_t)(t & 1) * tok_elems;
+      cp_async_wait_1();  // rows [0, R1) of item t
+      named_sync(1, kTeam);
+      if (t >= 2) named_sync(kEmpty + (t & 1), 2 * kTeam);  // item t - 2's rows are spent
+      phases.mark(kSumStage);
+      sum_project<D, true>(xs, XD, R, wsl, vec + 6 * D, out, 0, MT1, warp, 8);
+      named_sync(1, kTeam);
+      issue(t + 1, 0, R1);
+      cp_async_wait_1();  // rows [R1, R) of item t
+      named_sync(1, kTeam);
+      sum_project<D, true>(xs, XD, R, wsl, vec + 6 * D, out, MT1, MT, warp, 8);
+      named_sync(1, kTeam);
+      issue(t + 1, R1, R);
+      phases.mark(kSumProj);
+      named_arrive(kFull + (t & 1), 2 * kTeam);
+    }
+  } else {
+    for (int t = 0; t < items; ++t) {
+      const int q = q0 + t * qstep, hr = q % strips, b = q / strips;
+      named_sync(kFull + (t & 1), 2 * kTeam);
+      phases.mark(kSumWrites);  // (the body team's wait for projected rows)
+      sum_body<D, 8>(p, ctx, tok + (size_t)(t & 1) * tok_elems, hr, b, warp - 8, tid - kTeam,
+                     wr, [] { named_sync(2, kTeam); }, phases);
+      phases.mark(kSumLogits);
+      if (t + 2 < items) named_arrive(kEmpty + (t & 1), 2 * kTeam);
+    }
+  }
+  phases.end(kTeam);
+}
+
+// A layout a launch may take: 8 or 16 warps (one or two Dense partitions),
+// the ring deep enough for the form (K8 reads its rows from the ring, so it
+// needs a second buffer to load into), the blocks an SM that the kernel is
+// built for; two teams only for K10 at 16 warps, one stage, one block an SM.
+inline bool sum_mma_config_ok(bool from_x, const SumConfig& cfg) {
+  if (cfg.teams == 2)
+    return from_x && cfg.warps == 16 && cfg.stages == 1 && cfg.bps == 1;
+  return cfg.teams == 1 && (cfg.warps == 8 || cfg.warps == 16) &&
+         cfg.stages >= (from_x ? 1 : 2) && cfg.stages <= 3 && cfg.bps >= 1 &&
+         cfg.bps <= sum_mma_max_bps(cfg.warps);
+}
+
+using SumKernel = void (*)(const SumParams);
+
+// The persistent route's kernel of a layout, or null.
+template <int D, bool FROM_X>
+SumKernel sum_mma_kernel_d(const SumConfig& cfg) {
+  if constexpr (FROM_X) {
+    if (cfg.teams == 2) return eva_summaries_ws_kernel<D>;
+  }
+  return cfg.warps == 8 ? eva_summaries_mma_kernel<D, FROM_X, 8>
+                        : eva_summaries_mma_kernel<D, FROM_X, 16>;
+}
+
+template <bool FROM_X>
+SumKernel sum_mma_kernel(int d, const SumConfig& cfg) {
+  switch (d) {
+    case 16: return sum_mma_kernel_d<16, FROM_X>(cfg);
+    case 32: return sum_mma_kernel_d<32, FROM_X>(cfg);
+    case 64: return sum_mma_kernel_d<64, FROM_X>(cfg);
+    default: return nullptr;
+  }
+}
+
+inline cudaError_t prepare_sum_mma(SumKernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The persistent route at layout cfg, or an error where it cannot take the
+// launch (never the first kernel in its place).
+template <bool FROM_X>
+cudaError_t launch_sum_mma(SumParams p, int d, const SumConfig& cfg, cudaStream_t stream) {
+  if (!sum_mma_config_ok(FROM_X, cfg) || p.j * p.j > 64 || (FROM_X && p.XD % 16))
+    return cudaErrorInvalidValue;
+  const SumKernel kernel = sum_mma_kernel<FROM_X>(d, cfg);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  p.stages = cfg.stages;
+  const SumMmaLayout L = sum_mma_layout(p.R, d, FROM_X ? p.XD : 0, p.wc, p.j * p.j,
+                                        cfg.stages, cfg.teams);
+  if (L.total > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = prepare_sum_mma(kernel, L.total);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return err;
+  const int blocks = sum_mma_blocks(p.B, p.nh, p.N / p.R, sms, cfg.bps);
+  kernel<<<blocks, 32 * cfg.warps, L.total, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Blocks of the layout's kernel (warps, teams) at `smem` bytes that fit an
+// SM (registers and shared memory, from the occupancy calculator), or -1.
+template <bool FROM_X>
+int sum_mma_blocks_per_sm(int d, int warps, int teams, int smem) {
+  const SumConfig cfg{warps, 1, 1, teams};
+  const SumKernel kernel = (warps == 8 || warps == 16) ? sum_mma_kernel<FROM_X>(d, cfg) : nullptr;
+  int n = 0;
+  if (kernel == nullptr || prepare_sum_mma(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 32 * warps, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace eva_eval

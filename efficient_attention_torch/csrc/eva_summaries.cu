@@ -29,6 +29,20 @@
 // (896 at the cell, against 132 SMs); a block per head keeps f32 inside the
 // limit and gives 2688.  Everything after the loads is f32 on CUDA cores:
 // the arithmetic is small, the read of qkv is the cost.
+//
+// bf16 with head dims 16/32/64, at most 64 members a chunk and strips of 56
+// rows or more (the wrapper's mma_plan) takes eva_summaries_mma_kernel
+// instead: two persistent blocks of 8 warps an SM, each keeping one head
+// and walking the (strip, image) pairs with the blocks of the other heads
+// of the same strip beside it; the next item's q, k, v rows arrive by
+// cp.async while this one's chunks are summed (a ring of two buffers of
+// 43 KB at the cell); the chunk body is K2's phase 1 (the sums a lane a
+// dimension pair, the adaptive Dense a thread an output column with its
+// slice of wq or wk in registers, the logits two lanes a member).  1-D bulk
+// copies (cp.async.bulk, one a row's q, k or v columns) filled the ring
+// 2.3x slower at the cell than 16-byte cp.async (PERF.md).  Shorter strips
+// (PVT-B3's third stage, DeiT-tiny-p16: 28 rows) keep the first kernel,
+// which was the faster there.
 #include "eva_eval.cuh"
 
 using namespace eva_eval;
@@ -41,25 +55,50 @@ int eva_summaries_smem_bytes(int rows, int d, int esize, int xdim) {
   return (int)make_sum_layout(rows, d, esize, xdim).total;
 }
 
+// Shared memory of one block of the persistent tensor-core route (rows and
+// chunks of an item), and how many of its blocks of `warps` warps fit an SM
+// at `smem` bytes (-1 where it cannot launch), for the wrapper's plan to
+// check its own copy against.
+int eva_summaries_mma_smem_bytes(int rows, int d, int xdim, int wc, int jj, int stages,
+                                 int teams) {
+  return (int)sum_mma_layout(rows, d, xdim, wc, jj, stages, teams).total;
+}
+
+int eva_summaries_mma_blocks_per_sm(int d, int warps, int teams, int smem) {
+  return sum_mma_blocks_per_sm<false>(d, warps, teams, smem);
+}
+
 const char* eva_summaries_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // rf, beta [B, C, nh*d] (qkv's type) from qkv [B, N, 3*nh*d] (float32 or
 // bfloat16) and the f32 adaptive weights (ln* null unless use_ln), on
-// `stream`.  Returns a cudaError_t (0 on success).
+// `stream`: the first kernel where warps is 0, else the persistent route at
+// (warps, stages, bps) (SumConfig), or an error where it cannot take the
+// launch.  Returns a cudaError_t (0 on success).
 int eva_summaries_launch(const void* qkv, const float* wq, const float* bq,
                          const float* wk, const float* bk, const float* lnq_s,
                          const float* lnq_b, const float* lnk_s, const float* lnk_b,
                          void* rf, void* beta, int B, int N, int gw, int j, int nh, int d,
-                         int use_ln, int is_bf16, void* stream) {
+                         int use_ln, int is_bf16, int warps, int stages, int bps,
+                         int teams, void* stream) {
   SumParams p = {};
   p.qkv = qkv;
   p.wq = wq; p.bq = bq; p.wk = wk; p.bk = bk;
   p.lnq_s = lnq_s; p.lnq_b = lnq_b; p.lnk_s = lnk_s; p.lnk_b = lnk_b;
   p.rf = rf; p.beta = beta;
   if (!sum_geometry(p, B, N, gw, j, nh, 0, use_ln)) return cudaErrorInvalidValue;
-  return launch_summaries<false>(p, d, is_bf16, static_cast<cudaStream_t>(stream));
+  return launch_summaries<false>(p, d, is_bf16, SumConfig{warps, stages, bps, teams},
+                                 static_cast<cudaStream_t>(stream));
 }
+
+#ifdef EVA_SUM_PHASES
+// Copies g_sum_phases ([8][16384] uint64) to host memory at dst; a
+// cudaError_t.
+int eva_summaries_sum_phases_copy(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, g_sum_phases, sizeof(g_sum_phases));
+}
+#endif
 
 }  // extern "C"

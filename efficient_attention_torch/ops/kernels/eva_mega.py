@@ -20,8 +20,10 @@ For CUDA tensors the wrappers launch the kernels of ``csrc/eva_mega.cu`` or
 raise; for CPU tensors they compute the same functions with
 ``eva_summaries_from_x_ref`` and ``eva_attention_from_x_ref``, which are also
 what the kernels are held against on the card.  ``LAUNCHES_SUMMARIES`` and
-``LAUNCHES_ATTENTION`` count the kernels' launches, ``LAUNCHES_ATTENTION_MMA``
-those of the attention on K9's tensor-core route (``out_uses_mma``).
+``LAUNCHES_ATTENTION`` count the kernels' launches, ``LAUNCHES_SUMMARIES_MMA``
+those of the summaries on K8's persistent tensor-core route (``mma_plan`` in
+``eva_summaries.py`` with ``xdim``), ``LAUNCHES_ATTENTION_MMA`` those of the
+attention on K9's tensor-core route (``out_uses_mma``).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from efficient_attention_torch.ops.kernels import eva_packed as k9
 from efficient_attention_torch.ops.kernels import eva_summaries as k8
 
 LAUNCHES_SUMMARIES = 0
+LAUNCHES_SUMMARIES_MMA = 0
 LAUNCHES_ATTENTION = 0
 LAUNCHES_ATTENTION_MMA = 0
 
@@ -101,13 +104,17 @@ def eva_attention_from_x_ref(
 def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.eva_mega_summaries_launch.argtypes = [ptr] * 13 + [i32] * 9 + [ptr]
+    lib.eva_mega_summaries_launch.argtypes = [ptr] * 13 + [i32] * 13 + [ptr]
     lib.eva_mega_summaries_launch.restype = i32
     lib.eva_mega_attention_launch.argtypes = ([ptr] * 9 + [i32] * 9
                                               + [ctypes.c_float, ptr])
     lib.eva_mega_attention_launch.restype = i32
     lib.eva_mega_summaries_smem_bytes.argtypes = [i32] * 4
     lib.eva_mega_summaries_smem_bytes.restype = i32
+    lib.eva_mega_summaries_mma_smem_bytes.argtypes = [i32] * 7
+    lib.eva_mega_summaries_mma_smem_bytes.restype = i32
+    lib.eva_mega_summaries_mma_blocks_per_sm.argtypes = [i32] * 4
+    lib.eva_mega_summaries_mma_blocks_per_sm.restype = i32
     lib.eva_mega_attention_smem_bytes.argtypes = [i32] * 6
     lib.eva_mega_attention_smem_bytes.restype = i32
     lib.eva_mega_attention_mma_blocks_per_sm.argtypes = [i32] * 5
@@ -150,10 +157,13 @@ def eva_summaries_from_x(
     lnq_scale: Optional[torch.Tensor], lnq_bias: Optional[torch.Tensor],
     lnk_scale: Optional[torch.Tensor], lnk_bias: Optional[torch.Tensor],
     num_heads: int, gw: int, j: int, use_ln: bool,
+    *,
+    config=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval chunk summaries ``(rf_k_bar, beta)`` from the tokens, each
     ``[B, C, H*D]`` in x's dtype.  A CPU tensor goes to the plain version; a
-    CUDA tensor launches the kernel or raises."""
+    CUDA tensor launches the kernel or raises.  ``config`` as in
+    ``eva_summaries_packed``: by default ``mma_plan`` chooses the route."""
     args = (x, w_qkv, b_qkv, wq, bq, wk, bk, lnq_scale, lnq_bias, lnk_scale,
             lnk_bias, num_heads, gw, j, use_ln)
     if x.device.type == "cpu":
@@ -167,6 +177,8 @@ def eva_summaries_from_x(
             f"eva_summaries_from_x cannot take B={B}, {N} tokens of width {xd} on "
             f"a grid of width {gw}, chunk {j}, head dim {d}, {x.dtype}; see "
             "supports_mega")
+    cfg = k8.route_config(B, nh, N // gw, gw, j, d, x.element_size(), xd, config,
+                          "eva_summaries_from_x")
     weights = k8.adaptive_operands(x, d, wq, bq, wk, bk, lnq_scale, lnq_bias,
                                    lnk_scale, lnk_bias, use_ln,
                                    "eva_summaries_from_x")
@@ -180,10 +192,11 @@ def eva_summaries_from_x(
             x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
             *[None if t is None else t.data_ptr() for t in weights],
             rf.data_ptr(), beta.data_ptr(), B, N, xd, gw, j, nh, d, int(use_ln),
-            int(x.dtype == torch.bfloat16), stream)
+            int(x.dtype == torch.bfloat16), *cfg, stream)
     _check(rc, "eva_summaries_from_x")
-    global LAUNCHES_SUMMARIES
+    global LAUNCHES_SUMMARIES, LAUNCHES_SUMMARIES_MMA
     LAUNCHES_SUMMARIES += 1
+    LAUNCHES_SUMMARIES_MMA += int(cfg[0] > 0)
     return rf, beta
 
 

@@ -770,6 +770,111 @@ def test_eval_kernels_raise_outside_their_gates(cuda_device):
                                  8, 4, True)
 
 
+def _sum_calls(a, nh, g, j, use_ln, **kw):
+    """K8's and K10a's wrapper calls, their plain versions, their launch
+    counters (all, persistent route) and the x width."""
+    from efficient_attention_torch.ops.kernels import eva_mega as K10
+    from efficient_attention_torch.ops.kernels import eva_summaries as K8
+
+    summ = (*a["adaptive"][:4], *(a["adaptive"][4:] if use_ln else [None] * 4), nh, g, j,
+            use_ln)
+    tok = (a["x"], a["wqkv"], a["bqkv"])
+    return {
+        "K8": (lambda: K8.eva_summaries_packed(a["qkv"], *summ, **kw),
+               lambda: K8.eva_summaries_packed_ref(a["qkv"], *summ),
+               lambda: (K8.LAUNCHES, K8.LAUNCHES_MMA), 0),
+        "K10a": (lambda: K10.eva_summaries_from_x(*tok, *summ, **kw),
+                 lambda: K10.eva_summaries_from_x_ref(*tok, *summ),
+                 lambda: (K10.LAUNCHES_SUMMARIES, K10.LAUNCHES_SUMMARIES_MMA), a["x"].shape[-1])}
+
+
+@pytest.mark.parametrize("name", ["K8", "K10a"])
+@pytest.mark.parametrize("geometry,use_ln,large", [
+    ((2, 28, 7, 4, 3, 64), True, False),      # the headline's strips
+    ((2, 28, 7, 4, 3, 64), False, False),     # no-ln
+    ((2, 56, 7, 8, 2, 32), True, False),      # PVT-B3 stage 1: 448 rows, 64 members
+    ((2, 28, 7, 4, 4, 32), True, False),      # stage 2
+    ((2, 14, 7, 2, 10, 32), True, False),     # stage 3 (K8: the first kernel)
+    ((2, 14, 7, 2, 3, 64), True, False),      # DeiT-tiny-p16 (K8: the first kernel)
+    ((2, 28, 7, 4, 12, 16), True, False),     # head dim 16
+    ((1, 28, 7, 4, 3, 64), True, False),      # a batch of 1
+    ((2, 28, 7, 4, 3, 64), True, True),       # keys x40, zero queries
+    ((1, 8, 4, 4, 2, 16), True, True),        # LARGE_KEYS (K8: the first kernel)
+])
+def test_eval_summaries_mma_route_matches_plain(cuda_device, name, geometry, use_ln, large):
+    """K8 and K10a in bf16 on the route mma_plan picks (one launch, counted
+    on LAUNCHES_MMA / LAUNCHES_SUMMARIES_MMA exactly where the plan takes
+    the persistent route), each output within 2**-7 of its peak of the
+    plain version; where the plan leaves K8 to the first kernel, the
+    persistent route forced on the same inputs within the same limit."""
+    from efficient_attention_torch.ops.kernels import eva_summaries as K8
+
+    B, g, ws, j, nh, d = geometry
+    a = _eval_operands(cuda_device, torch.float32, *geometry)
+    hd = nh * d
+    if large:
+        a["qkv"][..., :hd] = 0.0
+        a["qkv"][..., hd:2 * hd] *= 40.0
+        for w in (a["wqkv"].T, a["bqkv"]):
+            w[:hd] = 0.0
+            w[hd:2 * hd] *= 40.0
+    a["qkv"], a["x"] = a["qkv"].to(torch.bfloat16), a["x"].to(torch.bfloat16)
+    route = K8.mma_plan(B, nh, g, g, j, d, 2, xdim=hd if name == "K10a" else 0)
+    configs = [None] + ([(8, 2, 2, 1)] if route is None and name == "K8" else [])
+    for config in configs:
+        kernel, plain, counts, _ = _sum_calls(a, nh, g, j, use_ln, config=config)[name]
+        before = counts()
+        with torch.no_grad():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+        on_route = config is not None or route is not None
+        assert counts() == (before[0] + 1, before[1] + int(on_route))
+        for out, ref in zip(got, want):
+            assert out.dtype == ref.dtype and out.shape == ref.shape
+            assert torch.isfinite(out.float()).all()
+            assert ((out.float() - ref.float()).abs().max().item()
+                    <= 2 ** -7 * ref.float().abs().max().item())
+
+
+def test_eval_summaries_route_gate_and_layout(cuda_device):
+    """Which launches take the persistent route: bf16 at the headline does;
+    f32, head dim 12, K10a at x of width 768 and ``config=0`` run the first
+    kernel, which still serves them within its limits.  The kernel's layout
+    equals the wrapper's copy, and the plan's blocks fit an SM."""
+    from efficient_attention_torch.ops.kernels import eva_mega as K10
+    from efficient_attention_torch.ops.kernels import eva_summaries as K8
+
+    cases = [((2, 28, 7, 4, 3, 64), torch.bfloat16, {}, (True, True)),
+             ((2, 28, 7, 4, 3, 64), torch.bfloat16, {"config": 0}, (False, False)),
+             ((2, 28, 7, 4, 3, 64), torch.float32, {}, (False, False)),
+             ((2, 14, 7, 2, 4, 12), torch.bfloat16, {}, (False, False)),
+             ((1, 14, 7, 2, 12, 64), torch.bfloat16, {}, (False, False))]
+    for geometry, dtype, kw, want in cases:
+        B, g, ws, j, nh, d = geometry
+        a = _eval_operands(cuda_device, dtype, *geometry)
+        for (name, (kernel, plain, counts, xdim)), mma in zip(
+                _sum_calls(a, nh, g, j, True, **kw).items(), want):
+            before = counts()
+            with torch.no_grad():
+                got = kernel()
+                torch.cuda.synchronize()
+                want_out = plain()
+            assert counts() == (before[0] + 1, before[1] + int(mma)), (name, geometry, kw)
+            for out, ref in zip(got, want_out):
+                assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(dtype, ref)
+    for B, g, j, nh, d, xdim in ((128, 28, 4, 3, 64, 0), (128, 28, 4, 3, 64, 192),
+                                 (16, 56, 8, 2, 32, 64), (16, 14, 2, 10, 32, 320),
+                                 (16, 28, 4, 12, 16, 192)):
+        cfg = K8.mma_plan(B, nh, g, g, j, d, 2, xdim=xdim)
+        lib = K10._lib() if xdim else K8._lib()
+        pre = "eva_mega_summaries" if xdim else "eva_summaries"
+        args = (j * g, d, xdim, g // j, j * j, cfg.stages, cfg.teams)
+        assert getattr(lib, f"{pre}_mma_smem_bytes")(*args) == K8.mma_smem_bytes(*args)
+        assert (getattr(lib, f"{pre}_mma_blocks_per_sm")(d, cfg.warps, cfg.teams, cfg.smem)
+                >= cfg.bps)
+
+
 @pytest.mark.parametrize("toggles,counter", [
     (dict(use_single_kernel=False, use_pallas_summaries=True), "K8"),
     (dict(use_single_kernel=False, fuse_output_proj=True), "K9"),
