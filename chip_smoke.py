@@ -62,7 +62,11 @@ Phases, each raising on failure:
    of ``eva_summaries`` and ``eva_mega``'s summaries
    (``eva_summaries_mma_kernel``, ``eva_summaries_ws_kernel``) the
    registers (no spills allowed), the layout ``mma_plan`` picks at each
-   ``SUM_CHECKS`` geometry and the blocks an SM that fit it;
+   ``SUM_CHECKS`` geometry and the blocks an SM that fit it, and for
+   ``performer_fused``'s ring route (``performer_fused_ring_kernel``) the
+   registers (at most 64 bytes of spills), the wrapper's copy of its
+   layout and grid at several layouts and the blocks an SM of the layout
+   ``plan`` picks at the Performer cell's shape;
    the wrappers' twins of the kernels' shared-memory layouts and route
    choices (``lara_fused``'s plan over a sweep of geometries);
 2. kernels against their plain versions on the card: ``eva_single`` (its
@@ -72,7 +76,10 @@ Phases, each raising on failure:
    ``eva_packed``'s forward and its four gradients; ``causal_packed``'s
    forward and its six gradients; ``lara_fused``, ``performer_fused`` and
    ``local_packed``; ``lara_fused``'s bf16 routes at ``K5_CHECKS`` (each
-   asserted on its route); ``eva_1d`` at non-pad rows of random-length
+   asserted on its route); ``performer_fused`` at ``K6_CHECKS`` (the ring
+   route where ``plan`` takes the geometry, the wmma or CUDA-core kernel
+   where it does not, each launch asserted on its route, within one bf16
+   rounding of each output's peak); ``eva_1d`` at non-pad rows of random-length
    sentences; ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
    entry points, and the last two's attention on its bf16 tensor-core route
    at ``OUT_CHECKS``, with and without the bias (asserted on the route);
@@ -108,7 +115,8 @@ Phases, each raising on failure:
    kernel path against the eager path;
    the same for the LARA, Performer and local cells (12 launches of the
    cell's kernel a batch and none of any other; the LARA cell's all on K5's
-   cluster route, the local cell's on K7's tensor-core route), and for each
+   cluster route, the Performer cell's on K6's ring route, the local cell's
+   on K7's tensor-core route), and for each
    of EVA's
    routes (12 launches of each of the route's kernels a batch and none of
    any other, K1's forward, K9 and K10's attention on their tensor-core
@@ -138,7 +146,8 @@ Phases, each raising on failure:
    the f32 the LM step runs, its f32 forward and backward on both routes
    in turns; forward and
    train-step rates of both models, the forward
-   rates of the three serving cells, K6 against the eager Performer at 784
+   rates of the three serving cells, K6 in turns with the kernel its ring
+   route replaced (``config=0``), K6 against the eager Performer at 784
    and 3136 tokens, K8-K10 (K9 and K10's attention in turns with their
    yardsticks: K1's forward and an addmm, an addmm and K9; K8 and K10's
    summaries in turns with the first kernel forced, K10's also with an
@@ -150,7 +159,8 @@ Phases, each raising on failure:
    shapes, the headline train step on K11 against K1, PVT-B3's forward
    images/s on its routes and the eager path in turns; K7 and SDPA in
    turns, with K7's device time) and profiles of 3 train steps of each
-   model, of one LARA-cell and one local-cell forward, one
+   model, of one LARA-cell, one Performer-cell and one local-cell forward,
+   one
    ``two-kernel``-route forward (K1's forward alone), one megakernel-route
    forward (with K10's summaries' share), one PVT-B3 forward on K11 and one
    MT batch by op;
@@ -380,6 +390,25 @@ K5_CHECKS = (("headline", (128, 784, 3, 64, 49), 1.0, "cluster"),
              ("C=100", (16, 196, 3, 64, 100), 1.0, "wmma"),
              ("N=20000", (2, 20000, 1, 64, 49), 1.0, "wmma"),
              ("d12", (16, 784, 4, 12, 49), 1.0, "cuda-cores"))
+# K6's bf16 geometries (B, tokens, heads, head dim, features, key scale,
+# the route plan picks).  The ring route: the Performer cell's headline,
+# DeiT-tiny-p16's 196 tokens, 3136 tokens, head dims 16 and 32 (the cell's
+# width in 12 and 6 heads), 16 and 128 features, one image (fewer items
+# than SMs), 49 tokens (a ragged last tile), keys x30 (every k' near 1e-4).
+# The wmma kernel at head dim 48 and the CUDA-core kernel at head dim 12,
+# which the ring route leaves them
+K6_CHECKS = (("headline", (128, 784, 3, 64, 64), 1.0, "ring"),
+             ("p16", (128, 196, 3, 64, 64), 1.0, "ring"),
+             ("3136 tokens", (128, 3136, 3, 64, 64), 1.0, "ring"),
+             ("d16", (128, 784, 12, 16, 64), 1.0, "ring"),
+             ("d32", (128, 784, 6, 32, 64), 1.0, "ring"),
+             ("m=16", (16, 784, 3, 64, 16), 1.0, "ring"),
+             ("m=128", (16, 784, 3, 64, 128), 1.0, "ring"),
+             ("B=1", (1, 784, 3, 64, 64), 1.0, "ring"),
+             ("N=49", (8, 49, 3, 64, 64), 1.0, "ring"),
+             ("keys x30", (128, 784, 3, 64, 64), 30.0, "ring"),
+             ("d48", (16, 784, 2, 48, 64), 1.0, "wmma"),
+             ("d12", (16, 784, 4, 12, 16), 1.0, "cuda-cores"))
 # K7's own geometries (B, grid side, heads, head dim, window), each with its
 # bias and without: bf16 at head dims 16, 32 and 64 on the tensor-core
 # route (ws 11: S = 121 > 112, two passes), head dim 12 and f32 off it
@@ -657,6 +686,24 @@ def k5_inputs(B, N, nh, d, C, key_scale, seed):
     qkv[..., nh * d:2 * nh * d] *= key_scale
     return (qkv.to(torch.bfloat16), 0.5 * r(B, nh, C, d), 0.5 * r(B, nh, C, d),
             torch.softmax(r(B, nh, C), -1), r(B, nh, C))
+
+
+def k6_inputs(B, N, nh, d, m, key_scale, seed):
+    """bf16 qkv (keys times ``key_scale``) and K6's projection."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * nh * d, generator=gen, device="cuda")
+    qkv[..., nh * d:2 * nh * d] *= key_scale
+    return qkv.to(torch.bfloat16), torch.randn(nh, m, d, generator=gen, device="cuda")
+
+
+def k6_route(k6, B, N, nh, d, m):
+    """The bf16 route K6 takes: its ring route where ``plan`` names a
+    layout, else the kernel that took the geometry before."""
+    if k6.plan(B, N, nh, d, m, 2) is not None:
+        return "ring"
+    return "wmma" if k6.uses_mma(d, m, 2) else "cuda-cores"
 
 
 def lin_calls(k5, k6, k7, a, nh, g, ws):
@@ -1249,6 +1296,36 @@ def main() -> int:
         raise AssertionError(f"lara_fused cluster route spills: {k5_ptxas}")
     if k5_clusters < 1:
         raise AssertionError(f"lara_fused: {k5_clusters} clusters fit the card")
+    # K6's ring route: the wrapper's copy of its layout and grid against the
+    # kernel's, its registers (spills of at most 64 bytes), and the blocks
+    # an SM that the layout plan picks at the cell's shape allows
+    for layout in ((64, 64, 784, 4, 64, 4), (64, 64, 784, 8, 128, 4),
+                   (16, 16, 49, 4, 16, 4), (32, 128, 3136, 8, 64, 8),
+                   (64, 64, 784, 4, 64, 3), (64, 64, 60000, 8, 128, 4)):
+        want = k6.ring_smem_bytes(*layout) if k6.ring_config_ok(*layout) else -1
+        if k6._lib().performer_fused_ring_smem_bytes(*layout) != want:
+            raise AssertionError(f"performer_fused ring layout {layout}: the kernel's "
+                                 f"{k6._lib().performer_fused_ring_smem_bytes(*layout)}, "
+                                 f"the wrapper's {want}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, nh, bps in ((128, 3, 3), (1, 3, 3), (7, 12, 1), (128, 12, 3)):
+        if k6._lib().performer_fused_ring_blocks(B, nh, bps) != k6.ring_blocks(B, nh, bps, sms):
+            raise AssertionError(f"performer_fused ring_blocks{(B, nh, bps)} differ")
+    k6_ptxas = mma_kernel_report(
+        _build.BUILD_DIR / f"{k6.NAME}.log", "performer_fused_ring_kernel",
+        names=lambda D, bools, ints: f"D={D} MT={ints[0]} W={ints[1]}")
+    k6_plan = k6.plan(128, 784, 3, 64, 64, 2)
+    k6_blocks = k6._lib().performer_fused_ring_blocks_per_sm(64, 64, k6_plan.warps,
+                                                               k6_plan.smem)
+    log(f"[build] performer_fused ring route, ptxas: {json.dumps(k6_ptxas)}; plan at the "
+        f"headline {json.dumps(k6_plan._asdict())}; blocks an SM (occupancy "
+        f"calculator) {k6_blocks}")
+    spilled = {k: int(re.search(r"(\d+) bytes spill stores", v)[1]) for k, v in k6_ptxas.items()}
+    if max(spilled.values()) > 64:
+        raise AssertionError(f"performer_fused ring route spills: {k6_ptxas}")
+    if k6_blocks < k6_plan.bps:
+        raise AssertionError(f"performer_fused ring route: {k6_blocks} blocks an SM, the "
+                             f"plan {k6_plan}")
     # K7's tensor-core route: its gate against the kernel's, its registers
     # and spills (none allowed), blocks an SM (at least 3 at head dim 64,
     # S = 49)
@@ -1626,6 +1703,37 @@ def main() -> int:
             raise AssertionError(f"lara_fused {label}: max abs err {err} > {tol}")
         k5_errors[label] = err
         del a, out, ref
+    # K6 at its own geometries: one launch each on the route plan names,
+    # within one bf16 rounding of the output's largest value
+    k6_errors = {}
+    for label, (B, N, nh, d, m), key_scale, want_route in K6_CHECKS:
+        qkv, proj = k6_inputs(B, N, nh, d, m, key_scale, seed=110 + len(k6_errors))
+        route = k6_route(k6, B, N, nh, d, m)
+        if route != want_route:
+            raise AssertionError(f"performer_fused {label}: route {route}, not {want_route}")
+        before = (k6.LAUNCHES, k6.LAUNCHES_RING)
+        out = k6.performer_attention_fused(qkv, proj, nh)
+        torch.cuda.synchronize()
+        counts = (k6.LAUNCHES - before[0], k6.LAUNCHES_RING - before[1])
+        if counts != (1, int(route == "ring")):
+            raise AssertionError(f"performer_fused {label}: {counts[0]} launches, "
+                                 f"{counts[1]} on the ring route")
+        ref = k6.performer_fused_ref(qkv, proj, nh)
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            raise AssertionError(f"performer_fused {label}: {out.shape} {out.dtype} vs "
+                                 f"{ref.shape} {ref.dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        tol = K1_TOL["torch.bfloat16"] * peak
+        ring = k6.plan(B, N, nh, d, m, 2)
+        log(f"[performer_fused vs plain] {label} ({route} route"
+            f"{', layout ' + str(tuple(ring[:4])) if ring else ''}): max abs err {err:.3e} "
+            f"(tol {tol:.1e}), mean abs err "
+            f"{(out.float() - ref.float()).abs().mean().item():.3e}, max |value| {peak:.3e}")
+        if not err <= tol or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"performer_fused {label}: max abs err {err} > {tol}")
+        k6_errors[label] = err
+        del qkv, proj, out, ref
     # K7 at its own geometries: with and without the bias, the route
     # counted (bf16 at head dims 16, 32, 64 on tensor cores, f32 and head
     # dim 12 off them)
@@ -1998,25 +2106,31 @@ def main() -> int:
     for cell, flags in CELLS.items():
         for k in counted.values():
             k.LAUNCHES = 0
-        k5.LAUNCHES_MMA = k7.LAUNCHES_MMA = 0
+        k5.LAUNCHES_MMA = k7.LAUNCHES_MMA = k6.LAUNCHES_RING = 0
         k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = 0
         k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = 0
         t0 = time.perf_counter()
         stats = train_vit.cli_main(CELL_ARGV + flags + ["--eval", "--bf16"])
         torch.cuda.synchronize()
         got = {name: k.LAUNCHES for name, k in counted.items()}
-        k5_mma, k7_mma = k5.LAUNCHES_MMA, k7.LAUNCHES_MMA
+        k5_mma, k6_ring, k7_mma = k5.LAUNCHES_MMA, k6.LAUNCHES_RING, k7.LAUNCHES_MMA
         others = (k1.LAUNCHES_FWD + k1.LAUNCHES_BWD + k2.LAUNCHES
                   + k3.LAUNCHES_FWD + k3.LAUNCHES_BWD)
         log(f"[serve {cell}] eval {json.dumps(stats)} in "
             f"{time.perf_counter() - t0:.2f} s; launches {json.dumps(got)}, "
-            f"lara_fused on its cluster route {k5_mma}, local_packed on its "
-            f"tensor-core route {k7_mma}, K1-K3 {others}")
+            f"lara_fused on its cluster route {k5_mma}, performer_fused on its ring "
+            f"route {k6_ring}, local_packed on its tensor-core route {k7_mma}, K1-K3 "
+            f"{others}")
         if k5_mma != got[k5.NAME]:
             raise AssertionError(f"{cell}: {k5_mma} of {got[k5.NAME]} lara_fused "
                                  f"launches on its cluster route")
         if cell == "lara":
             lara_mma = k5_mma
+        if k6_ring != got[k6.NAME]:
+            raise AssertionError(f"{cell}: {k6_ring} of {got[k6.NAME]} performer_fused "
+                                 f"launches on its ring route")
+        if cell == "performer":
+            performer_ring = k6_ring
         if k7_mma != got[k7.NAME]:
             raise AssertionError(f"{cell}: {k7_mma} of {got[k7.NAME]} local_packed "
                                  f"launches on its tensor-core route")
@@ -2710,6 +2824,14 @@ def main() -> int:
     lin_ms[k7.NAME].update(
         ms=sum(k7_turns["kernel"]) / 2, library_ms=sum(k7_turns["sdpa"]) / 2,
         turns=k7_turns, device_ms=device_ms(torch, k7_call, "local_packed"))
+    # K6's ring route in turns with the kernel it replaced at this shape (the
+    # wmma kernel, forced by config=0): ring, wmma, wmma, ring
+    k6_turns = {"ring": [], "wmma": []}
+    for which in ("ring", "wmma", "wmma", "ring"):
+        k6_turns[which].append(cuda_ms(lambda: k6.performer_attention_fused(
+            a["qkv"], a["proj"], 3, config=None if which == "ring" else 0), 50))
+    lin_ms[k6.NAME].update(ms=sum(k6_turns["ring"]) / 2, turns=k6_turns,
+                           layout=tuple(k6.plan(128, 784, 3, 64, 64, 2)[:4]))
     log(f"[time] K5-K7 main shape bf16: {json.dumps(lin_ms)}; {card}")
     del a
     # K6 against the eager Performer, module level (dim 192, 3 heads, 64
@@ -2754,6 +2876,19 @@ def main() -> int:
                 f"{128e3 / cell_rates['lara kernel']:.3f} ms a forward "
                 f"unprofiled), lara_fused {k5_total:.3f} ms "
                 f"({k5_total / busy:.3f} of busy)")
+            print(table, flush=True)
+            del xb
+        if cell == "performer":
+            # one Performer-cell forward by op: K6's share of device busy
+            xb = torch.randn(128, 224, 224, 3, generator=gen, device="cuda").to(bf16)
+            fwd_ms = 128e3 / cell_rates["performer kernel"]
+            with torch.no_grad():
+                busy, k6_total, wall_ms, table = profile_steps(
+                    torch, train_vit._profiler, lambda: km(xb), "performer_fused")
+            log(f"[profile] one Performer-cell forward at B=128 bf16: device busy "
+                f"{busy:.3f} ms ({wall_ms:.3f} ms wall while profiled; {fwd_ms:.3f} ms a "
+                f"forward unprofiled, idle share {1 - busy / fwd_ms:.3f}), "
+                f"performer_fused {k6_total:.3f} ms ({k6_total / busy:.3f} of busy)")
             print(table, flush=True)
             del xb
         if cell == "local":
@@ -3028,6 +3163,9 @@ def main() -> int:
         })
     log(f"[launches] lara_fused on its cluster route in the LARA cell's 4-batch "
         f"eval: {lara_mma} of {cell_launches[k5.NAME]}; checks {json.dumps(k5_errors)}")
+    log(f"[launches] performer_fused on its ring route in the Performer cell's 4-batch "
+        f"eval: {performer_ring} of {cell_launches[k6.NAME]}; checks "
+        f"{json.dumps(k6_errors)}")
     log(f"[launches] K8 and K10a on their persistent route in the 4-batch evals: "
         f"{json.dumps(route_sum_mma)} (48 a route); checks "
         f"{json.dumps({f'{n} {l}': e for (n, l), e in sum_errors.items()})} (error / peak)")

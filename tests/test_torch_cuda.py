@@ -499,6 +499,113 @@ def test_local_packed_mma_route_matches_plain(cuda_device, geometry, with_bias):
     assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(torch.bfloat16, ref)
 
 
+# K6's bf16 ring route (B, tokens, heads, head dim, features, key scale):
+# the cell's width, DeiT-tiny-p16's 196 tokens, 3136 tokens, head dims 16
+# and 32, 16 and 128 features, one image (fewer items than SMs), 49 tokens
+# (a ragged last tile), keys x30 (every k' near 1e-4)
+K6_RING_GEOMETRIES = [(4, 784, 3, 64, 64, 1.0), (4, 196, 3, 64, 64, 1.0),
+                      (1, 3136, 3, 64, 64, 1.0), (2, 784, 12, 16, 64, 1.0),
+                      (2, 784, 6, 32, 64, 1.0), (2, 784, 3, 64, 16, 1.0),
+                      (2, 784, 3, 64, 128, 1.0), (1, 784, 3, 64, 64, 1.0),
+                      (3, 49, 3, 64, 64, 1.0), (4, 784, 3, 64, 64, 30.0)]
+
+
+def _k6_args(device, B, N, nh, d, m, key_scale=1.0, dtype=torch.bfloat16, seed=47):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((B, N, 3 * nh * d)).astype(np.float32)
+    qkv[..., nh * d:2 * nh * d] *= key_scale
+    proj = rng.standard_normal((nh, m, d)).astype(np.float32)
+    return (torch.from_numpy(qkv).to(device).to(dtype), torch.from_numpy(proj).to(device))
+
+
+def _k6_check(K6, qkv, proj, nh, on_ring, tol, config=None):
+    """One launch of K6, counted on the ring route or off it, against the
+    plain version within ``tol`` of the output's largest value."""
+    before = (K6.LAUNCHES, K6.LAUNCHES_RING)
+    out = K6.performer_attention_fused(qkv, proj, nh, config=config)
+    torch.cuda.synchronize()
+    assert (K6.LAUNCHES, K6.LAUNCHES_RING) == (before[0] + 1, before[1] + on_ring)
+    ref = K6.performer_fused_ref(qkv, proj, nh)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    peak = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol * peak
+
+
+@pytest.mark.parametrize("geometry", K6_RING_GEOMETRIES)
+def test_performer_fused_ring_route_matches_plain(cuda_device, geometry):
+    """K6's bf16 ring route at the layout plan picks, against the plain
+    version on the same card inputs, to one bf16 rounding (2^-7) of the
+    output's largest value; one launch, counted on the route."""
+    from efficient_attention_torch.ops.kernels import performer_fused as K6
+
+    B, N, nh, d, m, key_scale = geometry
+    assert K6.plan(B, N, nh, d, m, 2) is not None
+    qkv, proj = _k6_args(cuda_device, B, N, nh, d, m, key_scale)
+    _k6_check(K6, qkv, proj, nh, 1, 2 ** -7)
+
+
+@pytest.mark.parametrize("layout", [(4, 64, 4, 3), (4, 32, 8, 3), (8, 128, 4, 1),
+                                    (8, 64, 6, 1), (4, 16, 5, 2)])
+def test_performer_fused_ring_layouts_match_plain(cuda_device, layout):
+    """Every kind of ring layout (4 and 8 warps, 16- to 128-row tiles, 4 to
+    8 slots) forced at 200 tokens (a ragged last tile), against the plain
+    version to one bf16 rounding."""
+    from efficient_attention_torch.ops.kernels import performer_fused as K6
+
+    qkv, proj = _k6_args(cuda_device, 3, 200, 3, 64, 64, seed=48)
+    _k6_check(K6, qkv, proj, 3, 1, 2 ** -7, config=layout)
+
+
+def test_performer_fused_old_kernels_serve_the_rest(cuda_device):
+    """Where plan names no ring layout, the launch takes the kernel that took
+    it before and is not counted on the ring route: bf16 at head dim 48 the
+    wmma kernel, f32 the CUDA-core kernel; ``config=0`` forces the wmma
+    kernel at the cell's width."""
+    from efficient_attention_torch.ops.kernels import performer_fused as K6
+
+    assert K6.plan(2, 784, 2, 48, 64, 2) is None and K6.uses_mma(48, 64, 2)
+    qkv, proj = _k6_args(cuda_device, 2, 784, 2, 48, 64)
+    _k6_check(K6, qkv, proj, 2, 0, 2 ** -7)
+    qkv, proj = _k6_args(cuda_device, 2, 784, 3, 64, 64, dtype=torch.float32)
+    assert K6.plan(2, 784, 3, 64, 64, 4) is None
+    before = K6.LAUNCHES_RING
+    out = K6.performer_attention_fused(qkv, proj, 3)
+    ref = K6.performer_fused_ref(qkv, proj, 3)
+    assert K6.LAUNCHES_RING == before
+    assert (out - ref).abs().max().item() <= _k1_tol(torch.float32, ref)
+    qkv, proj = _k6_args(cuda_device, 2, 784, 3, 64, 64)
+    _k6_check(K6, qkv, proj, 3, 0, 2 ** -7, config=0)
+
+
+def test_performer_fused_ring_layout_and_occupancy(cuda_device):
+    """The wrapper's copy of the ring layout, grid and gate against the
+    kernel's (``performer_fused_ring_smem_bytes``, ``..._ring_blocks``),
+    the headline plan's blocks an SM fit on the card, and a layout the
+    route does not take is refused by the launcher and the wrapper alike."""
+    from efficient_attention_torch.ops.kernels import performer_fused as K6
+
+    lib = K6._lib()
+    for layout in ((64, 64, 784, 4, 64, 4), (64, 64, 784, 8, 128, 4),
+                   (16, 16, 49, 4, 16, 4), (32, 128, 3136, 8, 64, 8),
+                   (64, 64, 784, 4, 64, 3), (64, 64, 60000, 8, 128, 4)):
+        want = K6.ring_smem_bytes(*layout) if K6.ring_config_ok(*layout) else -1
+        assert lib.performer_fused_ring_smem_bytes(*layout) == want
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, nh, bps in ((128, 3, 3), (1, 3, 3), (7, 12, 1), (128, 12, 3)):
+        assert lib.performer_fused_ring_blocks(B, nh, bps) == K6.ring_blocks(B, nh, bps, sms)
+    cfg = K6.plan(128, 784, 3, 64, 64, 2)
+    assert lib.performer_fused_ring_blocks_per_sm(64, 64, cfg.warps, cfg.smem) >= cfg.bps
+    qkv, proj = _k6_args(cuda_device, 2, 196, 3, 64, 64)
+    with pytest.raises(ValueError, match="ring layout"):
+        K6.performer_attention_fused(qkv, proj, 3, config=(4, 64, 3, 3))
+    out = torch.empty(2, 196, 192, dtype=torch.bfloat16, device=cuda_device)
+    rc = lib.performer_fused_launch(qkv.data_ptr(), proj.data_ptr(), out.data_ptr(), 2, 196,
+                                    3, 64, 64, 1, 64 ** -0.25, 0.5 / 8, 0.125, 4, 64, 3, 3,
+                                    torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
 def test_linear_attention_wrappers_raise_without_their_library(
         cuda_device, monkeypatch, tmp_path):
     """Where a kernel's library cannot be built, its wrapper raises for a

@@ -246,3 +246,143 @@ def test_gate():
     assert 3 * (K.smem_bytes(64, 64, 2) + 1024) <= 233472
     assert not K.supports_performer_fused(128, 784, 576, 3, 64, 1)
     assert not K.supports_performer_fused(2, 784, 3 * 1024, 1, 1024, 4)
+
+
+# ---- K6's ring route: layout, walk, forced routes and summation order (the
+# kernel runs only on the card; its checks there are test_torch_cuda.py's) ----
+
+@pytest.mark.parametrize("name,geo,want", [
+    ("headline", (128, 784, 3, 64, 64), (4, 64, 4, 3)),
+    ("DeiT-tiny-p16", (128, 196, 3, 64, 64), (4, 64, 4, 3)),
+    ("3136 tokens", (128, 3136, 3, 64, 64), (4, 64, 4, 3)),
+    ("head dim 16", (128, 784, 12, 16, 64), (4, 64, 4, 3)),
+    ("head dim 32", (128, 784, 6, 32, 64), (4, 64, 4, 3)),
+    ("one image", (1, 784, 3, 64, 64), (4, 64, 4, 3)),
+    ("48 features", (2, 784, 3, 64, 48), (3, 64, 4, 3)),
+    ("128 features", (16, 784, 3, 64, 128), (8, 128, 4, 1)),
+    ("20000 tokens", (2, 20000, 1, 64, 64), (8, 128, 4, 1)),
+    ("60000 tokens", (2, 60000, 1, 64, 64), None),  # the norms do not fit
+    ("f32", (128, 784, 3, 64, 64, 4), None),
+    ("head dim 48", (2, 784, 2, 48, 64), None),
+    ("24 features", (2, 784, 3, 64, 24), None),
+])
+def test_ring_plan_choices(name, geo, want):
+    """The ring route's layout at the check script's shapes and elsewhere:
+    the first of RING_CONFIGS whose blocks fit an SM (warps rounded to a
+    multiple of m / 16), or None, where the launch keeps the kernel that
+    took it before."""
+    got = K.plan(*geo) if len(geo) == 6 else K.plan(*geo, 2)
+    assert (None if got is None else tuple(got[:4])) == want, name
+    if got is not None:
+        d, m, N = geo[3], geo[4], geo[1]
+        assert got.smem == K.ring_smem_bytes(d, m, N, *got[:3])
+        assert got.bps * (got.smem + 1024) <= K.SM_SMEM
+
+
+def test_ring_smem_bytes_region_by_region():
+    """The ring block's bytes, region by region (each 128-byte aligned): the
+    headline's layout, 8 warps (two token splits), and a small geometry
+    whose regions round up."""
+    w = 64 * 72 * 2                        # the projection, kv: [64][64 + 8] bf16
+    slot = 64 * 72 * 2                     # one 64-row tile
+    # 4 warps, 64-row tiles, 4 slots, one token split: no kv partial
+    assert K.ring_smem_bytes(64, 64, 784, 4, 64, 4) == (
+        2 * w + 4 * slot + 0 + 64 * 4 + 64 * 4 + 13 * 64 * 4 + 128) == 59264
+    # 8 warps, 128-row tiles: two splits, one f32 kv partial [64][68]
+    assert K.ring_smem_bytes(64, 64, 784, 8, 128, 4) == (
+        2 * w + 4 * 2 * slot + 64 * 68 * 4 + 2 * 64 * 4 + 64 * 4 + 7 * 128 * 4
+        + 128) == 114048
+    # head dim 16, 16 features, 49 tokens in 16-row tiles, 4 splits
+    assert K.ring_smem_bytes(16, 16, 49, 4, 16, 4) == (
+        768 + 768 + 4 * 768 + 3 * 16 * 20 * 4 + 256 + 128 + 256 + 128) == 9216
+
+
+@pytest.mark.parametrize("layout,ok", [
+    ((64, 64, 784, 4, 64, 4), True),
+    ((64, 64, 784, 8, 128, 4), True),
+    ((64, 128, 784, 8, 128, 4), True),
+    ((16, 16, 49, 4, 16, 4), True),
+    ((32, 64, 3136, 4, 64, 8), True),
+    ((48, 64, 784, 4, 64, 4), False),    # head dim 48
+    ((64, 24, 784, 4, 64, 4), False),    # 24 features
+    ((64, 144, 784, 8, 128, 4), False),  # more than 128 features
+    ((64, 64, 784, 6, 128, 4), False),   # warps not a multiple of m / 16
+    ((64, 128, 784, 16, 64, 4), False),  # more than 8 warps
+    ((64, 64, 784, 8, 104, 4), False),   # tile not a multiple of 16
+    ((64, 64, 784, 4, 64, 3), False),    # pass B's k and v need 4 slots
+    ((64, 64, 784, 4, 64, 9), False),    # nine slots
+    ((64, 64, 60000, 8, 128, 4), False),  # the norms beyond the block
+])
+def test_ring_config_ok(layout, ok):
+    assert K.ring_config_ok(*layout) == ok
+
+
+@pytest.mark.parametrize("B", [1, 7, 128])
+@pytest.mark.parametrize("nh", [3, 12])
+def test_ring_walk_covers_every_item_once(B, nh):
+    """The persistent blocks take every (image, head) exactly once, each
+    block one head for its life, and the heads of one image at the same
+    position of their blocks' walks (so they run side by side)."""
+    for bps in (1, 2, 3):
+        blocks = K.ring_blocks(B, nh, bps)
+        assert blocks % nh == 0 and blocks <= B * nh
+        assert blocks <= max(nh, K.SMS * bps)
+        walk = list(K.ring_walk(B, nh, blocks))
+        assert sorted((h, b) for _, h, b in walk) == sorted(
+            (h, b) for h in range(nh) for b in range(B))
+        heads, position = {}, {}
+        for blk, h, b in walk:
+            heads.setdefault(blk, set()).add(h)
+            position.setdefault(blk, []).append(b)
+        assert all(len(hs) == 1 for hs in heads.values())
+        for blk in range(0, blocks, nh):
+            assert all(position[blk + h] == position[blk] for h in range(nh))
+
+
+def test_route_config_forces_and_refuses_layouts():
+    """``config`` None takes ``plan``'s layout, 0 the kernel that took the
+    geometry before, a 5-tuple a ring layout that must fit; f32 and head dim
+    48 have no ring layout."""
+    geo = (128, 784, 3, 64, 64, 2)
+    assert K.route_config(*geo) == K.plan(*geo)
+    assert K.route_config(*geo, config=0) is None
+    forced = K.route_config(*geo, config=(8, 64, 6, 1))
+    assert tuple(forced[:4]) == (8, 64, 6, 1)
+    assert forced.smem == K.ring_smem_bytes(64, 64, 784, 8, 64, 6)
+    for bad in ((8, 64, 9, 1), (6, 128, 4, 1), (8, 64, 4, 0),
+                (8, 64, 4, 2)):   # an 8-warp block is built for one an SM
+        with pytest.raises(ValueError, match="ring layout"):
+            K.route_config(*geo, config=bad)
+    with pytest.raises(ValueError, match="ring layout"):   # 3 x 114 KB an SM
+        K.route_config(*geo, config=(4, 128, 4, 3))
+    assert K.plan(128, 784, 3, 64, 64, 4) is None
+    assert K.plan(2, 784, 2, 48, 64, 2) is None
+    assert K.route_config(2, 784, 2, 48, 64, 2) is None
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("geometry,layout", [
+    ((2, 3, 16, 56, 32), (8, 32)),   # 4 token splits of 16-token chunks
+    ((1, 2, 32, 80, 16), (4, 64)),   # 4 splits, a ragged last tile
+    ((1, 1, 64, 49, 64), (8, 32)),   # 2 splits, 49 tokens
+])
+def test_ring_summation_order_matches_jax_kernel(geometry, layout, dtype):
+    """The ring route's arithmetic emulated on the CPU
+    (``performer_fused_ring_ref``: kv and z summed in each warp's 16-token
+    chunks in order, the token splits' partials added in f32, kv rounded
+    once) against the interpret-mode Pallas kernel: f32 to 3e-5 abs /
+    1e-4 rel (summation order), bf16 to one rounding (2^-7) of the output's
+    largest value, the limit the kernel is held to on the card."""
+    B, H, d, N, m = geometry
+    qkv, proj = _kernel_inputs(B, H, d, N, m, seed=7)
+    jq = jnp.asarray(qkv) if dtype is np.float32 else jnp.asarray(qkv).astype(jnp.bfloat16)
+    want = np.asarray(jax_fused(jq, jnp.asarray(proj), H, interpret=True).astype(jnp.float32))
+    tq = torch.from_numpy(qkv)
+    if dtype != np.float32:
+        tq = tq.to(torch.bfloat16)
+    got = K.performer_fused_ring_ref(tq, torch.from_numpy(proj), H, *layout)
+    assert got.dtype == tq.dtype
+    if dtype is np.float32:
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    else:
+        assert np.abs(got.float().numpy() - want).max() <= 2 ** -7 * np.abs(want).max()
