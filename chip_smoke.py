@@ -44,8 +44,9 @@ Two models, random weights from a seed:
   ``adaptive_proj='no-ln'``) and causal EVA in the decoder (window 16,
   chunk 8, ``qk``), the WMT14 EN-DE recipe, served in f32 by
   ``cli.generate`` (beam 4, lenpen 0.6) on 256 dummy sentences in batches
-  of 64.  Every encoder layer runs ``eva_1d`` (K4); the decoder steps one
-  token at a time with no kernel.
+  of 64.  Every encoder layer runs ``eva_1d`` (K4) on its f32 route
+  (split-TF32 mma.sync strips); the decoder steps one token at a time with
+  no kernel.
 
 Phases, each raising on failure:
 
@@ -80,7 +81,9 @@ Phases, each raising on failure:
    route where ``plan`` takes the geometry, the wmma or CUDA-core kernel
    where it does not, each launch asserted on its route, within one bf16
    rounding of each output's peak); ``eva_1d`` at non-pad rows of random-length
-   sentences; ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
+   sentences at ``K4_CHECKS``, f32 on the split-TF32 route and bf16 on the
+   CUDA-core kernel (each launch asserted on its route), and f32 on the
+   CUDA-core kernel too (``config=0``); ``eva_summaries``, ``eva_packed_out`` and ``eva_mega``'s two
    entry points, and the last two's attention on its bf16 tensor-core route
    at ``OUT_CHECKS``, with and without the bias (asserted on the route);
    ``eva_summaries`` and ``eva_mega``'s summaries in bf16 at ``SUM_CHECKS``,
@@ -128,7 +131,8 @@ Phases, each raising on failure:
    other) and its f32 logits on each route against the eager path;
 5. the MT serving path: ``cli.generate`` in-process with the recipe's
    flags, counts set to 0 just before and read just after (6 K4 launches a
-   batch, 4 batches, none of any other kernel), a finite BLEU; then f32
+   batch, 4 batches, all on the f32 route, none of any other kernel), a
+   finite BLEU; then f32
    encoder states of the kernel path against the eager path at non-pad
    positions, and the share of identical 1-best hypotheses of the two;
 6. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
@@ -153,7 +157,8 @@ Phases, each raising on failure:
    summaries in turns with the first kernel forced, K10's also with an
    addmm and K8) and the forward
    rates of EVA's eval routes in
-   turns with the default route and the eager path, K4 and the MT encoder,
+   turns with the default route and the eager path, K4 (in f32 in turns
+   with the CUDA-core kernel it replaced, ``config=0``) and the MT encoder,
    the MT cell's sentences/s and hypothesis tokens/s with the kernel and the
    eager encoder in turns, K11 and K12 at the headline and PVT-B3 stage
    shapes, the headline train step on K11 against K1, PVT-B3's forward
@@ -433,9 +438,14 @@ MT_ARGV = [
 ]
 # eva_1d geometries (B, N, heads, head dim, window, halo, chunks, bias):
 # the WMT encoder's batch, long sentences (8 chunks of 32), a small odd one
+# (a ragged last 16-row strip), a window of 16 with a halo of 8 at head dim
+# 128, and a window of 4 without a halo at head dim 32 (four windows a
+# strip)
 K4_CHECKS = (("recipe", (64, 32, 8, 64, 8, 4, 8, "t5")),
              ("long", (16, 256, 8, 64, 8, 4, 8, "t5")),
-             ("small", (3, 40, 3, 16, 8, 4, 5, "learned")))
+             ("small", (3, 40, 3, 16, 8, 4, 5, "learned")),
+             ("ws16 ext8", (8, 64, 4, 128, 16, 8, 8, "t5")),
+             ("ws4 ext0", (6, 40, 4, 32, 4, 0, 5, "learned")))
 # eva_1d vs its plain version at non-pad rows, relative to the largest
 # |value| (at least 1): f32 to summation order, bf16 to one rounding
 K4_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2 ** -7}
@@ -858,17 +868,30 @@ def k4_sdpa(qkv, rf, beta, mask, bias, nh, ws, ext):
     return cuda_ms(fwd, 20), out
 
 
-def device_ms(torch, call, tag, n=20):
-    """Mean device time of the kernels named ``tag`` over ``n`` calls, from
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+def device_ms(torch, call, n=20):
+    """Mean device time of a call over ``n`` calls run back to back: one
+    pair of CUDA events around the ``n`` calls while a sleep kernel holds
+    the stream until all of them are queued, so that the device runs them
+    without waiting on the host and the host's time is not in the reading.
+    (torch.profiler kept ever fewer of a session's launches the longer the
+    process had run, and some of those it kept read short, so it is not
+    used here.)  Raises where the host did not get ahead of the device."""
+    call()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    held = torch.cuda.Event()
+    for cycles in (4 * 10 ** 7, 4 * 10 ** 8):  # ~20 and ~200 ms at 1.98 GHz
+        torch.cuda._sleep(cycles)
+        held.record()
+        start.record()
         for _ in range(n):
             call()
+        end.record()
+        ahead = not held.query()
         torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-               if tag in e.key) / n / 1e3
+        if ahead:
+            return start.elapsed_time(end) / n
+    raise AssertionError(f"device_ms: the host did not queue {n} calls within the sleep")
 
 
 def eval_inputs(B, g, ws, j, nh, d, dtype, seed):
@@ -1349,6 +1372,23 @@ def main() -> int:
     for args in ((64, 8, 4, 8, 4), (16, 8, 4, 5, 5), (128, 32, 16, 8, 1)):
         if k4._lib().eva_1d_smem_bytes(*args) != k4.smem_bytes(*args):
             raise AssertionError(f"eva_1d gate's smem layout != kernel's {args}")
+    # the f32 route's layout and gate, (d, ws, ext, C, query rows an item):
+    # the recipe's plan, the long shape's, head dims 16 and 128, a
+    # straddling window, and item sizes the route refuses
+    for args in ((64, 8, 4, 8, 32), (64, 8, 4, 8, 64), (16, 8, 4, 5, 48),
+                 (128, 16, 8, 8, 64), (32, 24, 5, 9, 32), (128, 16, 8, 8, 128),
+                 (64, 8, 4, 8, 40), (64, 8, 4, 8, 144), (48, 8, 4, 8, 32)):
+        want = k4.tf32_smem_bytes(*args) if k4.tf32_config_ok(*args) else -1
+        if k4._lib().eva_1d_tf32_smem_bytes(*args) != want:
+            raise AssertionError(f"eva_1d f32 route's layout {args}: kernel "
+                                 f"{k4._lib().eva_1d_tf32_smem_bytes(*args)}, wrapper {want}")
+    k4_plans = {label: k4.plan(B, N, ws, ext, C, nh, d, 4)
+                for label, (B, N, nh, d, ws, ext, C, _) in K4_CHECKS}
+    k4_ptxas = mma_kernel_report(_build.BUILD_DIR / f"{k4.NAME}.log", "eva_1d_tf32x3_kernel")
+    log(f"[build] eva_1d f32 route, ptxas: {json.dumps(k4_ptxas)}; plans "
+        f"{json.dumps({k: v._asdict() for k, v in k4_plans.items()})}")
+    if any("0 bytes spill stores" not in v for v in k4_ptxas.values()):
+        raise AssertionError(f"eva_1d f32 route spills: {k4_ptxas}")
     for fn, py, args in (
             (k8._lib().eva_summaries_smem_bytes, k8.smem_bytes, (112, 64, 2, 0)),
             (k8._lib().eva_summaries_smem_bytes, k8.smem_bytes, (28, 12, 4, 0)),
@@ -1768,17 +1808,26 @@ def main() -> int:
             lin_errors[(k7.NAME, tag)] = err
         del a
 
+    # f32 on the split-TF32 route and on the CUDA-core kernel it replaced
+    # (config=0), bf16 on the CUDA-core kernel; each launch asserted on its
+    # route
     k4_errors = {}
-    for label, (B, N, nh, d, ws, ext, C, bias_kind) in K4_CHECKS:
-        for dtype_name in ("float32", "bfloat16"):
+    for i, (label, (B, N, nh, d, ws, ext, C, bias_kind)) in enumerate(K4_CHECKS):
+        for j, (dtype_name, route, config) in enumerate((
+                ("float32", "f32 route", None), ("float32", "CUDA cores", 0),
+                ("bfloat16", "CUDA cores", None))):
             qkv, rf, beta, mask, bias = k4_inputs(
                 B, N, nh, d, ws, ext, C, bias_kind, getattr(torch, dtype_name),
-                seed=70 + len(k4_errors))
+                seed=70 + 2 * i + (j == 2))
+            before = k4.LAUNCHES_TF32
             with torch.no_grad():
                 out = k4.eva_attention_1d(qkv, rf, beta, mask, d ** -0.5, nh, ws,
-                                          ext, bias=bias)
+                                          ext, bias=bias, config=config)
                 torch.cuda.synchronize()
                 ref = k4.eva_1d_ref(qkv, rf, beta, mask, d ** -0.5, nh, ws, ext, bias)
+            if (k4.LAUNCHES_TF32 - before == 1) != (route == "f32 route"):
+                raise AssertionError(f"eva_1d {label} {dtype_name} did not take the "
+                                     f"{route}")
             if out.shape != ref.shape or out.dtype != ref.dtype:
                 raise AssertionError(f"eva_1d {label}: {out.shape} {out.dtype} vs "
                                      f"{ref.shape} {ref.dtype}")
@@ -1786,13 +1835,13 @@ def main() -> int:
             err = (out.float() - ref.float())[keep].abs().max().item()
             peak = ref.float()[keep].abs().max().item()
             tol = K4_TOL[f"torch.{dtype_name}"] * max(1.0, peak)
-            log(f"[eva_1d vs plain] {label} {dtype_name}: max abs err {err:.3e} "
-                f"(tol {tol:.1e}) at {int(keep.sum())} non-pad rows, max |value| "
-                f"{peak:.3e}")
+            log(f"[eva_1d vs plain] {label} {dtype_name} ({route}): max abs err "
+                f"{err:.3e} (tol {tol:.1e}) at {int(keep.sum())} non-pad rows, max "
+                f"|value| {peak:.3e}")
             if not err <= tol:
-                raise AssertionError(f"eva_1d {label} {dtype_name}: max abs err "
-                                     f"{err} > {tol}")
-            k4_errors[(label, dtype_name)] = err
+                raise AssertionError(f"eva_1d {label} {dtype_name} ({route}): max abs "
+                                     f"err {err} > {tol}")
+            k4_errors[(label, dtype_name, route)] = err
 
     # K8, K9 and K10's two entry points at the three shapes, in K1's terms
     eval_errors = {}
@@ -2368,25 +2417,29 @@ def main() -> int:
     for k in (k2, k4, k5, k6, k7):
         k.LAUNCHES = 0
     k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = 0
+    k4.LAUNCHES_TF32 = 0
     t0 = time.perf_counter()
     mt_result = generate.cli_main(MT_ARGV)
     torch.cuda.synchronize()
     mt_wall = time.perf_counter() - t0
-    mt_launches = k4.LAUNCHES
+    mt_launches, mt_tf32 = k4.LAUNCHES, k4.LAUNCHES_TF32
     others = (k1.LAUNCHES_FWD + k1.LAUNCHES_BWD + k2.LAUNCHES + k3.LAUNCHES_FWD
               + k3.LAUNCHES_BWD + k5.LAUNCHES + k6.LAUNCHES + k7.LAUNCHES)
     mt_batches = -(-mt_result["sentences"] // 64)
     log(f"[mt-serve] generate {mt_result['sentences']} sentences in {mt_wall:.2f} s "
         f"(bleu {mt_result['bleu']}, {mt_result['hypothesis_tokens']} hypothesis "
         f"tokens, encode {mt_result['encode_s']:.3f} s, beam loop "
-        f"{mt_result['beam_s']:.3f} s); eva_1d launches {mt_launches}, other "
-        f"kernels {others}")
+        f"{mt_result['beam_s']:.3f} s); eva_1d launches {mt_launches} ({mt_tf32} on "
+        f"the f32 route), other kernels {others}")
     if not math.isfinite(mt_result["bleu"]) or mt_result["sentences"] != 256:
         raise AssertionError(f"bad generate result {mt_result['bleu']}, "
                              f"{mt_result['sentences']} sentences")
     if mt_batches != 4 or mt_launches != 6 * mt_batches or others:
         raise AssertionError(f"{mt_launches} eva_1d launches (others {others}) "
                              f"for {mt_batches} batches of a 6-layer encoder")
+    if mt_tf32 != mt_launches:
+        raise AssertionError(f"{mt_tf32} of {mt_launches} eva_1d launches took the "
+                             f"f32 route")
     # f32 encoder states and 1-best hypotheses: kernel path against eager
     mt_args = generate.parse_args(MT_ARGV)
     mt_model = generate.build_model(mt_args, MT_VOCAB, MT_VOCAB).cuda().eval()
@@ -2823,7 +2876,7 @@ def main() -> int:
                                else k7_sdpa(a, 3, 28, 7))
     lin_ms[k7.NAME].update(
         ms=sum(k7_turns["kernel"]) / 2, library_ms=sum(k7_turns["sdpa"]) / 2,
-        turns=k7_turns, device_ms=device_ms(torch, k7_call, "local_packed"))
+        turns=k7_turns, device_ms=device_ms(torch, k7_call))
     # K6's ring route in turns with the kernel it replaced at this shape (the
     # wmma kernel, forced by config=0): ring, wmma, wmma, ring
     k6_turns = {"ring": [], "wmma": []}
@@ -3027,7 +3080,9 @@ def main() -> int:
 
     # eva_1d at the WMT encoder's shape (B=64 sentences of 32 tokens, 8 heads
     # of 64, window 8, halo 4, 8 chunks) and at long sentences (B=16, 256
-    # tokens): kernel, plain version, bound, SDPA on pre-partitioned windows
+    # tokens): kernel, plain version, bound, SDPA on pre-partitioned windows;
+    # in f32 the split-TF32 route in turns with the CUDA-core kernel it
+    # replaced (config=0: old, new, new, old), a call and on the device
     k4_ms = {}
     for label, (B, N, nh, d, ws, ext, C, bias_kind) in K4_CHECKS[:2]:
         for dtype_name in ("float32", "bfloat16"):
@@ -3035,25 +3090,33 @@ def main() -> int:
                 B, N, nh, d, ws, ext, C, bias_kind, getattr(torch, dtype_name),
                 seed=80)
             geo = (d ** -0.5, nh, ws, ext)
+            calls = {"new": lambda: k4.eva_attention_1d(qkv, rf, beta, mask, *geo,
+                                                        bias=bias),
+                     "old": lambda: k4.eva_attention_1d(qkv, rf, beta, mask, *geo,
+                                                        bias=bias, config=0)}
+            turns = ("old", "new", "new", "old") if dtype_name == "float32" else ("new",)
             with torch.no_grad():
                 sdpa_ms, sdpa_out = k4_sdpa(qkv, rf, beta, mask, bias, nh, ws, ext)
                 ref = k4.eva_1d_ref(qkv, rf, beta, mask, *geo, bias)
+                ms, dev = {}, {}
+                for key in turns:
+                    ms.setdefault(key, []).append(cuda_ms(calls[key], 50))
+                # the kernel's own device time (a call's CUDA-event time
+                # includes the wrapper's host work where the host is slower
+                # than the device)
+                for key in turns:
+                    dev.setdefault(key, []).append(device_ms(torch, calls[key]))
                 k4_ms[f"{label} {dtype_name}"] = {
-                    "ms": cuda_ms(lambda: k4.eva_attention_1d(
-                        qkv, rf, beta, mask, *geo, bias=bias), 50),
+                    "ms": sum(ms["new"]) / len(ms["new"]),
+                    "device_ms": sum(dev["new"]) / len(dev["new"]),
+                    "turns_ms": ms, "turns_device_ms": dev,
                     "plain_ms": cuda_ms(lambda: k4.eva_1d_ref(
                         qkv, rf, beta, mask, *geo, bias), 10),
                     "bound": k4_bound(qkv, rf, beta, mask, bias, nh, ws, ext),
                     "library_ms": sdpa_ms,
                     # the yardstick computes the same function
                     "library_max_abs_err": (sdpa_out.float() - ref.float())[
-                        ~mask].abs().max().item(),
-                    # the kernel's own device time (the call's CUDA-event time
-                    # above includes the wrapper's host work where the host
-                    # is slower than the device)
-                    "device_ms": device_ms(
-                        torch, lambda: k4.eva_attention_1d(
-                            qkv, rf, beta, mask, *geo, bias=bias), "eva_1d_kernel")}
+                        ~mask].abs().max().item()}
     log(f"[time] eva_1d: {json.dumps(k4_ms)}; {card}")
     # the f32 encoder forward of one batch (64 x 32 tokens), kernel and
     # eager path in turns, and the generation rates of phase 5's runs
@@ -3125,7 +3188,7 @@ def main() -> int:
     kernels.append({
         "name": k4.NAME, "route": "cuda", "source": k4.SOURCE,
         "replaces": k4.REPLACES, "launches": mt_launches,
-        "max_abs_err": k4_errors[("recipe", "float32")], "ms": t["ms"],
+        "max_abs_err": k4_errors[("recipe", "float32", "f32 route")], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
         "bound_by": t["bound"][1], "library_ms": t["library_ms"],
     })

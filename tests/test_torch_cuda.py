@@ -656,29 +656,85 @@ def _k4_args(device, dtype, B, N, nh, d, ws, ext, C, seed=29):
             t(B, C, nh * d).to(dtype), mask, 0.5 * t(nh, ws, ws + 2 * ext))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("geometry", [(8, 32, 8, 64, 8, 4, 8),
-                                      (2, 256, 8, 64, 8, 4, 8),
-                                      (3, 40, 3, 16, 8, 4, 5),
-                                      (2, 24, 2, 32, 4, 2, 6)])
-def test_eva_1d_kernel_matches_plain(cuda_device, geometry, dtype):
-    """K4 against its plain version at non-pad rows of random-length
-    sentences (_k1_tol: f32 to summation order, bf16 to one rounding)."""
-    from efficient_attention_torch.ops.kernels import eva_1d as K4
+K4_GEOMETRIES = [(8, 32, 8, 64, 8, 4, 8), (2, 256, 8, 64, 8, 4, 8), (3, 40, 3, 16, 8, 4, 5),
+                 (2, 24, 2, 32, 4, 2, 6), (4, 64, 4, 128, 16, 8, 8), (3, 40, 4, 32, 4, 0, 5)]
 
+
+def _k4_check(K4, args, geometry, config=None):
+    """One launch against the plain version at non-pad rows of
+    random-length sentences (_k1_tol: f32 to summation order, bf16 to one
+    rounding); returns the launch's (LAUNCHES, LAUNCHES_TF32) counts."""
     B, N, nh, d, ws, ext, C = geometry
-    qkv, rf, beta, mask, bias = _k4_args(cuda_device, dtype, *geometry)
-    before = K4.LAUNCHES
+    qkv, rf, beta, mask, bias = args
+    before = (K4.LAUNCHES, K4.LAUNCHES_TF32)
     with torch.no_grad():
         out = K4.eva_attention_1d(qkv, rf, beta, mask, d ** -0.5, nh, ws, ext,
-                                  bias=bias)
+                                  bias=bias, config=config)
         torch.cuda.synchronize()
         ref = K4.eva_1d_ref(qkv, rf, beta, mask, d ** -0.5, nh, ws, ext, bias)
-    assert K4.LAUNCHES == before + 1
     assert out.dtype == ref.dtype and out.shape == ref.shape
     keep = ~mask
     err = (out.float() - ref.float())[keep].abs().max().item()
-    assert err <= _k1_tol(dtype, ref[keep])
+    assert err <= _k1_tol(qkv.dtype, ref[keep])
+    return K4.LAUNCHES - before[0], K4.LAUNCHES_TF32 - before[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", K4_GEOMETRIES)
+def test_eva_1d_kernel_matches_plain(cuda_device, geometry, dtype):
+    """K4 against its plain version on its default route: f32 on the
+    split-TF32 route, bf16 on the CUDA-core kernel."""
+    from efficient_attention_torch.ops.kernels import eva_1d as K4
+
+    args = _k4_args(cuda_device, dtype, *geometry)
+    assert _k4_check(K4, args, geometry) == (1, int(dtype == torch.float32))
+
+
+@pytest.mark.parametrize("geometry", K4_GEOMETRIES)
+def test_eva_1d_cuda_core_kernel_takes_f32_when_asked(cuda_device, geometry):
+    from efficient_attention_torch.ops.kernels import eva_1d as K4
+
+    args = _k4_args(cuda_device, torch.float32, *geometry)
+    assert _k4_check(K4, args, geometry, config=0) == (1, 0)
+
+
+@pytest.mark.parametrize("geometry,rows", [
+    ((2, 256, 8, 64, 8, 4, 8), 16), ((2, 256, 8, 64, 8, 4, 8), 32),
+    ((2, 256, 8, 64, 8, 4, 8), 64), ((2, 256, 8, 64, 8, 4, 8), 128),
+    ((3, 72, 2, 64, 24, 5, 9), 16), ((3, 72, 2, 64, 24, 5, 9), 32),
+    ((3, 72, 2, 64, 24, 5, 9), 48), ((5, 40, 3, 16, 8, 4, 5), 16),
+    ((5, 40, 3, 16, 8, 4, 5), 32), ((5, 40, 3, 16, 8, 4, 5), 128)])
+def test_eva_1d_tf32_layouts_match_plain(cuda_device, geometry, rows):
+    """The f32 route at items of 16 to 128 query rows (1 to 8 warps) at the
+    long shape, a window of 24 whose windows straddle the 16-row strips,
+    and a ragged last strip (items longer than the sentence included)."""
+    from efficient_attention_torch.ops.kernels import eva_1d as K4
+
+    args = _k4_args(cuda_device, torch.float32, *geometry)
+    assert _k4_check(K4, args, geometry, config=rows) == (1, 1)
+
+
+def test_eva_1d_tf32_layout_and_occupancy(cuda_device):
+    """The wrapper's copy of the f32 route's layout and gate against the
+    kernel's (``eva_1d_tf32_smem_bytes``), and an item size the route does
+    not take is refused by the launcher and the wrapper alike."""
+    from efficient_attention_torch.ops.kernels import eva_1d as K4
+
+    lib = K4._lib()
+    for args in ((64, 8, 4, 8, 32), (16, 8, 4, 5, 16), (128, 16, 8, 8, 64), (32, 24, 5, 9, 48),
+                 (64, 8, 4, 8, 128), (64, 8, 4, 8, 40), (64, 8, 4, 8, 144),
+                 (48, 8, 4, 8, 32), (128, 256, 128, 8, 128)):
+        want = K4.tf32_smem_bytes(*args) if K4.tf32_config_ok(*args) else -1
+        assert lib.eva_1d_tf32_smem_bytes(*args) == want, args
+    args = _k4_args(cuda_device, torch.float32, 2, 32, 2, 64, 8, 4, 4)
+    with torch.no_grad(), pytest.raises(ValueError, match="do not fit"):
+        K4.eva_attention_1d(*args[:4], 0.125, 2, 8, 4, bias=args[4], config=40)
+    qkv, rf, beta, mask, bias = args
+    out = torch.empty(2, 32, 128, device=cuda_device)
+    rc = lib.eva_1d_launch(qkv.data_ptr(), rf.data_ptr(), beta.data_ptr(), mask.data_ptr(),
+                           bias.data_ptr(), out.data_ptr(), 2, 32, 2, 64, 8, 4, 4, 0, 0,
+                           0.125, 40, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 def test_eva_1d_kernel_raises_outside_its_gate_or_without_its_library(
