@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Two models, random weights from a seed:
+The models, random weights from a seed:
 
 * DeiT-tiny-p8 (``evit_tiny_p8``, 224 px, 28x28 tokens, dim 192, 3 heads,
   12 blocks) with 2-D EVA (window 7, 49 landmarks, learned RPE,
@@ -46,7 +46,15 @@ Two models, random weights from a seed:
   ``cli.generate`` (beam 4, lenpen 0.6) on 256 dummy sentences in batches
   of 64.  Every encoder layer runs ``eva_1d`` (K4) on its f32 route
   (split-TF32 mma.sync strips); the decoder steps one token at a time with
-  no kernel.
+  no kernel.  The same model is trained by ``cli.train_mt`` with the
+  recipe's flags (``main.sh:103-110``: fairseq Adam (0.9, 0.98), lr 7e-4,
+  inverse-sqrt warmup 6000, label smoothing 0.1, token budgets of 4096,
+  f32 at dropout 0.1) for 8 updates on the 512 dummy pairs, validating and
+  scoring in-train BLEU (beam 4, lenpen 0.6, 64 sentences in chunks of 8) at
+  every epoch's end.  Training launches no kernel: the encoder's EVA trains
+  eager, and the decoder's target padding mask and dropout keep causal EVA
+  off K3, as in JAX; validation and BLEU run K4 in every encoder layer, on
+  its f32 route.
 
 Phases, each raising on failure:
 
@@ -135,14 +143,25 @@ Phases, each raising on failure:
    finite BLEU; then f32
    encoder states of the kernel path against the eager path at non-pad
    positions, and the share of identical 1-best hypotheses of the two;
-6. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
+6. the MT training path: ``cli.train_mt`` in-process with the recipe's
+   flags for 8 updates, every kernel's count set to 0 just before and read
+   just after (none in training; 6 K4 launches a validation batch and 6 a
+   BLEU chunk, all on the f32 route, as many as the epochs that the 8
+   updates take, the validation batches and the chunks predict), finite
+   losses, validation loss and BLEU, the updates/s and target tokens/s of
+   steps 2-8 (CUDA events around each step) and the peak device memory;
+   then the f32 validation sums and the encoder states (at non-pad
+   positions) of every validation batch and BLEU chunk, kernel path against
+   eager path, and one step's f32 gradients of a 2-layer full-width model (eval mode,
+   eager encoder), the card against the CPU;
+7. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
    ``--bf16`` and the DeiT recipe, counts set to 0 just before and read
    just after (12 x 8 launches of each K1 kernel, every forward and
    backward on the tensor-core routes, 12 x 4 of K2), finite
    losses; then f32 gradients, kernel path against eager path; the same
    with ``impl='pallas'`` and ``impl='rowmajor'`` (12 x 8 + 12 x 4
    launches of K11 or K12, none of any other);
-7. timings with CUDA events (kernels, plain versions, bounds, SDPA
+8. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks; K2 at ``K2_SHAPES`` on both routes and K8 + K1 on the same
    inputs in turns; one headline forward by op
    with K2's share and the idle share; the DeiT-tiny-p16 cell's images/s
@@ -169,7 +188,7 @@ Phases, each raising on failure:
    ``two-kernel``-route forward (K1's forward alone), one megakernel-route
    forward (with K10's summaries' share), one PVT-B3 forward on K11 and one
    MT batch by op;
-8. the kernels line, the script's wall time, the card line, and the result
+9. the kernels line, the script's wall time, the card line, and the result
    line, last.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -436,6 +455,17 @@ MT_ARGV = [
     "--share-all-embeddings", "--beam", "4", "--lenpen", "0.6",
     "--gen-batch", "64", "--gen-subset-size", "256", "--device", "cuda",
 ]
+# the WMT14 EN-DE recipe trained by cli.train_mt (reference main.sh:103-110:
+# f32, dropout 0.1) for 8 updates on the dummy pairs, validating with BLEU
+MT_TRAIN_ARGV = MT_ARGV[:MT_ARGV.index("--beam")] + [
+    "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)", "--lr", "7e-4",
+    "--warmup-updates", "6000", "--max-tokens", "4096", "--max-update", "8",
+    "--log-interval", "1", "--eval-bleu", "--eval-bleu-args",
+    '{"beam": 4, "lenpen": 0.6}', "--device", "cuda",
+]
+# f32 gradients of one MT step, the card against the CPU, relative to each
+# gradient's peak
+MT_GRAD_TOL = 1e-4
 # eva_1d geometries (B, N, heads, head dim, window, halo, chunks, bias):
 # the WMT encoder's batch, long sentences (8 chunks of 32), a small odd one
 # (a ragged last 16-row strip), a window of 16 with a halo of 8 at head dim
@@ -1100,6 +1130,184 @@ def profile_steps(torch, prof_factory, run, kernel_tag):
     tagged = tagged if isinstance(kernel_tag, tuple) else tagged[0]
     return busy, tagged, wall_ms, events.table(sort_by="self_device_time_total",
                                                row_limit=20)
+
+
+def mt_train_phase(torch, card, counters, k4):
+    """The MT training path: ``cli.train_mt`` with the recipe's flags, every
+    kernel's count set to 0 just before and read just after (K4 only, 6
+    launches a validation batch and 6 a BLEU chunk, all on its f32 route;
+    nothing in training); the rate of steps 2-8 and the peak memory; then
+    the validation sums and the encoder states of every validation batch
+    and BLEU chunk, kernel path against eager path, and one step's f32
+    gradients of a 2-layer full-width model, card against CPU.
+    ``counters`` maps (module, attribute) of every launch count."""
+    import numpy as np
+
+    from efficient_attention_torch.cli import train_mt
+    from efficient_attention_torch.data.text_data import LanguagePairDataset
+    from efficient_attention_torch.training import lm_steps
+    from efficient_attention_torch.training.criterions import label_smoothed_nll_loss
+
+    real_step = lm_steps.make_mt_train_step
+    timed = []  # (start event, end event, target tokens) a step
+
+    def make_timed_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def run(state, src, prev, tgt, generator):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(state, src, prev, tgt, generator)
+            end.record()
+            timed.append((start, end, int((tgt != 1).sum())))
+            return metrics
+
+        return run
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    with mock.patch.object(lm_steps, "make_mt_train_step", make_timed_step):
+        stats = train_mt.cli_main(MT_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
+                for mod, attr in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    k4_launches, k4_tf32 = k4.LAUNCHES, k4.LAUNCHES_TF32
+    others = {k: v for k, v in launches.items()
+              if v and not k.startswith("eva_1d.")}
+
+    # the launches the code predicts: the epochs the 8 updates take (each
+    # ends with a validation), the validation batches, the BLEU chunks
+    args = train_mt.parse_args(MT_TRAIN_ARGV)
+    src, tgt, _, _ = train_mt.load_pairs(args)
+    pairs = LanguagePairDataset(src, tgt)
+    sizes = np.maximum(pairs.src_sizes, pairs.tgt_sizes)
+    order_rng = np.random.default_rng(args.seed)
+    epochs, steps, first = 0, 0, None
+    while steps < args.max_update:
+        epochs += 1
+        batches = train_mt.epoch_batches(order_rng, sizes, sizes <= args.max_len,
+                                         args.max_tokens, args.batch_size,
+                                         args.update_freq)
+        first = batches[0] if first is None else first
+        steps += min(len(batches), args.max_update - steps)
+    vsrc, vtgt, _, _ = train_mt.load_pairs(args, split="valid")
+    vpairs = LanguagePairDataset(vsrc, vtgt)
+    vbatches = train_mt.valid_batches(vpairs, args.max_len, args.max_tokens)
+    vsizes = np.maximum(vpairs.src_sizes, vpairs.tgt_sizes)
+    chunks = -(-min(int((vsizes <= args.max_len).sum()),
+                    args.eval_bleu_subset_size) // 8)
+    want_k4 = 6 * epochs * (len(vbatches) + chunks)
+
+    step_ms = [a.elapsed_time(b) for a, b, _ in timed]
+    rate_s = sum(step_ms[1:8]) / 1e3
+    tgt_tokens = sum(n for _, _, n in timed[1:8])
+    log(f"[mt-train] 8 updates + {epochs} validations with BLEU "
+        f"{json.dumps(stats)} in {wall:.2f} s; eva_1d launches {k4_launches} "
+        f"({k4_tf32} on the f32 route; {epochs} validations x ({len(vbatches)} "
+        f"batches + {chunks} BLEU chunks) x 6 layers = {want_k4}), other kernels "
+        f"{json.dumps(others)}")
+    log(f"[mt-train] {card}: steps 2-8 {7 / rate_s:.3f} updates/s, "
+        f"{tgt_tokens / rate_s:.1f} target tokens/s ({tgt_tokens} tokens in "
+        f"{rate_s * 1e3:.3f} ms; CUDA events around each step; step ms "
+        f"{json.dumps([round(t, 3) for t in step_ms])})")
+    log(f"[mt-train] {card}: peak device memory {peak_gb:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated, train steps, validation and BLEU)")
+    for key in ("loss", "valid_loss", "valid_nll_loss", "valid_ppl", "valid_bleu"):
+        if not math.isfinite(stats[key]):
+            raise AssertionError(f"non-finite {key} in {stats}")
+    if stats["step"] != 8 or len(timed) != 8:
+        raise AssertionError(f"{len(timed)} steps run for step {stats['step']}")
+    if others or k4_launches != want_k4 or k4_tf32 != k4_launches:
+        raise AssertionError(f"MT training launched eva_1d {k4_launches} times "
+                             f"({k4_tf32} on the f32 route; {want_k4} expected) "
+                             f"and other kernels {others}")
+
+    # the validation sums, kernel path against eager path (K4's launches
+    # here only compare, and are not the path's)
+    model = train_mt.build_model(args, MT_VOCAB, MT_VOCAB).cuda().eval()
+    eager = copy.deepcopy(model)
+    for layer in eager.encoder.layers:
+        layer.self_attn.attn.impl = "xla"
+    eval_step = lm_steps.make_mt_eval_step(pad_idx=1, label_smoothing=0.1)
+    before = k4.LAUNCHES
+    sums = [train_mt.valid_sums(m, eval_step, vpairs, vbatches, "cuda")
+            for m in (model, eager)]
+    if k4.LAUNCHES - before != 6 * len(vbatches):
+        raise AssertionError("the kernel path's validation did not run eva_1d")
+    verr = max(abs(a - b) / abs(b) for a, b in zip(sums[0][:2], sums[1][:2]))
+    log(f"[mt-train] f32 validation sums kernel path vs eager path "
+        f"(loss, nll, tokens) {sums[0]} vs {sums[1]}: max rel err {verr:.3e} "
+        f"(tol {ENC_TOL:.0e})")
+    if not verr <= ENC_TOL or sums[0][2] != sums[1][2]:
+        raise AssertionError(f"validation sums differ by {verr}")
+    # the encoder states of every validation batch and BLEU chunk at their
+    # non-pad positions, kernel path against eager path: the sums above
+    # hardly see the encoder, for random weights leave the logits near
+    # uniform
+    bleu_ids = np.flatnonzero(vsizes <= args.max_len)[:args.eval_bleu_subset_size]
+    srcs = [train_mt.collate_pairs(vpairs, b, "cuda")[0] for b in vbatches]
+    srcs += [train_mt.collate_pairs(vpairs, bleu_ids[i:i + 8], "cuda")[0]
+             for i in range(0, len(bleu_ids), 8)]
+    before = k4.LAUNCHES
+    eerr, top, shapes = 0.0, 0.0, []
+    with torch.no_grad():
+        for src_b in srcs:
+            (enc, pad), (enc_eager, _) = model.encode(src_b), eager.encode(src_b)
+            keep = ~pad
+            eerr = max(eerr, (enc - enc_eager)[keep].abs().max().item())
+            top = max(top, enc_eager[keep].abs().max().item())
+            shapes.append(tuple(src_b.shape))
+    torch.cuda.synchronize()
+    if k4.LAUNCHES - before != 6 * len(srcs):
+        raise AssertionError("the kernel path's encoder did not run eva_1d")
+    log(f"[mt-train] f32 encoder states kernel path vs eager path at the "
+        f"non-pad positions of the {len(vbatches)} validation batches and "
+        f"{len(srcs) - len(vbatches)} BLEU chunks (B x N {sorted(set(shapes))}): "
+        f"max abs err {eerr:.3e} (tol {ENC_TOL:.0e}), max |value| {top:.3e}")
+    if not eerr <= ENC_TOL:
+        raise AssertionError(f"f32 encoder states of validation differ by {eerr}")
+    del model, eager
+
+    # one step's f32 gradients of a 2-layer full-width model, card against
+    # CPU, eval mode and the eager encoder: nothing drawn at random
+    small = train_mt.build_model(train_mt.parse_args(
+        MT_TRAIN_ARGV + ["--encoder-layers", "2"]), MT_VOCAB, MT_VOCAB).eval()
+    for layer in small.encoder.layers:
+        layer.self_attn.attn.impl = "xla"
+    on_card = copy.deepcopy(small).cuda()
+    batch = train_mt.collate_pairs(pairs, first, "cpu")
+    for m, dev in ((small, "cpu"), (on_card, "cuda")):
+        s, p, t = (x.to(dev) for x in batch)
+        loss_sum, _, ntok = label_smoothed_nll_loss(m(s, p), t, epsilon=0.1,
+                                                    pad_idx=1)
+        (loss_sum / ntok).backward()
+    torch.cuda.synchronize()
+    top = max(p.grad.abs().max().item() for p in small.parameters())
+    worst, worst_name = 0.0, None
+    for (name, p), pc in zip(small.named_parameters(), on_card.parameters()):
+        err = (pc.grad.cpu() - p.grad).abs().max().item()
+        # softmax is invariant to a shift of a row's logits: the cross
+        # attention's key bias has no gradient in exact arithmetic, only
+        # rounding, so it is held to the largest gradient of the model
+        peak = top if name.endswith("encoder_attn.k_proj.bias") else \
+            p.grad.abs().max().item()
+        if err / peak > worst:
+            worst, worst_name = err / peak, name
+    log(f"[mt-train] f32 gradients card vs CPU, 2 + 2 layers at full width, "
+        f"batch {tuple(batch[0].shape)} / {tuple(batch[2].shape)}, all "
+        f"{len(list(small.parameters()))} parameters: max err / peak "
+        f"{worst:.3e} at {worst_name} (tol {MT_GRAD_TOL:.0e})")
+    if not worst <= MT_GRAD_TOL:
+        raise AssertionError(f"f32 MT gradients differ by {worst} of the peak "
+                             f"at {worst_name}")
+    del small, on_card
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2478,7 +2686,16 @@ def main() -> int:
         f"({same / len(mt_runs['kernel']['hypotheses']):.3f}); BLEU kernel "
         f"{mt_runs['kernel']['bleu']}, eager {mt_runs['eager']['bleu']}")
 
-    # ---- 6. the training path, counts set to 0 just before and read after
+    # ---- 6. the MT training path, counts set to 0 just before and read after
+    mt_train_phase(torch, card, (
+        (k1, "LAUNCHES_FWD"), (k1, "LAUNCHES_BWD"), (k1, "LAUNCHES_OUT"),
+        (k2, "LAUNCHES"), (k3, "LAUNCHES_FWD"), (k3, "LAUNCHES_BWD"),
+        (k4, "LAUNCHES"), (k4, "LAUNCHES_TF32"), (k5, "LAUNCHES"),
+        (k6, "LAUNCHES"), (k7, "LAUNCHES"), (k8, "LAUNCHES"),
+        (k10, "LAUNCHES_SUMMARIES"), (k10, "LAUNCHES_ATTENTION"),
+        (k11, "LAUNCHES"), (k12, "LAUNCHES")), k4)
+
+    # ---- 7. the ViT training path, counts set to 0 just before and read after
     k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = k2.LAUNCHES_MMA = 0
     k1.LAUNCHES_FWD_MMA = k1.LAUNCHES_BWD_MMA = 0
     t0 = time.perf_counter()
@@ -2584,7 +2801,7 @@ def main() -> int:
             raise AssertionError(f"{impl} f32 gradients differ by {gerr}")
         del model, eager
 
-    # ---- 7. timings
+    # ---- 8. timings
     # K2 in bf16 at the headline, PVT-B3's three EVA stages and DeiT-tiny-p16:
     # its tensor-core route at plan()'s cluster size, the CUDA-core kernel
     # forced, and K8 + K1 (the `summaries` route: the same function in two
@@ -3152,7 +3369,7 @@ def main() -> int:
     del mt_model, mt_eager
     torch.cuda.empty_cache()
 
-    # ---- 8. the kernels line, the card line, the result
+    # ---- 9. the kernels line, the card line, the result
     kernels = [{
         "name": k2.NAME, "route": "cuda", "source": k2.SOURCE,
         "replaces": k2.REPLACES, "launches": launches,

@@ -94,8 +94,6 @@ def parse_args(argv=None):
     parser.add_argument("--moses-no-escape", action="store_true", default=True)
     parser.add_argument("--results-path", default=None)
     parser.add_argument("--remove-bpe", nargs="?", const="@@ ", default=None)
-    parser.add_argument("--device", default="cuda", type=str,
-                        help="torch device to run on ('cuda' or 'cpu')")
     known, _ = parser.parse_known_args(argv)
     parser = AttentionFactory.add_attn_specific_args(
         parser, known.attn_name_encoder, struct_name="attn_args_encoder",

@@ -3,8 +3,9 @@
 Counterpart of ``efficient_attention_tpu/cli/train_lm.py``, with its flags:
 causal-EVA or softmax decoder attention chosen by ``--attn-name-decoder``
 with nested ``--decoder-attn-*`` flags, ``--arch`` presets and ``--config``
-YAML, NAG (or AdamW) behind a global-norm clip, the cosine(t-mult)
-schedule, token blocks, the adaptive or full
+YAML, NAG (or AdamW, or fairseq Adam) behind a global-norm clip, the
+cosine(t-mult), inverse-sqrt or polynomial schedule, layerdrop and
+``--checkpoint-activations``, token blocks, the adaptive or full
 softmax loss, ``--update-freq`` accumulation, ``--bf16`` master-copy mixed
 precision, validation every ``--validate-interval-updates`` and at the end.
 ``--dummy-data`` trains on tokens drawn from ``--seed`` (the
@@ -162,10 +163,8 @@ def check_ported(args) -> None:
         (args.pipeline_stages > 1, "--pipeline-stages", "Queue 1, item 7"),
         (args.seq_parallel > 1, "--seq-parallel", "Queue 1, item 7"),
         (args.base_layers > 0, "--base-layers", "Queue 1, item 7"),
-        (args.optimizer in ("adam", "sgd", "adafactor"),
-         f"--optimizer {args.optimizer}", "Queue 1, items 3 and 6"),
-        (args.lr_scheduler != "cosine", f"--lr-scheduler {args.lr_scheduler}",
-         "Queue 1, item 6"),
+        (args.optimizer in ("sgd", "adafactor"),
+         f"--optimizer {args.optimizer}", "Queue 1, item 3"),
         (args.heartbeat_timeout > 0, "--heartbeat-timeout", "Queue 1, item 8"),
         (bool(args.tensorboard_logdir), "--tensorboard-logdir", "Queue 1, item 8"),
         (args.wandb_project is not None, "--wandb-project", "Queue 1, item 8"),
@@ -222,8 +221,17 @@ def build_model(args, vocab_size: int, dense_tokens: bool = False):
 
 
 def make_schedule(args):
-    from efficient_attention_torch.training.optim import cosine_tmult_schedule
+    from efficient_attention_torch.training.optim import (
+        cosine_tmult_schedule,
+        inverse_sqrt_schedule,
+        polynomial_schedule,
+    )
 
+    if args.lr_scheduler == "inverse_sqrt":
+        return inverse_sqrt_schedule(args.lr, args.warmup_updates,
+                                     args.warmup_init_lr)
+    if args.lr_scheduler == "polynomial":
+        return polynomial_schedule(args.lr, args.warmup_updates, args.max_update)
     return cosine_tmult_schedule(
         args.lr, args.warmup_updates, int(args.lr_period_updates),
         t_mult=args.t_mult, min_lr=args.min_lr,

@@ -8,12 +8,41 @@ or ``causal_eva`` decoder attention with ``--decoder-attn-*`` flags,
 ``--dummy-data`` sentence pairs from ``--seed`` with the JAX CLI's numpy
 draws (so both packages make the same sentences) and ``build_model`` the
 ``TransformerModel``, with weights drawn from ``--seed``; ``cli.generate``
-serves it.  Training itself (``main``), ``--data`` and checkpoints are not
-ported yet (ROADMAP.md Queue 1, items 5, 6 and 8) and raise.
+serves it.
+
+``main`` trains it: fairseq Adam behind a global-norm clip, the
+inverse-sqrt schedule, label-smoothed cross entropy, token-budget batches
+of length-sorted pairs (``epoch_batches``), ``--update-freq``
+accumulation, ``--bf16`` master-copy mixed precision, an EMA, validation
+at every epoch's end and every ``--validate-interval-updates`` with
+``--patience``, and in-train BLEU on token ids (``--eval-bleu``).  The
+model runs on ``--device`` (default ``cuda``), on one device.  In training
+the encoder's EVA and the decoder's causal EVA run eager (the decoder takes
+its target padding mask, so causal EVA never takes K3, as in JAX); at
+validation and in-train BLEU the encoder runs the ``eva_1d`` kernel (K4)
+where its gate holds.  No checkpoint is written yet; ``--data`` and the
+flags whose module is not ported raise ``NotImplementedError`` naming
+their ROADMAP.md item.
+
+Example (the WMT14 EN-DE recipe, ``main.sh:103-110``, on dummy pairs):
+
+  python -m efficient_attention_torch.cli.train_mt --dummy-data \\
+      --dummy-vocab 32768 --attn-name-encoder eva \\
+      --encoder-attn-window-size 8 --encoder-attn-num-landmarks 8 \\
+      --encoder-attn-overlap-window --encoder-attn-use-t5-rpe \\
+      --encoder-attn-adaptive-proj no-ln --attn-name-decoder causal_eva \\
+      --decoder-attn-window-size 16 --decoder-attn-chunk-size 8 \\
+      --decoder-attn-adaptive-proj qk --decoder-attn-causal \\
+      --share-all-embeddings --max-update 8 --log-interval 1 --eval-bleu \\
+      --eval-bleu-args '{"beam": 4, "lenpen": 0.6}'
 """
 from __future__ import annotations
 
 import argparse
+import ast
+import json
+import math
+import time
 
 import numpy as np
 import torch
@@ -163,6 +192,8 @@ def build_parser() -> argparse.ArgumentParser:
     dist.add_argument("--coordinator-address", default=None, type=str)
     dist.add_argument("--num-processes", default=None, type=int)
     dist.add_argument("--process-id", default=None, type=int)
+    p.add_argument("--device", default="cuda", type=str,
+                   help="torch device to run on ('cuda' or 'cpu')")
     return p
 
 
@@ -268,11 +299,297 @@ def build_model(args, src_vocab: int, tgt_vocab: int):
     return init_weights(model, torch.Generator().manual_seed(args.seed))
 
 
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` for every flag set to something whose
+    module is not ported yet, naming its ROADMAP.md item."""
+    item8 = "Queue 1, item 8"
+    queued = [
+        (args.data is not None and not args.dummy_data, "--data",
+         "Queue 1, item 5 (data/{dictionary,indexed_dataset}.py)"),
+        (bool(args.finetune_from_model), "--finetune-from-model",
+         f"{item8} (training/checkpoint.py)"),
+        (bool(args.encoder_layers_to_keep), "--encoder-layers-to-keep",
+         f"{item8} (training/checkpoint.py)"),
+        (bool(args.decoder_layers_to_keep), "--decoder-layers-to-keep",
+         f"{item8} (training/checkpoint.py)"),
+        (args.heartbeat_timeout > 0, "--heartbeat-timeout", item8),
+        (bool(args.tensorboard_logdir), "--tensorboard-logdir", item8),
+        (args.wandb_project is not None, "--wandb-project", item8),
+        (args.azureml_logging, "--azureml-logging", item8),
+        (args.distributed or args.coordinator_address is not None
+         or args.num_processes is not None or args.process_id is not None,
+         "the distributed flags", "Queue 1, item 7"),
+    ]
+    for unported, flag, item in queued:
+        if unported:
+            raise NotImplementedError(f"{flag} is not ported yet; see ROADMAP.md {item}")
+
+
+def epoch_batches(order_rng: np.random.Generator, sizes: np.ndarray,
+                  train_ok: np.ndarray, max_tokens: int,
+                  max_sentences=None, update_freq: int = 1):
+    """One epoch's batches of pair indices (JAX ``cli/train_mt.py:540-563``,
+    one device): a permutation from ``order_rng``, the pairs within
+    ``--max-len`` (``train_ok``), a stable sort by length, token-budget
+    batches that split into ``update_freq`` microbatches, shuffled by
+    ``order_rng`` and each cut to a multiple of ``update_freq`` (empty ones
+    dropped)."""
+    from efficient_attention_torch.data.text_data import batch_by_size
+
+    quantum = max(1, update_freq)
+    order = order_rng.permutation(len(sizes))
+    order = order[train_ok[order]]
+    order = order[np.argsort(sizes[order], kind="stable")]
+    if max_sentences is not None and max_sentences < quantum:
+        # every batch would be cut to nothing and the epoch loop would spin
+        raise ValueError(f"--batch-size {max_sentences} must be >= "
+                         f"--update-freq ({quantum}): each batch must split "
+                         "into update_freq microbatches")
+    batches = batch_by_size(order, sizes, max_tokens,
+                            max_sentences=max_sentences,
+                            required_multiple=quantum)
+    order_rng.shuffle(batches)
+    batches = [b[: len(b) - len(b) % quantum] for b in batches]
+    return [b for b in batches if len(b)]
+
+
+def collate_pairs(pairs, bidx, device):
+    """``(src, prev_output_tokens, tgt)`` ``[B, T]`` tensors on ``device``
+    of the pairs ``bidx``, each padded to a multiple of 8; the previous
+    output tokens are the targets with eos moved to the front."""
+    from efficient_attention_torch.data.text_data import collate_tokens
+
+    samples = [pairs[int(i)] for i in bidx]
+    src = collate_tokens([s for s, _ in samples], pad_idx=1)
+    tgt = collate_tokens([t for _, t in samples], pad_idx=1)
+    prev = collate_tokens([t for _, t in samples], pad_idx=1,
+                          move_eos_to_beginning=True)
+    return tuple(torch.from_numpy(a).to(device) for a in (src, prev, tgt))
+
+
+def valid_batches(vpairs, max_len: int, max_tokens: int):
+    """The validation batches: the pairs within ``max_len`` (fairseq's
+    max-positions filter), sorted by length, in token-budget batches."""
+    from efficient_attention_torch.data.text_data import batch_by_size
+
+    vsizes = np.maximum(vpairs.src_sizes, vpairs.tgt_sizes)
+    valid_ids = np.flatnonzero(vsizes <= max_len)
+    vorder = valid_ids[np.argsort(vsizes[valid_ids], kind="stable")]
+    return batch_by_size(vorder, vsizes, max_tokens)
+
+
+def valid_sums(model, eval_step, vpairs, batches, device):
+    """Summed smoothed loss, NLL and target tokens of ``model`` (in eval
+    mode) over ``batches`` of ``vpairs``, as Python floats."""
+    loss_sum = nll_sum = tok_sum = 0.0
+    for bidx in batches:
+        ls, ns, nt = eval_step(model, *collate_pairs(vpairs, bidx, device))
+        loss_sum += float(ls)
+        nll_sum += float(ns)
+        tok_sum += float(nt)
+    return loss_sum, nll_sum, tok_sum
+
+
+@torch.no_grad()
+def bleu_chunks(vpairs, ids, gen_args, vocab: int, model, device,
+                print_samples: bool = False) -> float:
+    """In-train BLEU (JAX ``cli/train_mt.py:412-480``, fairseq
+    ``translation.py`` ``_inference_with_bleu``) over the pairs ``ids``:
+    beam search in chunks of 8 sentences, each with an output buffer of
+    ``max_len_a * S + max_len_b`` (default ``2 S``) tokens, the 1-best cut
+    before its first eos, scored against the reference without its eos on
+    token ids (the dummy pairs have no dictionary)."""
+    from efficient_attention_torch.data.text_data import collate_tokens
+    from efficient_attention_torch.generation.beam_search import SequenceGenerator
+    from efficient_attention_torch.scoring.bleu import BleuScorer
+
+    K = int(gen_args.get("beam", 4))
+    scorer = BleuScorer()
+    printed = False
+    for i in range(0, len(ids), 8):
+        chunk = ids[i: i + 8]
+        src_b = torch.from_numpy(collate_tokens(
+            [vpairs[int(j)][0] for j in chunk], pad_idx=1)).to(device)
+        enc_out, enc_pad = model.encode(src_b)
+        enc_out_k = enc_out.repeat_interleave(K, dim=0)
+        enc_pad_k = enc_pad.repeat_interleave(K, dim=0)
+
+        def step_fn(states, tokens, step):
+            logits, states = model.decode_step(states, tokens, step, None, enc_pad_k)
+            return logits[:, 0], states
+
+        def init_cache(bk, max_len):
+            return model.init_decode_state(bk, max_len, torch.float32, device,
+                                           enc_out=enc_out_k)
+
+        S = src_b.shape[1]
+        buf_len = (int(gen_args.get("max_len_a", 0) * S)
+                   + int(gen_args.get("max_len_b", 2 * S)))
+        gen = SequenceGenerator(step_fn, init_cache, vocab_size=vocab,
+                                beam_size=K, max_len=buf_len,
+                                len_penalty=float(gen_args.get("lenpen", 1.0)),
+                                pad=1, eos=2)
+        tokens, _ = gen.generate(src_b.shape[0], device=device)
+        tokens = tokens[:, 0, 1:].cpu().numpy()
+        for b, j in enumerate(chunk):
+            hyp = tokens[b]
+            eos_pos = np.where(hyp == 2)[0]
+            if len(eos_pos):
+                hyp = hyp[: eos_pos[0]]
+            ref = np.asarray(vpairs[int(j)][1])
+            ref = ref[ref != 2]
+            if print_samples and not printed:
+                print(f"| example hypothesis: {hyp.tolist()}")
+                print(f"| example reference:  {ref.tolist()}")
+                printed = True
+            scorer.add(ref.tolist(), hyp.tolist())
+    return scorer.score()
+
+
 def main(args) -> dict:
-    raise NotImplementedError(
-        "MT training is a later slice of the port; see ROADMAP.md Queue 1, "
-        "item 6 (LanguagePairDataset, batch_by_size, the Adam + inverse-sqrt "
-        "step, trajectory_mt_adam.npz); cli.generate serves the model")
+    from efficient_attention_torch.cli.train_lm import _print_profile, _profiler
+    from efficient_attention_torch.data.text_data import LanguagePairDataset
+    from efficient_attention_torch.training.lm_steps import (
+        make_mt_eval_step,
+        make_mt_train_step,
+    )
+    from efficient_attention_torch.training.metrics import MetricLogger
+    from efficient_attention_torch.training.optim import (
+        inverse_sqrt_schedule,
+        make_optimizer,
+    )
+    from efficient_attention_torch.training.train_state import TrainState
+
+    check_ported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available")
+    # float32 means float32: no TF32 in matmuls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    src, tgt, _, _ = load_pairs(args)
+    model = build_model(args, args.dummy_vocab, args.dummy_vocab).to(device)
+    pairs = LanguagePairDataset(src, tgt)
+    schedule = inverse_sqrt_schedule(args.lr, args.warmup_updates,
+                                     args.warmup_init_lr)
+    optimizer = make_optimizer(args.optimizer, model.named_parameters(), schedule,
+                               weight_decay=0.0, clip_grad=args.clip_norm or None,
+                               betas=tuple(ast.literal_eval(args.adam_betas)))
+    state = TrainState(model, optimizer,
+                       ema_decay=args.ema_decay if args.store_ema else 0.0)
+    train_step = make_mt_train_step(
+        pad_idx=1, label_smoothing=args.label_smoothing,
+        accum_steps=args.update_freq,
+        compute_dtype=torch.bfloat16 if args.bf16 else None,
+        sentence_avg=args.sentence_avg)
+    print("| no checkpoint is written: training/checkpoint.py is not ported "
+          "yet (ROADMAP.md Queue 1, item 8)")
+
+    vsrc, vtgt, _, _ = load_pairs(args, split="valid")
+    vpairs = LanguagePairDataset(vsrc, vtgt)
+    vbatches = valid_batches(vpairs, args.max_len, args.max_tokens)
+    eval_step = make_mt_eval_step(pad_idx=1, label_smoothing=args.label_smoothing)
+    gen_args = json.loads(args.eval_bleu_args) if args.eval_bleu_args else {}
+    vsizes = np.maximum(vpairs.src_sizes, vpairs.tgt_sizes)
+    bleu_ids = np.flatnonzero(vsizes <= args.max_len)[: args.eval_bleu_subset_size]
+
+    def validate() -> dict:
+        """Valid-split loss, NLL and perplexity of the float32 parameters
+        (and BLEU with ``--eval-bleu``)."""
+        if args.disable_validation:
+            return {}
+        model.eval()
+        loss_sum, nll_sum, tok_sum = valid_sums(model, eval_step, vpairs,
+                                                vbatches, device)
+        n = max(tok_sum, 1.0)
+        vm = {"valid_loss": loss_sum / n, "valid_nll_loss": nll_sum / n,
+              "valid_ppl": math.exp(min(nll_sum / n, 50.0))}
+        if args.eval_bleu:
+            vm["valid_bleu"] = bleu_chunks(vpairs, bleu_ids.tolist(), gen_args,
+                                           args.dummy_vocab, model, device,
+                                           args.eval_bleu_print_samples)
+        print("| valid " + " ".join(f"{k.removeprefix('valid_')} {v:.3f}"
+                                    for k, v in vm.items()))
+        return vm
+
+    sizes = np.maximum(pairs.src_sizes, pairs.tgt_sizes)
+    train_ok = sizes <= args.max_len
+    n_dropped = int((~train_ok).sum())
+    if n_dropped:
+        print(f"| WARNING: {n_dropped} train examples exceed --max-len "
+              f"{args.max_len} and were dropped (fairseq max-positions "
+              "filtering)")
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    order_rng = np.random.default_rng(args.seed)
+    logger = MetricLogger()
+    stats: dict = {}
+    t0 = time.time()
+    consec_skips = 0
+    best_valid, bad_valids = float("inf"), 0
+    prof = None
+    epoch = 0
+    while state.step < args.max_update:
+        if stats.get("time_stop"):
+            break
+        epoch += 1
+        if args.max_epoch and epoch > args.max_epoch:
+            print(f"| stopping: --max-epoch {args.max_epoch} reached")
+            break
+        for bidx in epoch_batches(order_rng, sizes, train_ok, args.max_tokens,
+                                  args.batch_size, args.update_freq):
+            if state.step >= args.max_update:
+                break
+            if args.profile is not None and state.step == 1 and prof is None:
+                prof = _profiler(device)
+                prof.start()
+            metrics = train_step(state, *collate_pairs(pairs, bidx, device),
+                                 generator)
+            if prof is not None and state.step == 4:
+                prof.stop()
+                _print_profile(prof, device, args.profile)
+                prof = None
+            if bool(metrics.skipped):
+                consec_skips += 1
+                print(f"| WARNING: non-finite loss/grad detected, skipping "
+                      f"update ({consec_skips} consecutive)")
+                if consec_skips >= args.max_nonfinite_skips:
+                    raise FloatingPointError(
+                        f"{consec_skips} consecutive non-finite updates; aborting")
+                continue
+            consec_skips = 0
+            step = state.step
+            loss = float(metrics.loss)
+            logger.update(loss=loss, gnorm=float(metrics.grad_norm))
+            if step % args.log_interval == 0:
+                print(f"| step {step} {logger} | {time.time() - t0:.0f}s")
+            stats = {"step": step, "loss": loss}
+            if (args.stop_time_hours > 0
+                    and time.time() - t0 > args.stop_time_hours * 3600):
+                print(f"| stopping: --stop-time-hours {args.stop_time_hours} reached")
+                stats["time_stop"] = True
+                break
+            if (args.validate_interval_updates > 0
+                    and step % args.validate_interval_updates == 0):
+                stats.update(validate())
+        # epoch boundary: fairseq validates once an epoch
+        if state.step > 0:
+            stats.update(validate())
+            if args.patience > 0 and "valid_loss" in stats:
+                if stats["valid_loss"] < best_valid - 1e-9:
+                    best_valid, bad_valids = stats["valid_loss"], 0
+                else:
+                    bad_valids += 1
+                    if bad_valids >= args.patience:
+                        print(f"| early stop: valid loss has not improved for "
+                              f"{bad_valids} epochs (--patience {args.patience})")
+                        stats["early_stop"] = True
+                        break
+    if prof is not None:  # training ended inside the traced steps
+        prof.stop()
+        _print_profile(prof, device, args.profile)
+    print(json.dumps(stats))
+    return stats
 
 
 def cli_main(argv=None):

@@ -1,16 +1,20 @@
-"""LM token blocks and token collation.
+"""LM token blocks, language pairs, token-budget batching and token
+collation.
 
-Counterparts of ``TokenBlockDataset`` and ``collate_tokens`` in
+Counterparts of ``TokenBlockDataset``, ``LanguagePairDataset``,
+``batch_by_size`` and ``collate_tokens`` in
 ``efficient_attention_tpu/data/text_data.py`` (fairseq
 ``data/token_block_dataset.py``, 'none' break mode, the wiki103 recipe's
-``--tokens-per-sample``; ``data/data_utils.py:collate_tokens``).  Language
-pair datasets and token-budget batching come with MT training (ROADMAP.md
-Queue 1, item 6).
+``--tokens-per-sample``; ``data/language_pair_dataset.py``;
+``data/data_utils_fast.pyx:batch_by_size_*``;
+``data/data_utils.py:collate_tokens``).  ``batch_by_size`` is the JAX
+package's pure-Python packing loop, whose batches its native library
+reproduces.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -38,6 +42,60 @@ class TokenBlockDataset:
     @property
     def sizes(self) -> np.ndarray:
         return np.full(self.n_blocks, self.block_size, dtype=np.int64)
+
+
+class LanguagePairDataset:
+    """Paired source and target sentences (fairseq
+    ``language_pair_dataset.py`` essentials): item ``i`` is ``(src[i],
+    tgt[i])``."""
+
+    def __init__(self, src, tgt, pad_idx: int = 1, eos_idx: int = 2):
+        assert len(src) == len(tgt)
+        self.src, self.tgt = src, tgt
+        self.pad_idx, self.eos_idx = pad_idx, eos_idx
+
+    def __len__(self) -> int:
+        return len(self.src)
+
+    def __getitem__(self, i: int):
+        return self.src[i], self.tgt[i]
+
+    @property
+    def src_sizes(self) -> np.ndarray:
+        return self.src.sizes
+
+    @property
+    def tgt_sizes(self) -> np.ndarray:
+        return self.tgt.sizes
+
+
+def batch_by_size(indices: np.ndarray, sizes: np.ndarray, max_tokens: int,
+                  max_sentences: Optional[int] = None,
+                  required_multiple: int = 8) -> List[np.ndarray]:
+    """Greedy token-budget packing of ``indices`` (usually length-sorted):
+    a batch closes when the next item would take it past ``max_tokens``
+    (counting padding to the batch's longest) or past ``max_sentences``; a
+    closing batch longer than ``required_multiple`` is cut to a multiple of
+    it, and the cut items open the next batch."""
+    batches = []
+    cur: List[int] = []
+    cur_max = 0
+    for idx in indices:
+        size = int(sizes[idx])
+        new_max = max(cur_max, size)
+        if cur and (new_max * (len(cur) + 1) > max_tokens
+                    or (max_sentences and len(cur) >= max_sentences)):
+            keep = len(cur)
+            if keep > required_multiple:
+                keep -= keep % required_multiple
+            batches.append(np.asarray(cur[:keep]))
+            cur = cur[keep:]
+            cur_max = max((int(sizes[i]) for i in cur), default=0)
+        cur.append(idx)
+        cur_max = max(cur_max, size)
+    if cur:
+        batches.append(np.asarray(cur))
+    return batches
 
 
 def collate_tokens(samples: Sequence[np.ndarray], pad_idx: int,

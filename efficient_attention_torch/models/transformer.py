@@ -16,10 +16,11 @@ adaptive input and (tied) adaptive softmax, ``dense_tokens``, quant noise)
 and ``TransformerModel`` (post-LN encoder and decoder, shared embeddings),
 with incremental decoding: ``KVCache`` for softmax self-attention,
 ``EvaDecodeState`` for causal EVA, and cross-attention K/V projected once a
-sentence and carried in the decode state (fairseq ``static_kv``).  Not
-ported yet, each raising ``NotImplementedError`` with its ROADMAP.md item:
-``forward_with_alignment``, sequence parallelism, BASE layers, layerdrop
-and ``--checkpoint-activations``.
+sentence and carried in the decode state (fairseq ``static_kv``).  Every
+layer runs through ``_run_layer``: layerdrop and
+``--checkpoint-activations`` in training.  Not ported yet, each raising
+``NotImplementedError`` with its ROADMAP.md item: ``forward_with_alignment``,
+sequence parallelism and BASE layers.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from efficient_attention_torch.attention.base import MASK_VAL, Dropout
 from efficient_attention_torch.attention.causal_eva import CausalEVAttention
@@ -72,6 +74,57 @@ def get_activation_fn(name: str):
     if name not in table:
         raise ValueError(f"unknown activation {name!r} (choices: {sorted(table)})")
     return table[name]
+
+
+def _run_layer(layer: nn.Module, args, *, remat: bool, layerdrop: float,
+               generator: Optional[torch.Generator], training: bool):
+    """``layer(*args)`` through the training-time wrappers (JAX
+    ``transformer.py:66-97``).
+
+    * ``layerdrop`` (fairseq ``LayerDropModuleList``): in training, one
+      uniform draw from ``generator`` per layer and forward; below
+      ``layerdrop`` the layer is the identity on ``args[0]``.
+    * ``remat`` (``--checkpoint-activations``): in training,
+      ``torch.utils.checkpoint`` recomputes the layer in the backward instead
+      of storing its activations.  The recompute runs after the forward has
+      returned, so it is handed what the forward read that the checkpoint
+      does not restore: the layer's parameters as they were then (under
+      ``--bf16`` the bfloat16 copies of ``train_state.cast_modules``, whose
+      block has closed), and the state of ``generator``, which the layer's
+      dropout and noise draw from (the checkpoint restores torch's global
+      RNGs only).  The state the recompute found is put back after it, so
+      later draws do not repeat the forward's."""
+    if training and layerdrop > 0.0:
+        u = torch.rand((), generator=generator, device=args[0].device)
+        if float(u) < layerdrop:
+            return args[0]
+    if not (remat and training and torch.is_grad_enabled()):
+        return layer(*args)
+    read = [(mod, name, p) for mod in layer.modules()
+            for name, p in mod._parameters.items() if p is not None]
+    start = None if generator is None else generator.get_state()
+    ran = []
+
+    def run(*xs):
+        if not ran:  # the forward
+            ran.append(True)
+            return layer(*xs)
+        # the recompute, in the backward
+        now = [mod._parameters[name] for mod, name, _ in read]
+        found = None if generator is None else generator.get_state()
+        for mod, name, p in read:
+            mod._parameters[name] = p
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            return layer(*xs)
+        finally:
+            for (mod, name, _), p in zip(read, now):
+                mod._parameters[name] = p
+            if generator is not None:
+                generator.set_state(found)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def _unported(checks) -> None:
@@ -408,10 +461,14 @@ class TransformerEncoder(_Embedded):
                  learned_pos: bool = False, activation_fn: str = "relu",
                  embed_tokens: Optional[nn.Module] = None,
                  quant_noise_pq: float = 0.0,
-                 quant_noise_pq_block_size: int = 8):
+                 quant_noise_pq_block_size: int = 8,
+                 checkpoint_activations: bool = False, layerdrop: float = 0.0):
         super().__init__()
         self._setup_embedding(embed_tokens or nn.Embedding(vocab_size, embed_dim),
                               embed_dim, max_len, pad_idx, learned_pos)
+        self.checkpoint_activations = checkpoint_activations
+        self.layerdrop = layerdrop
+        self.generator: Optional[torch.Generator] = None  # set_generator's
         self.embed_dropout = Dropout(dropout)
         self.layers = nn.ModuleList(
             EncoderLayer(embed_dim, ffn_dim, num_heads, attn_name=attn_name,
@@ -428,7 +485,10 @@ class TransformerEncoder(_Embedded):
         padding_mask = src_tokens == self.pad_idx
         x = self.embed_dropout(self._embed(src_tokens))
         for layer in self.layers:
-            x = layer(x, padding_mask)
+            x = _run_layer(layer, (x, padding_mask),
+                           remat=self.checkpoint_activations,
+                           layerdrop=self.layerdrop, generator=self.generator,
+                           training=self.training)
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return x, padding_mask
@@ -456,9 +516,13 @@ class TransformerDecoder(_Embedded):
                  quant_noise_pq_block_size: int = 8,
                  learned_pos: bool = False, activation_fn: str = "relu",
                  has_cross: bool = False,
-                 embed_tokens: Optional[nn.Module] = None):
+                 embed_tokens: Optional[nn.Module] = None,
+                 checkpoint_activations: bool = False, layerdrop: float = 0.0):
         super().__init__()
         self.dense_tokens = dense_tokens
+        self.checkpoint_activations = checkpoint_activations
+        self.layerdrop = layerdrop
+        self.generator: Optional[torch.Generator] = None  # set_generator's
         self.share_input_output_embed = share_input_output_embed
         if embed_tokens is None:
             embed_tokens = (AdaptiveInput(vocab_size, embed_dim, adaptive_input_cutoffs)
@@ -496,7 +560,10 @@ class TransformerDecoder(_Embedded):
         padding_mask = None if self.dense_tokens else tokens == self.pad_idx
         x = self.embed_dropout(self._embed(tokens))
         for layer in self.layers:
-            x = layer(x, padding_mask, enc_out, enc_padding_mask)
+            x = _run_layer(layer, (x, padding_mask, enc_out, enc_padding_mask),
+                           remat=self.checkpoint_activations,
+                           layerdrop=self.layerdrop, generator=self.generator,
+                           training=self.training)
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return x
@@ -559,13 +626,6 @@ class TransformerModel(nn.Module):
                  activation_fn: str = "relu", encoder_learned_pos: bool = False,
                  decoder_learned_pos: bool = False):
         super().__init__()
-        _unported([
-            (checkpoint_activations, "--checkpoint-activations",
-             "Queue 1, item 6 (MT training)"),
-            (encoder_layerdrop > 0.0 or decoder_layerdrop > 0.0,
-             "--encoder-layerdrop/--decoder-layerdrop",
-             "Queue 1, item 6 (MT training)"),
-        ])
         shared = None
         if share_all_embeddings:
             if src_vocab_size != tgt_vocab_size:
@@ -579,14 +639,17 @@ class TransformerModel(nn.Module):
             attn_name=attn_name_encoder, attn_args=attn_args_encoder,
             dropout=dropout, max_len=max_len, pad_idx=pad_idx,
             learned_pos=encoder_learned_pos, activation_fn=activation_fn,
-            embed_tokens=shared, **qn)
+            embed_tokens=shared, checkpoint_activations=checkpoint_activations,
+            layerdrop=encoder_layerdrop, **qn)
         self.decoder = TransformerDecoder(
             tgt_vocab_size, embed_dim=embed_dim, ffn_dim=ffn_dim,
             num_layers=num_layers if num_decoder_layers is None else num_decoder_layers,
             num_heads=num_heads, attn_name=attn_name_decoder,
             attn_args=attn_args_decoder, dropout=dropout, max_len=max_len,
             pad_idx=pad_idx, learned_pos=decoder_learned_pos,
-            activation_fn=activation_fn, has_cross=True, embed_tokens=shared, **qn)
+            activation_fn=activation_fn, has_cross=True, embed_tokens=shared,
+            checkpoint_activations=checkpoint_activations,
+            layerdrop=decoder_layerdrop, **qn)
 
     def forward(self, src_tokens: torch.Tensor,
                 prev_output_tokens: torch.Tensor) -> torch.Tensor:
@@ -641,9 +704,6 @@ class TransformerLM(nn.Module):
         _unported([
             (seq_axis is not None, "sequence parallelism", "Queue 1, item 7"),
             (base_layers, "BASE layers", "Queue 1, item 7"),
-            (checkpoint_activations, "--checkpoint-activations",
-             "Queue 1, item 5"),
-            (layerdrop > 0.0, "--decoder-layerdrop", "Queue 1, item 5"),
         ])
         cutoffs = tuple(adaptive_cutoffs) if adaptive_cutoffs else None
         self.decoder = TransformerDecoder(
@@ -655,7 +715,8 @@ class TransformerLM(nn.Module):
             adaptive_softmax_cutoffs=cutoffs, tie_adaptive=tie_adaptive,
             final_norm=final_norm, quant_noise_pq=quant_noise_pq,
             quant_noise_pq_block_size=quant_noise_pq_block_size,
-            learned_pos=learned_pos, activation_fn=activation_fn)
+            learned_pos=learned_pos, activation_fn=activation_fn,
+            checkpoint_activations=checkpoint_activations, layerdrop=layerdrop)
 
     @property
     def _tied(self) -> bool:

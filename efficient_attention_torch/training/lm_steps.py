@@ -1,13 +1,15 @@
-"""LM train and eval steps.
+"""LM and MT train and eval steps.
 
-Counterpart of the LM part of ``efficient_attention_tpu/training/
-lm_steps.py`` (the fairseq Trainer's forward/backward/step,
-``trainer.py:716-1022``): the loss is the token-mean NLL (adaptive softmax
-or full cross entropy) over non-pad targets; ``--update-freq`` accumulation
-is a Python loop over microbatches whose losses and gradients are averaged;
+Counterpart of ``efficient_attention_tpu/training/lm_steps.py`` (the
+fairseq Trainer's forward/backward/step, ``trainer.py:716-1022``): the LM
+loss is the token-mean NLL (adaptive softmax or full cross entropy) over
+non-pad targets, the MT loss fairseq's label-smoothed cross entropy over
+tokens or, with ``sentence_avg``, over sentences; ``--update-freq``
+accumulation is a Python loop over microbatches whose losses (each
+normalised by its own count) and gradients are averaged;
 the update is skipped where loss or gradient norm is non-finite
 (``apply_or_skip``).  ``--bf16`` is the port's master-copy scheme
-(``train_state.cast_params``): the forward runs on a bfloat16 copy of the
+(``train_state.cast_modules``): the forward runs on a bfloat16 copy of the
 float32 parameters.
 """
 from __future__ import annotations
@@ -15,7 +17,6 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
-from torch.func import functional_call
 
 from efficient_attention_torch.models.layers import set_generator
 from efficient_attention_torch.training.criterions import (
@@ -27,7 +28,7 @@ from efficient_attention_torch.training.train_state import (
     StepMetrics,
     TrainState,
     apply_or_skip,
-    cast_params,
+    cast_modules,
 )
 
 
@@ -40,14 +41,13 @@ def make_lm_train_step(pad_idx: int = 1, accum_steps: int = 1,
     the causal-EVA proposal noise, quant noise) come from ``generator``."""
 
     def loss_fn(model, tokens, targets):
-        params = cast_params(dict(model.named_parameters()), compute_dtype)
+        with cast_modules(model, compute_dtype):
+            out = model(tokens, targets) if use_adaptive else model(tokens)
         if use_adaptive:
-            nll = functional_call(model, params, (tokens, targets))
-            loss_sum, ntokens = adaptive_loss(nll, targets, pad_idx)
+            loss_sum, ntokens = adaptive_loss(out, targets, pad_idx)
         else:
-            logits = functional_call(model, params, (tokens,))
             loss_sum, _, ntokens = label_smoothed_nll_loss(
-                logits, targets, epsilon=0.0, pad_idx=pad_idx)
+                out, targets, epsilon=0.0, pad_idx=pad_idx)
         return loss_sum / ntokens.clamp(min=1.0)
 
     def train_step(state: TrainState, tokens: torch.Tensor,
@@ -88,5 +88,63 @@ def make_lm_eval_step(use_adaptive: bool = False, pad_idx: int = 1
                                 targets[..., None])[..., 0]
         mask = score_mask & (targets != pad_idx)
         return (nll * mask).sum(), mask.sum()
+
+    return eval_step
+
+
+def make_mt_train_step(pad_idx: int = 1, label_smoothing: float = 0.1,
+                       accum_steps: int = 1,
+                       compute_dtype: Optional[torch.dtype] = None,
+                       sentence_avg: bool = False
+                       ) -> Callable[..., StepMetrics]:
+    """``train_step(state, src, prev_output_tokens, targets, generator) ->
+    StepMetrics`` (``criterions/label_smoothed_cross_entropy.py``, the WMT
+    recipe), which updates ``state`` in place; the step's random draws
+    (dropout, EVA's RF noise, the causal-EVA proposal noise, layerdrop,
+    quant noise) come from ``generator``."""
+
+    def loss_fn(model, src, prev, targets):
+        with cast_modules(model, compute_dtype):
+            logits = model(src, prev)
+        loss_sum, _, ntokens = label_smoothed_nll_loss(
+            logits, targets, epsilon=label_smoothing, pad_idx=pad_idx)
+        return loss_sum / (float(targets.shape[0]) if sentence_avg
+                           else ntokens.clamp(min=1.0))
+
+    def train_step(state: TrainState, src: torch.Tensor, prev: torch.Tensor,
+                   targets: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> StepMetrics:
+        model = state.model
+        set_generator(model.train(), generator)
+        state.optimizer.zero_grad()
+        if src.shape[0] % accum_steps:
+            raise ValueError(f"batch {src.shape[0]} not divisible by "
+                             f"--update-freq {accum_steps}")
+        loss = torch.zeros((), device=src.device)
+        for s, p, t in zip(src.chunk(accum_steps), prev.chunk(accum_steps),
+                           targets.chunk(accum_steps)):
+            part = loss_fn(model, s, p, t)
+            (part / accum_steps).backward()
+            loss += part.detach() / accum_steps
+        grad_norm = global_norm(p.grad for p in model.parameters()
+                                if p.grad is not None)
+        return StepMetrics(loss, grad_norm,
+                           apply_or_skip(state, loss, grad_norm))
+
+    return train_step
+
+
+def make_mt_eval_step(pad_idx: int = 1, label_smoothing: float = 0.1
+                      ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]]:
+    """``eval_step(model, src, prev_output_tokens, targets) -> (smoothed
+    loss sum, nll sum, tokens)`` (``fairseq_cli/train.py`` ``validate`` ->
+    ``task.valid_step``); ``model`` is any callable ``(src, prev)`` with the
+    model's logits, in eval mode."""
+
+    @torch.no_grad()
+    def eval_step(model, src, prev, targets):
+        return label_smoothed_nll_loss(model(src, prev), targets,
+                                       epsilon=label_smoothing, pad_idx=pad_idx)
 
     return eval_step

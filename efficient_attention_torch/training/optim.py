@@ -1,4 +1,4 @@
-"""Optimizers and learning-rate schedules of the ViT and LM recipes.
+"""Optimizers and learning-rate schedules of the ViT, LM and MT recipes.
 
 Counterpart of ``efficient_attention_tpu/training/optim.py``:
 
@@ -10,7 +10,10 @@ Counterpart of ``efficient_attention_tpu/training/optim.py``:
   (sqrt(v_hat) + eps) + wd * p)`` with ``lr = schedule(updates so far)``;
 * the wiki103 LM recipe (``main.sh:75-124``): fairseq's cosine schedule
   with period multiplier and ``lr_shrink``, and fairseq's NAG behind the
-  same clip.
+  same clip;
+* the WMT MT recipe (``main.sh:103-110``): fairseq's ``inverse_sqrt``
+  schedule (and ``polynomial_decay``), and fairseq's Adam behind the same
+  clip.
 
 The other optimizers and schedules raise ``NotImplementedError`` with
 their ROADMAP.md item.
@@ -26,7 +29,6 @@ Schedule = Callable[[int], float]
 
 # optimizers of the JAX factory not ported yet, and where they are queued
 _NOT_PORTED = {
-    "adam": "ROADMAP.md Queue 1, item 6 (fairseq Adam)",
     "sgd": "ROADMAP.md Queue 1, item 3",
     "adafactor": "ROADMAP.md Queue 1, item 3",
     "adagrad": "ROADMAP.md Queue 1, item 3",
@@ -90,6 +92,36 @@ def cosine_tmult_schedule(base_lr: float, warmup_steps: int, period: int,
         s, n = boundaries[idx]
         lo, hi = min_lr * lr_shrink ** idx, base_lr * lr_shrink ** idx
         return lo + 0.5 * (hi - lo) * (1 + math.cos(math.pi * (t - s) / n))
+
+    return schedule
+
+
+def inverse_sqrt_schedule(base_lr: float, warmup_steps: int,
+                          warmup_init_lr: float = 1e-7) -> Schedule:
+    """fairseq ``inverse_sqrt`` (MT recipe: lr 7e-4, warmup 6000): linear
+    warmup from ``warmup_init_lr``, then ``base_lr * sqrt(warmup / step)``."""
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return warmup_init_lr + (base_lr - warmup_init_lr) * (
+                step / max(warmup_steps, 1))
+        return base_lr * math.sqrt(warmup_steps / max(step, 1))
+
+    return schedule
+
+
+def polynomial_schedule(base_lr: float, warmup_steps: int, total_steps: int,
+                        power: float = 1.0, end_lr: float = 0.0) -> Schedule:
+    """fairseq ``polynomial_decay``: linear warmup from 0, then
+    ``(base_lr - end_lr) * frac**power + end_lr`` with ``frac`` the share of
+    the post-warmup steps still to go."""
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return base_lr * step / max(warmup_steps, 1)
+        frac = min(max((total_steps - step) / max(total_steps - warmup_steps, 1),
+                       0.0), 1.0)
+        return (base_lr - end_lr) * frac ** power + end_lr
 
     return schedule
 
@@ -225,14 +257,80 @@ class ClippedNAG:
         self.count += 1
 
 
+class ClippedAdam:
+    """optax ``chain(clip_by_global_norm(clip_grad), fairseq Adam)`` over
+    named parameters whose ``.grad`` holds the step's gradient.
+
+    fairseq's Adam (``fairseq/optim/adam.py:159-241``, JAX
+    ``_fairseq_adam``) is not ``torch.optim.Adam``: eps is added to
+    ``sqrt(v)`` of the uncorrected second moment, and the whole step is
+    then scaled by ``lr * sqrt(1 - b2^t) / (1 - b1^t)``, with ``lr`` the
+    schedule at the updates applied so far; weight decay is decoupled
+    (``- lr wd p``) and masked."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 schedule: Schedule, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 clip_grad: Optional[float] = None):
+        named = [(n, p) for n, p in named_params if p.requires_grad]
+        decay = weight_decay_mask(named)
+        self.params = [p for _, p in named]
+        self.decayed = [p for n, p in named if decay[n]]
+        self.exp_avg = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p, dtype=torch.float32)
+                           for p in self.params]
+        self.schedule = schedule
+        self.betas = betas
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.clip_grad = clip_grad
+        self.count = 0  # updates applied so far
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Clip the gradients, then apply this update's Adam step."""
+        live = [i for i, p in enumerate(self.params) if p.grad is not None]
+        params = [self.params[i] for i in live]
+        m = [self.exp_avg[i] for i in live]
+        v = [self.exp_avg_sq[i] for i in live]
+        grads = [p.grad.float() for p in params]
+        clip_by_global_norm(grads, self.clip_grad)
+        b1, b2 = self.betas
+        lr = self.schedule(self.count)
+        t = self.count + 1
+        step_size = lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_add_(denom, self.eps)
+        delta = torch._foreach_div(m, denom)
+        torch._foreach_mul_(delta, -step_size)
+        if self.weight_decay:
+            decayed = {id(p) for p in self.decayed}
+            for p, d in zip(params, delta):
+                if id(p) in decayed:
+                    d.add_(p.float(), alpha=-lr * self.weight_decay)
+        torch._foreach_add_(params, [d.to(p.dtype) for p, d in zip(params, delta)])
+        self.count += 1
+
+
 def make_optimizer(name: str, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                    schedule: Schedule, weight_decay: float = 0.05,
                    clip_grad: Optional[float] = None,
                    betas: Tuple[float, float] = (0.9, 0.999),
                    eps: float = 1e-8, momentum: float = 0.99):
     """Optimizer factory (timm ``create_optimizer``, fairseq's registry):
-    ``adamw`` and ``nag`` are ported; the JAX factory's other names raise
-    with their ROADMAP.md item."""
+    ``adamw``, ``adam`` (fairseq's) and ``nag`` are ported; the JAX
+    factory's other names raise with their ROADMAP.md item."""
+    if name == "adam":
+        return ClippedAdam(named_params, schedule, betas=betas, eps=eps,
+                           weight_decay=weight_decay, clip_grad=clip_grad)
     if name == "adamw":
         return ClippedAdamW(named_params, schedule, weight_decay=weight_decay,
                             clip_grad=clip_grad, betas=betas, eps=eps)

@@ -11,16 +11,16 @@ mixup, stochastic depth, dropout, EVA's RF noise) all come from the
 
 Mixed precision (``--bf16``) is the JAX package's scheme, not
 ``torch.autocast``: the forward runs on a bfloat16 copy of the float32
-master parameters (``cast_params`` through ``torch.func.functional_call``),
-and the cast's backward returns float32 gradients to the masters.
+master parameters (``cast_modules``), and the cast's backward returns
+float32 gradients to the masters.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.func import functional_call
 
 from efficient_attention_torch.data.mixup import (
     MixupConfig,
@@ -78,15 +78,29 @@ def apply_or_skip(state: TrainState, loss: torch.Tensor,
     return skipped
 
 
-def cast_params(params: Dict[str, torch.Tensor],
-                compute_dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
-    """The float32 entries of ``params`` cast to ``compute_dtype`` (others
-    as they are); the cast is differentiable, so gradients reach the float32
-    masters in float32."""
+@contextlib.contextmanager
+def cast_modules(model: torch.nn.Module, compute_dtype: Optional[torch.dtype]):
+    """Within the block, each float32 parameter of ``model`` reads as its
+    cast to ``compute_dtype``; the cast is differentiable, so gradients
+    reach the float32 masters in float32.  Each module is visited once, so
+    a module that ``model`` holds under two names, as the encoder and the
+    decoder share one embedding under ``--share-all-embeddings``, gets one
+    copy and its parameter back (``torch.func.functional_call`` restores
+    such a module's second name last, with the copy, and the module would
+    keep the copy)."""
     if compute_dtype is None:
-        return params
-    return {n: p.to(compute_dtype) if p.dtype == torch.float32 else p
-            for n, p in params.items()}
+        yield model
+        return
+    saved = [(mod, name, p) for mod in model.modules()
+             for name, p in mod._parameters.items()
+             if p is not None and p.dtype == torch.float32]
+    try:
+        for mod, name, p in saved:
+            mod._parameters[name] = p.to(compute_dtype)
+        yield model
+    finally:
+        for mod, name, p in saved:
+            mod._parameters[name] = p
 
 
 def make_vit_train_step(
@@ -104,10 +118,10 @@ def make_vit_train_step(
     into that many microbatches whose gradients are averaged."""
 
     def loss_fn(model, images, targets):
-        params = cast_params(dict(model.named_parameters()), compute_dtype)
         if compute_dtype is not None:
             images = images.to(compute_dtype)
-        logits = functional_call(model, params, (images,))
+        with cast_modules(model, compute_dtype):
+            logits = model(images)
         return soft_target_cross_entropy(logits, targets)
 
     def microbatch_loss(model, images, labels, generator):

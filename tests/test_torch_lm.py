@@ -254,7 +254,7 @@ def test_bf16_forward_promotes_to_f32_as_jax_does():
     from efficient_attention_tpu.training.train_state import (
         cast_params as jax_cast,
     )
-    from efficient_attention_torch.training.train_state import cast_params
+    from efficient_attention_torch.training.train_state import cast_modules
 
     toks = np.random.default_rng(1).integers(2, 120, (2, 64))
     jm = JaxLM(attn_name="causal_eva", attn_args=_LM_ATTN, dense_tokens=True, **_LM)
@@ -273,11 +273,11 @@ def test_bf16_forward_promotes_to_f32_as_jax_does():
     seen = {}
     tm.decoder.layers[0].self_attn.q_proj.register_forward_hook(
         lambda m, i, o: seen.update(q=o.dtype))
-    tp, tt = cast_params(dict(tm.named_parameters()), torch.bfloat16), torch.from_numpy(toks)
-    assert all(p.dtype == torch.bfloat16 for p in tp.values())
-    with torch.no_grad():
-        got = torch.func.functional_call(tm.eval(), tp, (tt,), {"features_only": True})
-        got_nll = torch.func.functional_call(tm, tp, (tt, tt))
+    tt = torch.from_numpy(toks)
+    with torch.no_grad(), cast_modules(tm.eval(), torch.bfloat16):
+        assert all(p.dtype == torch.bfloat16 for p in tm.parameters())
+        got = tm(tt, features_only=True)
+        got_nll = tm(tt, tt)
     assert got.dtype == torch.float32 and seen["q"] == torch.float32
     feats = np.asarray(feats)
     close = np.abs(got.numpy() - feats) <= 1e-4 + 1e-4 * np.abs(feats)
@@ -499,14 +499,34 @@ def test_train_lm_cli_runs_on_cpu(tmp_path):
     assert np.isfinite(stats["loss"]) and np.isfinite(stats["valid_loss"])
 
 
+@pytest.mark.parametrize("precision", [[], ["--bf16"]], ids=["f32", "bf16"])
+def test_train_lm_cli_runs_adam_with_remat_and_layerdrop(tmp_path, precision):
+    """The CLI with fairseq Adam, the inverse-sqrt schedule,
+    ``--checkpoint-activations`` and decoder layerdrop 0.5, at dropout 0.1,
+    in float32 and under ``--bf16``: 4 finite steps and a validation."""
+    from efficient_attention_torch.cli import train_lm
+
+    stats = train_lm.cli_main([
+        "--dummy-data", "--dummy-vocab", "200", "--criterion", "cross_entropy",
+        "--attn-name-decoder", "causal_eva", "--decoder-attn-window-size", "16",
+        "--decoder-attn-chunk-size", "4", "--decoder-attn-causal",
+        "--decoder-embed-dim", "32", "--decoder-ffn-embed-dim", "32",
+        "--decoder-layers", "2", "--decoder-attention-heads", "2",
+        "--tokens-per-sample", "32", "--max-tokens", "64", "--max-update", "4",
+        "--optimizer", "adam", "--lr-scheduler", "inverse_sqrt", "--lr", "1e-3",
+        "--warmup-updates", "2", "--checkpoint-activations",
+        "--decoder-layerdrop", "0.5", "--device", "cpu",
+        "--save-dir", str(tmp_path)] + precision)
+    assert stats["step"] == 4
+    assert np.isfinite(stats["loss"]) and np.isfinite(stats["valid_loss"])
+
+
 def test_train_lm_unported_flags_raise():
     from efficient_attention_torch.cli import train_lm
 
     for extra in (["--pipeline-stages", "2"], ["--seq-parallel", "2"],
                   ["--base-layers", "1"], ["--data", "somewhere"],
-                  ["--finetune-from-model", "x"],
-                  ["--lr-scheduler", "inverse_sqrt"],
-                  ["--lr-scheduler", "polynomial"]):
+                  ["--finetune-from-model", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_lm.main(train_lm.parse_args(
                 ["--dummy-vocab", "500", "--device", "cpu"] + extra))
