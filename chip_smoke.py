@@ -37,7 +37,10 @@ The models, random weights from a seed:
   ``causal_packed``'s forward and backward kernels (K3) in every layer (on
   float32 activations: the adaptive input sums into float32, as in JAX),
   the forward and the backward on their split-TF32 tensor-core routes; its
-  validation (on the float32 parameters) runs the K3 forward;
+  validation (on the float32 parameters) runs the K3 forward.  The same
+  recipe also trains on a binarized corpus written from a seed, saves and
+  resumes its checkpoints, and ``cli.eval_lm`` scores the test split from
+  the checkpoint, eager (no kernel);
 * ``transformer_wmt_en_de`` (6 + 6 layers, d=512, ffn 2048, 8 heads of 64,
   post-LN, shared embeddings over a joint vocabulary of 32,768 types) with
   1-D EVA in the encoder (window 8 with a halo of 4, 8 landmarks, T5 bias,
@@ -118,7 +121,21 @@ Phases, each raising on failure:
    batch, every forward and backward on the split-TF32 routes), finite
    losses, the peak
    device memory; then the f32 gradients of a 2-layer full-width LM, kernel
-   path against eager path;
+   path against eager path; then the LM protocol from text to perplexity
+   (``lm_protocol_phase``): a corpus written from a seed (``LM_DATA_TOKENS``,
+   every one of the 267,740 word types in the train split) binarized by
+   ``cli.preprocess`` (a dictionary of exactly 267,744 symbols),
+   ``cli.train_lm --data`` for 8 updates with checkpoints every 4 (the K3
+   launches predicted from the code: a forward and a backward a layer an
+   update, a forward a layer a validation batch, all on the split-TF32
+   routes; step 8 kept, its parameters restored bit for bit with the tied
+   adaptive weights shared), resumed to 10 from step 8, ``cli.eval_lm``
+   from the checkpoint at context windows 0, 256 and 480 (no kernel, as in
+   JAX: its decoder takes the padding mask; the tokens scored as
+   ``context_window_blocks`` predicts; tokens/s of the eval steps, wall
+   time, peak memory), and the eval step's per-token NLL of a 2-layer
+   full-width model on 4 x 513 tokens at window 256, card against CPU,
+   within 1e-4 of the largest; a compact JSON line of its figures;
 4. the ViT serving path: ``cli.train_vit --eval`` in-process at batch 128
    in bf16, with the kernels' launch counts set to 0 just before and read
    just after (all 48 K2 launches on its tensor-core route), the same for
@@ -198,6 +215,7 @@ import copy
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -266,7 +284,24 @@ LM_ARGV = [
     "--dummy-data", "--dummy-vocab", str(LM_VOCAB), "--dropout", "0",
     "--seed", "0", "--device", "cuda", "--save-dir", "build/smoke_lm",
 ]
-LM_TRAIN_ARGV = ["--max-update", "8", "--log-interval", "1"]
+LM_TRAIN_ARGV = ["--max-update", "8", "--log-interval", "1", "--no-save"]
+# the same recipe on a corpus written from a seed and binarized by
+# cli.preprocess: 267,740 word types (with the 4 specials, the recipe's
+# vocabulary), each once in the train split, then Zipf(1.1) draws over the
+# types, in lines of 8-64 words; 800,000 / 65,536 / 16,384 tokens (each
+# line's end of sentence included) in the train / valid / test splits
+LM_DATA_DIR = "build/smoke_lm_data"
+LM_DATA_TOKENS = {"train": 800_000, "valid": 65_536, "test": 16_384}
+LM_DATA_ARGV = [a for a in LM_ARGV if a not in (
+    "--dummy-data", "--dummy-vocab", str(LM_VOCAB), "--save-dir", "build/smoke_lm")] + [
+    "--data", f"{LM_DATA_DIR}/bin", "--save-dir", f"{LM_DATA_DIR}/save"]
+LM_DATA_TRAIN_ARGV = ["--log-interval", "1", "--save-interval-updates", "4",
+                      "--keep-interval-updates", "1"]
+LM_EVAL_WINDOWS = (0, 256, 480)
+LM_EVAL_CHECK_WINDOW = 256
+# per-token NLL of eval_lm's step, the card against the CPU, relative to
+# the largest |NLL|
+LM_EVAL_TOL = 1e-4
 # the LARA, Performer and local serving cells: the ViT flags with each
 # attention's recipe flags (LARA: SURVEY.md:419, reference README.md:104-145)
 CELL_ARGV = [
@@ -1310,6 +1345,250 @@ def mt_train_phase(torch, card, counters, k4):
     torch.cuda.empty_cache()
 
 
+def write_lm_corpus(directory, seed=0):
+    """``LM_DATA_TOKENS`` of text in ``directory/{train,valid,test}.txt``:
+    lines of 8-64 words (the last line of a split fills its count); the
+    train split holds every one of the ``LM_VOCAB - 4`` word types once, in
+    a random order, then Zipf(1.1) draws over the types, as do the other
+    splits."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_types = LM_VOCAB - 4
+    types = np.array([f"w{i}" for i in range(n_types)])
+    zipf = 1.0 / np.arange(1, n_types + 1) ** 1.1
+    zipf /= zipf.sum()
+    for split, total in LM_DATA_TOKENS.items():
+        lengths, left = [], total
+        while left > 0:  # words a line; each line adds its end of sentence
+            k = left - 1 if left <= 65 else min(int(rng.integers(8, 65)), left - 10)
+            lengths.append(k)
+            left -= k + 1
+        n_words = sum(lengths)
+        first = rng.permutation(n_types) if split == "train" else np.zeros(0, np.int64)
+        ids = np.concatenate([first, rng.choice(n_types, n_words - len(first), p=zipf)])
+        words = types[ids]
+        with open(f"{directory}/{split}.txt", "w", encoding="utf-8") as f:
+            start = 0
+            for k in lengths:
+                f.write(" ".join(words[start:start + k]) + "\n")
+                start += k
+
+
+def lm_protocol_phase(torch, card, counters):
+    """The LM protocol on binarized data at the recipe's full width: write a
+    corpus, ``cli.preprocess`` it, ``cli.train_lm --data`` 8 updates with
+    checkpoints (K3 counts predicted from the code, the checkpoint kept,
+    the parameters restored bit for bit with the tied adaptive weights
+    shared), resume to 10, ``cli.eval_lm`` from the checkpoint at context
+    windows 0, 256 and 480 (no kernel; the scored tokens predicted by
+    ``context_window_blocks``), then the eval step's per-token NLL of a
+    2-layer model, card against CPU.  ``counters`` maps (module, attribute)
+    of every launch count.  Returns the phase's figures."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from efficient_attention_torch.cli import eval_lm, preprocess, train_lm
+    from efficient_attention_torch.data.dictionary import Dictionary
+    from efficient_attention_torch.data.indexed_dataset import MMapIndexedDataset
+    from efficient_attention_torch.data.lm_context_window import context_window_blocks
+    from efficient_attention_torch.data.text_data import TokenBlockDataset
+    from efficient_attention_torch.training import checkpoint, lm_steps
+
+    def zero_counts():
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
+                for mod, attr in counters if getattr(mod, attr)}
+
+    out = {}
+    shutil.rmtree(LM_DATA_DIR, ignore_errors=True)
+    os.makedirs(f"{LM_DATA_DIR}/text")
+    t0 = time.perf_counter()
+    write_lm_corpus(f"{LM_DATA_DIR}/text")
+    out["corpus_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preprocess.cli_main(["--only-source", "--destdir", f"{LM_DATA_DIR}/bin"] + [
+        a for split in LM_DATA_TOKENS
+        for a in (f"--{split}pref", f"{LM_DATA_DIR}/text/{split}.txt")])
+    out["preprocess_s"] = time.perf_counter() - t0
+    vocab = len(Dictionary.load(f"{LM_DATA_DIR}/bin/dict.txt"))
+    sizes = {split: len(MMapIndexedDataset(f"{LM_DATA_DIR}/bin/{split}").flat_tokens())
+             for split in LM_DATA_TOKENS}
+    log(f"[lm-data] corpus {out['corpus_s']:.2f} s, preprocess "
+        f"{out['preprocess_s']:.2f} s: dictionary {vocab} symbols, tokens {sizes}")
+    if vocab != LM_VOCAB or sizes != LM_DATA_TOKENS:
+        raise AssertionError(f"dictionary of {vocab} (want {LM_VOCAB}), tokens {sizes}")
+
+    # the K3 launches the code predicts: a forward and a backward a layer an
+    # update, and a forward a layer a batch of the closing validation
+    # (--max-tokens // --tokens-per-sample blocks a batch)
+    args = train_lm.parse_args(LM_DATA_ARGV)
+    layers = args.decoder_layers
+    vb = args.max_tokens // args.tokens_per_sample
+    valid_batches = len(TokenBlockDataset(np.zeros(sizes["valid"]),
+                                          args.tokens_per_sample + 1)) // vb
+    real_save = checkpoint.CheckpointManager.save
+    writes = []  # (step, seconds, bytes)
+    kept = {}
+
+    def timed_save(self, step, state, metrics=None):
+        t = time.perf_counter()
+        wrote = real_save(self, step, state, metrics)
+        if wrote:
+            writes.append((step, time.perf_counter() - t, os.path.getsize(
+                os.path.join(self.directory, str(step), checkpoint.STATE_FILE))))
+            kept["params"] = {k: v.detach().cpu().clone()
+                              for k, v in state["params"].items()}
+        return wrote
+
+    ckpt_dir = f"{LM_DATA_DIR}/save/ckpt"
+    for run, updates, argv in (("train", 8, ["--max-update", "8"]),
+                               ("resume", 2, ["--max-update", "10"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(checkpoint.CheckpointManager, "save", timed_save):
+            stats = train_lm.cli_main(LM_DATA_ARGV + LM_DATA_TRAIN_ARGV + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        want = {"causal_packed.LAUNCHES_FWD": layers * (updates + valid_batches),
+                "causal_packed.LAUNCHES_BWD": layers * updates,
+                "causal_packed.LAUNCHES_FWD_TF32": layers * (updates + valid_batches),
+                "causal_packed.LAUNCHES_BWD_TF32": layers * updates}
+        steps = checkpoint.CheckpointManager(ckpt_dir).all_steps()
+        log(f"[lm-data] {run}: {json.dumps(stats)} in {wall:.2f} s; launches "
+            f"{json.dumps(got)} (predicted {json.dumps(want)}: {layers} layers x "
+            f"({updates} updates + {valid_batches} validation batches)); "
+            f"checkpoints kept {steps}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        for key in ("loss", "gnorm", "valid_loss"):
+            if not math.isfinite(stats[key]):
+                raise AssertionError(f"non-finite {key} in {stats}")
+        if stats["step"] != 8 + (run == "resume") * 2 or got != want \
+                or stats["valid_batches"] != valid_batches:
+            raise AssertionError(f"{run}: step {stats['step']}, launches {got}, "
+                                 f"want {want}")
+        if steps != [8]:
+            raise AssertionError(f"{run}: checkpoints {steps}, want [8]")
+        out[f"{run}_s"] = wall
+        if run == "train":
+            # the saved parameters come back bit for bit, into a model whose
+            # tied adaptive softmax still reads the adaptive input's tensors
+            if [w[0] for w in writes] != [1, 4, 8]:
+                raise AssertionError(f"checkpoints written at {writes}")
+            step, params = checkpoint.CheckpointManager(ckpt_dir).restore_params()
+            same = step == 8 and params.keys() == kept["params"].keys() and all(
+                torch.equal(params[k], kept["params"][k]) for k in params)
+            model = train_lm.build_model(args, vocab, dense_tokens=True)
+            model.load_state_dict(params, strict=True)
+            model = model.cuda()
+            emb = model.decoder.embed_tokens
+            embs, projs = emb.band_weights()
+            tied = all(embs[i] is band[0].weight and projs[i] is band[1].weight
+                       and embs[i].data_ptr() == band[0].weight.data_ptr()
+                       for i, band in enumerate(emb.embeddings))
+            tied = tied and not any(".adaptive_softmax.tail" in k for k in params) and all(
+                torch.equal(band[0].weight.cpu(),
+                            params[f"decoder.embed_tokens.embeddings.{i}.0.weight"])
+                for i, band in enumerate(emb.embeddings))
+            out["checkpoint"] = {"bytes": writes[-1][2],
+                                 "write_s": [round(w[1], 3) for w in writes]}
+            log(f"[lm-data] checkpoint writes (step, s, bytes) {writes}; step 8 "
+                f"restored bit for bit: {same}; tied adaptive weights shared: {tied}")
+            if not (same and tied):
+                raise AssertionError("the checkpoint's round trip failed")
+            del model, emb, embs, projs, params
+            kept.clear()
+    torch.cuda.empty_cache()
+
+    # eval_lm from the checkpoint at each window: no kernel launched (the
+    # decoder takes its padding mask, as in JAX), the tokens that
+    # context_window_blocks scores; the rate of the eval steps alone
+    test_tokens = MMapIndexedDataset(f"{LM_DATA_DIR}/bin/test").flat_tokens()
+    real_eval_step = lm_steps.make_lm_eval_step
+    step_events = []
+
+    def make_timed_eval_step(*a, **kw):
+        step = real_eval_step(*a, **kw)
+
+        def run(*xs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = step(*xs)
+            end.record()
+            step_events.append((start, end))
+            return res
+
+        return run
+
+    out["eval"] = {}
+    for window in LM_EVAL_WINDOWS:
+        blocks = list(context_window_blocks(test_tokens, args.tokens_per_sample + 1,
+                                            window, pad_idx=1))
+        want_tokens = sum(int(m[1:].sum()) for _, m in blocks)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        step_events.clear()
+        t0 = time.perf_counter()
+        with mock.patch.object(lm_steps, "make_lm_eval_step", make_timed_eval_step):
+            res = eval_lm.cli_main(LM_DATA_ARGV + ["--checkpoint", ckpt_dir,
+                                                   "--context-window", str(window)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_s = sum(a.elapsed_time(b) for a, b in step_events) / 1e3
+        got = counts()
+        row = {"ppl": res["ppl"], "tokens": res["tokens"], "blocks": len(blocks),
+               "wall_s": wall, "eval_steps_s": step_s,
+               "tokens_per_s": res["tokens"] / step_s,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        out["eval"][window] = row
+        log(f"[lm-data] eval_lm context window {window}: {json.dumps(res)}; "
+            f"{len(blocks)} blocks, {len(step_events)} eval steps of "
+            f"{step_s:.3f} s (CUDA events around each), {row['tokens_per_s']:.1f} "
+            f"tokens scored/s; the call {wall:.2f} s (model, checkpoint and "
+            f"blocks included); peak device memory {row['peak_gib']:.3f} GiB; "
+            f"launches {json.dumps(got)}; {card}")
+        if not math.isfinite(res["ppl"]) or got or res["tokens"] != want_tokens:
+            raise AssertionError(f"window {window}: {res}, launches {got}, "
+                                 f"{want_tokens} tokens predicted")
+
+    # the eval step's per-token NLL of a 2-layer full-width model on one
+    # batch of 4 blocks at window LM_EVAL_CHECK_WINDOW, card against CPU
+    small = train_lm.build_model(eval_lm.parse_args(LM_DATA_ARGV + ["--decoder-layers", "2"]),
+                                 vocab).eval()
+    on_card = copy.deepcopy(small).cuda()
+    blocks = list(context_window_blocks(test_tokens, args.tokens_per_sample + 1,
+                                        LM_EVAL_CHECK_WINDOW, pad_idx=1))[:4]
+    a = torch.from_numpy(np.stack([b for b, _ in blocks]))
+    sm = torch.from_numpy(np.stack([m for _, m in blocks])[:, 1:])
+    token_step = lm_steps.make_lm_token_nll_step(use_adaptive=True)
+    zero_counts()
+    nll_cpu, mask_cpu = token_step(small, a[:, :-1], a[:, 1:], sm)
+    nll_card, mask_card = token_step(on_card, *(x.cuda() for x in (a[:, :-1], a[:, 1:], sm)))
+    torch.cuda.synchronize()
+    peak = nll_cpu.abs().max().item()
+    err = (nll_card.cpu() - nll_cpu).abs().max().item() / peak
+    out["card_vs_cpu"] = err
+    log(f"[lm-data] per-token NLL card vs CPU, 2 layers at full width, batch "
+        f"{tuple(a.shape)} at window {LM_EVAL_CHECK_WINDOW}: max err / peak {err:.3e} (tol "
+        f"{LM_EVAL_TOL:.0e}), peak {peak:.3f}; launches {json.dumps(counts())}")
+    if not err <= LM_EVAL_TOL or not torch.equal(mask_card.cpu(), mask_cpu):
+        raise AssertionError(f"eval NLL card vs CPU differs by {err} of the peak")
+    del small, on_card
+    torch.cuda.empty_cache()
+    shutil.rmtree(LM_DATA_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1351,6 +1630,14 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    # every kernel's launch count, for the phases that assert which ran
+    all_counters = (
+        (k1, "LAUNCHES_FWD"), (k1, "LAUNCHES_BWD"), (k1, "LAUNCHES_OUT"),
+        (k2, "LAUNCHES"), (k3, "LAUNCHES_FWD"), (k3, "LAUNCHES_BWD"),
+        (k4, "LAUNCHES"), (k4, "LAUNCHES_TF32"), (k5, "LAUNCHES"),
+        (k6, "LAUNCHES"), (k7, "LAUNCHES"), (k8, "LAUNCHES"),
+        (k10, "LAUNCHES_SUMMARIES"), (k10, "LAUNCHES_ATTENTION"),
+        (k11, "LAUNCHES"), (k12, "LAUNCHES"))
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -2241,6 +2528,7 @@ def main() -> int:
     del a
 
     # ---- 3. the LM training path, counts set to 0 just before and read after
+    shutil.rmtree("build/smoke_lm", ignore_errors=True)  # nothing to resume
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     k3.LAUNCHES_FWD = k3.LAUNCHES_BWD = k3.LAUNCHES_FWD_TF32 = k3.LAUNCHES_BWD_TF32 = 0
@@ -2301,6 +2589,12 @@ def main() -> int:
         raise AssertionError(f"f32 LM gradients differ by {gerr}")
     del lm, lm_eager
     torch.cuda.empty_cache()
+
+    # ---- 3b. the LM protocol on binarized data, every count set to 0 just
+    # before each CLI call and read just after
+    lm_protocol = lm_protocol_phase(torch, card, all_counters + (
+        (k3, "LAUNCHES_FWD_TF32"), (k3, "LAUNCHES_BWD_TF32")))
+    print(json.dumps({"lm_protocol": lm_protocol}), flush=True)
 
     # ---- 4. the serving path, counts set to 0 just before and read just after
     k2.LAUNCHES = k2.LAUNCHES_MMA = 0
@@ -2687,13 +2981,7 @@ def main() -> int:
         f"{mt_runs['kernel']['bleu']}, eager {mt_runs['eager']['bleu']}")
 
     # ---- 6. the MT training path, counts set to 0 just before and read after
-    mt_train_phase(torch, card, (
-        (k1, "LAUNCHES_FWD"), (k1, "LAUNCHES_BWD"), (k1, "LAUNCHES_OUT"),
-        (k2, "LAUNCHES"), (k3, "LAUNCHES_FWD"), (k3, "LAUNCHES_BWD"),
-        (k4, "LAUNCHES"), (k4, "LAUNCHES_TF32"), (k5, "LAUNCHES"),
-        (k6, "LAUNCHES"), (k7, "LAUNCHES"), (k8, "LAUNCHES"),
-        (k10, "LAUNCHES_SUMMARIES"), (k10, "LAUNCHES_ATTENTION"),
-        (k11, "LAUNCHES"), (k12, "LAUNCHES")), k4)
+    mt_train_phase(torch, card, all_counters, k4)
 
     # ---- 7. the ViT training path, counts set to 0 just before and read after
     k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = k2.LAUNCHES_MMA = 0

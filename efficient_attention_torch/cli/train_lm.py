@@ -8,18 +8,30 @@ cosine(t-mult), inverse-sqrt or polynomial schedule, layerdrop and
 ``--checkpoint-activations``, token blocks, the adaptive or full
 softmax loss, ``--update-freq`` accumulation, ``--bf16`` master-copy mixed
 precision, validation every ``--validate-interval-updates`` and at the end.
-``--dummy-data`` trains on tokens drawn from ``--seed`` (the
-``fairseq/benchmark/dummy_lm.py`` analogue).  The model runs on
-``--device`` (default ``cuda``), on one device; the token blocks are dense
-(``dense_tokens``), so causal EVA takes the ``causal_packed`` kernel (K3)
-where its gate holds.  No checkpoint is written yet; flags whose module is
-not ported raise ``NotImplementedError`` naming their ROADMAP.md item.
+``--data DIR`` trains on a corpus binarized by ``cli.preprocess`` (its
+``dict.txt`` and ``train``/``valid`` splits); ``--dummy-data`` on tokens
+drawn from ``--seed`` (the ``fairseq/benchmark/dummy_lm.py`` analogue).
+The model runs on ``--device`` (default ``cuda``), on one device; the
+token blocks are dense (``dense_tokens``), so causal EVA takes the
+``causal_packed`` kernel (K3) where its gate holds.
+
+Checkpoints (``training/checkpoint.py``) go to ``<save-dir>/ckpt`` every
+``--save-interval-updates``, the newest ``--keep-interval-updates`` kept
+(``--no-save``: none); a run resumes from the newest one there, with the
+optimizer, the EMA, the step's generator and the batch order (replayed
+from ``--seed``), so a resumed run is bit for bit the straight one.
+``--finetune-from-model DIR`` starts from the parameters of DIR's newest
+checkpoint instead (optimizer and schedule fresh; not with a checkpoint to
+resume), and ``--decoder-layers-to-keep`` builds that many layers and
+prunes a deeper checkpoint on load.  Flags whose module is not ported
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 Example (the wiki103 recipe with causal EVA at full width):
 
   python -m efficient_attention_torch.cli.train_lm \\
       --arch transformer_lm_wiki103 --config configs/wikitext103_causal_eva.yaml \\
-      --dummy-data --dummy-vocab 267744 --dropout 0 --bf16 --max-update 8
+      --data data-bin/wikitext-103 --save-dir checkpoints/wiki103 \\
+      --dropout 0 --bf16 --max-update 8
 """
 from __future__ import annotations
 
@@ -125,10 +137,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def parse_args(argv=None):
+def parse_args(argv=None, parser=None):
     """Two-pass parse (the attention's flags are registered once its name is
     known, from the CLI or the YAML config), then the YAML config and the
-    ``--arch`` preset."""
+    ``--arch`` preset; ``parser`` is :func:`build_parser`'s, or one that
+    adds to it (``cli.eval_lm``)."""
     from efficient_attention_torch import AttentionFactory, NestedNamespace
     from efficient_attention_torch.config_yaml import (
         add_config_flag,
@@ -137,7 +150,7 @@ def parse_args(argv=None):
     )
     from efficient_attention_torch.models.archs import LM_ARCHS, apply_arch
 
-    parser = build_parser()
+    parser = build_parser() if parser is None else parser
     add_config_flag(parser)
     names = preparse_overrides(parser, argv, ["attn_name_decoder"])
     parser = AttentionFactory.add_attn_specific_args(
@@ -154,12 +167,6 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for every flag set to something whose
     module is not ported yet, naming its ROADMAP.md item."""
     queued = [
-        (args.data is not None and not args.dummy_data, "--data",
-         "Queue 1, item 5 (data/{dictionary,indexed_dataset}.py)"),
-        (bool(args.finetune_from_model), "--finetune-from-model",
-         "Queue 1, item 8 (training/checkpoint.py)"),
-        (bool(args.decoder_layers_to_keep), "--decoder-layers-to-keep",
-         "Queue 1, item 8 (training/checkpoint.py)"),
         (args.pipeline_stages > 1, "--pipeline-stages", "Queue 1, item 7"),
         (args.seq_parallel > 1, "--seq-parallel", "Queue 1, item 7"),
         (args.base_layers > 0, "--base-layers", "Queue 1, item 7"),
@@ -179,22 +186,32 @@ def check_ported(args) -> None:
 
 
 def load_corpus(args, split: str = "train"):
-    """Dummy tokens from ``--seed`` (the JAX CLI's ``--dummy-data``):
-    ``--max-tokens`` x 64 for training, x 4 for validation, uniform over
-    ``[4, --dummy-vocab)``.  Returns ``(tokens, vocab size)``."""
-    rng = np.random.default_rng(args.seed + (0 if split == "train" else 1))
-    n = args.max_tokens * (64 if split == "train" else 4)
-    return rng.integers(4, args.dummy_vocab, size=n).astype(np.int64), args.dummy_vocab
+    """The token stream of ``split`` and the vocabulary size: with
+    ``--data``, the binarized split read through its ``dict.txt``;
+    otherwise dummy tokens from ``--seed`` (the JAX CLI's
+    ``--dummy-data``): ``--max-tokens`` x 64 for training, x 4 for
+    validation, uniform over ``[4, --dummy-vocab)``."""
+    if args.dummy_data or not args.data:
+        rng = np.random.default_rng(args.seed + (0 if split == "train" else 1))
+        n = args.max_tokens * (64 if split == "train" else 4)
+        return (rng.integers(4, args.dummy_vocab, size=n).astype(np.int64),
+                args.dummy_vocab)
+    from efficient_attention_torch.data.dictionary import Dictionary
+    from efficient_attention_torch.data.indexed_dataset import MMapIndexedDataset
+
+    vocab = len(Dictionary.load(os.path.join(args.data, "dict.txt")))
+    return MMapIndexedDataset(os.path.join(args.data, split)).flat_tokens(), vocab
 
 
 def build_model(args, vocab_size: int, dense_tokens: bool = False):
     """The LM of ``args`` with weights drawn from ``args.seed``, on the CPU
-    in float32."""
+    in float32; ``--decoder-layers-to-keep`` sets the depth."""
     from efficient_attention_torch.config import namespace_to_dict
     from efficient_attention_torch.models.transformer import (
         TransformerLM,
         init_weights,
     )
+    from efficient_attention_torch.training.checkpoint import parse_layers_to_keep
 
     attn_args = namespace_to_dict(getattr(args, "attn_args_decoder",
                                           argparse.Namespace()))
@@ -202,9 +219,11 @@ def build_model(args, vocab_size: int, dense_tokens: bool = False):
     if args.criterion == "adaptive_loss":
         cutoffs = tuple(c for c in (int(x) for x in args.adaptive_cutoffs.split(","))
                         if c < vocab_size) or None
+    keep = parse_layers_to_keep(args.decoder_layers_to_keep)
     model = TransformerLM(
         vocab_size, embed_dim=args.decoder_embed_dim,
-        ffn_dim=args.decoder_ffn_embed_dim, num_layers=args.decoder_layers,
+        ffn_dim=args.decoder_ffn_embed_dim,
+        num_layers=len(keep) if keep else args.decoder_layers,
         num_heads=args.decoder_attention_heads,
         attn_name=args.attn_name_decoder, attn_args=attn_args,
         dropout=args.dropout, max_len=args.max_len, adaptive_cutoffs=cutoffs,
@@ -259,6 +278,11 @@ def _print_profile(prof, device, logdir) -> None:
 
 def main(args) -> dict:
     from efficient_attention_torch.data.text_data import TokenBlockDataset
+    from efficient_attention_torch.training.checkpoint import (
+        CheckpointManager,
+        maybe_prune_for_keep,
+        parse_layers_to_keep,
+    )
     from efficient_attention_torch.training.lm_steps import (
         make_lm_eval_step,
         make_lm_train_step,
@@ -293,14 +317,15 @@ def main(args) -> dict:
     train_step = make_lm_train_step(
         pad_idx=1, accum_steps=accum, use_adaptive=use_adaptive,
         compute_dtype=torch.bfloat16 if args.bf16 else None)
-    print("| no checkpoint is written: training/checkpoint.py is not ported "
-          "yet (ROADMAP.md Queue 1, item 8)")
 
     valid_blocks = None
     if not args.disable_validation:
-        vtokens, _ = load_corpus(args, split="valid")
-        valid_blocks = TokenBlockDataset(vtokens, args.tokens_per_sample + 1,
-                                         pad_idx=1)
+        try:
+            vtokens, _ = load_corpus(args, split="valid")
+            valid_blocks = TokenBlockDataset(vtokens, args.tokens_per_sample + 1,
+                                             pad_idx=1)
+        except FileNotFoundError:
+            print("| no valid split found; skipping in-train validation")
     eval_step = make_lm_eval_step(use_adaptive=use_adaptive, pad_idx=1)
 
     def validate() -> dict:
@@ -336,6 +361,44 @@ def main(args) -> dict:
     order_rng = np.random.default_rng(args.seed)
     order = order_rng.permutation(len(blocks))
     pos = 0
+
+    def advance_order(order, pos):
+        if pos + batch_size > len(blocks):
+            order, pos = order_rng.permutation(len(blocks)), 0
+        return order, pos
+
+    os.makedirs(args.save_dir, exist_ok=True)
+    ckpt = CheckpointManager(os.path.join(args.save_dir, "ckpt"),
+                             keep_last=args.keep_interval_updates,
+                             save_interval_steps=args.save_interval_updates)
+    if args.finetune_from_model:
+        # parameters only: optimizer, schedule and batch order start afresh
+        if ckpt.latest_step() is not None:
+            raise ValueError("--finetune-from-model cannot be combined with "
+                             "resuming from --save-dir")
+        restored = CheckpointManager(args.finetune_from_model).restore_params()
+        if restored is None:
+            raise FileNotFoundError(f"--finetune-from-model "
+                                    f"{args.finetune_from_model}: no checkpoint found")
+        fstep, fparams = restored
+        model.load_state_dict(maybe_prune_for_keep(
+            fparams, parse_layers_to_keep(args.decoder_layers_to_keep), "decoder"))
+        if state.ema_params is not None:
+            state.ema_params = {n: p.detach().clone()
+                                for n, p in model.named_parameters()}
+        print(f"| finetuning from {args.finetune_from_model} (step {fstep}); "
+              "optimizer and schedule reset")
+    last = ckpt.latest_step()
+    if last:
+        # the whole state and the step's generator; the batch order is a
+        # function of (seed, step), so it is replayed
+        saved = ckpt.load(last)
+        state.load_state_dict(saved)
+        generator.set_state(saved["rng"]["generator"])
+        for _ in range(last):
+            order, pos = advance_order(order, pos)
+            pos += batch_size
+        print(f"| resumed from checkpoint step {last}")
     logger = MetricLogger()
     t0 = time.time()
     stats: dict = {}
@@ -344,8 +407,7 @@ def main(args) -> dict:
     validated_at = -1
     prof = None
     while state.step < args.max_update:
-        if pos + batch_size > len(blocks):
-            order, pos = order_rng.permutation(len(blocks)), 0
+        order, pos = advance_order(order, pos)
         idx = order[pos:pos + batch_size]
         pos += batch_size
         batch = torch.from_numpy(np.stack([blocks[int(i)] for i in idx])).to(device)
@@ -373,6 +435,9 @@ def main(args) -> dict:
         if step % args.log_interval == 0:
             wps = step * batch_size * args.tokens_per_sample / (time.time() - t0)
             print(f"| step {step} {logger} | wps {wps:.0f}")
+        if not args.no_save and ckpt.should_save(step):
+            ckpt.save(step, dict(state.state_dict(),
+                                 rng={"generator": generator.get_state()}))
         stats = {"step": step, "loss": loss, "ppl": math.exp(min(loss, 20)),
                  "gnorm": float(metrics.grad_norm)}
         if (args.stop_time_hours > 0

@@ -8,7 +8,9 @@ tokens or, with ``sentence_avg``, over sentences; ``--update-freq``
 accumulation is a Python loop over microbatches whose losses (each
 normalised by its own count) and gradients are averaged;
 the update is skipped where loss or gradient norm is non-finite
-(``apply_or_skip``).  ``--bf16`` is the port's master-copy scheme
+(``apply_or_skip``); the LM eval steps return the NLL sums or the
+per-token NLL of ``eval_lm`` (``--softmax-batch`` bounding the live
+logits).  ``--bf16`` is the port's master-copy scheme
 (``train_state.cast_modules``): the forward runs on a bfloat16 copy of the
 float32 parameters.
 """
@@ -72,24 +74,61 @@ def make_lm_train_step(pad_idx: int = 1, accum_steps: int = 1,
     return train_step
 
 
-def make_lm_eval_step(use_adaptive: bool = False, pad_idx: int = 1
+def _token_nll(model, tokens, targets, use_adaptive: bool,
+               softmax_chunk: Optional[int] = None) -> torch.Tensor:
+    """Per-token NLL ``[B, T]`` (f32).  With ``softmax_chunk`` (and no
+    adaptive softmax, which streams the vocabulary already) the output
+    layer and log-softmax run over the flattened ``B*T`` features in slices
+    of that many tokens, so at most ``[chunk, V]`` logits are live (fairseq
+    ``SequenceScorer``'s ``batch_for_softmax``); ``model`` must then be the
+    ``TransformerLM`` itself."""
+    if use_adaptive:
+        return model(tokens, targets)
+    if softmax_chunk:
+        feats = model(tokens, features_only=True)
+        b, t, d = feats.shape
+        flat, flat_tgt = feats.reshape(b * t, d), targets.reshape(b * t)
+        return torch.cat([
+            model.nll_from_features(flat[i:i + softmax_chunk],
+                                    flat_tgt[i:i + softmax_chunk])
+            for i in range(0, b * t, softmax_chunk)]).reshape(b, t)
+    logits = model(tokens).float()
+    return -torch.gather(torch.log_softmax(logits, -1), -1,
+                         targets[..., None])[..., 0]
+
+
+def make_lm_eval_step(use_adaptive: bool = False, pad_idx: int = 1,
+                      softmax_chunk: Optional[int] = None
                       ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """``eval_step(model, tokens, targets, score_mask) -> (nll sum, tokens
     scored)`` (``fairseq_cli/eval_lm.py`` scoring); ``model`` is any
-    callable ``(tokens[, targets])`` with the LM's outputs, in eval mode."""
+    callable ``(tokens[, targets])`` with the LM's outputs, in eval mode
+    (the ``TransformerLM`` itself with ``softmax_chunk``, which bounds the
+    live logits to that many tokens, ``--softmax-batch``)."""
 
     @torch.no_grad()
     def eval_step(model, tokens, targets, score_mask):
-        if use_adaptive:
-            nll = model(tokens, targets)
-        else:
-            logits = model(tokens).float()
-            nll = -torch.gather(torch.log_softmax(logits, -1), -1,
-                                targets[..., None])[..., 0]
+        nll = _token_nll(model, tokens, targets, use_adaptive, softmax_chunk)
         mask = score_mask & (targets != pad_idx)
         return (nll * mask).sum(), mask.sum()
 
     return eval_step
+
+
+def make_lm_token_nll_step(use_adaptive: bool = False, pad_idx: int = 1,
+                           softmax_chunk: Optional[int] = None
+                           ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """``token_step(model, tokens, targets, score_mask) -> (NLL [B, T],
+    scored mask [B, T])``: the per-token form behind ``eval_lm
+    --output-word-probs/--output-word-stats`` (fairseq
+    ``sequence_scorer.py``'s ``pos_scores``)."""
+
+    @torch.no_grad()
+    def token_step(model, tokens, targets, score_mask):
+        nll = _token_nll(model, tokens, targets, use_adaptive, softmax_chunk)
+        return nll, score_mask & (targets != pad_idx)
+
+    return token_step
 
 
 def make_mt_train_step(pad_idx: int = 1, label_smoothing: float = 0.1,

@@ -189,6 +189,14 @@ class ClippedAdamW:
         self.torch_optimizer.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        return {"count": self.count,
+                "adamw": self.torch_optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.torch_optimizer.load_state_dict(state["adamw"])
+
 
 def clip_by_global_norm(grads, clip: Optional[float]) -> None:
     """optax ``clip_by_global_norm`` in place: scale by ``clip / norm`` only
@@ -256,6 +264,15 @@ class ClippedNAG:
         self.lr_old = lr
         self.count += 1
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "lr_old": self.lr_old, "bufs": self.bufs}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.lr_old = state["lr_old"]
+        _copy_into(self.bufs, state["bufs"])
+
 
 class ClippedAdam:
     """optax ``chain(clip_by_global_norm(clip_grad), fairseq Adam)`` over
@@ -318,6 +335,28 @@ class ClippedAdam:
                     d.add_(p.float(), alpha=-lr * self.weight_decay)
         torch._foreach_add_(params, [d.to(p.dtype) for p, d in zip(params, delta)])
         self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "exp_avg": self.exp_avg,
+                "exp_avg_sq": self.exp_avg_sq}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        _copy_into(self.exp_avg, state["exp_avg"])
+        _copy_into(self.exp_avg_sq, state["exp_avg_sq"])
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a saved list of tensors into the optimizer's own, in place."""
+    if len(dst) != len(src):
+        raise ValueError(f"optimizer state holds {len(src)} tensors, "
+                         f"the optimizer {len(dst)}")
+    for d, s in zip(dst, src):
+        if d.shape != s.shape:
+            raise ValueError(f"optimizer state of shape {tuple(s.shape)} for "
+                             f"a parameter of shape {tuple(d.shape)}")
+        d.copy_(s)
 
 
 def make_optimizer(name: str, named_params: Iterable[Tuple[str, torch.nn.Parameter]],

@@ -57,6 +57,28 @@ class TrainState:
             for n, p in self.model.named_parameters():
                 self.ema_params[n].lerp_(p, 1.0 - self.ema_decay)
 
+    def state_dict(self) -> dict:
+        """The update count, the model's state dict (float32 masters), the
+        optimizer's state and the EMA (or None): what a checkpoint holds of
+        the train state, in the JAX ``TrainState``'s field names."""
+        return {"step": self.step, "params": self.model.state_dict(),
+                "opt_state": self.optimizer.state_dict(),
+                "ema_params": self.ema_params}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output in place: parameters are
+        copied into the model's own tensors, so tied weights stay tied."""
+        self.model.load_state_dict(state["params"], strict=True)
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.step = int(state["step"])
+        if self.ema_params is not None:
+            saved = state["ema_params"]
+            if saved is None:
+                raise ValueError("the checkpoint holds no EMA")
+            for n, e in self.ema_params.items():
+                e.copy_(saved[n])
+
 
 class StepMetrics(NamedTuple):
     loss: torch.Tensor
