@@ -57,7 +57,11 @@ The models, random weights from a seed:
   every epoch's end.  Training launches no kernel: the encoder's EVA trains
   eager, and the decoder's target padding mask and dropout keep causal EVA
   off K3, as in JAX; validation and BLEU run K4 in every encoder layer, on
-  its f32 route.
+  its f32 route.  The same recipe also runs from text to BLEU on a
+  bilingual corpus written from a seed: preprocessed with a joined
+  dictionary of 32,768 symbols, trained with checkpoints and resumed,
+  translated by ``cli.generate`` from the average of the kept checkpoints
+  into a fairseq gen.out, scored by ``scripts/torch_compound_split_bleu.sh``.
 
 Phases, each raising on failure:
 
@@ -170,7 +174,21 @@ Phases, each raising on failure:
    then the f32 validation sums and the encoder states (at non-pad
    positions) of every validation batch and BLEU chunk, kernel path against
    eager path, and one step's f32 gradients of a 2-layer full-width model (eval mode,
-   eager encoder), the card against the CPU;
+   eager encoder), the card against the CPU; then the MT protocol from text
+   to BLEU (``mt_protocol_phase``): a bilingual corpus written from a seed
+   (``MT_DATA_PAIRS``, 32,764 word types, some ``@@`` pieces and
+   hyphenated compounds) binarized by ``cli.preprocess -s en -t de
+   --joined-dictionary`` (32,768 symbols), ``cli.train_mt --data`` for 8
+   updates with checkpoints every 2 (written at 1, 2, 4, 6, 8; the newest 3
+   kept; step 8's whole state restored bit for bit, the shared embedding
+   one tensor) and validation with BLEU over words every 4, resumed to 10,
+   ``cli.generate --path --num-avg-checkpoints 3 --remove-bpe
+   --results-path`` over the first ``MT_GEN_SENTENCES`` test sentences (the
+   average equal to the CPU average of the three bit for bit, one ``H-``
+   line a sentence and the BLEU line last) and the compound-split script
+   over its gen.out; K4's launches in each call predicted from the code,
+   all on the f32 route; the averaged model's encoder states, K4 route
+   against the eager path; a compact JSON line of its figures;
 7. the ViT training path: ``cli.train_vit`` for 8 steps at batch 128 with
    ``--bf16`` and the DeiT recipe, counts set to 0 just before and read
    just after (12 x 8 launches of each K1 kernel, every forward and
@@ -501,6 +519,29 @@ MT_TRAIN_ARGV = MT_ARGV[:MT_ARGV.index("--beam")] + [
 # f32 gradients of one MT step, the card against the CPU, relative to each
 # gradient's peak
 MT_GRAD_TOL = 1e-4
+# the WMT14 EN-DE protocol from text to BLEU (reference main.sh:87-123) on a
+# bilingual corpus written from a seed: WMT14's joint BPE vocabulary's size,
+# newstest2013's and newstest2014's sentence counts, sentence lengths about
+# WMT14's in BPE tokens; the recipe's model and training flags, checkpoints
+# every 2 updates with the newest 3 kept, validation every 4 with BLEU over
+# the dictionary's words, then generate from the average of the kept three.
+# Cut to the script's time: 20,000 train pairs, the first 1,024 test
+# sentences generated
+MT_DATA_DIR = "build/smoke_mt_data"
+MT_DATA_PAIRS = {"train": 20_000, "valid": 3_000, "test": 3_003}
+MT_GEN_SENTENCES = 1024
+MT_MODEL_ARGV = MT_ARGV[3:MT_ARGV.index("--beam")]
+MT_DATA_ARGV = ["--data", f"{MT_DATA_DIR}/bin", "-s", "en", "-t", "de"] + MT_MODEL_ARGV
+MT_DATA_TRAIN_ARGV = MT_DATA_ARGV + MT_TRAIN_ARGV[MT_TRAIN_ARGV.index("--optimizer"):] + [
+    "--save-dir", f"{MT_DATA_DIR}/save", "--save-interval-updates", "2",
+    "--keep-last-epochs", "3", "--validate-interval-updates", "4",
+    "--eval-bleu-remove-bpe", "--eval-bleu-subset-size", "64"]
+MT_GEN_ARGV = MT_DATA_ARGV + [
+    "--path", f"{MT_DATA_DIR}/save/ckpt", "--num-avg-checkpoints", "3",
+    "--beam", "4", "--lenpen", "0.6", "--remove-bpe", "--results-path",
+    f"{MT_DATA_DIR}/gen.out", "--gen-subset-size", str(MT_GEN_SENTENCES),
+    "--gen-batch", "64",
+    "--device", "cuda"]
 # eva_1d geometries (B, N, heads, head dim, window, halo, chunks, bias):
 # the WMT encoder's batch, long sentences (8 chunks of 32), a small odd one
 # (a ragged last 16-row strip), a window of 16 with a halo of 8 at head dim
@@ -1206,7 +1247,7 @@ def mt_train_phase(torch, card, counters, k4):
         setattr(mod, attr, 0)
     t0 = time.perf_counter()
     with mock.patch.object(lm_steps, "make_mt_train_step", make_timed_step):
-        stats = train_mt.cli_main(MT_TRAIN_ARGV)
+        stats = train_mt.cli_main(MT_TRAIN_ARGV + ["--no-save"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
@@ -1586,6 +1627,322 @@ def lm_protocol_phase(torch, card, counters):
     del small, on_card
     torch.cuda.empty_cache()
     shutil.rmtree(LM_DATA_DIR, ignore_errors=True)
+    return out
+
+
+def write_mt_corpus(directory, seed=0):
+    """``MT_DATA_PAIRS`` sentence pairs in ``directory/{split}.{en,de}``:
+    ``MT_VOCAB - 4`` word types, every tenth a ``@@`` continuation piece
+    (joined by ``--remove-bpe``) and every tenth a hyphenated compound
+    (split by the compound-split script); source lines of 1-128 words
+    (lognormal, mean about 28, WMT14's length in BPE tokens), the train
+    split's first words every type once in a random order, then Zipf(1.1)
+    draws over the types, as are the other splits; the target the source
+    mapped by one fixed permutation of the types, in reversed order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_types = MT_VOCAB - 4
+    types = np.array([f"w{i}@@" if i % 10 == 3 else f"w{i}-c" if i % 10 == 7
+                      else f"w{i}" for i in range(n_types)])
+    to_target = rng.permutation(n_types)
+    zipf = 1.0 / np.arange(1, n_types + 1) ** 1.1
+    zipf /= zipf.sum()
+    for split, n in MT_DATA_PAIRS.items():
+        lengths = np.clip(np.rint(rng.lognormal(np.log(28) - 0.18, 0.6, n)),
+                          1, 128).astype(np.int64)
+        first = rng.permutation(n_types) if split == "train" else np.zeros(0, np.int64)
+        ids = np.concatenate([first, rng.choice(n_types, lengths.sum() - len(first),
+                                                p=zipf)])
+        ends = np.cumsum(lengths)
+        with open(f"{directory}/{split}.en", "w", encoding="utf-8") as fs, \
+                open(f"{directory}/{split}.de", "w", encoding="utf-8") as ft:
+            for start, end in zip(ends - lengths, ends):
+                sent = ids[start:end]
+                fs.write(" ".join(types[sent]) + "\n")
+                ft.write(" ".join(types[to_target[sent[::-1]]]) + "\n")
+
+
+def same_tree(a, b) -> bool:
+    """Whether two saved states are equal, tensors bit for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    if hasattr(a, "dtype") and hasattr(a, "shape"):
+        import torch
+
+        return (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def mt_protocol_phase(torch, card, counters, k4):
+    """The WMT14 EN-DE protocol from text to BLEU at the recipe's full
+    width: write a bilingual corpus, ``cli.preprocess -s en -t de
+    --joined-dictionary`` it (exactly ``MT_VOCAB`` symbols), ``cli.train_mt
+    --data`` 8 updates with checkpoints every 2 (the newest 3 kept) and
+    validation with BLEU every 4, resume to 10 (the saved state restored bit
+    for bit, the shared embedding still one tensor), ``cli.generate`` from
+    the average of the 3 kept checkpoints (equal to their CPU average bit
+    for bit) over the first ``MT_GEN_SENTENCES`` test sentences into
+    gen.out, and
+    ``scripts/torch_compound_split_bleu.sh`` over it; K4's launches in each
+    call predicted from the code, all on its f32 route; then the averaged
+    model's encoder states, K4 route against the eager path.  ``counters``
+    maps (module, attribute) of every launch count.  Returns the phase's
+    figures."""
+    import os
+
+    import numpy as np
+
+    from efficient_attention_torch.cli import generate, preprocess, train_mt
+    from efficient_attention_torch.data.dictionary import Dictionary
+    from efficient_attention_torch.data.text_data import LanguagePairDataset
+    from efficient_attention_torch.training import checkpoint, lm_steps
+
+    def zero_counts():
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
+                for mod, attr in counters if getattr(mod, attr)}
+
+    out = {}
+    shutil.rmtree(MT_DATA_DIR, ignore_errors=True)
+    os.makedirs(f"{MT_DATA_DIR}/text")
+    t0 = time.perf_counter()
+    write_mt_corpus(f"{MT_DATA_DIR}/text")
+    out["corpus_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preprocess.cli_main(["-s", "en", "-t", "de", "--joined-dictionary",
+                         "--destdir", f"{MT_DATA_DIR}/bin"] + [
+        a for split in MT_DATA_PAIRS
+        for a in (f"--{split}pref", f"{MT_DATA_DIR}/text/{split}")])
+    out["preprocess_s"] = time.perf_counter() - t0
+    vocab = {lang: len(Dictionary.load(f"{MT_DATA_DIR}/bin/dict.{lang}.txt"))
+             for lang in ("en", "de")}
+    args = train_mt.parse_args(MT_DATA_TRAIN_ARGV)
+    src, tgt, _, _ = train_mt.load_pairs(args)
+    pairs = LanguagePairDataset(src, tgt)
+    counts_read = {split: len(train_mt.load_pairs(args, split)[0]) for split in MT_DATA_PAIRS}
+    src_tokens = int(src.sizes.sum())
+    log(f"[mt-data] corpus {out['corpus_s']:.2f} s, preprocess "
+        f"{out['preprocess_s']:.2f} s: dictionaries {vocab} symbols, pairs "
+        f"{counts_read}, train {src_tokens} source tokens with eos (mean "
+        f"{src_tokens / len(src):.2f} a sentence, longest {int(src.sizes.max())})")
+    if set(vocab.values()) != {MT_VOCAB} or counts_read != MT_DATA_PAIRS:
+        raise AssertionError(f"dictionaries {vocab} (want {MT_VOCAB}), pairs {counts_read}")
+
+    # the K4 launches the code predicts: 6 layers x (the validation batches
+    # + 8 BLEU chunks of 8) a validation; validations at updates 4 and 8 and
+    # at the end of the run (the epoch loop's boundary, as in JAX): 3 in the
+    # first run, 1 in the resumed one (update 8's are passed over); so the
+    # first epoch must outlast both runs
+    layers = args.encoder_layers
+    sizes = np.maximum(pairs.src_sizes, pairs.tgt_sizes)
+    epoch1 = train_mt.epoch_batches(np.random.default_rng(args.seed), sizes,
+                                    sizes <= args.max_len, args.max_tokens,
+                                    args.batch_size, args.update_freq)
+    vsrc, vtgt, _, _ = train_mt.load_pairs(args, split="valid")
+    vpairs = LanguagePairDataset(vsrc, vtgt)
+    vbatches = train_mt.valid_batches(vpairs, args.max_len, args.max_tokens)
+    vsizes = np.maximum(vpairs.src_sizes, vpairs.tgt_sizes)
+    chunks = -(-min(int((vsizes <= args.max_len).sum()),
+                    args.eval_bleu_subset_size) // 8)
+    if len(epoch1) <= 10:
+        raise AssertionError(f"the first epoch has {len(epoch1)} batches")
+
+    real_save = checkpoint.CheckpointManager.save
+    writes = []  # (step, seconds, bytes)
+    kept = {}
+
+    def timed_save(self, step, state, metrics=None):
+        t = time.perf_counter()
+        wrote = real_save(self, step, state, metrics)
+        if wrote:
+            writes.append((step, time.perf_counter() - t, os.path.getsize(
+                os.path.join(self.directory, str(step), checkpoint.STATE_FILE))))
+            kept["state"] = copy.deepcopy({k: v for k, v in state.items()})
+        return wrote
+
+    real_step = lm_steps.make_mt_train_step
+    timed = []  # (start event, end event, target tokens) a step
+
+    def make_timed_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def run(state, src_b, prev, tgt_b, generator):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(state, src_b, prev, tgt_b, generator)
+            end.record()
+            timed.append((start, end, int((tgt_b != 1).sum())))
+            return metrics
+
+        return run
+
+    ckpt_dir = f"{MT_DATA_DIR}/save/ckpt"
+    for run, updates, validations, argv, want_written, want_kept in (
+            ("train", 8, 3, ["--max-update", "8"], [1, 2, 4, 6, 8], [4, 6, 8]),
+            ("resume", 2, 1, ["--max-update", "10"], [10], [6, 8, 10])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        writes.clear()
+        timed.clear()
+        zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(checkpoint.CheckpointManager, "save", timed_save), \
+                mock.patch.object(lm_steps, "make_mt_train_step", make_timed_step):
+            stats = train_mt.cli_main(MT_DATA_TRAIN_ARGV + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        want_k4 = layers * validations * (len(vbatches) + chunks)
+        want = {"eva_1d.LAUNCHES": want_k4, "eva_1d.LAUNCHES_TF32": want_k4}
+        steps = checkpoint.CheckpointManager(ckpt_dir).all_steps()
+        step_ms = [a.elapsed_time(b) for a, b, _ in timed]
+        # the rate of the steps after the first (CUDA events around each)
+        rate_s = sum(step_ms[1:]) / 1e3
+        tgt_tokens = sum(n for _, _, n in timed[1:])
+        row = {"wall_s": wall, "updates_per_s": (len(timed) - 1) / rate_s,
+               "target_tokens_per_s": tgt_tokens / rate_s,
+               "target_tokens_a_step": tgt_tokens / (len(timed) - 1),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "writes": [(w[0], round(w[1], 3), w[2]) for w in writes]}
+        out[run] = row
+        log(f"[mt-data] {run}: {json.dumps(stats)} in {wall:.2f} s; launches "
+            f"{json.dumps(got)} (predicted {json.dumps(want)}: {layers} layers x "
+            f"{validations} validations x ({len(vbatches)} batches + {chunks} BLEU "
+            f"chunks)); checkpoint writes (step, s, bytes) {row['writes']}, kept "
+            f"{steps}; steps after the first {row['updates_per_s']:.3f} updates/s, "
+            f"{row['target_tokens_per_s']:.1f} target tokens/s ({tgt_tokens} tokens "
+            f"in {rate_s * 1e3:.3f} ms; step ms "
+            f"{json.dumps([round(t, 3) for t in step_ms])}); peak device memory "
+            f"{row['peak_gib']:.3f} GiB; {card}")
+        for key in ("loss", "valid_loss", "valid_bleu"):
+            if not math.isfinite(stats[key]):
+                raise AssertionError(f"non-finite {key} in {stats}")
+        if stats["step"] != 8 + (run == "resume") * 2 or len(timed) != updates \
+                or got != want:
+            raise AssertionError(f"{run}: step {stats['step']} after {len(timed)} "
+                                 f"updates, launches {got}, want {want}")
+        if [w[0] for w in writes] != want_written or steps != want_kept:
+            raise AssertionError(f"{run}: checkpoints written {writes}, kept {steps}; "
+                                 f"want {want_written} and {want_kept}")
+        if run == "train":
+            # the state saved at step 8 comes back bit for bit (parameters,
+            # Adam's moments, the generator), into a model whose encoder and
+            # decoder still share one embedding
+            saved = checkpoint.CheckpointManager(ckpt_dir).load(8)
+            same = same_tree(saved, kept["state"])
+            model = train_mt.build_model(args, MT_VOCAB, MT_VOCAB)
+            model.load_state_dict(saved["params"], strict=True)
+            model = model.cuda()
+            tied = (model.encoder.embed_tokens is model.decoder.embed_tokens
+                    and torch.equal(model.decoder.embed_tokens.weight.cpu(),
+                                    saved["params"]["encoder.embed_tokens.weight"]))
+            n_params = sum(p.numel() for p in model.parameters())
+            out["checkpoint"] = {"bytes": writes[-1][2], "parameters": n_params,
+                                 "write_s": [w[1] for w in row["writes"]]}
+            log(f"[mt-data] step 8 restored bit for bit (parameters, optimizer, "
+                f"generator): {same}; shared embedding one tensor: {tied}; "
+                f"{n_params} parameters")
+            if not (same and tied):
+                raise AssertionError("the checkpoint's round trip failed")
+            del model, saved
+            kept.clear()
+    torch.cuda.empty_cache()
+
+    # generate from the average of the kept three over the test split's
+    # first MT_GEN_SENTENCES: 6 K4 launches a batch of 64
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = generate.cli_main(MT_GEN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    batches = -(-MT_GEN_SENTENCES // 64)
+    want = {"eva_1d.LAUNCHES": layers * batches, "eva_1d.LAUNCHES_TF32": layers * batches}
+    mgr = checkpoint.CheckpointManager(ckpt_dir)
+    states = [mgr.restore_params(step)[1] for step in mgr.all_steps()]
+    average = {k: (sum(s[k].double() for s in states) / len(states)).to(v.dtype)
+               for k, v in states[0].items()}
+    same = (res["params"].keys() == average.keys()
+            and all(torch.equal(res["params"][k], average[k]) for k in average))
+    with open(f"{MT_DATA_DIR}/gen.out", encoding="utf-8") as f:
+        gen_lines = f.read().splitlines()
+    n_h = sum(line.startswith("H-") for line in gen_lines)
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep
+               + os.environ.get("PATH", ""))
+    t1 = time.perf_counter()
+    split_bleu = subprocess.run(
+        ["bash", "scripts/torch_compound_split_bleu.sh", f"{MT_DATA_DIR}/gen.out"],
+        env=env, capture_output=True, text=True, check=True).stdout.strip()
+    score_s = time.perf_counter() - t1
+    gen_s = res["encode_s"] + res["beam_s"]
+    out["generate"] = {
+        "wall_s": wall, "load_s": res["load_s"], "encode_s": res["encode_s"],
+        "beam_s": res["beam_s"], "sentences_per_s": res["sentences"] / gen_s,
+        "hypothesis_tokens": res["hypothesis_tokens"],
+        "decode_steps": res["decode_steps"], "bleu": res["bleu"],
+        "compound_split_bleu": split_bleu, "score_s": score_s,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[mt-data] generate {res['sentences']} test sentences in {wall:.2f} s: "
+        f"restore and average of steps {mgr.all_steps()} {res['load_s']:.2f} s, "
+        f"encode {res['encode_s']:.3f} s, beam loop {res['beam_s']:.3f} s "
+        f"({res['decode_steps']} decode steps), "
+        f"{out['generate']['sentences_per_s']:.1f} sentences/s, "
+        f"{res['hypothesis_tokens']} hypothesis tokens; {res['detail']}; launches "
+        f"{json.dumps(got)} (predicted {json.dumps(want)}: {layers} layers x "
+        f"{batches} batches); averaged parameters equal the CPU average bit for "
+        f"bit: {same}; gen.out {len(gen_lines)} lines, {n_h} H-; compound-split "
+        f"{split_bleu!r} in {score_s:.2f} s; peak device memory "
+        f"{out['generate']['peak_gib']:.3f} GiB; {card}")
+    if not math.isfinite(res["bleu"]) or res["sentences"] != MT_GEN_SENTENCES \
+            or got != want or not same:
+        raise AssertionError(f"generate: {res['sentences']} sentences, BLEU "
+                             f"{res['bleu']}, launches {got} (want {want}), "
+                             f"average equal {same}")
+    if n_h != MT_GEN_SENTENCES or not gen_lines[-1].startswith(
+            "Generate test with beam=4: BLEU4 = ") or not split_bleu.startswith("BLEU4 = "):
+        raise AssertionError(f"gen.out: {n_h} H- lines, last {gen_lines[-1]!r}; "
+                             f"compound-split {split_bleu!r}")
+
+    # the averaged model's encoder states on the first test batch at its
+    # non-pad positions, K4 route against the eager path
+    model = train_mt.build_model(args, MT_VOCAB, MT_VOCAB)
+    model.load_state_dict(res["params"])
+    model = model.cuda().eval()
+    eager = copy.deepcopy(model)
+    for layer in eager.encoder.layers:
+        layer.self_attn.attn.impl = "xla"
+    gargs = generate.parse_args(MT_GEN_ARGV)
+    test_src = train_mt.load_pairs(gargs, "test")[0]
+    _, src_b, _, _, _ = next(generate.generation_batches(gargs, test_src))
+    src_t = torch.from_numpy(src_b).cuda()
+    before = k4.LAUNCHES_TF32
+    with torch.no_grad():
+        (enc, pad), (enc_eager, _) = model.encode(src_t), eager.encode(src_t)
+    torch.cuda.synchronize()
+    keep = ~pad
+    eerr = (enc - enc_eager)[keep].abs().max().item()
+    out["encoder_err"] = eerr
+    log(f"[mt-data] averaged model's f32 encoder states K4 route vs eager path, "
+        f"test batch {tuple(src_b.shape)}, {int(keep.sum())} non-pad positions: max "
+        f"abs err {eerr:.3e} (tol {ENC_TOL:.0e}), max |value| "
+        f"{enc_eager[keep].abs().max().item():.3e}")
+    if k4.LAUNCHES_TF32 - before != layers or not eerr <= ENC_TOL:
+        raise AssertionError(f"averaged encoder: {k4.LAUNCHES_TF32 - before} f32-route "
+                             f"launches, error {eerr}")
+    del model, eager, res
+    torch.cuda.empty_cache()
+    shutil.rmtree(MT_DATA_DIR, ignore_errors=True)
     return out
 
 
@@ -2982,6 +3339,11 @@ def main() -> int:
 
     # ---- 6. the MT training path, counts set to 0 just before and read after
     mt_train_phase(torch, card, all_counters, k4)
+
+    # ---- 6b. the MT protocol from text to BLEU, every count set to 0 just
+    # before each CLI call and read just after
+    mt_protocol = mt_protocol_phase(torch, card, all_counters, k4)
+    print(json.dumps({"mt_protocol": mt_protocol}), flush=True)
 
     # ---- 7. the ViT training path, counts set to 0 just before and read after
     k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = k2.LAUNCHES = k2.LAUNCHES_MMA = 0

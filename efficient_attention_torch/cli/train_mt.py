@@ -4,37 +4,51 @@ Counterpart of ``efficient_attention_tpu/cli/train_mt.py``, with its flags
 and its two-pass parsing: the encoder attention chosen by
 ``--attn-name-encoder`` with nested ``--encoder-attn-*`` flags, ``softmax``
 or ``causal_eva`` decoder attention with ``--decoder-attn-*`` flags,
-``--config`` YAML and ``--arch`` presets.  ``load_pairs`` makes the
-``--dummy-data`` sentence pairs from ``--seed`` with the JAX CLI's numpy
-draws (so both packages make the same sentences) and ``build_model`` the
-``TransformerModel``, with weights drawn from ``--seed``; ``cli.generate``
-serves it.
+``--config`` YAML and ``--arch`` presets.  ``load_pairs`` reads a split
+binarized by ``cli.preprocess`` (``--data DIR``: ``dict.{src,tgt}.txt``
+and ``{split}.{lang}.bin/.idx``), or makes the ``--dummy-data`` sentence
+pairs from ``--seed`` with the JAX CLI's numpy draws (so both packages
+make the same sentences); ``build_model`` makes the ``TransformerModel``,
+with weights drawn from ``--seed`` and ``--{encoder,decoder}-layers-to-keep``
+setting the depths; ``cli.generate`` serves it.
 
 ``main`` trains it: fairseq Adam behind a global-norm clip, the
 inverse-sqrt schedule, label-smoothed cross entropy, token-budget batches
 of length-sorted pairs (``epoch_batches``), ``--update-freq``
 accumulation, ``--bf16`` master-copy mixed precision, an EMA, validation
 at every epoch's end and every ``--validate-interval-updates`` with
-``--patience``, and in-train BLEU on token ids (``--eval-bleu``).  The
-model runs on ``--device`` (default ``cuda``), on one device.  In training
-the encoder's EVA and the decoder's causal EVA run eager (the decoder takes
-its target padding mask, so causal EVA never takes K3, as in JAX); at
-validation and in-train BLEU the encoder runs the ``eva_1d`` kernel (K4)
-where its gate holds.  No checkpoint is written yet; ``--data`` and the
-flags whose module is not ported raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+``--patience``, and in-train BLEU (``--eval-bleu``) over the target
+dictionary's words (``--eval-bleu-remove-bpe``), or over token ids on
+dummy pairs.  The model runs on ``--device`` (default ``cuda``), on one
+device.  In training the encoder's EVA and the decoder's causal EVA run
+eager (the decoder takes its target padding mask, so causal EVA never
+takes K3, as in JAX); at validation and in-train BLEU the encoder runs the
+``eva_1d`` kernel (K4) where its gate holds.
 
-Example (the WMT14 EN-DE recipe, ``main.sh:103-110``, on dummy pairs):
+Checkpoints (``training/checkpoint.py``) go to ``<save-dir>/ckpt`` after
+every update the manager's policy takes (every
+``--save-interval-updates``, the newest ``--keep-last-epochs`` kept;
+``--no-save``: none); a run resumes from the newest one there, with the
+optimizer, the EMA and the step's generator, replaying the epochs and
+batches from ``--seed`` up to it, so a resumed run is bit for bit the
+straight one and ``--max-epoch`` counts the whole run's epochs.
+``--finetune-from-model DIR`` starts from the parameters of DIR's newest
+checkpoint instead, pruned to the kept layers.  Flags whose module is not
+ported raise ``NotImplementedError`` naming their ROADMAP.md item.
 
-  python -m efficient_attention_torch.cli.train_mt --dummy-data \\
-      --dummy-vocab 32768 --attn-name-encoder eva \\
+Example (the WMT14 EN-DE recipe, ``main.sh:103-110``, on a corpus that
+``cli.preprocess -s en -t de --joined-dictionary`` wrote):
+
+  python -m efficient_attention_torch.cli.train_mt --data data-bin/wmt14_en_de \\
+      --attn-name-encoder eva \\
       --encoder-attn-window-size 8 --encoder-attn-num-landmarks 8 \\
       --encoder-attn-overlap-window --encoder-attn-use-t5-rpe \\
       --encoder-attn-adaptive-proj no-ln --attn-name-decoder causal_eva \\
       --decoder-attn-window-size 16 --decoder-attn-chunk-size 8 \\
       --decoder-attn-adaptive-proj qk --decoder-attn-causal \\
-      --share-all-embeddings --max-update 8 --log-interval 1 --eval-bleu \\
-      --eval-bleu-args '{"beam": 4, "lenpen": 0.6}'
+      --share-all-embeddings --save-dir checkpoints/wmt14 \\
+      --save-interval-updates 1000 --keep-last-epochs 10 --eval-bleu \\
+      --eval-bleu-remove-bpe --eval-bleu-args '{"beam": 4, "lenpen": 0.6}'
 """
 from __future__ import annotations
 
@@ -42,6 +56,7 @@ import argparse
 import ast
 import json
 import math
+import os
 import time
 
 import numpy as np
@@ -246,39 +261,55 @@ class DummyPairs:
 
 
 def load_pairs(args, split: str = "train"):
-    """``(src, tgt, src_dict, tgt_dict)`` of a split: with ``--dummy-data``
-    (or no ``--data``) 512 training or 64 validation pairs drawn from
-    ``--seed`` (source first, then target, from one generator), and no
-    dictionaries."""
+    """``(src, tgt, src_dict, tgt_dict)`` of a split: with ``--data`` (and
+    not ``--dummy-data``) the binarized split ``{split}.{lang}`` of each
+    side and the dictionaries ``dict.{lang}.txt``; otherwise 512 training
+    or 64 validation pairs drawn from ``--seed`` (source first, then
+    target, from one generator), and no dictionaries."""
     if args.data and not args.dummy_data:
-        raise NotImplementedError(
-            "--data is not ported yet; see ROADMAP.md Queue 1, item 5 "
-            "(data/{dictionary,indexed_dataset}.py)")
+        from efficient_attention_torch.data.dictionary import Dictionary
+        from efficient_attention_torch.data.indexed_dataset import MMapIndexedDataset
+
+        sides = [(os.path.join(args.data, f"dict.{lang}.txt"),
+                  os.path.join(args.data, f"{split}.{lang}"))
+                 for lang in (args.source_lang, args.target_lang)]
+        (sd, src), (td, tgt) = ((Dictionary.load(d), MMapIndexedDataset(prefix))
+                                for d, prefix in sides)
+        return src, tgt, sd, td
     rng = np.random.default_rng(args.seed + (0 if split == "train" else 1))
     n = 512 if split == "train" else 64
     return (DummyPairs(rng, args.dummy_vocab, n),
             DummyPairs(rng, args.dummy_vocab, n), None, None)
 
 
+def vocab_sizes(args, sd, td):
+    """Source and target vocabulary sizes: the dictionaries', or
+    ``--dummy-vocab`` on dummy pairs."""
+    return (len(sd) if sd else args.dummy_vocab,
+            len(td) if td else args.dummy_vocab)
+
+
 def build_model(args, src_vocab: int, tgt_vocab: int):
     """The ``TransformerModel`` of ``args`` with weights drawn from
-    ``args.seed``, on the CPU in float32."""
+    ``args.seed``, on the CPU in float32; ``--encoder-layers-to-keep`` and
+    ``--decoder-layers-to-keep`` set the depths they name."""
     from efficient_attention_torch.config import namespace_to_dict
     from efficient_attention_torch.models.transformer import (
         TransformerModel,
         init_weights,
     )
+    from efficient_attention_torch.training.checkpoint import parse_layers_to_keep
 
-    for flag in ("encoder_layers_to_keep", "decoder_layers_to_keep"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet; see ROADMAP.md "
-                "Queue 1, item 8 (training/checkpoint.py)")
+    enc_keep = parse_layers_to_keep(getattr(args, "encoder_layers_to_keep", None))
+    dec_keep = parse_layers_to_keep(getattr(args, "decoder_layers_to_keep", None))
     dec_layers = getattr(args, "decoder_layers", None)
+    if dec_layers is None:
+        dec_layers = args.encoder_layers
     model = TransformerModel(
         src_vocab, tgt_vocab, embed_dim=args.encoder_embed_dim,
-        ffn_dim=args.encoder_ffn_embed_dim, num_layers=args.encoder_layers,
-        num_decoder_layers=args.encoder_layers if dec_layers is None else dec_layers,
+        ffn_dim=args.encoder_ffn_embed_dim,
+        num_layers=len(enc_keep) if enc_keep else args.encoder_layers,
+        num_decoder_layers=len(dec_keep) if dec_keep else dec_layers,
         num_heads=args.encoder_attention_heads,
         attn_name_encoder=args.attn_name_encoder,
         attn_args_encoder=namespace_to_dict(
@@ -304,14 +335,6 @@ def check_ported(args) -> None:
     module is not ported yet, naming its ROADMAP.md item."""
     item8 = "Queue 1, item 8"
     queued = [
-        (args.data is not None and not args.dummy_data, "--data",
-         "Queue 1, item 5 (data/{dictionary,indexed_dataset}.py)"),
-        (bool(args.finetune_from_model), "--finetune-from-model",
-         f"{item8} (training/checkpoint.py)"),
-        (bool(args.encoder_layers_to_keep), "--encoder-layers-to-keep",
-         f"{item8} (training/checkpoint.py)"),
-        (bool(args.decoder_layers_to_keep), "--decoder-layers-to-keep",
-         f"{item8} (training/checkpoint.py)"),
         (args.heartbeat_timeout > 0, "--heartbeat-timeout", item8),
         (bool(args.tensorboard_logdir), "--tensorboard-logdir", item8),
         (args.wandb_project is not None, "--wandb-project", item8),
@@ -390,21 +413,33 @@ def valid_sums(model, eval_step, vpairs, batches, device):
     return loss_sum, nll_sum, tok_sum
 
 
+def remove_bpe(sentence: str, symbol) -> str:
+    """fairseq ``post_process`` for the subword-nmt symbol: drop ``symbol``
+    (``'@@ '``) so continued pieces join their next word; None keeps the
+    sentence."""
+    if symbol is None:
+        return sentence
+    return (sentence + " ").replace(symbol, "").rstrip()
+
+
 @torch.no_grad()
 def bleu_chunks(vpairs, ids, gen_args, vocab: int, model, device,
-                print_samples: bool = False) -> float:
+                print_samples: bool = False, td=None, bpe_symbol=None) -> float:
     """In-train BLEU (JAX ``cli/train_mt.py:412-480``, fairseq
     ``translation.py`` ``_inference_with_bleu``) over the pairs ``ids``:
     beam search in chunks of 8 sentences, each with an output buffer of
     ``max_len_a * S + max_len_b`` (default ``2 S``) tokens, the 1-best cut
-    before its first eos, scored against the reference without its eos on
-    token ids (the dummy pairs have no dictionary)."""
+    before its first eos and scored against the reference without its eos:
+    with a target dictionary ``td`` over its words (``bpe_symbol`` removed,
+    ``--eval-bleu-remove-bpe``) through ``WordIdMapper``, else on token
+    ids."""
     from efficient_attention_torch.data.text_data import collate_tokens
     from efficient_attention_torch.generation.beam_search import SequenceGenerator
-    from efficient_attention_torch.scoring.bleu import BleuScorer
+    from efficient_attention_torch.scoring.bleu import BleuScorer, WordIdMapper
 
     K = int(gen_args.get("beam", 4))
     scorer = BleuScorer()
+    word_ids = WordIdMapper()
     printed = False
     for i in range(0, len(ids), 8):
         chunk = ids[i: i + 8]
@@ -438,11 +473,18 @@ def bleu_chunks(vpairs, ids, gen_args, vocab: int, model, device,
                 hyp = hyp[: eos_pos[0]]
             ref = np.asarray(vpairs[int(j)][1])
             ref = ref[ref != 2]
+            if td is not None:
+                hyp_s = remove_bpe(td.string(hyp), bpe_symbol)
+                ref_s = remove_bpe(td.string(ref), bpe_symbol)
+                shown = (hyp_s, ref_s)
+                scorer.add(word_ids(ref_s), word_ids(hyp_s))
+            else:
+                shown = (hyp.tolist(), ref.tolist())
+                scorer.add(ref.tolist(), hyp.tolist())
             if print_samples and not printed:
-                print(f"| example hypothesis: {hyp.tolist()}")
-                print(f"| example reference:  {ref.tolist()}")
+                print(f"| example hypothesis: {shown[0]}")
+                print(f"| example reference:  {shown[1]}")
                 printed = True
-            scorer.add(ref.tolist(), hyp.tolist())
     return scorer.score()
 
 
@@ -458,6 +500,11 @@ def main(args) -> dict:
         inverse_sqrt_schedule,
         make_optimizer,
     )
+    from efficient_attention_torch.training.checkpoint import (
+        CheckpointManager,
+        maybe_prune_for_keep,
+        parse_layers_to_keep,
+    )
     from efficient_attention_torch.training.train_state import TrainState
 
     check_ported(args)
@@ -468,8 +515,9 @@ def main(args) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    src, tgt, _, _ = load_pairs(args)
-    model = build_model(args, args.dummy_vocab, args.dummy_vocab).to(device)
+    src, tgt, sd, td = load_pairs(args)
+    src_vocab, tgt_vocab = vocab_sizes(args, sd, td)
+    model = build_model(args, src_vocab, tgt_vocab).to(device)
     pairs = LanguagePairDataset(src, tgt)
     schedule = inverse_sqrt_schedule(args.lr, args.warmup_updates,
                                      args.warmup_init_lr)
@@ -483,8 +531,6 @@ def main(args) -> dict:
         accum_steps=args.update_freq,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
         sentence_avg=args.sentence_avg)
-    print("| no checkpoint is written: training/checkpoint.py is not ported "
-          "yet (ROADMAP.md Queue 1, item 8)")
 
     vsrc, vtgt, _, _ = load_pairs(args, split="valid")
     vpairs = LanguagePairDataset(vsrc, vtgt)
@@ -507,8 +553,9 @@ def main(args) -> dict:
               "valid_ppl": math.exp(min(nll_sum / n, 50.0))}
         if args.eval_bleu:
             vm["valid_bleu"] = bleu_chunks(vpairs, bleu_ids.tolist(), gen_args,
-                                           args.dummy_vocab, model, device,
-                                           args.eval_bleu_print_samples)
+                                           tgt_vocab, model, device,
+                                           args.eval_bleu_print_samples, td,
+                                           args.eval_bleu_remove_bpe)
         print("| valid " + " ".join(f"{k.removeprefix('valid_')} {v:.3f}"
                                     for k, v in vm.items()))
         return vm
@@ -522,6 +569,39 @@ def main(args) -> dict:
               "filtering)")
     generator = torch.Generator(device=device).manual_seed(args.seed)
     order_rng = np.random.default_rng(args.seed)
+    os.makedirs(args.save_dir, exist_ok=True)
+    ckpt = CheckpointManager(os.path.join(args.save_dir, "ckpt"),
+                             keep_last=args.keep_last_epochs,
+                             save_interval_steps=args.save_interval_updates)
+    if args.finetune_from_model:
+        # parameters only: optimizer, schedule and batch order start afresh
+        if ckpt.latest_step() is not None:
+            raise ValueError("--finetune-from-model cannot be combined with "
+                             "resuming from --save-dir")
+        restored = CheckpointManager(args.finetune_from_model).restore_params()
+        if restored is None:
+            raise FileNotFoundError(f"--finetune-from-model "
+                                    f"{args.finetune_from_model}: no checkpoint found")
+        fstep, fparams = restored
+        for flag, scope in (("encoder_layers_to_keep", "encoder"),
+                            ("decoder_layers_to_keep", "decoder")):
+            fparams = maybe_prune_for_keep(
+                fparams, parse_layers_to_keep(getattr(args, flag)), scope)
+        model.load_state_dict(fparams)
+        if state.ema_params is not None:
+            state.ema_params = {n: p.detach().clone()
+                                for n, p in model.named_parameters()}
+        print(f"| finetuning from {args.finetune_from_model} (step {fstep}); "
+              "optimizer and schedule reset")
+    # auto-resume: the whole state and the step's generator; the epochs and
+    # batches are a function of the seed, so the first ``skip`` batches are
+    # drawn again and passed over
+    skip = ckpt.latest_step() or 0
+    if skip:
+        saved = ckpt.load(skip)
+        state.load_state_dict(saved)
+        generator.set_state(saved["rng"]["generator"])
+        print(f"| resumed from checkpoint step {skip}")
     logger = MetricLogger()
     stats: dict = {}
     t0 = time.time()
@@ -540,6 +620,9 @@ def main(args) -> dict:
                                   args.batch_size, args.update_freq):
             if state.step >= args.max_update:
                 break
+            if skip:
+                skip -= 1
+                continue
             if args.profile is not None and state.step == 1 and prof is None:
                 prof = _profiler(device)
                 prof.start()
@@ -563,6 +646,9 @@ def main(args) -> dict:
             logger.update(loss=loss, gnorm=float(metrics.grad_norm))
             if step % args.log_interval == 0:
                 print(f"| step {step} {logger} | {time.time() - t0:.0f}s")
+            if not args.no_save and ckpt.should_save(step):
+                ckpt.save(step, dict(state.state_dict(),
+                                     rng={"generator": generator.get_state()}))
             stats = {"step": step, "loss": loss}
             if (args.stop_time_hours > 0
                     and time.time() - t0 > args.stop_time_hours * 3600):
@@ -572,8 +658,9 @@ def main(args) -> dict:
             if (args.validate_interval_updates > 0
                     and step % args.validate_interval_updates == 0):
                 stats.update(validate())
-        # epoch boundary: fairseq validates once an epoch
-        if state.step > 0:
+        # epoch boundary: fairseq validates once an epoch (not in an epoch
+        # whose batches were all passed over on resume)
+        if not skip and state.step > 0:
             stats.update(validate())
             if args.patience > 0 and "valid_loss" in stats:
                 if stats["valid_loss"] < best_valid - 1e-9:
@@ -588,6 +675,7 @@ def main(args) -> dict:
     if prof is not None:  # training ended inside the traced steps
         prof.stop()
         _print_profile(prof, device, args.profile)
+    ckpt.wait()
     print(json.dumps(stats))
     return stats
 

@@ -126,14 +126,16 @@ class CheckpointManager:
         keep.update(s for s in steps if self._metrics.get(s) is None)
         return [s for s in steps if s not in keep]
 
-    def load(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+    def load(self, step: Optional[int] = None,
+             mmap: bool = False) -> Optional[Dict[str, Any]]:
         """The state saved at ``step`` (default the newest), on the CPU, or
-        None where no step is kept."""
+        None where no step is kept.  With ``mmap`` the tensors map the file
+        and are read where they are used."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
         return torch.load(os.path.join(self._step_dir(step), STATE_FILE),
-                          map_location="cpu", weights_only=True)
+                          map_location="cpu", weights_only=True, mmap=mmap)
 
     def restore(self, target=None, step: Optional[int] = None):
         """Load ``step`` (default the newest) into ``target`` through its
@@ -148,11 +150,12 @@ class CheckpointManager:
     def restore_params(self, step: Optional[int] = None):
         """Only the model parameters, ``(step, state dict)``, or None: the
         inference CLIs know no optimizer (fairseq likewise loads only
-        ``state['model']`` at inference)."""
+        ``state['model']`` at inference); the file is mapped, so the
+        optimizer's tensors are never read."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None
-        return step, self.load(step)["params"]
+        return step, self.load(step, mmap=True)["params"]
 
     def wait(self) -> None:
         """Writes are synchronous: nothing to wait for."""
