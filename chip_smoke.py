@@ -196,6 +196,21 @@ Phases, each raising on failure:
    losses; then f32 gradients, kernel path against eager path; the same
    with ``impl='pallas'`` and ``impl='rowmajor'`` (12 x 8 + 12 x 4
    launches of K11 or K12, none of any other);
+7b. the ImageNet recipe from an image folder (``vit_protocol_phase``): a
+   folder written from a seed (1000 classes, 2 train JPEGs and 1 val JPEG
+   a class, 500x375 and 375x500), ``cli.train_vit`` with ``main.sh -d
+   imagenet``'s flags (``--repeated-aug --model-ema --clip-grad 5.0``) in
+   bf16 for 2 epochs of 4 steps (K1's forward and backward 12 x 8 on the
+   tensor-core routes, K2 12 x 8 val batches x 2 epochs on the f32 route,
+   every val image scored, checkpoints at 4 and 8), resumed to epoch 3
+   (the restored state, generator included, equal to the file bit for bit;
+   steps [4, 8, 12] kept), ``--eval --resume`` (all 1000 val images, K2
+   12 x 8 on its tensor-core route); 8 steps on each loader (synthetic,
+   the folder on threads and on spawned processes, the uint8 cache, its
+   build timed) with images/s and the host's gap between steps; PVTv2-B3
+   4 steps at batch 128 with and without ``--checkpoint-activations`` (K1's
+   forward 25 x 4 x 2 or x 1, its backward 25 x 4), peak memory and
+   images/s; a compact JSON line of its figures;
 8. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks; K2 at ``K2_SHAPES`` on both routes and K8 + K1 on the same
    inputs in turns; one headline forward by op
@@ -385,6 +400,19 @@ PVT_ROUTES = {"auto": "eva_single", "pallas": "eva_kernel",
 # its EVA stages at 224 px (B, heads, grid side, head dim)
 PVT_STAGES = (("pvt stage 1", (128, 2, 56, 32)), ("pvt stage 2", (128, 4, 28, 32)),
               ("pvt stage 3", (128, 10, 14, 32)))
+# the ImageNet recipe from an image folder (main.sh -d imagenet -p DIR,
+# main.sh:30-48): a folder written from a seed with ImageNet's 1000 classes
+# (wnid-like names), smooth random JPEGs (quality 90) of 500x375 and
+# 375x500 pixels, 2 train images and 1 val image a class (1000 val images
+# at batch 128: a partial last batch of 104)
+VIT_DATA_DIR = "build/smoke_imagenet"
+VIT_DATA_PER_CLASS = {"train": 2, "val": 1}
+VIT_RECIPE_ARGV = MAIN_ARGV + [
+    "--epochs", "300", "--lr", "5e-4", "--warmup-epochs", "10",
+    "--clip-grad", "5.0", "--repeated-aug", "--model-ema",
+    "--data-set", "IMAGENET", "--data-path", VIT_DATA_DIR,
+    "--bf16", "--max-steps-per-epoch", "4", "--num-workers", "8"]
+VIT_OUT_DIR = "build/smoke_vit_protocol"
 # K8's and K2's check at large-norm keys (keys x40, zero queries): the
 # geometry of
 # tests/test_torch_eva_single.py::test_large_norm_keys_stay_finite_and_match_eager
@@ -1946,6 +1974,283 @@ def mt_protocol_phase(torch, card, counters, k4):
     return out
 
 
+def _write_jpeg(job):
+    """One smooth random JPEG (a 25x-upsampled random image): a pool task of
+    ``write_imagenet_folder``; returns its bytes."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    path, seed, landscape = job
+    w, h = (500, 375) if landscape else (375, 500)
+    small = np.random.default_rng(seed).integers(0, 256, (h // 25, w // 25, 3),
+                                                 np.uint8)
+    Image.fromarray(small).resize((w, h), Image.BICUBIC).save(path, quality=90)
+    return os.path.getsize(path)
+
+
+def write_imagenet_folder(directory, classes=1000, seed=0):
+    """``directory/{train,val}/n<8 digits>/`` with ``VIT_DATA_PER_CLASS``
+    JPEGs a class, written by a spawned pool of one process a core.
+    Returns (images, bytes)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs = []
+    for split, per_class in VIT_DATA_PER_CLASS.items():
+        for c in range(classes):
+            d = f"{directory}/{split}/n{1440764 + 7919 * c:08d}"
+            os.makedirs(d)
+            for i in range(per_class):
+                jobs.append((f"{d}/{split}_{c}_{i}.JPEG", seed * 10 ** 6 + len(jobs),
+                             (c + i) % 2 == 0))
+    with ProcessPoolExecutor(os.cpu_count(),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        return len(jobs), sum(pool.map(_write_jpeg, jobs, chunksize=32))
+
+
+def vit_protocol_phase(torch, card, counters):
+    """The ImageNet recipe from an image folder to a top-1 on the card
+    (``main.sh -d imagenet -p DIR`` at DeiT-tiny-p8 + EVA's full width,
+    ``--bf16``): write the folder; train 2 epochs of 4 steps (K1's forward
+    and backward a block a step on the tensor-core routes, K2 a block a val
+    batch on the f32 route for the EMA; checkpoints at 4 and 8); resume to
+    epoch 3 (the restored state, generator included, equal to the file bit
+    for bit; steps [4, 8, 12] kept); ``--eval --resume`` (every val image, K2
+    on its tensor-core route); 8 steps on each loader (synthetic, the folder
+    on threads and on processes, the uint8 cache) with the host's gap
+    between steps; PVTv2-B3 4 steps with and without
+    ``--checkpoint-activations`` (K1's forward twice a block and step under
+    remat), peak memory and images/s.  ``counters`` lists (module,
+    attribute) of every launch count.  Returns the phase's figures."""
+    import os
+
+    from efficient_attention_torch.cli import train_vit
+    from efficient_attention_torch.data.imagenet import (
+        CachedUint8Dataset,
+        PrefetchLoader,
+    )
+    from efficient_attention_torch.training import checkpoint, train_state
+
+    def zero_counts():
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
+                for mod, attr in counters if getattr(mod, attr)}
+
+    def launches(k1_fwd, k1_bwd, k2_f32, k2_mma):
+        want = {"eva_packed.LAUNCHES_FWD": k1_fwd, "eva_packed.LAUNCHES_FWD_MMA": k1_fwd,
+                "eva_packed.LAUNCHES_BWD": k1_bwd, "eva_packed.LAUNCHES_BWD_MMA": k1_bwd,
+                "eva_single.LAUNCHES": k2_f32 + k2_mma, "eva_single.LAUNCHES_MMA": k2_mma}
+        return {k: v for k, v in want.items() if v}
+
+    t_phase = time.perf_counter()
+    out = {"cpus": os.cpu_count()}
+    shutil.rmtree(VIT_DATA_DIR, ignore_errors=True)
+    shutil.rmtree(VIT_OUT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    n_images, n_bytes = write_imagenet_folder(VIT_DATA_DIR)
+    out["folder"] = {"images": n_images, "bytes": n_bytes,
+                     "s": time.perf_counter() - t0}
+    log(f"[vit-data] image folder: {n_images} JPEGs (1000 classes x "
+        f"{VIT_DATA_PER_CLASS}), {n_bytes} bytes in {out['folder']['s']:.2f} s "
+        f"on {out['cpus']} processes")
+    blocks, val_batches = 12, math.ceil(1000 / 128)
+
+    def records():
+        with open(f"{VIT_OUT_DIR}/log.txt", encoding="utf-8") as f:
+            return [json.loads(line) for line in f]
+
+    # 2 epochs of 4 steps: K1 a block a step, K2 (f32, the EMA) a block a
+    # val batch, checkpoints at the epochs' ends
+    zero_counts()
+    t0 = time.perf_counter()
+    train_vit.cli_main(VIT_RECIPE_ARGV + ["--epochs", "2", "--output-dir", VIT_OUT_DIR])
+    torch.cuda.synchronize()
+    wall, got = time.perf_counter() - t0, counts()
+    want = launches(blocks * 8, blocks * 8, blocks * val_batches * 2, 0)
+    steps = checkpoint.CheckpointManager(f"{VIT_OUT_DIR}/ckpt").all_steps()
+    recs = records()
+    log(f"[vit-data] train 2 epochs x 4 steps in {wall:.2f} s: {json.dumps(recs)}; "
+        f"launches {json.dumps(got)} (predicted {json.dumps(want)}); checkpoints "
+        f"{steps}")
+    if got != want or steps != [4, 8] or len(recs) != 2 or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["val_loss"])
+            and r["val_images"] == 1000 for r in recs):
+        raise AssertionError(f"train: launches {got}, steps {steps}, records {recs}")
+    out["train"] = {"s": wall, "val_acc1": [r["val_acc1"] for r in recs],
+                    "loss": [r["loss"] for r in recs]}
+
+    # resume to epoch 3: the restored state against the file, bit for bit
+    real_restore, restored = train_vit.restore, {}
+
+    def checked_restore(ckpt, state, generator):
+        found = real_restore(ckpt, state, generator)
+        now = dict(state.state_dict(), rng={"generator": generator.get_state()})
+        restored.update(step=state.step, same=same_tree(now, ckpt.load()))
+        return found
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_vit, "restore", checked_restore):
+        train_vit.cli_main(VIT_RECIPE_ARGV + [
+            "--epochs", "3", "--output-dir", VIT_OUT_DIR, "--resume",
+            f"{VIT_OUT_DIR}/ckpt"])
+    torch.cuda.synchronize()
+    wall, got = time.perf_counter() - t0, counts()
+    want = launches(blocks * 4, blocks * 4, blocks * val_batches, 0)
+    steps = checkpoint.CheckpointManager(f"{VIT_OUT_DIR}/ckpt").all_steps()
+    log(f"[vit-data] resume to epoch 3 in {wall:.2f} s: restored step "
+        f"{restored.get('step')}, equal to the file bit for bit (parameters, EMA, "
+        f"optimizer, generator): {restored.get('same')}; {json.dumps(records()[-1])}; "
+        f"launches {json.dumps(got)} (predicted {json.dumps(want)}); checkpoints {steps}")
+    if restored != {"step": 8, "same": True} or got != want or steps != [4, 8, 12] \
+            or len(records()) != 3:
+        raise AssertionError(f"resume: {restored}, launches {got}, steps {steps}")
+    out["resume_s"] = wall
+
+    # --eval --bf16 --resume: every val image, K2 on its tensor-core route
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = train_vit.cli_main(VIT_RECIPE_ARGV + ["--eval", "--output-dir", VIT_OUT_DIR,
+                                                  "--resume", f"{VIT_OUT_DIR}/ckpt"])
+    torch.cuda.synchronize()
+    wall, got = time.perf_counter() - t0, counts()
+    want = launches(0, 0, 0, blocks * val_batches)
+    log(f"[vit-data] --eval --bf16 --resume (the EMA of step 12) in {wall:.2f} s: "
+        f"{json.dumps(stats)}; launches {json.dumps(got)} (predicted {json.dumps(want)})")
+    if got != want or stats["images"] != 1000 or not math.isfinite(stats["loss"]):
+        raise AssertionError(f"eval: {stats}, launches {got}")
+    out["eval"] = {"s": wall, "acc1": stats["acc1"], "images": stats["images"]}
+
+    # the loader's cost: 8 steps on each loader (no eval, no checkpoint),
+    # CUDA-synchronised host times around each step
+    times = []
+    real_make = train_state.make_vit_train_step
+
+    def make_timed_step(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def run(*xs):
+            t = time.perf_counter()
+            res = step(*xs)
+            torch.cuda.synchronize()
+            times.append((t, time.perf_counter()))
+            return res
+
+        return run
+
+    def no_eval(*a, **kw):
+        return {"acc1": 0.0, "acc5": 0.0, "loss": 0.0, "batches": 0, "images": 0}
+
+    real_build = CachedUint8Dataset.build
+    builds = []
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        real_build(*a, **kw)
+        builds.append(time.perf_counter() - t)
+
+    real_iter = PrefetchLoader.__iter__
+    starts = []
+
+    def timed_iter(self):
+        starts.append(time.perf_counter())
+        yield from real_iter(self)
+
+    def rate(steps_done, batch):
+        """(images/s from the train loader's start to the last step's end,
+        images/s after the first step (the window filled during the first
+        step flatters it), mean host gap between steps in ms: the wait on
+        the loader and the batch's copy to the card)."""
+        run = steps_done * batch / (times[-1][1] - starts[0])
+        ips = (steps_done - 1) * batch / (times[-1][1] - times[0][1])
+        gaps = [times[i][0] - times[i - 1][1] for i in range(1, len(times))]
+        return run, ips, 1e3 * sum(gaps) / len(gaps)
+
+    loaders = {"synthetic": ["--data-set", "SYNTHETIC"], "folder threads": [],
+               "folder processes": ["--decode-backend", "process"],
+               "uint8 cache": ["--uint8-cache", f"{VIT_DATA_DIR}/cache"]}
+    out["loaders"] = {}
+    quiet = (mock.patch.object(train_state, "make_vit_train_step", make_timed_step),
+             mock.patch.object(train_vit, "evaluate", no_eval),
+             mock.patch.object(checkpoint.CheckpointManager, "save",
+                               lambda *a, **kw: False),
+             mock.patch.object(PrefetchLoader, "__iter__", timed_iter),
+             mock.patch.object(CachedUint8Dataset, "build", timed_build))
+    for name, extra in loaders.items():
+        times.clear()
+        starts.clear()
+        t0 = time.perf_counter()
+        with quiet[0], quiet[1], quiet[2], quiet[3], quiet[4]:
+            train_vit.cli_main(VIT_RECIPE_ARGV + extra + [
+                "--epochs", "1", "--max-steps-per-epoch", "8", "--output-dir",
+                f"{VIT_OUT_DIR}_loader"])
+        wall = time.perf_counter() - t0
+        run, ips, gap = rate(8, 128)
+        row = {"images_per_s": run, "after_first_step": ips, "gap_ms": gap, "s": wall}
+        if name == "uint8 cache":
+            row["build_s"] = builds
+        out["loaders"][name] = row
+        log(f"[vit-data] loader {name}: {len(times)} steps, {run:.1f} images/s from "
+            f"the loader's start ({ips:.1f} after the first step), {gap:.1f} ms a "
+            f"step between steps (loader wait and the copy to the card); the call "
+            f"{wall:.2f} s"
+            + (f" (cache builds, train and val, {builds} s)" if builds else "")
+            + f"; {out['cpus']} CPUs; {card}")
+        if len(times) != 8:
+            raise AssertionError(f"loader {name}: {len(times)} steps")
+    shutil.rmtree(f"{VIT_OUT_DIR}_loader", ignore_errors=True)
+
+    # PVTv2-B3: 4 steps with and without --checkpoint-activations
+    out["pvt"] = {}
+    pvt_argv = PVT_ARGV + ["--bf16", "--repeated-aug", "--model-ema", "--clip-grad",
+                           "5.0", "--epochs", "1", "--max-steps-per-epoch", "4",
+                           "--num-workers", "8", "--output-dir", f"{VIT_OUT_DIR}_pvt"]
+    for remat in (True, False):
+        argv = pvt_argv + (["--checkpoint-activations"] if remat else [])
+        for batch in (128, 64):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            times.clear()
+            starts.clear()
+            try:
+                with quiet[0], quiet[1], quiet[2], quiet[3]:
+                    train_vit.cli_main(argv + ["--batch-size", str(batch)])
+                break
+            except torch.cuda.OutOfMemoryError as err:
+                log(f"[vit-data] PVT-B3 remat={remat} at batch {batch}: out of "
+                    f"memory ({str(err)[:120]}); cut to 64")
+                if batch == 64:
+                    raise
+        torch.cuda.synchronize()
+        got = counts()
+        want = launches(PVT_EVA_BLOCKS * 4 * (2 if remat else 1),
+                        PVT_EVA_BLOCKS * 4, 0, 0)
+        run, ips, gap = rate(4, batch)
+        row = {"batch": batch, "images_per_s": ips, "from_start": run, "gap_ms": gap,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        out["pvt"]["remat" if remat else "plain"] = row
+        log(f"[vit-data] PVT-B3 4 steps at batch {batch}, --checkpoint-activations "
+            f"{remat}: {ips:.1f} images/s after the first step ({run:.1f} from the "
+            f"loader's start), gap {gap:.1f} ms a step; peak device memory "
+            f"{row['peak_gib']:.3f} GiB; launches {json.dumps(got)} (predicted "
+            f"{json.dumps(want)}); {card}")
+        if got != want:
+            raise AssertionError(f"PVT-B3 remat={remat}: launches {got}, want {want}")
+    shutil.rmtree(f"{VIT_OUT_DIR}_pvt", ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[vit-data] phase 7b in {out['s']:.2f} s")
+    return out
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2993,7 +3298,7 @@ def main() -> int:
     from efficient_attention_torch.data.imagenet import SyntheticImageDataset
 
     ds = SyntheticImageDataset(8, 224, 1000, train=False)
-    x = torch.stack([torch.from_numpy(ds.load(i)[0]) for i in range(8)]).cuda()
+    x = torch.stack([torch.from_numpy(ds.load(i, None)[0]) for i in range(8)]).cuda()
     with torch.no_grad():
         logits, logits_eager = model(x), eager(x)
     torch.cuda.synchronize()
@@ -3450,6 +3755,12 @@ def main() -> int:
         if not gerr <= gtol:
             raise AssertionError(f"{impl} f32 gradients differ by {gerr}")
         del model, eager
+
+    # ---- 7b. the ImageNet recipe from an image folder to a top-1, every
+    # count set to 0 just before each CLI call and read just after
+    vit_protocol = vit_protocol_phase(torch, card, all_counters + (
+        (k1, "LAUNCHES_FWD_MMA"), (k1, "LAUNCHES_BWD_MMA"), (k2, "LAUNCHES_MMA")))
+    print(json.dumps({"vit_protocol": vit_protocol}), flush=True)
 
     # ---- 8. timings
     # K2 in bf16 at the headline, PVT-B3's three EVA stages and DeiT-tiny-p16:

@@ -10,16 +10,16 @@ public surface mirrors the reference factory
     AttentionFactory.add_attn_specific_args(parser, name, struct_name, prefix)
     NestedNamespace / add_nested_argument / remove_argument
 
-ROADMAP.md lists what is ported and what is still to come.
+ROADMAP.md lists what is ported and what is still to come.  The attention
+classes, and with them torch, are imported on first use, so a data module
+(``efficient_attention_torch.data.imagenet``) imports with numpy alone, as
+the image loader's spawned workers do.
 """
+import importlib
 import inspect
 import logging
 from typing import Any, Dict
 
-from efficient_attention_torch.attention import EVA, LocalAttention, MultiheadAttention
-from efficient_attention_torch.attention.causal_eva import CausalEVAttention
-from efficient_attention_torch.attention.kernelized import KernelizedAttention
-from efficient_attention_torch.attention.lara import LinearRA
 from efficient_attention_torch.config import (
     NestedNamespace,
     add_nested_argument,
@@ -36,27 +36,41 @@ _NOT_PORTED = {
 }
 
 
+# the factory's names -> (module under this package, class)
+_ATTENTIONS = {
+    "softmax": ("attention", "MultiheadAttention"),
+    "local": ("attention", "LocalAttention"),
+    "eva": ("attention", "EVA"),
+    "causal_eva": ("attention.causal_eva", "CausalEVAttention"),
+    "performer": ("attention.kernelized", "KernelizedAttention"),
+    "lara": ("attention.lara", "LinearRA"),
+}
+
+
+def _attention_class(module: str, name: str):
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)
+
+
+def __getattr__(name: str):
+    """The attention classes, imported on first access."""
+    for module, cls_name in _ATTENTIONS.values():
+        if cls_name == name:
+            return _attention_class(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 class AttentionFactory:
     """Name -> module registry (reference ``__init__.py:52-79``)."""
 
-    attn_dict = {
-        "softmax": MultiheadAttention,
-        "local": LocalAttention,
-        "eva": EVA,
-        "causal_eva": CausalEVAttention,
-        "performer": KernelizedAttention,
-        "lara": LinearRA,
-    }
-
     @classmethod
     def _lookup(cls, attn_name: str):
-        if attn_name in cls.attn_dict:
-            return cls.attn_dict[attn_name]
+        if attn_name in _ATTENTIONS:
+            return _attention_class(*_ATTENTIONS[attn_name])
         if attn_name in _NOT_PORTED:
             raise KeyError(f"attention {attn_name!r} is not ported yet; see "
                            f"{_NOT_PORTED[attn_name]}")
         raise KeyError(f"unknown attention {attn_name!r}; available: "
-                       f"{sorted(cls.attn_dict)}")
+                       f"{sorted(_ATTENTIONS)}")
 
     @classmethod
     def build_attention(cls, attn_name: str, attn_args: Dict[str, Any]):

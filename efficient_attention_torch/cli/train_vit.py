@@ -4,24 +4,36 @@ Counterpart of ``efficient_attention_tpu/cli/train_vit.py``, with the same
 flags and the same two-pass parsing, which injects the chosen attention's
 flags into a nested namespace (``vit/main.py:186-193``).  Without ``--eval``
 or ``--throughput`` it trains with the DeiT recipe's defaults (AdamW,
-per-epoch cosine, mixup/cutmix, label smoothing, random erasing, stochastic
-depth) on the synthetic dataset, scores the synthetic validation set after
-each epoch and appends the epoch's record to ``log.txt`` under
-``--output-dir``.  ``--eval`` scores the validation set, ``--throughput``
-times forwards.  The model runs on ``--device`` (default ``cuda``), on one
-device.  Flags whose module is not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md item; no checkpoint is written yet.
+per-epoch cosine or ``--sched step``, mixup/cutmix, label smoothing, random
+erasing, stochastic depth, RandAugment) on ``--data-set``: IMAGENET image
+folders (``--data-path DIR`` holding ``train/`` and ``val/``), optionally
+through a uint8 cache, CIFAR10/100, or synthetic images.  Batches come from
+``data.imagenet.PrefetchLoader`` (``--num-workers`` threads or, with
+``--decode-backend process``, spawned processes), in the order of DeiT's
+RASampler under ``--repeated-aug``.  After each epoch it scores every
+validation image (with the EMA under ``--model-ema``), appends the epoch's
+record to ``log.txt`` under ``--output-dir`` and saves a checkpoint to
+``--output-dir/ckpt`` (the newest 3 kept); ``--resume`` continues from the
+newest there, bit for bit on the CPU.  ``--eval`` scores the validation set
+and ``--throughput`` times forwards, each from the checkpoint under
+``--resume``; ``--init-params`` loads a reference checkpoint's weights.
+The model runs on ``--device`` (default ``cuda``), on one device.  Flags
+whose module is not ported yet raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 
-Example (DeiT-tiny-p8 with 2-D EVA, the main path):
+Example (the ImageNet recipe, ``main.sh -d imagenet``, with DeiT-tiny-p8
+and 2-D EVA, the main path):
 
   python -m efficient_attention_torch.cli.train_vit \\
       --model evit_tiny_p8 --attn-name eva --attn-window-size 7 \\
       --attn-num-landmarks 49 --attn-attn-2d --attn-use-rpe \\
-      --batch-size 128 --bf16 --epochs 1 --max-steps-per-epoch 8
+      --batch-size 128 --epochs 300 --lr 5e-4 --warmup-epochs 10 \\
+      --clip-grad 5.0 --repeated-aug --model-ema --bf16 \\
+      --data-set IMAGENET --data-path /data/imagenet --output-dir run
+  # later: the same flags with --resume run/ckpt, or --eval --resume run/ckpt
 
 The PVTv2 archs (``--model pvt_*``, e.g. ``pvt_medium2``, PVTv2-B3) take the
-same flags and ``--use-conv-patchify``; ``--eval`` and ``--throughput``
-serve them.
+same flags, ``--use-conv-patchify`` and ``--checkpoint-activations``.
 """
 from __future__ import annotations
 
@@ -97,8 +109,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num-classes", default=1000, type=int)
     parser.add_argument("--output-dir", default="./checkpoints/vit")
     parser.add_argument("--seed", default=0, type=int)
-    parser.add_argument("--resume", default="", type=str)
-    parser.add_argument("--init-params", default="", type=str)
+    parser.add_argument("--resume", default="", type=str,
+                        help="restore the newest checkpoint under "
+                             "--output-dir/ckpt (the path must name it)")
+    parser.add_argument("--init-params", default="", type=str,
+                        help="warm-start the parameters from a reference "
+                             "checkpoint ({'model': state_dict}) or a step "
+                             "of this CLI's checkpoints")
     parser.add_argument("--eval", action="store_true")
     parser.add_argument("--checkpoint-activations", action="store_true")
     parser.add_argument("--throughput", action="store_true")
@@ -109,7 +126,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "torch.profiler, print the ops by device time, "
                              "and write a Chrome trace to LOGDIR if given")
     parser.add_argument("--num-workers", default=8, type=int,
-                        help="threads that load a batch's samples")
+                        help="loader workers (threads or processes)")
     parser.add_argument("--uint8-cache", default="", type=str)
     parser.add_argument("--decode-backend", default="thread",
                         choices=["thread", "process"])
@@ -159,19 +176,6 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for every flag set to something whose
     module is not ported yet, naming its ROADMAP.md item."""
     queued = [
-        (args.data_set != "SYNTHETIC", f"--data-set {args.data_set}",
-         "Queue 1, item 3 (real datasets)"),
-        (bool(args.uint8_cache), "--uint8-cache", "Queue 1, item 3"),
-        (args.decode_backend != "thread", "--decode-backend process",
-         "Queue 1, item 3"),
-        (args.repeated_aug, "--repeated-aug", "Queue 1, item 3 (RASampler)"),
-        (args.sched != "cosine", f"--sched {args.sched}", "Queue 1, item 3"),
-        (args.checkpoint_activations, "--checkpoint-activations",
-         "Queue 1, item 3"),
-        (bool(args.resume), "--resume",
-         "Queue 1, item 8 (training/checkpoint.py)"),
-        (bool(args.init_params), "--init-params",
-         "Queue 1, item 8 (training/checkpoint.py)"),
         (args.mesh_fsdp != 1 or args.mesh_model != 1,
          "--mesh-fsdp/--mesh-model", "Queue 1, item 7"),
         (args.distributed or args.coordinator_address is not None
@@ -186,6 +190,121 @@ def check_ported(args) -> None:
         if unported:
             raise NotImplementedError(
                 f"{flag} is not ported yet; see ROADMAP.md {item}")
+
+
+def build_dataset(args, train: bool):
+    """The train or val split of ``--data-set`` (JAX
+    ``cli/train_vit.py:172-210``): SYNTHETIC (16 batches to train on, 4 to
+    score), CIFAR10/100 from their archives under ``--data-path``, or
+    IMAGENET from ``{data_path}/{train,val}`` image folders, through the
+    uint8 cache ``{uint8_cache}.{split}`` where ``--uint8-cache`` is set
+    (built on first use).  Training takes ``--aa`` or, without it,
+    ``--color-jitter``.  A real dataset without ``--data-path`` raises
+    (the JAX CLI trains on synthetic images then)."""
+    from efficient_attention_torch.data.imagenet import (
+        CachedUint8Dataset,
+        ImageFolderDataset,
+        SyntheticImageDataset,
+    )
+
+    if args.data_set == "SYNTHETIC":
+        return SyntheticImageDataset(
+            num_samples=args.batch_size * (16 if train else 4),
+            img_size=args.input_size, num_classes=args.num_classes,
+            train=train)
+    if not args.data_path:
+        raise ValueError(f"--data-set {args.data_set} needs --data-path")
+    augment = None
+    if train:
+        from efficient_attention_torch.data.randaugment import (
+            build_train_augment,
+        )
+
+        aa = None if (not args.aa or args.aa.lower() == "none") else args.aa
+        augment = build_train_augment(aa, args.color_jitter)
+    if args.data_set in ("CIFAR10", "CIFAR100"):
+        from efficient_attention_torch.data.cifar import CIFARDataset
+
+        return CIFARDataset(
+            args.data_path, num_classes=10 if args.data_set == "CIFAR10"
+            else 100, img_size=args.input_size, train=train, augment=augment)
+    split = "train" if train else "val"
+    if args.uint8_cache:
+        path = f"{args.uint8_cache}.{split}"
+        if not os.path.exists(path + ".imgs.npy"):
+            print(f"| building uint8 cache {path} (one-time decode)",
+                  flush=True)
+            CachedUint8Dataset.build(os.path.join(args.data_path, split),
+                                     path, log_every=10000,
+                                     num_workers=args.num_workers)
+        return CachedUint8Dataset(path, img_size=args.input_size,
+                                  train=train, augment=augment,
+                                  interpolation=args.train_interpolation)
+    return ImageFolderDataset(os.path.join(args.data_path, split),
+                              img_size=args.input_size, train=train,
+                              augment=augment,
+                              interpolation=args.train_interpolation)
+
+
+def epoch_indices(args, n: int, epoch: int) -> np.ndarray:
+    """One epoch's sample order: DeiT's RASampler under
+    ``--repeated-aug``, else a shuffle, both seeded by ``--seed`` +
+    ``epoch``."""
+    from efficient_attention_torch.data.imagenet import (
+        ra_sampler_indices,
+        shard_indices,
+    )
+
+    if args.repeated_aug:
+        return ra_sampler_indices(n, epoch, args.seed)
+    return shard_indices(n, epoch, args.seed)
+
+
+def epoch_steps(args, n: int) -> int:
+    """The train steps of an epoch over ``n`` samples: the sampler's whole
+    batches (under ``--repeated-aug`` about ``n``, where the JAX CLI counts
+    ``3 n`` for its schedule), at most ``--max-steps-per-epoch``."""
+    steps = max(1, len(epoch_indices(args, n, 0)) // args.batch_size)
+    if args.max_steps_per_epoch:
+        steps = min(steps, args.max_steps_per_epoch)
+    return steps
+
+
+def resume_directory(args) -> str:
+    """``--output-dir/ckpt``, where checkpoints go and ``--resume``
+    restores from; a ``--resume`` path naming another directory raises (the
+    JAX CLI ignores the path)."""
+    directory = os.path.join(args.output_dir, "ckpt")
+    if args.resume and (os.path.realpath(args.resume)
+                        != os.path.realpath(directory)):
+        raise ValueError(f"--resume {args.resume}: checkpoints are restored "
+                         f"from --output-dir/ckpt ({directory})")
+    return directory
+
+
+def load_init_params(model: torch.nn.Module, path: str) -> None:
+    """``--init-params``: load the parameters of ``path`` into ``model``,
+    strictly.  ``path`` is the reference's own checkpoint (``vit/main.py``
+    saves ``{'model': state_dict, ..., 'args': Namespace}``) or a step of
+    this CLI's checkpoints (its directory or its ``state.pt``)."""
+    from efficient_attention_torch.config import NestedNamespace
+    from efficient_attention_torch.training.checkpoint import STATE_FILE
+
+    if os.path.isdir(path):
+        path = os.path.join(path, STATE_FILE)
+    # the reference pickles its parsed flags beside the weights: read them
+    # as namespaces, and nothing else but tensors and containers
+    with torch.serialization.safe_globals([
+            argparse.Namespace, NestedNamespace,
+            (NestedNamespace, "efficient_attention.NestedNamespace")]):
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "params"):
+        if isinstance(saved, dict) and key in saved:
+            model.load_state_dict(saved[key], strict=True)
+            print(f"| initialized params from {path} ('{key}')")
+            return
+    raise ValueError(f"--init-params {path}: neither a reference checkpoint "
+                     "('model') nor a step of this CLI ('params')")
 
 
 def build_model(args) -> torch.nn.Module:
@@ -223,24 +342,28 @@ def build_model(args) -> torch.nn.Module:
 
 
 def evaluate(model, dataset, args, device, dtype) -> dict:
-    """Mean top-1/top-5/loss over the whole batches of ``dataset``;
-    ``model`` is any callable from images to logits."""
-    from efficient_attention_torch.data.imagenet import batch_iterator
+    """Top-1, top-5 and loss over every image of ``dataset``, each batch's
+    means weighted by its images (the JAX CLI drops a last partial batch
+    and averages batch means); ``model`` is any callable from images to
+    logits."""
+    from efficient_attention_torch.data.imagenet import PrefetchLoader
     from efficient_attention_torch.training.train_state import vit_eval_step
 
     totals = {"acc1": 0.0, "acc5": 0.0, "loss": 0.0}
-    n = 0
-    for imgs, labels in batch_iterator(dataset, args.batch_size,
-                                       np.arange(len(dataset)),
-                                       args.num_workers):
+    n = batches = 0
+    loader = PrefetchLoader(dataset, args.batch_size, np.arange(len(dataset)),
+                            num_threads=args.num_workers, drop_last=False,
+                            backend=args.decode_backend)
+    for imgs, labels in loader:
         out = vit_eval_step(
             model, torch.from_numpy(imgs).to(device=device, dtype=dtype),
-            torch.from_numpy(labels).to(device))
+            torch.from_numpy(labels).to(device=device, dtype=torch.int64))
         for k in totals:
-            totals[k] += float(out[k])
-        n += 1
+            totals[k] += float(out[k]) * len(labels)
+        n += len(labels)
+        batches += 1
     stats = {k: v / max(n, 1) for k, v in totals.items()}
-    stats["batches"] = n
+    stats.update(batches=batches, images=n)
     return stats
 
 
@@ -291,16 +414,25 @@ def compute_throughput(model, args, device, dtype) -> dict:
     return {"images_per_sec": ips}
 
 
+def restore(ckpt, state, generator) -> bool:
+    """Load the newest checkpoint of ``ckpt`` into ``state`` and the step's
+    ``generator``; False where there is none.  An epoch's batches are a
+    function of (seed, epoch), so they replay."""
+    saved = ckpt.load()
+    if saved is None:
+        return False
+    state.load_state_dict(saved)
+    generator.set_state(saved["rng"]["generator"])
+    return True
+
+
 def train(args, device) -> dict:
     """The training loop (JAX ``cli/train_vit.py:213-461``) on one device;
     returns the last epoch's record."""
     from efficient_attention_torch.data.erasing import ErasingConfig
-    from efficient_attention_torch.data.imagenet import (
-        SyntheticImageDataset,
-        batch_iterator,
-        shard_indices,
-    )
+    from efficient_attention_torch.data.imagenet import PrefetchLoader
     from efficient_attention_torch.data.mixup import MixupConfig
+    from efficient_attention_torch.training.checkpoint import CheckpointManager
     from efficient_attention_torch.training.metrics import (
         MetricLogger,
         write_log_line,
@@ -308,30 +440,35 @@ def train(args, device) -> dict:
     from efficient_attention_torch.training.optim import (
         cosine_schedule,
         make_optimizer,
+        step_schedule,
     )
     from efficient_attention_torch.training.train_state import (
         TrainState,
         make_vit_train_step,
     )
 
-    model = build_model(args).to(device)  # float32 master parameters
-    train_ds = SyntheticImageDataset(
-        num_samples=args.batch_size * 16, img_size=args.input_size,
-        num_classes=args.num_classes, train=True)
-    val_ds = SyntheticImageDataset(
-        num_samples=args.batch_size * 4, img_size=args.input_size,
-        num_classes=args.num_classes, train=False)
+    model = build_model(args)
+    if args.init_params:
+        load_init_params(model, args.init_params)
+    model = model.to(device)  # float32 master parameters
+    train_ds = build_dataset(args, train=True)
+    val_ds = build_dataset(args, train=False)
     # linear lr scaling (vit/main.py:292-293)
     lr = args.lr * args.lr_ratio * args.batch_size / 512.0
-    steps_per_epoch = max(1, len(train_ds) // args.batch_size)
-    if args.max_steps_per_epoch:
-        steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
-    # --cooldown-epochs: the cosine ends early and the tail holds min-lr
-    schedule = cosine_schedule(
-        lr, warmup_steps=args.warmup_epochs * steps_per_epoch,
-        total_steps=max(1, args.epochs - args.cooldown_epochs) * steps_per_epoch,
-        warmup_init_lr=args.warmup_lr, min_lr=args.min_lr,
-        steps_per_epoch=steps_per_epoch)
+    steps_per_epoch = epoch_steps(args, len(train_ds))
+    if args.sched == "step":
+        schedule = step_schedule(
+            lr, warmup_steps=args.warmup_epochs * steps_per_epoch,
+            decay_steps=max(1, int(args.decay_epochs * steps_per_epoch)),
+            decay_rate=args.decay_rate, warmup_init_lr=args.warmup_lr)
+    else:
+        # --cooldown-epochs: the cosine ends early and the tail holds min-lr
+        schedule = cosine_schedule(
+            lr, warmup_steps=args.warmup_epochs * steps_per_epoch,
+            total_steps=max(1, args.epochs - args.cooldown_epochs)
+            * steps_per_epoch,
+            warmup_init_lr=args.warmup_lr, min_lr=args.min_lr,
+            steps_per_epoch=steps_per_epoch)
     betas = (tuple(float(b) for b in args.opt_betas.replace(" ", "")
                    .strip("()").split(","))
              if args.opt_betas else (0.9, 0.999))
@@ -366,27 +503,36 @@ def train(args, device) -> dict:
 
     os.makedirs(args.output_dir, exist_ok=True)
     log_path = os.path.join(args.output_dir, "log.txt")
-    print("| no checkpoint is written: training/checkpoint.py is not ported "
-          "yet (ROADMAP.md Queue 1, item 8)")
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    ckpt = CheckpointManager(resume_directory(args), keep_last=3)
+    start_epoch = 0
+    if args.resume:
+        if restore(ckpt, state, generator):
+            start_epoch = state.step // steps_per_epoch
+            print(f"resumed at step {state.step} (epoch {start_epoch})")
+        else:
+            print(f"| --resume: no checkpoint in {ckpt.directory}; "
+                  "training from the start")
     prof = None
     record = {}
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         logger = MetricLogger()
-        idx = shard_indices(len(train_ds), epoch, args.seed)
+        # the steps an epoch takes: no batch past them is decoded
+        idx = epoch_indices(args, len(train_ds), epoch)[
+            :steps_per_epoch * args.batch_size]
+        loader = PrefetchLoader(train_ds, args.batch_size, idx,
+                                num_threads=args.num_workers, seed=epoch,
+                                backend=args.decode_backend)
         t0 = time.time()
-        batches = batch_iterator(train_ds, args.batch_size, idx,
-                                 args.num_workers)
         for i, (imgs, labels) in enumerate(
-                logger.log_every(batches, 50, f"Epoch [{epoch}]")):
-            if args.max_steps_per_epoch and i >= args.max_steps_per_epoch:
-                break
-            if args.profile is not None and epoch == 0 and i == 1:
+                logger.log_every(loader, 50, f"Epoch [{epoch}]")):
+            if args.profile is not None and epoch == start_epoch and i == 1:
                 prof = _profiler(device)
                 prof.start()
-            metrics = train_step(state, torch.from_numpy(imgs).to(device),
-                                 torch.from_numpy(labels).to(device),
-                                 generator)
+            metrics = train_step(
+                state, torch.from_numpy(imgs).to(device),
+                torch.from_numpy(labels).to(device=device, dtype=torch.int64),
+                generator)
             loss = float(metrics.loss)
             logger.update(loss=loss, grad_norm=float(metrics.grad_norm))
             if prof is not None and i == 3:
@@ -408,12 +554,13 @@ def train(args, device) -> dict:
                   "epoch_time": time.time() - t0}
         write_log_line(log_path, record)
         print(json.dumps(record))
+        ckpt.save(state.step, dict(state.state_dict(),
+                                   rng={"generator": generator.get_state()}),
+                  metrics={"acc1": val_stats["acc1"]})
     return record
 
 
 def main(args) -> dict:
-    from efficient_attention_torch.data.imagenet import SyntheticImageDataset
-
     check_ported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -424,13 +571,35 @@ def main(args) -> dict:
     if not (args.eval or args.throughput):
         return train(args, device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = build_model(args).to(device=device, dtype=dtype)
+    model = build_model(args)
+    if args.init_params:
+        load_init_params(model, args.init_params)
+    if args.resume:
+        # as the JAX CLI, --resume restores before --eval and --throughput;
+        # --eval scores the EMA where the checkpoint holds one
+        from efficient_attention_torch.training.checkpoint import (
+            CheckpointManager,
+        )
+
+        ckpt = CheckpointManager(resume_directory(args))
+        step = ckpt.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"--resume: no checkpoint in "
+                                    f"{ckpt.directory}")
+        saved = ckpt.load(step, mmap=True)
+        params = dict(saved["params"])  # the buffers too
+        use_ema = args.eval and saved["ema_params"] is not None
+        if use_ema:
+            params.update(saved["ema_params"])
+        model.load_state_dict(params, strict=True)
+        print(f"| restored the {'EMA' if use_ema else 'parameters'} of step "
+              f"{step} from {ckpt.directory}")
+        del saved, params
+    model = model.to(device=device, dtype=dtype)
     if args.throughput:
         return compute_throughput(model, args, device, dtype)
-    val_ds = SyntheticImageDataset(
-        num_samples=args.batch_size * 4, img_size=args.input_size,
-        num_classes=args.num_classes, train=False)
-    stats = evaluate(model, val_ds, args, device, dtype)
+    stats = evaluate(model, build_dataset(args, train=False), args, device,
+                     dtype)
     print(json.dumps(stats))
     return stats
 

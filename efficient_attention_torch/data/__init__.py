@@ -1,1 +1,2 @@
-"""Data: the synthetic image dataset and a batch iterator."""
+"""Data: image folders, CIFAR, the uint8 cache, the samplers and the image
+loader, RandAugment, mixup and erasing; the text datasets and dictionaries."""

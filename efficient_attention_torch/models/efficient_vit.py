@@ -3,7 +3,9 @@
 PyTorch counterpart of ``efficient_attention_tpu/models/efficient_vit.py``
 (reference ``vit/models/efficient_vit.py``): pre-LN blocks with
 factory-built attention, GatedMlp and stochastic depth, a learned 2-D
-positional embedding, no CLS token (mean-pool head).  Parameter names are
+positional embedding, no CLS token (mean-pool head), and with
+``checkpoint_activations`` each block recomputed in the backward in
+training.  Parameter names are
 the reference's, so its ``state_dict``s load with ``load_state_dict``.
 Registered architectures: ``evit_{tiny,small,base}_p{16,8}`` and
 ``evit_{tiny,small}_p4``.
@@ -22,6 +24,7 @@ from efficient_attention_torch.models.layers import (
     Dropout,
     GatedMlp,
     PatchEmbed,
+    run_layer,
 )
 from efficient_attention_torch.models.registry import register_model
 
@@ -59,11 +62,12 @@ class EfficientTransformer(nn.Module):
                  use_pos_emb: bool = True,
                  checkpoint_activations: bool = False):
         super().__init__()
-        if checkpoint_activations:
-            raise NotImplementedError(
-                "--checkpoint-activations (rematerialised blocks) is not "
-                "ported yet; see ROADMAP.md Queue 1, item 3")
         self.num_classes = num_classes
+        # --checkpoint-activations: each block recomputed in the backward
+        # (JAX ``efficient_vit.py:129-133``), through ``run_layer``, which
+        # hands the recompute this generator's state (set_generator's)
+        self.checkpoint_activations = checkpoint_activations
+        self.generator: Optional[torch.Generator] = None
         self.use_pos_emb = use_pos_emb
         self.patch_embed = PatchEmbed(patch_size, embed_dim, in_chans,
                                       stem_type=patchify_stem)
@@ -100,7 +104,9 @@ class EfficientTransformer(nn.Module):
             x = self.pos_drop(x + self.pos_embed.to(x.dtype))
         B, H, W, C = x.shape
         for blk in self.blocks:
-            x = blk(x)
+            x = run_layer(blk, (x,), remat=self.checkpoint_activations,
+                          layerdrop=0.0, generator=self.generator,
+                          training=self.training)
         x = self.norm_before_pooling(x.reshape(B, H * W, C))
         return x.mean(dim=1)
 

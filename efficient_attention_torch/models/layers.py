@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from efficient_attention_torch.attention.base import Dropout
 
@@ -30,6 +31,58 @@ def set_generator(model: nn.Module,
         if hasattr(module, "generator"):
             module.generator = generator
     return model
+
+
+def run_layer(layer: nn.Module, args, *, remat: bool, layerdrop: float,
+               generator: Optional[torch.Generator], training: bool):
+    """``layer(*args)`` through the training-time wrappers (JAX
+    ``transformer.py:66-97``, and ``nn.remat`` of each block in
+    ``efficient_vit.py:129-133`` and ``pvt.py:126-130``).
+
+    * ``layerdrop`` (fairseq ``LayerDropModuleList``): in training, one
+      uniform draw from ``generator`` per layer and forward; below
+      ``layerdrop`` the layer is the identity on ``args[0]``.
+    * ``remat`` (``--checkpoint-activations``): in training,
+      ``torch.utils.checkpoint`` recomputes the layer in the backward instead
+      of storing its activations.  The recompute runs after the forward has
+      returned, so it is handed what the forward read that the checkpoint
+      does not restore: the layer's parameters as they were then (under
+      ``--bf16`` the bfloat16 copies of ``train_state.cast_modules``, whose
+      block has closed), and the state of ``generator``, which the layer's
+      dropout and noise draw from (the checkpoint restores torch's global
+      RNGs only).  The state the recompute found is put back after it, so
+      later draws do not repeat the forward's."""
+    if training and layerdrop > 0.0:
+        u = torch.rand((), generator=generator, device=args[0].device)
+        if float(u) < layerdrop:
+            return args[0]
+    if not (remat and training and torch.is_grad_enabled()):
+        return layer(*args)
+    read = [(mod, name, p) for mod in layer.modules()
+            for name, p in mod._parameters.items() if p is not None]
+    start = None if generator is None else generator.get_state()
+    ran = []
+
+    def run(*xs):
+        if not ran:  # the forward
+            ran.append(True)
+            return layer(*xs)
+        # the recompute, in the backward
+        now = [mod._parameters[name] for mod, name, _ in read]
+        found = None if generator is None else generator.get_state()
+        for mod, name, p in read:
+            mod._parameters[name] = p
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            return layer(*xs)
+        finally:
+            for (mod, name, _), p in zip(read, now):
+                mod._parameters[name] = p
+            if generator is not None:
+                generator.set_state(found)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class DropPath(nn.Module):

@@ -4,10 +4,11 @@ PyTorch counterpart of ``efficient_attention_tpu/models/pvt.py`` (reference
 ``vit/models/pvt_legacy.py``).  Stage ``i`` uses the factory attention when
 its ``sr_ratio > 1`` (the 3136/784/196-token stages at 224 px) and exact
 softmax for the last, 49-token stage (``pvt_legacy.py:78-87``).  Tokens stay
-``[B, H, W, C]`` grids between stages.  Parameter names are the
-reference's (``patch_embed{i}.{proj,norm}``, ``block{i}.{j}.attn.attn_fn``,
-``mlp.dwconv.dwconv``, ``norm{i}``, ``head``), so its ``state_dict``s load
-with ``load_state_dict``.  Registered archs mirror ``pvt_legacy.py:322-471``:
+``[B, H, W, C]`` grids between stages; with ``checkpoint_activations``
+each block is recomputed in the backward in training.  Parameter names are
+the reference's (``patch_embed{i}.{proj,norm}``,
+``block{i}.{j}.attn.attn_fn``, ``mlp.dwconv.dwconv``, ``norm{i}``,
+``head``), so its ``state_dict``s load with ``load_state_dict``.  Registered archs mirror ``pvt_legacy.py:322-471``:
 ``pvt_{nano,tiny,small,medium,base,large}`` and the head-doubled ``*2``
 variants.
 """
@@ -24,6 +25,7 @@ from efficient_attention_torch.models.layers import (
     DropPath,
     MlpWithDepthwiseConv,
     OverlapPatchEmbed,
+    run_layer,
 )
 from efficient_attention_torch.models.registry import register_model
 
@@ -76,11 +78,11 @@ class PyramidVisionTransformerV2(nn.Module):
                  linear: bool = False, use_conv_patchify: bool = False,
                  checkpoint_activations: bool = False):
         super().__init__()
-        if checkpoint_activations:
-            raise NotImplementedError(
-                "--checkpoint-activations (rematerialised blocks) is not "
-                "ported yet; see ROADMAP.md Queue 1, item 3")
         self.num_classes = num_classes
+        # --checkpoint-activations: each block recomputed in the backward
+        # (JAX ``pvt.py:126-130``), as in ``EfficientTransformer``
+        self.checkpoint_activations = checkpoint_activations
+        self.generator: Optional[torch.Generator] = None  # set_generator's
         # stochastic depth grows linearly over all blocks (pvt.py:103)
         dpr = [float(v) for v in np.linspace(0, drop_path_rate, sum(depths))]
         cur = 0
@@ -106,7 +108,9 @@ class PyramidVisionTransformerV2(nn.Module):
         for i in range(1, 5):
             x = getattr(self, f"patch_embed{i}")(x)
             for blk in getattr(self, f"block{i}"):
-                x = blk(x)
+                x = run_layer(blk, (x,), remat=self.checkpoint_activations,
+                              layerdrop=0.0, generator=self.generator,
+                              training=self.training)
             x = getattr(self, f"norm{i}")(x)
         x = x.mean(dim=(1, 2))
         if self.num_classes > 0:

@@ -17,7 +17,7 @@ and ``TransformerModel`` (post-LN encoder and decoder, shared embeddings),
 with incremental decoding: ``KVCache`` for softmax self-attention,
 ``EvaDecodeState`` for causal EVA, and cross-attention K/V projected once a
 sentence and carried in the decode state (fairseq ``static_kv``).  Every
-layer runs through ``_run_layer``: layerdrop and
+layer runs through ``layers.run_layer``: layerdrop and
 ``--checkpoint-activations`` in training.  Not ported yet, each raising
 ``NotImplementedError`` with its ROADMAP.md item: ``forward_with_alignment``,
 sequence parallelism and BASE layers.
@@ -31,7 +31,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from efficient_attention_torch.attention.base import MASK_VAL, Dropout
 from efficient_attention_torch.attention.causal_eva import CausalEVAttention
@@ -40,6 +39,7 @@ from efficient_attention_torch.models.adaptive_softmax import (
     AdaptiveSoftmax,
     TiedAdaptiveSoftmax,
 )
+from efficient_attention_torch.models.layers import run_layer
 from efficient_attention_torch.models.quant_noise import dense
 from efficient_attention_torch.ops.promote import LayerNorm, Linear
 
@@ -74,57 +74,6 @@ def get_activation_fn(name: str):
     if name not in table:
         raise ValueError(f"unknown activation {name!r} (choices: {sorted(table)})")
     return table[name]
-
-
-def _run_layer(layer: nn.Module, args, *, remat: bool, layerdrop: float,
-               generator: Optional[torch.Generator], training: bool):
-    """``layer(*args)`` through the training-time wrappers (JAX
-    ``transformer.py:66-97``).
-
-    * ``layerdrop`` (fairseq ``LayerDropModuleList``): in training, one
-      uniform draw from ``generator`` per layer and forward; below
-      ``layerdrop`` the layer is the identity on ``args[0]``.
-    * ``remat`` (``--checkpoint-activations``): in training,
-      ``torch.utils.checkpoint`` recomputes the layer in the backward instead
-      of storing its activations.  The recompute runs after the forward has
-      returned, so it is handed what the forward read that the checkpoint
-      does not restore: the layer's parameters as they were then (under
-      ``--bf16`` the bfloat16 copies of ``train_state.cast_modules``, whose
-      block has closed), and the state of ``generator``, which the layer's
-      dropout and noise draw from (the checkpoint restores torch's global
-      RNGs only).  The state the recompute found is put back after it, so
-      later draws do not repeat the forward's."""
-    if training and layerdrop > 0.0:
-        u = torch.rand((), generator=generator, device=args[0].device)
-        if float(u) < layerdrop:
-            return args[0]
-    if not (remat and training and torch.is_grad_enabled()):
-        return layer(*args)
-    read = [(mod, name, p) for mod in layer.modules()
-            for name, p in mod._parameters.items() if p is not None]
-    start = None if generator is None else generator.get_state()
-    ran = []
-
-    def run(*xs):
-        if not ran:  # the forward
-            ran.append(True)
-            return layer(*xs)
-        # the recompute, in the backward
-        now = [mod._parameters[name] for mod, name, _ in read]
-        found = None if generator is None else generator.get_state()
-        for mod, name, p in read:
-            mod._parameters[name] = p
-        if generator is not None:
-            generator.set_state(start)
-        try:
-            return layer(*xs)
-        finally:
-            for (mod, name, _), p in zip(read, now):
-                mod._parameters[name] = p
-            if generator is not None:
-                generator.set_state(found)
-
-    return checkpoint(run, *args, use_reentrant=False)
 
 
 def _unported(checks) -> None:
@@ -485,10 +434,10 @@ class TransformerEncoder(_Embedded):
         padding_mask = src_tokens == self.pad_idx
         x = self.embed_dropout(self._embed(src_tokens))
         for layer in self.layers:
-            x = _run_layer(layer, (x, padding_mask),
-                           remat=self.checkpoint_activations,
-                           layerdrop=self.layerdrop, generator=self.generator,
-                           training=self.training)
+            x = run_layer(layer, (x, padding_mask),
+                          remat=self.checkpoint_activations,
+                          layerdrop=self.layerdrop, generator=self.generator,
+                          training=self.training)
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return x, padding_mask
@@ -560,10 +509,10 @@ class TransformerDecoder(_Embedded):
         padding_mask = None if self.dense_tokens else tokens == self.pad_idx
         x = self.embed_dropout(self._embed(tokens))
         for layer in self.layers:
-            x = _run_layer(layer, (x, padding_mask, enc_out, enc_padding_mask),
-                           remat=self.checkpoint_activations,
-                           layerdrop=self.layerdrop, generator=self.generator,
-                           training=self.training)
+            x = run_layer(layer, (x, padding_mask, enc_out, enc_padding_mask),
+                          remat=self.checkpoint_activations,
+                          layerdrop=self.layerdrop, generator=self.generator,
+                          training=self.training)
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return x

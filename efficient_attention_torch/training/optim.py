@@ -3,8 +3,9 @@
 Counterpart of ``efficient_attention_tpu/training/optim.py``:
 
 * the DeiT recipe (``README.md:104-145``): timm's cosine-with-warmup
-  stepped once per epoch, and AdamW over timm's weight-decay groups behind a
-  clip of the global gradient norm, the optax chain
+  stepped once per epoch (or ``--sched step``'s decay), and AdamW over
+  timm's weight-decay groups behind a clip of the global gradient norm,
+  the optax chain
   ``clip_by_global_norm`` + ``adamw(schedule, mask)`` written over
   ``torch.optim.AdamW``, whose update is optax's: ``p -= lr * (m_hat /
   (sqrt(v_hat) + eps) + wd * p)`` with ``lr = schedule(updates so far)``;
@@ -60,6 +61,24 @@ def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
         progress = min(max(step / max(total_steps, 1), 0.0), 1.0)
         return min_lr + 0.5 * (base_lr - min_lr) * (
             1 + math.cos(math.pi * progress))
+
+    return schedule
+
+
+def step_schedule(base_lr: float, warmup_steps: int, decay_steps: int,
+                  decay_rate: float = 0.1,
+                  warmup_init_lr: float = 1e-6) -> Schedule:
+    """timm ``StepLRScheduler`` (``--sched step``; JAX
+    ``training/optim.py:57-75``): linear warmup from ``warmup_init_lr``
+    over ``warmup_steps``, then ``base_lr * decay_rate ** floor(step /
+    decay_steps)``."""
+
+    def schedule(step: int) -> float:
+        step = float(step)
+        if step < warmup_steps:
+            return warmup_init_lr + (base_lr - warmup_init_lr) * (
+                step / max(warmup_steps, 1))
+        return base_lr * decay_rate ** math.floor(step / max(decay_steps, 1))
 
     return schedule
 

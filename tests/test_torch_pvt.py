@@ -134,6 +134,5 @@ def test_cli_serves_pvt_nano_on_the_cpu(monkeypatch):
     assert all(np.isfinite(stats[k]) for k in ("acc1", "acc5", "loss"))
     model = train_vit.build_model(train_vit.parse_args(argv + ["--use-conv-patchify"]))
     assert isinstance(model.patch_embed1.proj, torch.nn.Sequential)
-    with pytest.raises(NotImplementedError, match="checkpoint-activations"):
-        train_vit.build_model(train_vit.parse_args(
-            argv + ["--checkpoint-activations"]))
+    assert train_vit.build_model(train_vit.parse_args(
+        argv + ["--checkpoint-activations"])).checkpoint_activations

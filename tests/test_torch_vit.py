@@ -208,17 +208,17 @@ def test_synthetic_dataset_matches_jax():
         SyntheticImageDataset as JaxDataset,
     )
     from efficient_attention_torch.data.imagenet import (
+        PrefetchLoader,
         SyntheticImageDataset,
-        batch_iterator,
     )
 
     ds, jds = SyntheticImageDataset(6, 16, 4, train=False), JaxDataset(6, 16, 4)
     for i in range(6):
-        img, label = ds.load(i)
+        img, label = ds.load(i, np.random.default_rng(0))
         jimg, jlabel = jds.load(i, np.random.default_rng(0))
         np.testing.assert_array_equal(img, jimg)
         assert label == jlabel
-    batches = list(batch_iterator(ds, 4, np.arange(6)))
+    batches = list(PrefetchLoader(ds, 4, np.arange(6), num_threads=2))
     assert len(batches) == 1 and batches[0][0].shape == (4, 16, 16, 3)
 
 
@@ -295,7 +295,7 @@ def test_cli_without_eval_raises():
     from efficient_attention_torch.cli import train_vit
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_vit.cli_main(_eval_argv("--checkpoint-activations"))
+        train_vit.cli_main(_eval_argv("--mesh-fsdp", "2"))
 
 
 def test_cli_nested_flags():
