@@ -61,7 +61,12 @@ The models, random weights from a seed:
   bilingual corpus written from a seed: preprocessed with a joined
   dictionary of 32,768 symbols, trained with checkpoints and resumed,
   translated by ``cli.generate`` from the average of the kept checkpoints
-  into a fairseq gen.out, scored by ``scripts/torch_compound_split_bleu.sh``.
+  into a fairseq gen.out, scored by ``scripts/torch_compound_split_bleu.sh``;
+  ``cli.validate`` scores the LM's and MT's valid splits from their
+  checkpoints;
+* the same DeiT-tiny-p8 with the zoo's attentions that reach no kernel, RA
+  and ScatterBrain, and the headline EVA with the ``conv`` and ``hmlp``
+  patchify stems and with the JAX factory's other optimizers.
 
 Phases, each raising on failure:
 
@@ -211,6 +216,24 @@ Phases, each raising on failure:
    4 steps at batch 128 with and without ``--checkpoint-activations`` (K1's
    forward 25 x 4 x 2 or x 1, its backward 25 x 4), peak memory and
    images/s; a compact JSON line of its figures;
+7c. the rest of the zoo (``zoo_phase``) at the headline's width and depth:
+   RA (one key drawn a query), ScatterBrain (window 7 with RPE, 64
+   features) and the headline EVA with the ``conv`` and ``hmlp`` stems
+   served at B=128 bf16 (finite logits, K2 12 launches a forward on its
+   tensor-core route with a stem, none of any kernel for RA and
+   ScatterBrain; images/s by ``compute_throughput`` and the peak memory),
+   the same f32 models at B=2 on the card and on the CPU (RA with the same
+   key indices) within 1e-4; 4 CLI steps at B=128 ``--bf16`` of each and
+   of the headline EVA with each of the JAX factory's ``sgd``,
+   ``adafactor``, ``adagrad``, ``adadelta``, ``adamax`` and ``lamb`` (K1
+   48 + 48 on the tensor-core routes and K2 48 in the f32 eval of every EVA
+   run; updates/s from CUDA events around each step, the peak memory); one
+   optimizer step of the headline's parameters for each and AdamW;
+   ``cli.validate --task mt`` over the MT protocol's 3,000 valid pairs
+   from its newest checkpoint (K4 6 launches a batch of 16, on the f32
+   route) and ``--task lm`` over the LM protocol's valid split (no
+   kernel), from the directories phases 3b and 6b leave for it; a compact
+   JSON line of its figures;
 8. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks; K2 at ``K2_SHAPES`` on both routes and K8 + K1 on the same
    inputs in turns; one headline forward by op
@@ -413,6 +436,48 @@ VIT_RECIPE_ARGV = MAIN_ARGV + [
     "--data-set", "IMAGENET", "--data-path", VIT_DATA_DIR,
     "--bf16", "--max-steps-per-epoch", "4", "--num-workers", "8"]
 VIT_OUT_DIR = "build/smoke_vit_protocol"
+# the rest of the attention zoo at the headline's width and depth (zoo_phase):
+# RA (one key drawn a query) and ScatterBrain (the local cell's window 7
+# with RPE and the Performer cell's 64 features), and the headline EVA with
+# the conv and hmlp patchify stems, served at B=128 bf16 and trained 4 CLI
+# steps; the headline EVA trained with each optimizer of the JAX factory
+# that the earlier phases do not run
+ZOO_CELLS = {
+    "ra": CELL_ARGV + ["--attn-name", "ra", "--attn-num-samples", "1"],
+    "scatterbrain": CELL_ARGV + ["--attn-name", "scatterbrain", "--attn-window-size", "7",
+                                 "--attn-attn-2d", "--attn-use-rpe",
+                                 "--attn-approx-attn-dim", "64"],
+    "conv stem": MAIN_ARGV + ["--patchify-stem", "conv"],
+    "hmlp stem": MAIN_ARGV + ["--patchify-stem", "hmlp"],
+}
+# the zoo's other paths, held card against CPU only (f32, B=2): the
+# headline EVA with a halo (eager) and with T5 RPE (K2 takes its bias at
+# eval), and ScatterBrain with a halo
+ZOO_CHECK_CELLS = {
+    "eva halo": MAIN_ARGV + ["--attn-overlap-window"],
+    "eva t5 rpe": [a for a in MAIN_ARGV if a != "--attn-use-rpe"] + ["--attn-use-t5-rpe"],
+    "scatterbrain halo": ZOO_CELLS["scatterbrain"] + ["--attn-overlap-window"],
+}
+# attention modules alone at the headline's width (dim 192, 3 heads), f32
+# B=2, card against CPU: (factory name, arguments, token shape, with a
+# key-padding mask); 1000 tokens are no multiple of the 1-D window
+ZOO_EVA_ARGS = dict(dim=192, num_heads=3, window_size=7, num_landmarks=49,
+                    attn_2d=True)
+ZOO_LOCAL_ARGS = dict(dim=192, num_heads=3, use_rpe=True)
+ZOO_MODULE_CELLS = {
+    "eva mask": ("eva", dict(ZOO_EVA_ARGS, use_rpe=True), (2, 28, 28, 192), True),
+    "eva halo t5 mask": ("eva", dict(ZOO_EVA_ARGS, overlap_window=True, use_t5_rpe=True),
+                         (2, 28, 28, 192), True),
+    "local 2-d halo mask": ("local", dict(ZOO_LOCAL_ARGS, window_size=7, attn_2d=True,
+                                          overlap_window=True), (2, 28, 28, 192), True),
+    "local 1-d": ("local", dict(ZOO_LOCAL_ARGS, window_size=64), (2, 1000, 192), False),
+    "local 1-d halo mask": ("local", dict(ZOO_LOCAL_ARGS, window_size=64,
+                                          overlap_window=True), (2, 1000, 192), True),
+}
+ZOO_OPTIMIZERS = ("sgd", "adafactor", "adagrad", "adadelta", "adamax", "lamb")
+ZOO_OUT_DIR = "build/smoke_zoo"
+ZOO_TRAIN_ARGV = ["--bf16", "--epochs", "1", "--max-steps-per-epoch", "4",
+                  "--warmup-epochs", "0", "--output-dir", ZOO_OUT_DIR]
 # K8's and K2's check at large-norm keys (keys x40, zero queries): the
 # geometry of
 # tests/test_torch_eva_single.py::test_large_norm_keys_stay_finite_and_match_eager
@@ -1453,7 +1518,8 @@ def lm_protocol_phase(torch, card, counters):
     windows 0, 256 and 480 (no kernel; the scored tokens predicted by
     ``context_window_blocks``), then the eval step's per-token NLL of a
     2-layer model, card against CPU.  ``counters`` maps (module, attribute)
-    of every launch count.  Returns the phase's figures."""
+    of every launch count.  The data directory stays for ``zoo_phase``'s
+    ``validate``, which removes it.  Returns the phase's figures."""
     import os
     import shutil
 
@@ -1654,7 +1720,6 @@ def lm_protocol_phase(torch, card, counters):
         raise AssertionError(f"eval NLL card vs CPU differs by {err} of the peak")
     del small, on_card
     torch.cuda.empty_cache()
-    shutil.rmtree(LM_DATA_DIR, ignore_errors=True)
     return out
 
 
@@ -1720,8 +1785,9 @@ def mt_protocol_phase(torch, card, counters, k4):
     ``scripts/torch_compound_split_bleu.sh`` over it; K4's launches in each
     call predicted from the code, all on its f32 route; then the averaged
     model's encoder states, K4 route against the eager path.  ``counters``
-    maps (module, attribute) of every launch count.  Returns the phase's
-    figures."""
+    maps (module, attribute) of every launch count.  The data directory
+    stays for ``zoo_phase``'s ``validate``, which removes it.  Returns the
+    phase's figures."""
     import os
 
     import numpy as np
@@ -1970,7 +2036,6 @@ def mt_protocol_phase(torch, card, counters, k4):
                              f"launches, error {eerr}")
     del model, eager, res
     torch.cuda.empty_cache()
-    shutil.rmtree(MT_DATA_DIR, ignore_errors=True)
     return out
 
 
@@ -2249,6 +2314,279 @@ def vit_protocol_phase(torch, card, counters):
     log(f"[vit-data] phase 7b in {out['s']:.2f} s")
     return out
 
+
+def zoo_phase(torch, card, counters):
+    """The rest of the attention zoo, the ViT stems, the JAX factory's other
+    optimizers and ``cli.validate``, at the headline's full width and depth
+    (``evit_tiny_p8``, 784 tokens, dim 192, 3 heads, 12 blocks):
+
+    * serve each of ``ZOO_CELLS`` at B=128 bf16: one forward of 128
+      synthetic images (finite logits; K2 12 launches on its tensor-core
+      route with a stem, no kernel for RA and ScatterBrain), then
+      ``cli/train_vit.py::compute_throughput`` (33 forwards) for images/s
+      and the peak memory;
+    * the same f32 model at B=2 on the card and on the CPU in this process,
+      RA with the same key indices on both, logits within ``LOGITS_TOL``,
+      for each of ``ZOO_CELLS`` and ``ZOO_CHECK_CELLS`` (K2 12 launches on
+      the EVA cells without a halo, T5 RPE's bias included), then each of
+      ``ZOO_MODULE_CELLS``'s attention modules alone (halos, key-padding
+      masks, T5 RPE, the 1-D local forward; no kernel);
+    * 4 CLI steps at B=128 ``--bf16`` of each cell and of the headline EVA
+      with each of ``ZOO_OPTIMIZERS`` (CUDA events around each step; K1 48
+      forward and 48 backward launches on the tensor-core routes and K2 48
+      in the f32 end-of-epoch eval with EVA, none with RA and ScatterBrain),
+      finite losses, updates/s over steps 2-4, peak memory;
+    * one optimizer step of the headline's parameters, each optimizer and
+      AdamW, timed with CUDA events;
+    * ``validate --task mt`` over the MT protocol's valid split from its
+      newest checkpoint (K4 6 launches a batch of 16, all on the f32
+      route) and ``validate --task lm`` from the LM protocol's (no kernel,
+      the valid split's tokens), then both protocols' directories removed.
+
+    ``counters`` maps (module, attribute) of every launch count.  Returns
+    the phase's figures."""
+    import numpy as np
+
+    from efficient_attention_torch import AttentionFactory
+    from efficient_attention_torch.attention.randomized import RandomizedAttention
+    from efficient_attention_torch.cli import train_lm, train_vit, validate
+    from efficient_attention_torch.data.imagenet import SyntheticImageDataset
+    from efficient_attention_torch.data.indexed_dataset import MMapIndexedDataset
+    from efficient_attention_torch.data.lm_context_window import context_window_blocks
+    from efficient_attention_torch.training import optim, train_state
+
+    def zero_counts():
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
+                for mod, attr in counters if getattr(mod, attr)}
+
+    def k2_bf16(n):
+        return {"eva_single.LAUNCHES": n, "eva_single.LAUNCHES_MMA": n}
+
+    t_phase = time.perf_counter()
+    out = {"serve": {}, "card_vs_cpu": {}, "train": {}, "optimizer_step_ms": {},
+           "validate": {}}
+    ds = SyntheticImageDataset(128, 224, 1000, train=False)
+    images = torch.stack([torch.from_numpy(ds.load(i, None)[0]) for i in range(128)])
+
+    # serving at B=128 bf16
+    for cell, argv in ZOO_CELLS.items():
+        stem = cell.endswith("stem")
+        args = train_vit.parse_args(argv + ["--throughput", "--bf16"])
+        train_vit.check_ported(args)
+        model = train_vit.build_model(args).to(device="cuda", dtype=torch.bfloat16)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with torch.no_grad():
+            logits = model(images.to(device="cuda", dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        got = counts()
+        if (logits.shape != (128, 1000) or not torch.isfinite(logits).all()
+                or got != (k2_bf16(12) if stem else {})):
+            raise AssertionError(f"[zoo serve] {cell}: logits {tuple(logits.shape)}, "
+                                 f"finite {bool(torch.isfinite(logits).all())}, "
+                                 f"launches {got}")
+        zero_counts()
+        res = train_vit.compute_throughput(model, args, torch.device("cuda"),
+                                           torch.bfloat16)
+        torch.cuda.synchronize()
+        got = counts()
+        row = {"images_per_s": res["images_per_sec"],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        out["serve"][cell] = row
+        log(f"[zoo serve] {cell}, B=128 bf16: {row['images_per_s']:.1f} images/s "
+            f"(compute_throughput, 30 forwards after 3), peak device memory "
+            f"{row['peak_gib']:.3f} GiB; launches {json.dumps(got)}; {card}")
+        if got != (k2_bf16(12 * 33) if stem else {}):
+            raise AssertionError(f"[zoo serve] {cell}: launches {got} in 33 forwards")
+        del model, logits
+
+    # card against CPU, f32 at B=2 (RA with the same key indices); K2 on
+    # the EVA cells without a halo, no kernel on the others
+    idx = torch.from_numpy(np.random.default_rng(7).integers(0, 784, (2, 3, 784)))
+    x2 = images[:2].float()
+    for cell, argv in {**ZOO_CELLS, **ZOO_CHECK_CELLS}.items():
+        model = train_vit.build_model(train_vit.parse_args(argv + ["--eval"]))
+        on_card = copy.deepcopy(model).cuda()
+        with torch.no_grad(), mock.patch.object(
+                RandomizedAttention, "_sample_key_indices",
+                lambda self, pi: idx.to(pi.device)):
+            want = model(x2)
+            zero_counts()
+            got_logits = on_card(x2.cuda()).cpu()
+        got = counts()
+        err = (got_logits - want).abs().max().item()
+        out["card_vs_cpu"][cell] = err
+        log(f"[zoo card-vs-cpu] {cell}, f32 B=2: max abs err {err:.3e} (tol "
+            f"{LOGITS_TOL:.0e}), max |logit| {want.abs().max().item():.3e}; "
+            f"launches {json.dumps(got)}")
+        if not err <= LOGITS_TOL:
+            raise AssertionError(f"[zoo] {cell}: f32 logits card vs CPU differ by {err}")
+        k2 = (argv[argv.index("--attn-name") + 1] == "eva"
+              and "--attn-overlap-window" not in argv)
+        if k2 != (got.get("eva_single.LAUNCHES") == 12) or not set(got) <= (
+                {"eva_single.LAUNCHES", "eva_single.LAUNCHES_MMA"} if k2 else set()):
+            raise AssertionError(f"[zoo] {cell}: launches {got} (K2 12 wanted: {k2})")
+        del model, on_card
+
+    # attention modules alone, card against CPU, f32 at B=2, the parameters
+    # moved off their initial values by a seeded draw (the RPE tables start
+    # at 0); no kernel
+    for cell, (name, args, shape, masked) in ZOO_MODULE_CELLS.items():
+        torch.manual_seed(0)
+        module = AttentionFactory.build_attention(name, args).eval()
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        n = int(np.prod(shape[1:-1]))
+        mask = None
+        if masked:  # a fifth of the keys padded, each row's first kept
+            mask = torch.from_numpy(rng.random((shape[0], n)) < 0.2)
+            mask[:, 0] = False
+        on_card = copy.deepcopy(module).cuda()
+        with torch.no_grad():
+            want = module(x, mask)
+            zero_counts()
+            got_out = on_card(x.cuda(), None if mask is None else mask.cuda()).cpu()
+        got = counts()
+        err = (got_out - want).abs().max().item()
+        out["card_vs_cpu"][cell] = err
+        log(f"[zoo card-vs-cpu] {cell} module, f32 {tuple(shape)}: max abs err "
+            f"{err:.3e} (tol {LOGITS_TOL:.0e}), max |out| {want.abs().max().item():.3e}; "
+            f"launches {json.dumps(got)}")
+        if (not err <= LOGITS_TOL or got or tuple(got_out.shape) != tuple(shape)
+                or not torch.isfinite(want).all()):
+            raise AssertionError(f"[zoo] {cell}: module output card vs CPU differs by "
+                                 f"{err}, launches {got}")
+        del module, on_card
+
+    # 4 CLI training steps at B=128 --bf16, CUDA events around each step
+    events = []
+    real_step = train_state.make_vit_train_step
+
+    def make_timed_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def run(*xs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = step(*xs)
+            end.record()
+            events.append((start, end))
+            return res
+
+        return run
+
+    eva_train = {"eva_packed.LAUNCHES_FWD": 48, "eva_packed.LAUNCHES_BWD": 48,
+                 "eva_packed.LAUNCHES_FWD_MMA": 48, "eva_packed.LAUNCHES_BWD_MMA": 48,
+                 "eva_single.LAUNCHES": 48}
+    runs = [(cell, argv) for cell, argv in ZOO_CELLS.items()] + [
+        (f"eva {name}", MAIN_ARGV + ["--opt", name]) for name in ZOO_OPTIMIZERS]
+    for run_name, argv in runs:
+        shutil.rmtree(ZOO_OUT_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        events.clear()
+        t0 = time.perf_counter()
+        with mock.patch.object(train_state, "make_vit_train_step", make_timed_step):
+            record = train_vit.cli_main(argv + ZOO_TRAIN_ARGV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        row = {"loss": record["loss"], "val_loss": record["val_loss"],
+               "step_ms": step_ms, "updates_per_s": 1e3 / (sum(step_ms[1:]) / 3),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "wall_s": wall}
+        out["train"][run_name] = row
+        log(f"[zoo train] {run_name}, 4 steps at B=128 --bf16 + the eval: loss "
+            f"{record['loss']:.4f}, grad norm {record['grad_norm']:.4f}, val loss "
+            f"{record['val_loss']:.4f}; steps {', '.join(f'{t:.2f}' for t in step_ms)} "
+            f"ms (CUDA events), {row['updates_per_s']:.3f} updates/s over steps 2-4; "
+            f"peak device memory {row['peak_gib']:.3f} GiB; the call {wall:.2f} s; "
+            f"launches {json.dumps(got)}; {card}")
+        for key in ("loss", "grad_norm", "val_loss", "val_acc1"):
+            if not math.isfinite(record[key]):
+                raise AssertionError(f"[zoo train] {run_name}: non-finite {key} {record}")
+        want = {} if run_name in ("ra", "scatterbrain") else eva_train
+        if len(step_ms) != 4 or got != want:
+            raise AssertionError(f"[zoo train] {run_name}: {len(step_ms)} steps, "
+                                 f"launches {got} (want {want})")
+    shutil.rmtree(ZOO_OUT_DIR, ignore_errors=True)
+
+    # one optimizer step of the headline's parameters, each optimizer
+    model = train_vit.build_model(train_vit.parse_args(MAIN_ARGV)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = [p for p in model.parameters()]
+    grads = [1e-3 * torch.randn(p.shape, generator=gen, device="cuda") for p in params]
+    for name in ("adamw",) + ZOO_OPTIMIZERS:
+        opt = optim.make_optimizer(name, model.named_parameters(), lambda step: 1e-4,
+                                   weight_decay=0.05, clip_grad=5.0, momentum=0.9)
+
+        def step():
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt.step()
+
+        out["optimizer_step_ms"][name] = cuda_ms(step, 20)
+    n_params = sum(p.numel() for p in params)
+    log(f"[zoo optim] one step of {n_params} f32 parameters (clip 5.0, the "
+        f"headline's weight-decay mask), ms (CUDA events, 20 steps): "
+        f"{json.dumps(out['optimizer_step_ms'])}; {card}")
+    del model, params, grads, opt
+
+    # validate --task mt from the MT protocol's checkpoints, --task lm from
+    # the LM protocol's
+    pairs = MT_DATA_PAIRS["valid"]
+    zero_counts()
+    t0 = time.perf_counter()
+    res = validate.cli_main(["--task", "mt"] + MT_DATA_ARGV + [
+        "--path", f"{MT_DATA_DIR}/save/ckpt", "--valid-subset-size", str(pairs),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    batches = -(-pairs // validate.BATCH)
+    want = {"eva_1d.LAUNCHES": 6 * batches, "eva_1d.LAUNCHES_TF32": 6 * batches}
+    out["validate"]["mt"] = dict(res, seconds=secs)
+    log(f"[zoo validate] --task mt, {pairs} valid pairs in {batches} batches: "
+        f"{json.dumps(res)} in {secs:.2f} s (model and checkpoint included); "
+        f"launches {json.dumps(got)}; {card}")
+    if (got != want or not all(math.isfinite(res[k]) for k in ("valid_loss", "valid_ppl"))
+            or res["tokens"] <= 0):
+        raise AssertionError(f"[zoo validate] mt: {res}, launches {got} (want {want})")
+    valid = MMapIndexedDataset(f"{LM_DATA_DIR}/bin/valid").flat_tokens()
+    lm_args = train_lm.parse_args(LM_DATA_ARGV)
+    want_tokens = sum(int(m[1:].sum()) for _, m in context_window_blocks(
+        valid, lm_args.tokens_per_sample + 1, 0, pad_idx=1))
+    zero_counts()
+    t0 = time.perf_counter()
+    res = validate.cli_main(["--task", "lm"] + LM_DATA_ARGV + [
+        "--checkpoint", f"{LM_DATA_DIR}/save/ckpt"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    out["validate"]["lm"] = dict(res, seconds=secs)
+    log(f"[zoo validate] --task lm, the valid split: {json.dumps(res)} in "
+        f"{secs:.2f} s (model and checkpoint included); launches {json.dumps(got)}; "
+        f"{card}")
+    if got or not math.isfinite(res["ppl"]) or res["tokens"] != want_tokens:
+        raise AssertionError(f"[zoo validate] lm: {res}, launches {got}, "
+                             f"{want_tokens} tokens predicted")
+    shutil.rmtree(LM_DATA_DIR, ignore_errors=True)
+    shutil.rmtree(MT_DATA_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[zoo] the phase took {out['phase_s']:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -3761,6 +4099,13 @@ def main() -> int:
     vit_protocol = vit_protocol_phase(torch, card, all_counters + (
         (k1, "LAUNCHES_FWD_MMA"), (k1, "LAUNCHES_BWD_MMA"), (k2, "LAUNCHES_MMA")))
     print(json.dumps({"vit_protocol": vit_protocol}), flush=True)
+
+    # ---- 7c. the rest of the zoo, the stems, the optimizers and validate,
+    # every count set to 0 just before each call and read just after
+    zoo = zoo_phase(torch, card, all_counters + (
+        (k1, "LAUNCHES_FWD_MMA"), (k1, "LAUNCHES_BWD_MMA"), (k2, "LAUNCHES_MMA"),
+        (k3, "LAUNCHES_FWD_TF32"), (k3, "LAUNCHES_BWD_TF32")))
+    print(json.dumps({"zoo": zoo}), flush=True)
 
     # ---- 8. timings
     # K2 in bf16 at the headline, PVT-B3's three EVA stages and DeiT-tiny-p16:

@@ -10,7 +10,7 @@ public surface mirrors the reference factory
     AttentionFactory.add_attn_specific_args(parser, name, struct_name, prefix)
     NestedNamespace / add_nested_argument / remove_argument
 
-ROADMAP.md lists what is ported and what is still to come.  The attention
+Every name the JAX factory registers is ported.  The attention
 classes, and with them torch, are imported on first use, so a data module
 (``efficient_attention_torch.data.imagenet``) imports with numpy alone, as
 the image loader's spawned workers do.
@@ -29,13 +29,6 @@ from efficient_attention_torch.config import (
 
 __version__ = "0.1.0"
 
-# names the JAX package registers whose modules are not ported yet
-_NOT_PORTED = {
-    "ra": "ROADMAP.md Queue 1, item 4",
-    "scatterbrain": "ROADMAP.md Queue 1, item 4",
-}
-
-
 # the factory's names -> (module under this package, class)
 _ATTENTIONS = {
     "softmax": ("attention", "MultiheadAttention"),
@@ -44,6 +37,8 @@ _ATTENTIONS = {
     "causal_eva": ("attention.causal_eva", "CausalEVAttention"),
     "performer": ("attention.kernelized", "KernelizedAttention"),
     "lara": ("attention.lara", "LinearRA"),
+    "ra": ("attention.randomized", "RandomizedAttention"),
+    "scatterbrain": ("attention.scatterbrain", "ScatterBrain"),
 }
 
 
@@ -66,9 +61,6 @@ class AttentionFactory:
     def _lookup(cls, attn_name: str):
         if attn_name in _ATTENTIONS:
             return _attention_class(*_ATTENTIONS[attn_name])
-        if attn_name in _NOT_PORTED:
-            raise KeyError(f"attention {attn_name!r} is not ported yet; see "
-                           f"{_NOT_PORTED[attn_name]}")
         raise KeyError(f"unknown attention {attn_name!r}; available: "
                        f"{sorted(_ATTENTIONS)}")
 
@@ -105,4 +97,6 @@ __all__ = [
     "CausalEVAttention",
     "KernelizedAttention",
     "LinearRA",
+    "RandomizedAttention",
+    "ScatterBrain",
 ]

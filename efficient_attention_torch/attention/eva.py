@@ -10,10 +10,10 @@ PyTorch counterpart of ``efficient_attention_tpu/attention/eva.py``
      value summary ``beta``,
   3. one softmax over ``[local logits | chunk logits]`` (``eva.py:222-227``).
 
-Ported: the 2-D forward without halo or padding mask, in training and eval,
-by the JAX dispatch order (``eva.py:542-593``), with JAX's four eval toggles
-(``eva.py:88-122``).  In eval, ``impl='auto'`` (or ``'packed'``) takes, in
-this order, where each route's gate holds:
+The 2-D forward without halo or padding mask follows the JAX dispatch
+order (``eva.py:542-593``), in training and eval, with JAX's four eval
+toggles (``eva.py:88-122``).  In eval, ``impl='auto'`` (or ``'packed'``)
+takes, in this order, where each route's gate holds:
 
 1. with ``use_single_kernel`` (default True), the single-pass
    ``eva_single`` kernel (K2);
@@ -38,7 +38,16 @@ and at eval alike, else by the eager tensor ops.  ``impl='xla'`` (the JAX
 package's name for the plain path) forces the eager path;
 ``impl='packed'`` raises ``ValueError`` where K1's gate fails, and
 ``impl='pallas'`` before any compute where K11 cannot run.  The RF noise is
-drawn from ``self.generator``, which the train step sets.
+drawn from ``self.generator``, which the train step sets.  A T5 bias
+(``use_t5_rpe``) takes the learned table's place in every route.
+
+A 2-D grid with a halo (``overlap_window``) or a key-padding mask runs
+eager, as in JAX, whose kernel gates all require ``padding_free`` and no
+halo (``eva.py:543-549, 595-606``): the chunk summaries over chunks halo'd
+like the windows, their padded and out-of-grid slots zeroed and masked
+(``eva.py:649-688``), then the joint softmax with the masked local logits
+replaced by ``MASK_VAL`` (``eva.py:804-834``); ``impl='packed'`` and
+``impl='pallas'`` raise ``ValueError`` there.
 
 The 1-D forward (the WMT encoder's) is ported too: the sequence is padded to
 a window multiple, the chunk summaries come from chunks halo'd by ``ext`` on
@@ -53,9 +62,8 @@ fails.  Otherwise K11 takes the windows, for ``impl`` in ``auto``,
 ``pallas`` and ``rowmajor``, where the input is free of padding (no mask
 given and no padding to a window multiple), there is no halo, attention
 dropout is 0 and its gate holds (``impl='pallas'`` raises where not); else
-the eager twin runs.  Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP.md item: 2-D halos, 2-D padding masks and 2-D T5 RPE
-(Queue 1, item 4) and sequence parallelism (item 7).
+the eager twin runs.  Sequence parallelism is not ported yet and raises
+``NotImplementedError`` naming ROADMAP.md Queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -119,7 +127,7 @@ class EVA(LocalAttention):
       * ``adaptive_proj``: ``default`` (Linear+LN) / ``no-ln`` / ``none``
       * ``num_landmarks``: number of global RF chunks
       * ``use_t5_rpe``: the T5-style local bias instead of the learned
-        table (1-D)
+        table
       * ``impl``: ``auto`` (the kernels where their gates allow, else
         eager), ``packed`` (the kernels, raising where the gate of K1, or
         in 1-D of K4, fails), ``pallas`` (K11, raising where it cannot
@@ -147,10 +155,6 @@ class EVA(LocalAttention):
                          attn_drop=attn_drop, proj_drop=proj_drop, fp32=fp32,
                          use_rpe=use_rpe, window_size=window_size,
                          attn_2d=attn_2d, overlap_window=overlap_window)
-        if use_t5_rpe and attn_2d:
-            raise NotImplementedError(
-                "2-D EVA with T5 RPE is not ported yet; see ROADMAP.md Queue 1, "
-                "item 4")
         if use_rpe and use_t5_rpe:
             raise NotImplementedError(
                 "Default RPE and T5-style RPE cannot be enabled simultaneously.")
@@ -182,16 +186,18 @@ class EVA(LocalAttention):
             num_buckets = max(min(span // 2, 64), 16)
             self.rel_pos_bias = T5RelativePositionBias(num_buckets, num_heads)
             # bidirectional buckets of each (window row, halo'd key slot),
-            # not shifted by the halo (``eva.py:753-755, 805-806``)
+            # not shifted by the halo, over the slots' flat indices in 2-D
+            # too (``eva.py:398-400, 753-755, 805-806``)
+            w, e = window_size, self.ext_size
+            rows, keys = (w * w, (w + 2 * e) ** 2) if attn_2d else (w, w + 2 * e)
             self.register_buffer("t5_buckets", torch.from_numpy(t5_bucket_table(
-                window_size, window_size + 2 * self.ext_size, causal=False,
-                num_buckets=num_buckets, max_distance=span).astype(np.int64)),
-                persistent=False)
+                rows, keys, causal=False, num_buckets=num_buckets,
+                max_distance=span).astype(np.int64)), persistent=False)
 
     def window_bias(self) -> Optional[torch.Tensor]:
-        """The local bias of a window, or None: in 1-D ``[H, ws, ws + 2*ext]``
-        (the T5 table times ``scale``, or the learned table), in 2-D
-        ``[H, S, S]``."""
+        """The local bias of a window (the T5 table times ``scale``, or the
+        learned table), or None: in 1-D ``[H, ws, ws + 2*ext]``, in 2-D
+        ``[H, ws*ws, (ws + 2*ext)**2]``."""
         if not self.use_t5_rpe:
             return super().window_bias()
         table = self.rel_pos_bias.relative_attention_bias.weight
@@ -200,15 +206,11 @@ class EVA(LocalAttention):
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """EVA forward (``eva.py:490-840``) over a ``[B, H, W, C]`` token grid
-        or, in 1-D, a ``[B, N, C]`` sequence with an optional ``[B, N]``
+        or, in 1-D, a ``[B, N, C]`` sequence, with an optional ``[B, N]``
         key-padding mask (True = pad); training mode samples the RF
         weights."""
         if not self.attn_2d:
             return self._forward_1d(x, key_padding_mask)
-        if key_padding_mask is not None:
-            raise NotImplementedError(
-                "2-D EVA with a key-padding mask is not ported yet; see "
-                "ROADMAP.md Queue 1, item 4")
         if x.dim() != 4:
             raise ValueError(f"2-D EVA takes [B, H, W, C], got {tuple(x.shape)}")
         B, gh, gw, C = x.shape
@@ -223,6 +225,8 @@ class EVA(LocalAttention):
                 f"length {N}; the RF chunk size would be 0")
         if gh % j or gw % j:
             raise ValueError(f"grid {gh}x{gw} is not divisible by chunk {j}")
+        if key_padding_mask is not None or self.ext_size:
+            return self._forward_masked_2d(x, key_padding_mask, j)
         kernels = self.impl in ("auto", "packed")
         chunk_ok = j * j * self.num_landmarks == N
         at_eval = kernels and chunk_ok and not self.training
@@ -467,7 +471,7 @@ class EVA(LocalAttention):
                                  (self.scale * rf_k_bar).to(w_q.dtype))
         local = (torch.einsum("bhwie,bhwje->bhwij", w_q, w_k)
                  * self.scale).to(w_q.dtype)
-        if self.rpe_enabled:
+        if self.rpe_enabled or self.use_t5_rpe:
             local = self.add_rel_pos_bias(local)
         local_len = local.shape[-1]
         attn = F.softmax(torch.cat([local, rfa_chunk.to(local.dtype)], dim=-1),
@@ -510,7 +514,8 @@ class EVA(LocalAttention):
         H, d = self.num_heads, self.head_dim
         qkv = self.qkv(x)  # [B, N, 3*H*D]
         q, k, v = qkv.reshape(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
-        rf_k_bar, beta = self._chunk_summaries_1d(q, k, v, key_padding_mask, j)
+        rf_k_bar, beta = self._chunk_summaries_masked(q, k, v, key_padding_mask,
+                                                      (N,), j)
         if (self.impl in ("auto", "packed") and not self.training
                 and supports_1d(B, N, ws, ext, rf_k_bar.shape[2], H, d,
                                 x.element_size())):
@@ -531,21 +536,40 @@ class EVA(LocalAttention):
                                       self.window_bias())
             out = self.window_merge(out, None).transpose(1, 2).reshape(B, N, H * d)
             return self.proj_dropout(self.proj(out))
-        return self._forward_eager_1d(q, k, v, rf_k_bar, beta,
-                                      key_padding_mask, orig_n)
+        return self._forward_eager_masked(q, k, v, rf_k_bar, beta,
+                                          key_padding_mask, (N,), orig_n)
 
-    def _chunk_summaries_1d(self, q, k, v, key_padding_mask, j: int
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _forward_masked_2d(self, x: torch.Tensor,
+                           key_padding_mask: Optional[torch.Tensor],
+                           j: int) -> torch.Tensor:
+        """The eager 2-D forward with a halo or a key-padding mask
+        (``eva.py:643-688, 767-840``): no kernel gate admits either."""
+        if self.impl in ("packed", "pallas"):
+            raise ValueError(
+                f"impl={self.impl!r} requires no halo and no padding mask in 2-D")
+        B, gh, gw, C = x.shape
+        q, k, v = self.proj_and_split_heads(x)
+        if key_padding_mask is None:
+            key_padding_mask = torch.zeros(B, gh * gw, dtype=torch.bool,
+                                           device=x.device)
+        rf_k_bar, beta = self._chunk_summaries_masked(q, k, v, key_padding_mask,
+                                                      (gh, gw), j)
+        out = self._forward_eager_masked(q, k, v, rf_k_bar, beta,
+                                         key_padding_mask, (gh, gw), gh * gw)
+        return out.reshape(B, gh, gw, C)
+
+    def _chunk_summaries_masked(self, q, k, v, key_padding_mask, seq_shape,
+                                j: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Chunk summaries ``(rf_k_bar, beta)``, each ``[B, H, C, d]``, of
-        chunks of ``j`` tokens halo'd by ``ext`` on both sides
-        (``eva.py:649-688``): padded and out-of-range slots are zeroed but
-        still count in the means' denominators, and their prm log-densities
-        are ``MASK_VAL`` before the softmax."""
-        part = functools.partial(self.window_partition, shape=None,
+        chunks of ``j`` tokens (``j x j`` in 2-D) halo'd by ``ext`` on every
+        side (``eva.py:649-688``): padded and out-of-range slots are zeroed
+        but still count in the means' denominators, and their prm
+        log-densities are ``MASK_VAL`` before the softmax."""
+        part = functools.partial(self.window_partition, shape=seq_shape,
                                  window_size=j, ext_window_size=self.ext_size)
         kpm = key_padding_mask.to(q.dtype)[:, None, :, None]
-        mask = part(kpm, pad_val=1.0).bool()  # [B, 1, C, j+2e, 1]
-        rf_q, rf_k, rf_v = (part(t).masked_fill(mask, 0.0)  # [B, H, C, j+2e, d]
+        mask = part(kpm, pad_val=1.0).bool()  # [B, 1, C, slots, 1]
+        rf_q, rf_k, rf_v = (part(t).masked_fill(mask, 0.0)  # [B, H, C, slots, d]
                             for t in (q, k, v))
         rf_k_bar = self.adaptive_mu_k(rf_k.mean(dim=-2))
         if self.adaptive_proj in ("default", "no-ln"):
@@ -554,22 +578,22 @@ class EVA(LocalAttention):
             mu = torch.zeros_like(rf_k_bar)
         weights = self._sample_weights(mu)
         log_proj = prm_projection(rf_k, weights[..., None, :],
-                                  normalize=False)[..., 0, :]  # [B, H, C, j+2e]
+                                  normalize=False)[..., 0, :]  # [B, H, C, slots]
         log_proj = log_proj.masked_fill(mask[..., 0], MASK_VAL)
         beta = torch.einsum("...cj,...cjd->...cd", torch.softmax(log_proj, dim=-1),
                             rf_v)
         return rf_k_bar, beta
 
-    def _forward_eager_1d(self, q, k, v, rf_k_bar, beta, key_padding_mask,
-                          orig_n: int) -> torch.Tensor:
-        """Eager 1-D path (``eva.py:767-840``): the joint softmax over
+    def _forward_eager_masked(self, q, k, v, rf_k_bar, beta, key_padding_mask,
+                              seq_shape, orig_n: int) -> torch.Tensor:
+        """Eager path (``eva.py:767-840``): the joint softmax over
         ``[halo'd window keys | chunk keys]``, masked local logits replaced
-        by ``MASK_VAL``."""
+        by ``MASK_VAL``; ``[B, orig_n, C]``."""
         B, H, N, d = q.shape
         ext = self.ext_size
-        w_q = self.window_partition(q, None)
-        w_k = self.window_partition(k, None, ext_window_size=ext)
-        w_v = self.window_partition(v, None, ext_window_size=ext)
+        w_q = self.window_partition(q, seq_shape)
+        w_k = self.window_partition(k, seq_shape, ext_window_size=ext)
+        w_v = self.window_partition(v, seq_shape, ext_window_size=ext)
         rfa_chunk = torch.einsum("bhwid,bhcd->bhwic", w_q,
                                  (self.scale * rf_k_bar).to(w_q.dtype))
         local = (torch.einsum("bhwie,bhwje->bhwij", w_q, w_k)
@@ -577,17 +601,15 @@ class EVA(LocalAttention):
         bias = self.window_bias()
         if bias is not None:
             local = local + bias.to(local.dtype)[None, :, None]
-        kpm = key_padding_mask.to(q.dtype)[:, None, :, None]
-        mask = self.window_partition(kpm, None, ext_window_size=ext,
-                                     pad_val=1.0).bool().transpose(-1, -2)
-        local = local.masked_fill(mask, MASK_VAL)
+        local = local.masked_fill(
+            self.local_mask(key_padding_mask, seq_shape, q.dtype), MASK_VAL)
         local_len = local.shape[-1]
         attn = F.softmax(torch.cat([local, rfa_chunk.to(local.dtype)], dim=-1),
                          dim=-1).to(w_v.dtype)
         output = (torch.einsum("bhwij,bhwjd->bhwid", attn[..., :local_len], w_v)
                   + torch.einsum("bhwic,bhcd->bhwid", attn[..., local_len:],
                                  beta.to(w_v.dtype)))
-        x = self.window_merge(output, None).transpose(1, 2).reshape(B, N, H * d)
+        x = self.window_merge(output, seq_shape).transpose(1, 2).reshape(B, N, H * d)
         return self.proj_dropout(self.proj(x)[:, :orig_n])
 
     @staticmethod

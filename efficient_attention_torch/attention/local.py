@@ -1,17 +1,22 @@
-"""Blocked local (window) attention with learned relative-position bias.
+"""Blocked local (window) attention, 1-D and 2-D, with halos and a learned
+relative-position bias.
 
 PyTorch counterpart of ``efficient_attention_tpu/attention/local.py``
-(reference ``local_attention.py:25-182``).  The 2-D forward without halo is
-ported.  So is the 1-D base that 1-D EVA builds on: the symmetric halo
-``ext_size`` of ``overlap_window``, the 1-D learned table
-``[H, ws, ws + 2*ext]``, 1-D window partition and merge, and the padding of
-a sequence to a window multiple (``_process_input``).  The 1-D local forward
-itself and halo'd 2-D windows are not ported yet (ROADMAP.md Queue 1, item
-4) and raise.  Without a padding mask or attention dropout, ``impl='auto'`` takes the
-packed window kernel K7 (``ops/kernels/local_packed.py``) where its
-geometry gate holds, in training too (JAX ``local.py:145-170``, there on the
-TPU only; here the CPU takes the kernel's plain version); ``impl='xla'``
-keeps the eager windowed einsums.
+(reference ``local_attention.py:25-182``): windows of ``window_size``
+tokens (``w x w`` in 2-D), the keys of each extended by a halo of
+``ext_size`` positions on every side with ``overlap_window``, a learned
+table of ``[H, w, w + 2*ext]`` in 1-D or a 2-D index into a shared table
+(``local_2d_rpe_index``), and a key-padding mask.  A 1-D sequence is
+padded to a window multiple, its padding masked, and the output cut back to
+its length (JAX ``local.py:109-131, 172-228``).  Without a padding mask,
+halo or attention dropout, ``impl='auto'`` takes the packed window kernel
+K7 (``ops/kernels/local_packed.py``) on a 2-D grid where its geometry gate
+holds, in training too (JAX ``local.py:134-170``, there on the TPU only;
+here the CPU takes the kernel's plain version); ``impl='xla'`` keeps the
+eager windowed einsums.
+
+``LocalWindows`` holds the window and bias machinery apart from the
+attention itself, so that ScatterBrain shares it with its Performer base.
 """
 from __future__ import annotations
 
@@ -31,38 +36,29 @@ from efficient_attention_torch.ops.kernels.local_packed import (
 from efficient_attention_torch.ops.rpe import local_2d_rpe_index
 
 
-class LocalAttention(MultiheadAttention):
-    """Window attention with learned 2-D RPE (``local_attention.py:25-182``)."""
+class LocalWindows:
+    """Windows, halos and the learned local bias of a ``MultiheadAttention``
+    (``local_attention.py:25-131``); ``_init_windows`` is called from the
+    module's ``__init__``."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 fp32: bool = False, use_rpe: bool = False,
-                 window_size: int = 2, attn_2d: bool = False,
-                 overlap_window: bool = False, impl: str = "auto"):
-        super().__init__(dim, num_heads, qkv_bias=qkv_bias,
-                         attn_drop=attn_drop, proj_drop=proj_drop, fp32=fp32)
-        if impl not in ("auto", "xla"):
-            raise ValueError(f"unknown local impl {impl!r}; use 'auto' or 'xla'")
-        self.impl = impl
-        if attn_2d and overlap_window:
-            raise NotImplementedError(
-                "overlapping (halo'd) 2-D windows are not ported yet; see "
-                "ROADMAP.md Queue 1, item 4")
+    def _init_windows(self, use_rpe: bool, window_size: int, attn_2d: bool,
+                      overlap_window: bool) -> None:
         self.use_rpe = use_rpe
         self.window_size = window_size
         self.attn_2d = attn_2d
         self.overlap_window = overlap_window
-        if self.rpe_enabled:
-            if attn_2d:
-                index, table_size = local_2d_rpe_index(window_size, 0)
-                self.register_buffer("relative_position_index",
-                                     torch.from_numpy(index).long())
-                shape = (table_size, num_heads)
-            else:
-                shape = (num_heads, window_size, window_size + 2 * self.ext_size)
-            self.local_relative_position_bias_table = nn.Parameter(torch.zeros(shape))
-            nn.init.trunc_normal_(self.local_relative_position_bias_table,
-                                  std=0.02)
+        if not self.rpe_enabled:
+            return
+        w, e = window_size, self.ext_size
+        if attn_2d:
+            index, table_size = local_2d_rpe_index(w, e)
+            self.register_buffer("relative_position_index",
+                                 torch.from_numpy(index).long())
+            shape = (table_size, self.num_heads)
+        else:
+            shape = (self.num_heads, w, w + 2 * e)
+        self.local_relative_position_bias_table = nn.Parameter(torch.zeros(shape))
+        nn.init.trunc_normal_(self.local_relative_position_bias_table, std=0.02)
 
     @property
     def ext_size(self) -> int:
@@ -74,16 +70,16 @@ class LocalAttention(MultiheadAttention):
         return self.use_rpe and self.window_size > 0
 
     def window_bias(self) -> Optional[torch.Tensor]:
-        """Per-window additive bias, or None: ``[H, S, S]`` (``S = w*w``) in
-        2-D, the learned table ``[H, w, w + 2*ext]`` itself in 1-D."""
+        """Per-window additive bias, or None: ``[H, w*w, (w + 2e)**2]`` in
+        2-D, the learned table ``[H, w, w + 2e]`` itself in 1-D."""
         if not self.rpe_enabled:
             return None
         if not self.attn_2d:
             return self.local_relative_position_bias_table
-        S = self.window_size ** 2
+        w, e = self.window_size, self.ext_size
         bias = self.local_relative_position_bias_table[
             self.relative_position_index.reshape(-1)]
-        return bias.reshape(S, S, self.num_heads).permute(2, 0, 1)
+        return bias.reshape(w * w, (w + 2 * e) ** 2, self.num_heads).permute(2, 0, 1)
 
     def add_rel_pos_bias(self, local_dots: torch.Tensor) -> torch.Tensor:
         """``local_dots [b, h, g, i, j]`` plus the learned bias
@@ -93,15 +89,16 @@ class LocalAttention(MultiheadAttention):
     def window_partition(self, x: torch.Tensor, shape: Sequence[int],
                          ext_window_size: int = 0, pad_val: float = 0.0,
                          window_size: Optional[int] = None) -> torch.Tensor:
-        """``[..., n, d] -> [..., g, w*w, d]`` over the ``(H, W)`` grid in 2-D,
-        ``[..., g, w + 2e, d]`` in 1-D (``local_attention.py:81-107``)."""
+        """``[..., n, d] -> [..., g, (w + 2e)**2, d]`` over the ``(H, W)``
+        grid in 2-D, ``[..., g, w + 2e, d]`` in 1-D
+        (``local_attention.py:81-107``)."""
         window_size = self.window_size if window_size is None else window_size
         if not self.attn_2d:
             return W.window_1d_partition(x, window_size, ext_window_size, pad_val)
         H, W_ = shape
         *lead, n, d = x.shape
         return W.window_2d_partition(x.reshape(*lead, H, W_, d), window_size,
-                                     ext_window_size)
+                                     ext_window_size, pad_val)
 
     def window_merge(self, x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
         if not self.attn_2d:
@@ -109,6 +106,14 @@ class LocalAttention(MultiheadAttention):
         out = W.window_2d_merge(x, self.window_size, tuple(shape))
         *lead, H, W_, d = out.shape
         return out.reshape(*lead, H * W_, d)
+
+    def local_mask(self, key_padding_mask: torch.Tensor, shape: Sequence[int],
+                   dtype: torch.dtype) -> torch.Tensor:
+        """``[b, 1, g, 1, (halo'd) window]`` True where a window's key is
+        padding or lies in the halo outside the sequence or grid."""
+        kpm = key_padding_mask.to(dtype)[:, None, :, None]
+        return self.window_partition(kpm, shape, ext_window_size=self.ext_size,
+                                     pad_val=1.0).bool().transpose(-1, -2)
 
     def _process_input(self, x: torch.Tensor,
                        key_padding_mask: Optional[torch.Tensor]):
@@ -134,17 +139,31 @@ class LocalAttention(MultiheadAttention):
             seq_shape = (x.shape[-2],)
         return x, key_padding_mask, seq_shape
 
+
+class LocalAttention(LocalWindows, MultiheadAttention):
+    """Window attention with an optional halo and learned RPE
+    (``local_attention.py:25-182``)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 fp32: bool = False, use_rpe: bool = False,
+                 window_size: int = 2, attn_2d: bool = False,
+                 overlap_window: bool = False, impl: str = "auto"):
+        super().__init__(dim, num_heads, qkv_bias=qkv_bias,
+                         attn_drop=attn_drop, proj_drop=proj_drop, fp32=fp32)
+        if impl not in ("auto", "xla"):
+            raise ValueError(f"unknown local impl {impl!r}; use 'auto' or 'xla'")
+        self.impl = impl
+        self._init_windows(use_rpe, window_size, attn_2d, overlap_window)
+
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The packed K7 route for a ``[B, H, W, C]`` grid without padding
-        mask or attention dropout (JAX ``local.py:140-170``), else the
-        windowed einsums."""
-        if not self.attn_2d:
-            raise NotImplementedError(
-                "the 1-D local attention forward is not ported yet; see "
-                "ROADMAP.md Queue 1, item 4")
-        if (self.impl == "auto" and key_padding_mask is None
-                and self.attn_dropout.p == 0.0 and x.dim() == 4):
+        mask, halo or attention dropout (JAX ``local.py:134-170``), else
+        the windowed einsums."""
+        if (self.impl == "auto" and self.attn_2d and key_padding_mask is None
+                and self.ext_size == 0 and self.attn_dropout.p == 0.0
+                and x.dim() == 4):
             B, gh, gw, C = x.shape
             ws = self.window_size
             if (ws > 0 and gh % ws == 0 and gw % ws == 0
@@ -157,27 +176,43 @@ class LocalAttention(MultiheadAttention):
         return super().forward(x, key_padding_mask)
 
     def _apply_attention(self, q, k, v, key_padding_mask):
-        """Windowed attention core over a square grid
-        (``local_attention.py:134-182``)."""
+        """Windowed attention core (``local_attention.py:134-182``): a
+        square grid in 2-D; in 1-D the sequence padded to a window multiple
+        with its padding masked, and the output cut back to its length."""
         b, h, n, d = q.shape
-        side = math.isqrt(n)
-        if side * side != n:
-            raise ValueError(f"2-D local attention needs a square grid, got n={n}")
-        shape = (side, side)
+        orig_n = n
+        if self.attn_2d:
+            side = math.isqrt(n)
+            if side * side != n:
+                raise ValueError(f"2-D local attention needs a square grid, got n={n}")
+            shape = (side, side)
+        else:
+            ws = self.window_size
+            q, k, v = (W.pad_to_multiple(t, ws, axis=-2) for t in (q, k, v))
+            n = q.shape[-2]
+            if key_padding_mask is None:
+                key_padding_mask = W.padding_mask_for(b, orig_n, n, q.device)
+            else:
+                key_padding_mask = W.pad_to_multiple(key_padding_mask, ws,
+                                                     axis=-1, value=True)
+            shape = (n,)
+        ext = self.ext_size
         w_q = self.window_partition(q, shape)
-        w_k = self.window_partition(k, shape)
-        w_v = self.window_partition(v, shape)
+        w_k = self.window_partition(k, shape, ext_window_size=ext)
+        w_v = self.window_partition(v, shape, ext_window_size=ext)
         local_dots = (torch.einsum("bhwie,bhwje->bhwij", w_q, w_k)
                       * self.scale).to(q.dtype)
         if self.rpe_enabled:
             local_dots = self.add_rel_pos_bias(local_dots)
-        if key_padding_mask is not None:
-            kpm = key_padding_mask.to(q.dtype)[:, None, :, None]
-            mask = self.window_partition(kpm, shape).bool().transpose(-1, -2)
-            local_dots = local_dots.masked_fill(mask, MASK_VAL)
+        if key_padding_mask is not None or ext:
+            if key_padding_mask is None:
+                key_padding_mask = torch.zeros(b, n, dtype=torch.bool,
+                                               device=q.device)
+            local_dots = local_dots.masked_fill(
+                self.local_mask(key_padding_mask, shape, q.dtype), MASK_VAL)
         local_attn = self.attn_dropout(F.softmax(local_dots, dim=-1))
         output = torch.einsum("bhwij,bhwje->bhwie", local_attn.to(w_v.dtype), w_v)
-        return self.window_merge(output, shape)
+        return self.window_merge(output, shape)[..., :orig_n, :]
 
     @staticmethod
     def add_attn_specific_args(parent_parser, struct_name="attn_args", prefix=""):

@@ -170,8 +170,6 @@ def check_ported(args) -> None:
         (args.pipeline_stages > 1, "--pipeline-stages", "Queue 1, item 7"),
         (args.seq_parallel > 1, "--seq-parallel", "Queue 1, item 7"),
         (args.base_layers > 0, "--base-layers", "Queue 1, item 7"),
-        (args.optimizer in ("sgd", "adafactor"),
-         f"--optimizer {args.optimizer}", "Queue 1, item 3"),
         (args.heartbeat_timeout > 0, "--heartbeat-timeout", "Queue 1, item 8"),
         (bool(args.tensorboard_logdir), "--tensorboard-logdir", "Queue 1, item 8"),
         (args.wandb_project is not None, "--wandb-project", "Queue 1, item 8"),

@@ -475,7 +475,7 @@ def train(args, device) -> dict:
     optimizer = make_optimizer(args.opt, model.named_parameters(), schedule,
                                weight_decay=args.weight_decay,
                                clip_grad=args.clip_grad, betas=betas,
-                               eps=args.opt_eps)
+                               eps=args.opt_eps, momentum=args.momentum)
     state = TrainState(model, optimizer,
                        ema_decay=args.model_ema_decay if args.model_ema else 0.0)
     mixup_cfg = None

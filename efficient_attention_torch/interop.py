@@ -69,9 +69,10 @@ _PVT_BLOCK = re.compile(r"block(\d+)_(\d+)")
 def flax_path_to_torch_key(parts, conv_stems=()) -> str:
     """``['blocks_0', 'EVA_0', 'qkv', 'kernel'] -> 'blocks.0.attn.qkv.weight'``
     (PVT paths as well: ``block1_0`` -> ``block1.0.attn.attn_fn``).  In the
-    ``patch_embedN`` named in ``conv_stems`` (PVT's ``use_conv_patchify``
-    stem), ``Conv_i`` and ``GroupNorm_i`` are items ``3i`` and ``3i + 1`` of
-    the port's ``proj`` Sequential."""
+    ``patch_embed*`` named in ``conv_stems`` (PVT's ``use_conv_patchify``
+    stem, the ViT's ``conv`` and ``hmlp`` stems), ``Conv_i`` and
+    ``GroupNorm_i`` are items ``3i`` and ``3i + 1`` of the port's ``proj``
+    Sequential."""
     pvt = any(_PVT_BLOCK.fullmatch(p) for p in parts)
     body, out = parts[:-1], []
     i = 0

@@ -138,22 +138,55 @@ class GatedMlp(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Image-to-grid patch embedding, ``[B, H, W, 3] -> [B, H/p, W/p, d]``.
-    Only the ``default`` single-conv stem is ported; ``conv`` and ``hmlp``
-    are ROADMAP.md Queue 1, item 2."""
+    """Image-to-grid patch embedding, ``[B, H, W, 3] -> [B, H/p, W/p, d]``
+    (JAX ``models/layers.py:103-148``), with the reference's stems
+    (``efficient_vit.py:32-95``):
+
+    * ``default``: one ``p x p`` convolution of stride ``p``;
+    * ``conv``: three stride-2 3x3 convolutions to d/4, d/4 and d channels,
+      each followed by GroupNorm(1) and ReLU, then a 2x2 stride-2 (p = 16)
+      or 1x1 (p = 8) convolution;
+    * ``hmlp``: a ``s x s`` convolution of stride ``s`` (4 at p = 16, 2 at
+      p = 8) to d/4 channels, a 2x2 stride-2 one to d/4 and one to d, each
+      followed by GroupNorm(1), the first two also by GELU.
+
+    GroupNorm takes flax's epsilon (1e-6) and GELU flax's tanh form, as
+    PVT's stem does; the stems' modules are the items of ``proj``."""
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 768,
                  in_chans: int = 3, stem_type: str = "default"):
         super().__init__()
-        if stem_type != "default":
-            raise NotImplementedError(
-                f"patchify stem {stem_type!r} is not ported yet; see "
-                "ROADMAP.md Queue 1, item 2")
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+        p, d = patch_size, embed_dim
+        if stem_type != "default" and p not in (8, 16):
+            raise ValueError(f"the {stem_type} stem supports patch sizes 8 and "
+                             f"16, not {p}")
+
+        def norm(ch):
+            return nn.GroupNorm(1, ch, eps=1e-6)
+
+        if stem_type == "default":
+            self.proj = nn.Conv2d(in_chans, d, p, stride=p)
+        elif stem_type == "conv":
+            layers, cin = [], in_chans
+            for ch in (d // 4, d // 4, d):
+                layers += [nn.Conv2d(cin, ch, 3, stride=2, padding=1), norm(ch),
+                           nn.ReLU()]
+                cin = ch
+            layers.append(nn.Conv2d(d, d, 2, stride=2) if p == 16
+                          else nn.Conv2d(d, d, 1))
+            self.proj = nn.Sequential(*layers)
+        elif stem_type == "hmlp":
+            s0 = 4 if p == 16 else 2
+            gelu = functools.partial(nn.GELU, approximate="tanh")
+            self.proj = nn.Sequential(
+                nn.Conv2d(in_chans, d // 4, s0, stride=s0), norm(d // 4), gelu(),
+                nn.Conv2d(d // 4, d // 4, 2, stride=2), norm(d // 4), gelu(),
+                nn.Conv2d(d // 4, d, 2, stride=2), norm(d))
+        else:
+            raise NotImplementedError(f"stem {stem_type}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.proj(x.permute(0, 3, 1, 2))
-        return x.permute(0, 2, 3, 1)
+        return _conv_nhwc(self.proj, x)
 
 
 def _conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:

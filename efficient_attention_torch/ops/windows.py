@@ -2,8 +2,10 @@
 
 Shapes follow the reference (``attn_utils.py:155-234``):
 
-* 2-D: ``[..., H, W, d] -> [..., gh*gw, w*w, d]`` and back; halo'd 2-D
-  windows are not ported yet (ROADMAP.md Queue 1, item 4);
+* 2-D (Swin-style, ``attn_utils.py:190-234``): ``[..., H, W, d] ->
+  [..., gh*gw, (w + 2e)**2, d]``, each window extended by a halo of ``e``
+  rows and columns filled with ``pad_val`` outside the grid, and the
+  halo-free merge back;
 * 1-D (``attn_utils.py:155-166``): ``[..., n, d] -> [..., g, w + 2e, d]``,
   each window extended by a symmetric halo of ``e`` positions filled with
   ``pad_val`` outside the sequence;
@@ -86,19 +88,30 @@ def window_1d_merge(x: torch.Tensor) -> torch.Tensor:
 
 
 def window_2d_partition(x: torch.Tensor, window_size: int,
-                        ext_window_size: int = 0) -> torch.Tensor:
-    """Swin-style 2-D windows: ``[..., H, W, d] -> [..., gh*gw, w*w, d]``."""
-    if ext_window_size > 0:
-        raise NotImplementedError(
-            "halo'd 2-D windows (overlap_window) are not ported yet; "
-            "see ROADMAP.md Queue 1, item 4")
+                        ext_window_size: int = 0,
+                        pad_val: float = 0.0) -> torch.Tensor:
+    """Swin-style 2-D windows: ``[..., H, W, d] -> [..., gh*gw, (w + 2e)**2,
+    d]``, each ``w x w`` window extended by ``e`` rows and columns on every
+    side (filled with ``pad_val``, which may be ``-inf``, outside the
+    grid)."""
     *lead, H, W, d = x.shape
     w = window_size
     if H % w or W % w:
         raise ValueError(f"H={H}, W={W} not divisible by window {w}")
     gh, gw = H // w, W // w
-    out = x.reshape(*lead, gh, w, gw, w, d).transpose(-3, -4)
-    return out.reshape(*lead, gh * gw, w * w, d)
+    if ext_window_size <= 0:
+        out = x.reshape(*lead, gh, w, gw, w, d).transpose(-3, -4)
+        return out.reshape(*lead, gh * gw, w * w, d)
+    e = ext_window_size
+    total = w + 2 * e
+    xp = F.pad(x, [0, 0, e, e, e, e], value=pad_val)
+    row = (torch.arange(gh, device=x.device)[:, None] * w
+           + torch.arange(total, device=x.device)[None, :]).reshape(-1)
+    col = (torch.arange(gw, device=x.device)[:, None] * w
+           + torch.arange(total, device=x.device)[None, :]).reshape(-1)
+    out = xp.index_select(-3, row).index_select(-2, col)  # [..., gh*t, gw*t, d]
+    out = out.reshape(*lead, gh, total, gw, total, d).transpose(-3, -4)
+    return out.reshape(*lead, gh * gw, total * total, d)
 
 
 def window_2d_merge(x: torch.Tensor, window_size: int,

@@ -16,28 +16,25 @@ Counterpart of ``efficient_attention_tpu/training/optim.py``:
   schedule (and ``polynomial_decay``), and fairseq's Adam behind the same
   clip.
 
-The other optimizers and schedules raise ``NotImplementedError`` with
-their ROADMAP.md item.
+* the rest of the JAX factory (``training/optim.py:361-401``): ``sgd``
+  (momentum, no weight decay), ``adafactor``, ``adagrad``, ``adadelta``,
+  ``adamax`` and ``lamb`` (weight decay under the mask), each behind the
+  same clip, with optax's update rules and defaults (``ClippedOptimizer``),
+  not ``torch.optim``'s.
+
+Every optimizer keeps float32 state, takes ``zero_grad()`` and ``step()``
+and has ``state_dict`` / ``load_state_dict``, from which a checkpoint
+resumes bit for bit.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
-
-# optimizers of the JAX factory not ported yet, and where they are queued
-_NOT_PORTED = {
-    "sgd": "ROADMAP.md Queue 1, item 3",
-    "adafactor": "ROADMAP.md Queue 1, item 3",
-    "adagrad": "ROADMAP.md Queue 1, item 3",
-    "adadelta": "ROADMAP.md Queue 1, item 3",
-    "adamax": "ROADMAP.md Queue 1, item 3",
-    "lamb": "ROADMAP.md Queue 1, item 3",
-}
-
 
 def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
                     warmup_init_lr: float = 1e-6, min_lr: float = 1e-5,
@@ -229,143 +226,6 @@ def clip_by_global_norm(grads, clip: Optional[float]) -> None:
         g.mul_(factor.to(g.dtype))
 
 
-class ClippedNAG:
-    """optax ``chain(clip_by_global_norm(clip_grad), fairseq NAG)`` over named
-    parameters whose ``.grad`` holds the step's gradient.
-
-    fairseq's NAG (``fairseq/optim/nag.py:72-109``, JAX ``_fairseq_nag``) is
-    not ``torch.optim.SGD(nesterov=True)``: its momentum buffer is kept in
-    parameter units (``buf <- m lr_correct buf - lr g``) and rescaled by
-    ``lr_correct = lr / lr_old`` when the schedule moves, the update is
-    ``m^2 lr_correct buf - (1 + m) lr g`` with the old buffer, and weight
-    decay is decoupled (``- lr wd p``, outside the buffer)."""
-
-    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
-                 schedule: Schedule, momentum: float = 0.99,
-                 weight_decay: float = 0.0, clip_grad: Optional[float] = None):
-        named = [(n, p) for n, p in named_params if p.requires_grad]
-        decay = weight_decay_mask(named)
-        self.params = [p for _, p in named]
-        self.decayed = [p for n, p in named if decay[n]]
-        self.bufs = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.schedule = schedule
-        self.momentum = momentum
-        self.weight_decay = weight_decay
-        self.clip_grad = clip_grad
-        self.count = 0      # updates applied so far
-        self.lr_old = None  # the first update takes lr_correct = 1
-
-    def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
-
-    @torch.no_grad()
-    def step(self) -> None:
-        """Clip the gradients, then apply this update's NAG step."""
-        params = [p for p in self.params if p.grad is not None]
-        bufs = [b for p, b in zip(self.params, self.bufs) if p.grad is not None]
-        grads = [p.grad.float() for p in params]
-        clip_by_global_norm(grads, self.clip_grad)
-        lr = self.schedule(self.count)
-        m = self.momentum
-        lr_correct = (1.0 if self.lr_old is None
-                      else lr / self.lr_old if self.lr_old > 0 else lr)
-        delta = torch._foreach_mul(bufs, m * m * lr_correct)
-        torch._foreach_add_(delta, grads, alpha=-(1 + m) * lr)
-        if self.weight_decay:
-            decayed = {id(p) for p in self.decayed}
-            for p, d in zip(params, delta):
-                if id(p) in decayed:
-                    d.add_(p.float(), alpha=-lr * self.weight_decay)
-        torch._foreach_mul_(bufs, m * lr_correct)
-        torch._foreach_add_(bufs, grads, alpha=-lr)
-        torch._foreach_add_(params, [d.to(p.dtype) for p, d in zip(params, delta)])
-        self.lr_old = lr
-        self.count += 1
-
-    def state_dict(self) -> dict:
-        return {"count": self.count, "lr_old": self.lr_old, "bufs": self.bufs}
-
-    @torch.no_grad()
-    def load_state_dict(self, state: dict) -> None:
-        self.count = int(state["count"])
-        self.lr_old = state["lr_old"]
-        _copy_into(self.bufs, state["bufs"])
-
-
-class ClippedAdam:
-    """optax ``chain(clip_by_global_norm(clip_grad), fairseq Adam)`` over
-    named parameters whose ``.grad`` holds the step's gradient.
-
-    fairseq's Adam (``fairseq/optim/adam.py:159-241``, JAX
-    ``_fairseq_adam``) is not ``torch.optim.Adam``: eps is added to
-    ``sqrt(v)`` of the uncorrected second moment, and the whole step is
-    then scaled by ``lr * sqrt(1 - b2^t) / (1 - b1^t)``, with ``lr`` the
-    schedule at the updates applied so far; weight decay is decoupled
-    (``- lr wd p``) and masked."""
-
-    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
-                 schedule: Schedule, betas: Tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8, weight_decay: float = 0.0,
-                 clip_grad: Optional[float] = None):
-        named = [(n, p) for n, p in named_params if p.requires_grad]
-        decay = weight_decay_mask(named)
-        self.params = [p for _, p in named]
-        self.decayed = [p for n, p in named if decay[n]]
-        self.exp_avg = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.exp_avg_sq = [torch.zeros_like(p, dtype=torch.float32)
-                           for p in self.params]
-        self.schedule = schedule
-        self.betas = betas
-        self.eps = eps
-        self.weight_decay = weight_decay
-        self.clip_grad = clip_grad
-        self.count = 0  # updates applied so far
-
-    def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
-
-    @torch.no_grad()
-    def step(self) -> None:
-        """Clip the gradients, then apply this update's Adam step."""
-        live = [i for i, p in enumerate(self.params) if p.grad is not None]
-        params = [self.params[i] for i in live]
-        m = [self.exp_avg[i] for i in live]
-        v = [self.exp_avg_sq[i] for i in live]
-        grads = [p.grad.float() for p in params]
-        clip_by_global_norm(grads, self.clip_grad)
-        b1, b2 = self.betas
-        lr = self.schedule(self.count)
-        t = self.count + 1
-        step_size = lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
-        torch._foreach_mul_(m, b1)
-        torch._foreach_add_(m, grads, alpha=1 - b1)
-        torch._foreach_mul_(v, b2)
-        torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
-        denom = torch._foreach_sqrt(v)
-        torch._foreach_add_(denom, self.eps)
-        delta = torch._foreach_div(m, denom)
-        torch._foreach_mul_(delta, -step_size)
-        if self.weight_decay:
-            decayed = {id(p) for p in self.decayed}
-            for p, d in zip(params, delta):
-                if id(p) in decayed:
-                    d.add_(p.float(), alpha=-lr * self.weight_decay)
-        torch._foreach_add_(params, [d.to(p.dtype) for p, d in zip(params, delta)])
-        self.count += 1
-
-    def state_dict(self) -> dict:
-        return {"count": self.count, "exp_avg": self.exp_avg,
-                "exp_avg_sq": self.exp_avg_sq}
-
-    @torch.no_grad()
-    def load_state_dict(self, state: dict) -> None:
-        self.count = int(state["count"])
-        _copy_into(self.exp_avg, state["exp_avg"])
-        _copy_into(self.exp_avg_sq, state["exp_avg_sq"])
-
-
 def _copy_into(dst, src) -> None:
     """Copy a saved list of tensors into the optimizer's own, in place."""
     if len(dst) != len(src):
@@ -378,14 +238,384 @@ def _copy_into(dst, src) -> None:
         d.copy_(s)
 
 
+class ClippedOptimizer:
+    """optax ``chain(clip_by_global_norm(clip_grad), <rule>)`` over named
+    parameters whose ``.grad`` holds the step's gradient: fairseq's NAG and
+    Adam, and the rules of optax's aliases that the JAX factory builds with
+    their defaults.  The state is a dict of lists of float32 tensors, one a
+    parameter (``STATE`` names them), and the count of updates applied, at
+    which the schedule is read.  A subclass makes its state in
+    ``_init_state`` and returns each live parameter's step in ``_deltas``;
+    ``decayed[i]`` says whether the weight-decay mask decays parameter
+    ``i``."""
+
+    STATE: Tuple[str, ...] = ()
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 schedule: Schedule, clip_grad: Optional[float] = None,
+                 weight_decay: float = 0.0):
+        named = [(n, p) for n, p in named_params if p.requires_grad]
+        decay = weight_decay_mask(named)
+        self.params = [p for _, p in named]
+        self.decayed = [decay[n] for n, _ in named]
+        self.schedule = schedule
+        self.clip_grad = clip_grad
+        self.weight_decay = weight_decay
+        self.count = 0  # updates applied so far
+        self.state: Dict[str, List[torch.Tensor]] = {
+            k: [self._init_state(k, p) for p in self.params] for k in self.STATE}
+
+    def _init_state(self, key: str, p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(p, dtype=torch.float32)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Clip the gradients, then apply this update's step."""
+        live = [i for i, p in enumerate(self.params) if p.grad is not None]
+        params = [self.params[i] for i in live]
+        grads = [p.grad.float() for p in params]
+        clip_by_global_norm(grads, self.clip_grad)
+        state = {k: [v[i] for i in live] for k, v in self.state.items()}
+        deltas = self._deltas(live, params, grads, state,
+                              self.schedule(self.count))
+        torch._foreach_add_(params, [d.to(p.dtype) for p, d in zip(params, deltas)])
+        self.count += 1
+
+    def _deltas(self, live, params, grads, state, lr) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, **self.state}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        for k in self.STATE:
+            _copy_into(self.state[k], state[k])
+
+
+class ClippedNAG(ClippedOptimizer):
+    """optax ``chain(clip_by_global_norm(clip_grad), fairseq NAG)``.
+
+    fairseq's NAG (``fairseq/optim/nag.py:72-109``, JAX ``_fairseq_nag``) is
+    not ``torch.optim.SGD(nesterov=True)``: its momentum buffer is kept in
+    parameter units (``buf <- m lr_correct buf - lr g``) and rescaled by
+    ``lr_correct = lr / lr_old`` when the schedule moves, the update is
+    ``m^2 lr_correct buf - (1 + m) lr g`` with the old buffer, and weight
+    decay is decoupled (``- lr wd p``, outside the buffer)."""
+
+    STATE = ("bufs",)
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 schedule: Schedule, momentum: float = 0.99,
+                 weight_decay: float = 0.0, clip_grad: Optional[float] = None):
+        super().__init__(named_params, schedule, clip_grad, weight_decay)
+        self.momentum = momentum
+        self.lr_old = None  # the first update takes lr_correct = 1
+
+    def _deltas(self, live, params, grads, state, lr):
+        bufs = state["bufs"]
+        m = self.momentum
+        lr_correct = (1.0 if self.lr_old is None
+                      else lr / self.lr_old if self.lr_old > 0 else lr)
+        delta = torch._foreach_mul(bufs, m * m * lr_correct)
+        torch._foreach_add_(delta, grads, alpha=-(1 + m) * lr)
+        if self.weight_decay:
+            for i, p, d in zip(live, params, delta):
+                if self.decayed[i]:
+                    d.add_(p.float(), alpha=-lr * self.weight_decay)
+        torch._foreach_mul_(bufs, m * lr_correct)
+        torch._foreach_add_(bufs, grads, alpha=-lr)
+        self.lr_old = lr
+        return delta
+
+    def state_dict(self) -> dict:
+        return dict(super().state_dict(), lr_old=self.lr_old)
+
+    def load_state_dict(self, state: dict) -> None:
+        super().load_state_dict(state)
+        self.lr_old = state["lr_old"]
+
+
+class ClippedAdam(ClippedOptimizer):
+    """optax ``chain(clip_by_global_norm(clip_grad), fairseq Adam)``.
+
+    fairseq's Adam (``fairseq/optim/adam.py:159-241``, JAX
+    ``_fairseq_adam``) is not ``torch.optim.Adam``: eps is added to
+    ``sqrt(v)`` of the uncorrected second moment, and the whole step is
+    then scaled by ``lr * sqrt(1 - b2^t) / (1 - b1^t)``, with ``lr`` the
+    schedule at the updates applied so far; weight decay is decoupled
+    (``- lr wd p``) and masked."""
+
+    STATE = ("exp_avg", "exp_avg_sq")
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 schedule: Schedule, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 clip_grad: Optional[float] = None):
+        super().__init__(named_params, schedule, clip_grad, weight_decay)
+        self.betas = betas
+        self.eps = eps
+
+    def _deltas(self, live, params, grads, state, lr):
+        m, v = state["exp_avg"], state["exp_avg_sq"]
+        b1, b2 = self.betas
+        t = self.count + 1
+        step_size = lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1 - b2)
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_add_(denom, self.eps)
+        delta = torch._foreach_div(m, denom)
+        torch._foreach_mul_(delta, -step_size)
+        if self.weight_decay:
+            for i, p, d in zip(live, params, delta):
+                if self.decayed[i]:
+                    d.add_(p.float(), alpha=-lr * self.weight_decay)
+        return delta
+
+
+class ClippedSGD(ClippedOptimizer):
+    """``optax.sgd(schedule, momentum)``: ``trace <- g + m trace``, the
+    step ``-lr trace``; no weight decay."""
+
+    STATE = ("trace",)
+
+    def __init__(self, named_params, schedule, momentum: float = 0.99,
+                 clip_grad: Optional[float] = None):
+        super().__init__(named_params, schedule, clip_grad)
+        self.momentum = momentum
+
+    def _deltas(self, live, params, grads, state, lr):
+        trace = state["trace"]
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, grads)
+        return torch._foreach_mul(trace, -lr)
+
+
+# optax's defaults for the aliases that the JAX factory builds without
+# arguments beyond the schedule (and lamb's weight decay, adamax's betas).
+ADAGRAD_INITIAL_ACCUMULATOR = 0.1
+ADAGRAD_EPS = 1e-7
+ADADELTA_RHO = 0.9
+ADADELTA_EPS = 1e-6
+ADAMAX_EPS = 1e-8
+LAMB_BETAS = (0.9, 0.999)
+LAMB_EPS = 1e-6
+ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIPPING_THRESHOLD = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
+
+
+class ClippedAdagrad(ClippedOptimizer):
+    """``optax.adagrad(schedule)``: the sum of squared gradients starts at
+    0.1, the step is ``-lr g / sqrt(sum + eps)``, eps 1e-7 inside the root.
+    (optax's step is 0 where the sum is 0, which a sum that starts at 0.1
+    never is.)"""
+
+    STATE = ("sum_of_squares",)
+
+    def _init_state(self, key, p):
+        return torch.full_like(p, ADAGRAD_INITIAL_ACCUMULATOR,
+                               dtype=torch.float32)
+
+    def _deltas(self, live, params, grads, state, lr):
+        ssq = state["sum_of_squares"]
+        torch._foreach_addcmul_(ssq, grads, grads)
+        inv = torch._foreach_add(ssq, ADAGRAD_EPS)
+        torch._foreach_rsqrt_(inv)
+        torch._foreach_mul_(inv, grads)
+        torch._foreach_mul_(inv, -lr)
+        return inv
+
+
+class ClippedAdadelta(ClippedOptimizer):
+    """``optax.adadelta(schedule)``: ``E[g^2] <- rho E[g^2] + (1 - rho)
+    g^2``, ``u = sqrt(E[u^2] + eps) / sqrt(E[g^2] + eps) g``, then ``E[u^2]
+    <- rho E[u^2] + (1 - rho) u^2``; the step ``-lr u`` (rho 0.9, eps
+    1e-6)."""
+
+    STATE = ("e_g", "e_x")
+
+    def _deltas(self, live, params, grads, state, lr):
+        rho, eps = ADADELTA_RHO, ADADELTA_EPS
+        e_g, e_x = state["e_g"], state["e_x"]
+        torch._foreach_mul_(e_g, rho)
+        torch._foreach_addcmul_(e_g, grads, grads, value=1 - rho)
+        num = torch._foreach_add(e_x, eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(e_g, eps)
+        torch._foreach_sqrt_(den)
+        u = torch._foreach_div(num, den)
+        torch._foreach_mul_(u, grads)
+        torch._foreach_mul_(e_x, rho)
+        torch._foreach_addcmul_(e_x, u, u, value=1 - rho)
+        torch._foreach_mul_(u, -lr)
+        return u
+
+
+class ClippedAdamax(ClippedOptimizer):
+    """``optax.adamax(schedule, b1, b2)``: ``mu <- b1 mu + (1 - b1) g``, the
+    infinity moment ``nu <- max(|g| + eps, b2 nu)``, the step ``-lr mu /
+    (1 - b1^t) / nu``; only the first moment is bias-corrected (eps
+    1e-8)."""
+
+    STATE = ("mu", "nu")
+
+    def __init__(self, named_params, schedule, clip_grad: Optional[float] = None,
+                 betas: Tuple[float, float] = (0.9, 0.999)):
+        super().__init__(named_params, schedule, clip_grad)
+        self.betas = betas
+
+    def _deltas(self, live, params, grads, state, lr):
+        b1, b2 = self.betas
+        mu, nu = state["mu"], state["nu"]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        g_abs = torch._foreach_abs(grads)
+        torch._foreach_add_(g_abs, ADAMAX_EPS)
+        torch._foreach_maximum_(nu, g_abs)
+        out = torch._foreach_div(mu, nu)
+        torch._foreach_mul_(out, -lr / (1 - b1 ** (self.count + 1)))
+        return out
+
+
+class ClippedLamb(ClippedOptimizer):
+    """``optax.lamb(schedule, weight_decay, mask)``: Adam's direction
+    ``m_hat / (sqrt(v_hat) + eps)`` (b1 0.9, b2 0.999, eps 1e-6), plus ``wd
+    p`` where the mask decays, scaled by the trust ratio ``|p| / |u|`` (1
+    where either norm is 0); the step ``-lr`` times that."""
+
+    STATE = ("mu", "nu")
+
+    def _deltas(self, live, params, grads, state, lr):
+        b1, b2 = LAMB_BETAS
+        t = self.count + 1
+        mu, nu = state["mu"], state["nu"]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+        den = torch._foreach_div(nu, 1 - b2 ** t)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, LAMB_EPS)
+        u = torch._foreach_div(mu, 1 - b1 ** t)
+        torch._foreach_div_(u, den)
+        if self.weight_decay:
+            decayed = [(d, p.float()) for i, p, d in zip(live, params, u)
+                       if self.decayed[i]]
+            if decayed:
+                torch._foreach_add_([d for d, _ in decayed], [p for _, p in decayed],
+                                    alpha=self.weight_decay)
+        p_norm = torch.stack(torch._foreach_norm([p.float() for p in params]))
+        u_norm = torch.stack(torch._foreach_norm(u))
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                            p_norm / u_norm) * -lr
+        torch._foreach_mul_(u, list(ratio.unbind()))
+        return u
+
+
+def _factored_dims(shape: Tuple[int, ...]) -> Optional[Tuple[int, int]]:
+    """optax's: the axes of the two largest dims (second, first), or None
+    below 2 dims or where the second largest is under
+    ``ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class ClippedAdafactor(ClippedOptimizer):
+    """``optax.adafactor(schedule)`` with its defaults: second moments
+    decayed by ``1 - (t+1)^-0.8`` of the squared gradient plus 1e-30,
+    factored into row and column means for parameters whose two largest
+    dims are at least 128, else kept whole; the scaled update clipped to a
+    root mean square of 1.0, times ``lr`` and the parameter's root mean
+    square (at least 1e-3, ``multiply_by_parameter_scale``); the step its
+    negative.  No momentum, no weight decay.  Only the factored moments'
+    row and column means take a loop over the parameters."""
+
+    STATE = ("v_row", "v_col", "v")
+
+    def _init_state(self, key, p):
+        dims = _factored_dims(tuple(p.shape))
+        one = torch.zeros(1, dtype=torch.float32, device=p.device)
+        if dims is None:
+            return torch.zeros_like(p, dtype=torch.float32) if key == "v" else one
+        if key == "v":
+            return one
+        d1, d0 = dims
+        drop = d0 if key == "v_row" else d1
+        shape = [s for i, s in enumerate(p.shape) if i != drop]
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    def _deltas(self, live, params, grads, state, lr):
+        # optax's decay, in float32
+        rate = float(np.float32(1.0) - np.float32(self.count + 1)
+                     ** np.float32(-ADAFACTOR_DECAY_RATE))
+        grad_sqr = torch._foreach_mul(grads, grads)
+        torch._foreach_add_(grad_sqr, ADAFACTOR_EPS)
+        dims = [_factored_dims(tuple(p.shape)) for p in params]
+        whole = [j for j, d in enumerate(dims) if d is None]
+        split = [j for j, d in enumerate(dims) if d is not None]
+        out = [None] * len(params)
+        if whole:
+            v = [state["v"][j] for j in whole]
+            torch._foreach_mul_(v, rate)
+            torch._foreach_add_(v, [grad_sqr[j] for j in whole], alpha=1 - rate)
+            u = torch._foreach_pow(v, -0.5)
+            torch._foreach_mul_(u, [grads[j] for j in whole])
+            for j, uj in zip(whole, u):
+                out[j] = uj
+        if split:
+            v_row = [state["v_row"][j] for j in split]
+            v_col = [state["v_col"][j] for j in split]
+            torch._foreach_mul_(v_row, rate)
+            torch._foreach_add_(v_row, [grad_sqr[j].mean(dim=dims[j][1])
+                                        for j in split], alpha=1 - rate)
+            torch._foreach_mul_(v_col, rate)
+            torch._foreach_add_(v_col, [grad_sqr[j].mean(dim=dims[j][0])
+                                        for j in split], alpha=1 - rate)
+            col_factor = torch._foreach_pow(v_col, -0.5)
+            for j, row, col in zip(split, v_row, col_factor):
+                d1, d0 = dims[j]
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (row / row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                out[j] = grads[j] * row_factor.unsqueeze(d0) * col.unsqueeze(d1)
+        # The update's root mean square clipped to the threshold, then the
+        # step scaled by lr and the parameter's root mean square.
+        numel = torch.tensor([float(p.numel()) for p in params],
+                             device=params[0].device).sqrt()
+        u_rms = torch.stack(torch._foreach_norm(out)) / numel
+        p_rms = torch.stack(torch._foreach_norm([p.float() for p in params])) / numel
+        denom = torch.clamp(u_rms / ADAFACTOR_CLIPPING_THRESHOLD, min=1.0)
+        scale = torch.where(p_rms <= ADAFACTOR_MIN_SCALE,
+                            torch.full_like(p_rms, ADAFACTOR_MIN_SCALE), p_rms)
+        torch._foreach_mul_(out, list((scale * -lr / denom).unbind()))
+        return out
+
+
 def make_optimizer(name: str, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                    schedule: Schedule, weight_decay: float = 0.05,
                    clip_grad: Optional[float] = None,
                    betas: Tuple[float, float] = (0.9, 0.999),
                    eps: float = 1e-8, momentum: float = 0.99):
-    """Optimizer factory (timm ``create_optimizer``, fairseq's registry):
-    ``adamw``, ``adam`` (fairseq's) and ``nag`` are ported; the JAX
-    factory's other names raise with their ROADMAP.md item."""
+    """Optimizer factory (timm ``create_optimizer``, fairseq's registry),
+    every name of the JAX factory (``training/optim.py:348-401``):
+    ``adamw``, ``adam`` (fairseq's), ``nag`` (fairseq's), and optax's
+    ``sgd``, ``adafactor``, ``adagrad``, ``adadelta``, ``adamax`` and
+    ``lamb`` with the arguments the JAX factory hands each."""
     if name == "adam":
         return ClippedAdam(named_params, schedule, betas=betas, eps=eps,
                            weight_decay=weight_decay, clip_grad=clip_grad)
@@ -395,7 +625,19 @@ def make_optimizer(name: str, named_params: Iterable[Tuple[str, torch.nn.Paramet
     if name == "nag":
         return ClippedNAG(named_params, schedule, momentum=momentum,
                           weight_decay=weight_decay, clip_grad=clip_grad)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet; see {_NOT_PORTED[name]}")
+    if name == "sgd":
+        return ClippedSGD(named_params, schedule, momentum=momentum,
+                          clip_grad=clip_grad)
+    if name == "adafactor":
+        return ClippedAdafactor(named_params, schedule, clip_grad=clip_grad)
+    if name == "adagrad":
+        return ClippedAdagrad(named_params, schedule, clip_grad=clip_grad)
+    if name == "adadelta":
+        return ClippedAdadelta(named_params, schedule, clip_grad=clip_grad)
+    if name == "adamax":
+        return ClippedAdamax(named_params, schedule, clip_grad=clip_grad,
+                             betas=betas)
+    if name == "lamb":
+        return ClippedLamb(named_params, schedule, weight_decay=weight_decay,
+                           clip_grad=clip_grad)
     raise NotImplementedError(f"optimizer {name}")

@@ -172,33 +172,33 @@ _EVA = {"dim": 48, "num_heads": 4, "window_size": 4, "num_landmarks": 4,
     # the K11/K12 impls reach no unported configuration either
     (dict(_EVA, attn_2d=False, impl="pallas", seq_axis="seq"),
      NotImplementedError),
-    (dict(_EVA, overlap_window=True), NotImplementedError),  # 2-D halo
-    (dict(_EVA, use_rpe=False, use_t5_rpe=True), NotImplementedError),
     (dict(_EVA, seq_axis="seq"), NotImplementedError),      # seq-parallel
-    (dict(_EVA, impl="pallas", overlap_window=True), NotImplementedError),
-    (dict(_EVA, impl="rowmajor", use_rpe=False, use_t5_rpe=True),
-     NotImplementedError),
     (dict(_EVA, impl="fast"), ValueError),                   # unknown impl
     (dict(_EVA, adaptive_proj="mlp"), NotImplementedError),
+    (dict(_EVA, use_t5_rpe=True), NotImplementedError),      # both biases
 ])
 def test_eva_unported_configurations_raise(args, error):
-    with pytest.raises(error, match="ROADMAP|impl|adaptive_proj"):
+    with pytest.raises(error, match="ROADMAP|impl|adaptive_proj|simultaneously"):
         AttentionFactory.build_attention("eva", args)
 
 
 def test_eva_unported_forwards_raise():
-    """A 2-D key-padding mask is not ported, in training or at eval."""
-    m = AttentionFactory.build_attention("eva", _EVA)
+    """A 2-D key-padding mask runs eager, as in JAX, in training and at
+    eval: the strict kernel impls raise before any compute."""
     x = torch.zeros(1, 8, 8, 48)
-    for mode in (m.train, m.eval):
-        with pytest.raises(NotImplementedError, match="padding"):
-            mode()(x, torch.zeros(1, 64, dtype=torch.bool))
+    mask = torch.zeros(1, 64, dtype=torch.bool)
+    for impl in ("packed", "pallas"):
+        m = AttentionFactory.build_attention("eva", dict(_EVA, impl=impl))
+        for mode in (m.train, m.eval):
+            with pytest.raises(ValueError, match="padding mask"):
+                mode()(x, mask)
 
 
-@pytest.mark.parametrize("name,match", [("ra", "not ported"),
-                                        ("scatterbrain", "not ported"),
-                                        ("flash", "unknown")])
+@pytest.mark.parametrize("name,match", [("flash", "unknown"),
+                                        ("linformer", "unknown"),
+                                        ("reformer", "unknown")])
 def test_factory_unported_names(name, match):
+    """Every name the JAX factory registers builds; others are unknown."""
     with pytest.raises(KeyError, match=match):
         AttentionFactory.build_attention(name, {"dim": 48, "num_heads": 4})
 

@@ -360,8 +360,8 @@ def test_bidirectional_t5_buckets_match_jax(ws, ext):
 
 def test_local_attention_1d_base_matches_jax():
     """The halo of ``overlap_window``, the 1-D learned table and the padding
-    of a sequence to a window multiple (``_process_input``); the 1-D local
-    forward itself is not ported yet."""
+    of a sequence to a window multiple (``_process_input``); then the 1-D
+    local forward itself, on JAX's weights, with and without a mask."""
     m = LocalAttention(48, 3, window_size=8, attn_2d=False, overlap_window=True,
                        use_rpe=True)
     assert m.ext_size == 4
@@ -378,5 +378,14 @@ def test_local_attention_1d_base_matches_jax():
         assert tshape == tuple(jshape) == (24,)
         np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
         np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(torch.from_numpy(x))
+    jm = JaxLocal(dim=48, num_heads=3, window_size=8, attn_2d=False,
+                  overlap_window=True, use_rpe=True)
+    params = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)), seed=3)
+    load_jax_params(m, params)
+    for mask in (None, np.arange(21)[None, :] >= np.array([[21], [17]])):
+        want = jm.apply(params, jnp.asarray(x),
+                        None if mask is None else jnp.asarray(mask))
+        with torch.no_grad():
+            got = m.eval()(torch.from_numpy(x),
+                           None if mask is None else torch.from_numpy(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)

@@ -525,7 +525,7 @@ def test_train_lm_unported_flags_raise():
     from efficient_attention_torch.cli import train_lm
 
     for extra in (["--pipeline-stages", "2"], ["--seq-parallel", "2"],
-                  ["--base-layers", "1"], ["--optimizer", "sgd"],
+                  ["--base-layers", "1"], ["--tensorboard-logdir", "tb"],
                   ["--heartbeat-timeout", "5"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_lm.main(train_lm.parse_args(

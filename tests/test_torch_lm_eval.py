@@ -485,8 +485,7 @@ def test_check_ported_takes_data_and_checkpoint_flags():
         "--data", "somewhere", "--finetune-from-model", "x",
         "--decoder-layers-to-keep", "0,1", "--device", "cpu"]))
     for extra in (["--pipeline-stages", "2"], ["--seq-parallel", "2"],
-                  ["--base-layers", "1"], ["--optimizer", "sgd"],
-                  ["--optimizer", "adafactor"], ["--heartbeat-timeout", "5"],
+                  ["--base-layers", "1"], ["--heartbeat-timeout", "5"],
                   ["--tensorboard-logdir", "tb"], ["--wandb-project", "p"],
                   ["--azureml-logging"], ["--distributed"],
                   ["--coordinator-address", "localhost:1"],

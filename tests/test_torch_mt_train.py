@@ -536,7 +536,7 @@ def test_train_mt_cli_runs_on_cpu(capsys, tmp_path, precision):
 @pytest.mark.parametrize("extra", [
     ["--heartbeat-timeout", "5"], ["--tensorboard-logdir", "tb"],
     ["--wandb-project", "p"], ["--azureml-logging"], ["--distributed"],
-    ["--optimizer", "sgd"]])
+    ["--coordinator-address", "localhost:1"]])
 def test_train_mt_unported_flags_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_mt.main(train_mt.parse_args(CLI_ARGV + ["--max-update", "1"] + extra))

@@ -212,8 +212,8 @@ def test_clipped_adamw_matches_optax(clip):
     for k, p in named:
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[k]),
                                    rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.make_optimizer("sgd", named, schedule)
+    with pytest.raises(NotImplementedError, match="optimizer"):
+        optim.make_optimizer("rmsprop", named, schedule)
 
 
 def test_shard_indices_and_metrics_match_jax():
@@ -405,7 +405,7 @@ def test_cli_trains_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [
     ["--mesh-fsdp", "2"], ["--distributed"],
     ["--tensorboard-logdir", "x"], ["--wandb-project", "x"],
-    ["--azureml-logging"], ["--opt", "sgd"],
+    ["--azureml-logging"], ["--mesh-model", "2"],
 ])
 def test_cli_unported_flags_raise(tmp_path, flag):
     from efficient_attention_torch.cli import train_vit

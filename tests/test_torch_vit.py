@@ -361,3 +361,92 @@ def test_port_imports_no_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, f"{path}: imports {name}"
+
+
+# ---- the conv and hmlp patchify stems
+
+
+@pytest.mark.parametrize("patch", [8, 16])
+@pytest.mark.parametrize("stem", ["conv", "hmlp"])
+def test_patchify_stem_matches_jax(stem, patch):
+    """The stem alone on JAX's weights through ``state_dict_from_jax``
+    (its ``Conv_i`` / ``GroupNorm_i`` as items of ``proj``), to 3e-5."""
+    from efficient_attention_tpu.models.layers import PatchEmbed as JaxPatchEmbed
+    from efficient_attention_torch.models.layers import PatchEmbed
+
+    x = np.random.default_rng(13).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    jm = JaxPatchEmbed(patch_size=patch, embed_dim=32, stem_type=stem)
+    params = randomize(jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                                      jnp.asarray(x)), seed=14)
+    want = jax.jit(jm.apply)(to_jax(params), jnp.asarray(x))
+    sd = {k[len("patch_embed."):]: v for k, v in state_dict_from_jax(
+        {"patch_embed": params["params"]}).items()}
+    m = PatchEmbed(patch, 32, stem_type=stem)
+    m.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        got = m(torch.from_numpy(x))
+    assert got.shape == (2, 64 // patch, 64 // patch, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_stem_vit(stem, patch):
+    cfg = dict(GOLDEN_VIT, patch_size=patch)
+    x = np.random.default_rng(15).standard_normal(
+        (2, cfg["img_size"], cfg["img_size"], 3)).astype(np.float32)
+    m = JaxViT(attn_name="eva", attn_args=dict(EVA_ARGS, impl="xla"),
+               patchify_stem=stem, **cfg)
+    params = randomize(jax.eval_shape(m.init, jax.random.PRNGKey(0),
+                                      jnp.asarray(x[:1])), seed=16)
+    return x, params, np.asarray(jax.jit(
+        lambda p, xx: m.apply(p, xx, deterministic=True))(to_jax(params),
+                                                          jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("patch", [8, 16])
+@pytest.mark.parametrize("stem", ["conv", "hmlp"])
+def test_vit_with_stem_matches_jax(stem, patch):
+    """A 2-block ``evit`` with the stem (EVA at eval: K2's plain version on
+    the CPU) on JAX's weights through ``state_dict_from_jax``."""
+    x, params, ref = _jax_stem_vit(stem, patch)
+    m = EfficientTransformer(attn_name="eva", attn_args=dict(EVA_ARGS),
+                             patchify_stem=stem, **dict(GOLDEN_VIT, patch_size=patch))
+    np.testing.assert_allclose(torch_apply(load_jax_params(m, params), x), ref,
+                               atol=GOLDEN_ATOL, rtol=1e-4)
+
+
+def test_stems_reject_other_patch_sizes():
+    from efficient_attention_torch.models.layers import PatchEmbed
+
+    for stem in ("conv", "hmlp"):
+        with pytest.raises(ValueError, match="patch sizes 8 and 16"):
+            PatchEmbed(4, 32, stem_type=stem)
+    with pytest.raises(NotImplementedError, match="stem"):
+        PatchEmbed(8, 32, stem_type="mlp")
+
+
+def test_cli_trains_hmlp_stem_with_lamb_on_cpu(tmp_path):
+    """``train_vit --patchify-stem hmlp --opt lamb`` on the CPU: two steps,
+    finite losses, and the optimizer is lamb."""
+    from efficient_attention_torch.cli import train_vit
+    from efficient_attention_torch.training import optim
+
+    made = []
+    real = optim.make_optimizer
+
+    def spy(name, *a, **k):
+        made.append(real(name, *a, **k))
+        return made[-1]
+
+    argv = ["--model", "evit_tiny_p8", "--attn-name", "eva",
+            "--attn-window-size", "7", "--attn-num-landmarks", "49",
+            "--attn-attn-2d", "--attn-use-rpe", "--device", "cpu",
+            "--input-size", "112", "--depth", "2", "--batch-size", "4",
+            "--num-classes", "10", "--epochs", "1", "--max-steps-per-epoch", "2",
+            "--output-dir", str(tmp_path), "--patchify-stem", "hmlp", "--opt", "lamb"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(optim, "make_optimizer", spy)
+        record = train_vit.cli_main(argv)
+    for k in ("loss", "grad_norm", "val_loss", "val_acc1"):
+        assert np.isfinite(record[k]), k
+    assert isinstance(made[0], optim.ClippedLamb) and made[0].count == 2
