@@ -234,6 +234,22 @@ Phases, each raising on failure:
    route) and ``--task lm`` over the LM protocol's valid split (no
    kernel), from the directories phases 3b and 6b leave for it; a compact
    JSON line of its figures;
+7d. the mesh on ``torch.distributed`` with the one card
+   (``scaleout_phase``): ``cli.train_mt --distributed --num-processes 1``
+   on its own NCCL group for 8 updates (K4 as its validations predict, on
+   the f32 route; updates/s); on an in-process NCCL group of one rank the
+   headline train step at B=128 bf16 unwrapped and through DDP, FSDP2, TP
+   and FSDP2 + TP (``parallel.shard_model`` on a mesh of ones), each 2
+   checked steps at the recipe's rate after warmup (losses within 2**-7
+   and gradient norms within 1e-3 relative of the unwrapped step's, the
+   parameters' change within ``SCALEOUT_UPDATE_TOL`` of its change; K1 12
+   + 12 a step) and 10 timed ones (images/s, the unwrapped step timed
+   first and last, peak memory); two planted faults the check must refuse
+   (rank 0's rows alone, DDP summing); the LM cell's step under DDP (K3 16
+   + 16, tokens/s); two gloo ranks on the card (``--scaleout-rank``), the
+   headline step under DDP at 64 rows a rank, held to the unwrapped step
+   by the same check, the ranks' parameters equal; rates that need two
+   cards are not measured; a compact JSON line of its figures;
 8. timings with CUDA events (kernels, plain versions, bounds, SDPA
    yardsticks; K2 at ``K2_SHAPES`` on both routes and K8 + K1 on the same
    inputs in turns; one headline forward by op
@@ -1301,6 +1317,39 @@ def profile_steps(torch, prof_factory, run, kernel_tag):
                                                row_limit=20)
 
 
+def mt_k4_prediction(args):
+    """The K4 launches that ``cli.train_mt`` with ``args`` makes, as the
+    code predicts them: the epochs its updates take (each ends with a
+    validation), the validation batches and the BLEU chunks, 6 encoder
+    layers each.  Returns ``(epochs, first batch, pairs, valid pairs, valid
+    batches, BLEU chunks, launches)``."""
+    import numpy as np
+
+    from efficient_attention_torch.cli import train_mt
+    from efficient_attention_torch.data.text_data import LanguagePairDataset
+
+    src, tgt, _, _ = train_mt.load_pairs(args)
+    pairs = LanguagePairDataset(src, tgt)
+    sizes = np.maximum(pairs.src_sizes, pairs.tgt_sizes)
+    order_rng = np.random.default_rng(args.seed)
+    epochs, steps, first = 0, 0, None
+    while steps < args.max_update:
+        epochs += 1
+        batches = train_mt.epoch_batches(order_rng, sizes, sizes <= args.max_len,
+                                         args.max_tokens, args.batch_size,
+                                         args.update_freq)
+        first = batches[0] if first is None else first
+        steps += min(len(batches), args.max_update - steps)
+    vsrc, vtgt, _, _ = train_mt.load_pairs(args, split="valid")
+    vpairs = LanguagePairDataset(vsrc, vtgt)
+    vbatches = train_mt.valid_batches(vpairs, args.max_len, args.max_tokens)
+    vsizes = np.maximum(vpairs.src_sizes, vpairs.tgt_sizes)
+    chunks = -(-min(int((vsizes <= args.max_len).sum()),
+                    args.eval_bleu_subset_size) // 8)
+    return (epochs, first, pairs, vpairs, vbatches, chunks,
+            6 * epochs * (len(vbatches) + chunks))
+
+
 def mt_train_phase(torch, card, counters, k4):
     """The MT training path: ``cli.train_mt`` with the recipe's flags, every
     kernel's count set to 0 just before and read just after (K4 only, 6
@@ -1313,7 +1362,6 @@ def mt_train_phase(torch, card, counters, k4):
     import numpy as np
 
     from efficient_attention_torch.cli import train_mt
-    from efficient_attention_torch.data.text_data import LanguagePairDataset
     from efficient_attention_torch.training import lm_steps
     from efficient_attention_torch.training.criterions import label_smoothed_nll_loss
 
@@ -1350,28 +1398,9 @@ def mt_train_phase(torch, card, counters, k4):
     others = {k: v for k, v in launches.items()
               if v and not k.startswith("eva_1d.")}
 
-    # the launches the code predicts: the epochs the 8 updates take (each
-    # ends with a validation), the validation batches, the BLEU chunks
     args = train_mt.parse_args(MT_TRAIN_ARGV)
-    src, tgt, _, _ = train_mt.load_pairs(args)
-    pairs = LanguagePairDataset(src, tgt)
-    sizes = np.maximum(pairs.src_sizes, pairs.tgt_sizes)
-    order_rng = np.random.default_rng(args.seed)
-    epochs, steps, first = 0, 0, None
-    while steps < args.max_update:
-        epochs += 1
-        batches = train_mt.epoch_batches(order_rng, sizes, sizes <= args.max_len,
-                                         args.max_tokens, args.batch_size,
-                                         args.update_freq)
-        first = batches[0] if first is None else first
-        steps += min(len(batches), args.max_update - steps)
-    vsrc, vtgt, _, _ = train_mt.load_pairs(args, split="valid")
-    vpairs = LanguagePairDataset(vsrc, vtgt)
-    vbatches = train_mt.valid_batches(vpairs, args.max_len, args.max_tokens)
+    epochs, first, pairs, vpairs, vbatches, chunks, want_k4 = mt_k4_prediction(args)
     vsizes = np.maximum(vpairs.src_sizes, vpairs.tgt_sizes)
-    chunks = -(-min(int((vsizes <= args.max_len).sum()),
-                    args.eval_bleu_subset_size) // 8)
-    want_k4 = 6 * epochs * (len(vbatches) + chunks)
 
     step_ms = [a.elapsed_time(b) for a, b, _ in timed]
     rate_s = sum(step_ms[1:8]) / 1e3
@@ -2153,8 +2182,8 @@ def vit_protocol_phase(torch, card, counters):
     # resume to epoch 3: the restored state against the file, bit for bit
     real_restore, restored = train_vit.restore, {}
 
-    def checked_restore(ckpt, state, generator):
-        found = real_restore(ckpt, state, generator)
+    def checked_restore(ckpt, state, generator, mesh=None):
+        found = real_restore(ckpt, state, generator, mesh)
         now = dict(state.state_dict(), rng={"generator": generator.get_state()})
         restored.update(step=state.step, same=same_tree(now, ckpt.load()))
         return found
@@ -2589,7 +2618,418 @@ def zoo_phase(torch, card, counters):
     return out
 
 
+# ---- the scale-out phase: the mesh on torch.distributed with one card
+
+SCALEOUT_OUT_DIR = "build/smoke_scaleout"
+# the headline train step's routes: (use_fsdp, use_tp) of shard_model, None
+# for the unwrapped step
+SCALEOUT_ROUTES = {"unwrapped": None, "ddp": (False, False),
+                   "fsdp2": (True, False), "tp": (False, True),
+                   "fsdp2+tp": (True, True)}
+# The checked steps run at the DeiT recipe's rate after its warmup (5e-4 x
+# 128 / 512), where 2 AdamW steps move a weight by up to 2.5e-4.  A route
+# is held to the unwrapped step's losses within one bf16 rounding, its
+# gradient norms within 1e-3 relative, and the change of its parameters
+# over the steps to the unwrapped step's change: the norm of their
+# difference over the norm of that change.  On the H100 the routes at
+# world 1 differ from it by 0.012-0.014 of that change and up to 8e-5 of
+# the norms, as the unwrapped step does from itself; rank 0's rows alone
+# by 0.97 and 0.32.
+SCALEOUT_LOSS_TOL = 2 ** -7
+SCALEOUT_NORM_TOL = 1e-3
+SCALEOUT_UPDATE_TOL = 0.1
+SCALEOUT_CHECK_STEPS = 2
+SCALEOUT_TIMED_STEPS = 10
+
+
+def scaleout_batch(torch, batch, seed=70):
+    """The headline's images and labels of a global batch, made on the CPU
+    from a seed (so every process makes the same)."""
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn(batch, 224, 224, 3, generator=gen)
+    labels = torch.randint(0, 1000, (batch,), generator=gen)
+    return images, labels
+
+
+def scaleout_state(torch, model, sharding):
+    """AdamW of the DeiT recipe (clip 5.0, weight decay 0.05, the EMA) at
+    its rate after the warmup, on ``model`` (or its shards)."""
+    from efficient_attention_torch.training.optim import (
+        cosine_schedule,
+        make_optimizer,
+    )
+    from efficient_attention_torch.training.train_state import TrainState
+
+    schedule = cosine_schedule(5e-4 * 128 / 512, warmup_steps=0,
+                               total_steps=1000)
+    opt = make_optimizer("adamw", model.named_parameters(), schedule,
+                         weight_decay=0.05, clip_grad=5.0)
+    return TrainState(model if sharding is None else sharding.model, opt,
+                      ema_decay=0.99996, sharding=sharding)
+
+
+def scaleout_steps(torch, state, sharding, images, labels, n):
+    """``n`` headline train steps (bf16, no mixup or erasing, drop path 0,
+    zero RF noise) on this rank's rows; their losses and gradient norms."""
+    from efficient_attention_torch.attention.eva import EVA
+    from efficient_attention_torch.parallel import local_rows
+    from efficient_attention_torch.training.train_state import make_vit_train_step
+
+    step = make_vit_train_step(None, 1000, 0.1, compute_dtype=torch.bfloat16)
+    mesh = None if sharding is None else sharding.mesh
+    x = local_rows(images, mesh).cuda()
+    y = local_rows(labels, mesh).cuda()
+    metrics = []
+    with mock.patch.object(EVA, "_sample_weights", lambda self, mu: mu):
+        for _ in range(n):
+            metrics.append(step(state, x, y, None))
+    torch.cuda.synchronize()
+    return ([float(m.loss) for m in metrics],
+            [float(m.grad_norm) for m in metrics])
+
+
+def scaleout_params(model, sharding):
+    """The whole float parameters and buffers, float32 on the CPU."""
+    params = model.state_dict() if sharding is None else sharding.state_dict()
+    return {k: v.detach().float().cpu() for k, v in params.items()
+            if v.is_floating_point()}
+
+
+def scaleout_checked(torch, model, sharding, images, labels):
+    """The checked steps from the model's present weights: losses,
+    gradient norms and the parameters after them."""
+    state = scaleout_state(torch, model, sharding)
+    losses, norms = scaleout_steps(torch, state, sharding, images, labels,
+                                   SCALEOUT_CHECK_STEPS)
+    return state, {"losses": losses, "norms": norms,
+                   "params": scaleout_params(model, sharding)}
+
+
+def scaleout_errors(torch, got, ref, init):
+    """A run's losses, gradient norms and parameters after the checked steps
+    (``got``) against the unwrapped step's (``ref``); both started from
+    ``init``.  AdamW moves a weight by about its rate whatever the size of
+    its gradient, so the parameters' change over the steps is compared as
+    a whole."""
+    d_ref = torch.cat([(ref["params"][k] - v).flatten() for k, v in init.items()])
+    d_got = torch.cat([(got["params"][k] - v).flatten() for k, v in init.items()])
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    return {"loss_rel_err": rel(got["losses"], ref["losses"]),
+            "grad_norm_rel_err": rel(got["norms"], ref["norms"]),
+            "update_rel_err": float((d_got - d_ref).norm() / d_ref.norm()),
+            "update_max_abs_err": float((d_got - d_ref).abs().max()),
+            "update_max_abs": float(d_ref.abs().max())}
+
+
+def scaleout_ok(err) -> bool:
+    return (err["loss_rel_err"] <= SCALEOUT_LOSS_TOL
+            and err["grad_norm_rel_err"] <= SCALEOUT_NORM_TOL
+            and err["update_rel_err"] <= SCALEOUT_UPDATE_TOL)
+
+
+def scaleout_model(torch):
+    from efficient_attention_torch.cli import train_vit
+
+    return train_vit.build_model(train_vit.parse_args(MAIN_ARGV + ["--drop-path", "0"]))
+
+
+def scaleout_rank(argv) -> int:
+    """One of the two gloo ranks on the one card (``chip_smoke.py
+    --scaleout-rank RANK PORT``): the headline step under DDP on its 64 rows
+    of the global batch of 128, 2 steps; each rank saves its losses,
+    gradient norms, whole parameters and K1's launches for the parent."""
+    import torch
+
+    from efficient_attention_torch.ops.kernels import eva_packed as k1
+    from efficient_attention_torch.parallel import init_distributed, make_mesh, shard_model
+
+    rank, port = int(argv[0]), int(argv[1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", 2, rank, device_type="cuda",
+                     backend="gloo")
+    try:
+        mesh = make_mesh(device_type="cuda")
+        model = scaleout_model(torch).cuda()
+        sharding = shard_model(model, mesh)
+        images, labels = scaleout_batch(torch, 128)
+        k1.LAUNCHES_FWD = k1.LAUNCHES_BWD = 0
+        _, out = scaleout_checked(torch, model, sharding, images, labels)
+        out.update(k1=(k1.LAUNCHES_FWD, k1.LAUNCHES_BWD),
+                   backend=torch.distributed.get_backend())
+        torch.save(out, f"{SCALEOUT_OUT_DIR}/rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def scaleout_phase(torch, card, counters, k1, k3, k4):
+    """The mesh of ``parallel`` on the one card (``counters`` maps every
+    launch count, each set to 0 just before a run and read just after):
+
+    * ``train_mt --distributed --num-processes 1`` (NCCL, the CLI joining
+      and leaving its own group) for 8 updates at the MT training cell's
+      flags: updates/s, K4's launches in its validations as predicted;
+    * an in-process NCCL group of one rank: the headline ViT train step
+      (B=128, bf16) unwrapped and then through DDP, FSDP2 (an fsdp axis of
+      1, ``fully_shard`` applied anyway), TP (a model axis of 1,
+      ``parallelize_module`` applied anyway) and FSDP2 with TP, each 2
+      checked steps at the recipe's rate after warmup (``scaleout_ok``
+      against the unwrapped step; K1 12 + 12 a step) and 10 timed ones
+      (images/s, peak memory); two planted faults that the check must
+      refuse: the step on rank 0's 64 rows alone (what DDP without its
+      all-reduce computes there) and DDP summing where it averages (a comm
+      hook that doubles the gradients); the LM train cell's step (18 x 512,
+      bf16) under DDP: tokens/s and K3 16 + 16 a step;
+    * two gloo ranks on the same card (``scaleout_rank``): the headline step
+      under DDP at 64 rows a rank, held to the unwrapped step by the same
+      check, and the two ranks' parameters equal.
+
+    Rates that need two cards are not measured: the card is one."""
+    import os
+
+    import torch.distributed as dist
+
+    from efficient_attention_torch.cli import train_lm, train_mt
+    from efficient_attention_torch.parallel import init_distributed, make_mesh, shard_model
+    from efficient_attention_torch.parallel.distributed import free_port
+    from efficient_attention_torch.training import lm_steps
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SCALEOUT_OUT_DIR, ignore_errors=True)
+    os.makedirs(SCALEOUT_OUT_DIR)
+    out = {"card": card, "two_cards": "not measured (one card)"}
+
+    def zero_counts():
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    # -- train_mt joined to its own NCCL group of one process
+    real_step = lm_steps.make_mt_train_step
+    timed = []
+
+    def make_timed_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def run(*sa):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(*sa)
+            end.record()
+            timed.append((start, end))
+            return metrics
+
+        return run
+
+    argv = MT_TRAIN_ARGV + ["--distributed", "--num-processes", "1",
+                            "--save-dir", f"{SCALEOUT_OUT_DIR}/mt", "--no-save"]
+    zero_counts()
+    with mock.patch.object(lm_steps, "make_mt_train_step", make_timed_step):
+        stats = train_mt.cli_main(argv)
+    torch.cuda.synchronize()
+    if dist.is_initialized():
+        raise AssertionError("train_mt left its process group behind")
+    *_, want_k4 = mt_k4_prediction(train_mt.parse_args(argv))
+    step_ms = [a.elapsed_time(b) for a, b in timed]
+    out["mt"] = {"stats": stats, "updates_per_s_steps_2_8": 7e3 / sum(step_ms[1:8]),
+                 "k4_validation": k4.LAUNCHES, "k4_predicted": want_k4,
+                 "k4_f32_route": k4.LAUNCHES_TF32}
+    log(f"[scaleout] train_mt --distributed --num-processes 1 (NCCL): "
+        f"{json.dumps(out['mt'])}; {card}")
+    if not all(math.isfinite(stats[k]) for k in ("loss", "valid_loss", "valid_bleu")):
+        raise AssertionError(f"non-finite MT stats {stats}")
+    if (stats["step"], len(timed)) != (8, 8) or k4.LAUNCHES != want_k4 \
+            or k4.LAUNCHES_TF32 != want_k4:
+        raise AssertionError(f"MT under one NCCL rank: {stats['step']} updates, "
+                             f"{k4.LAUNCHES} K4 launches ({want_k4} predicted, "
+                             f"{k4.LAUNCHES_TF32} on the f32 route)")
+
+    # -- the headline step's routes on an in-process NCCL group of one rank
+    init_distributed(f"localhost:{free_port()}", 1, 0, device_type="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()} on the card")
+        images, labels = scaleout_batch(torch, 128)
+        base = scaleout_model(torch)
+        init = scaleout_params(base, None)
+        routes, ref, unwrapped = {}, None, None
+
+        def rate(state, sharding):
+            scaleout_steps(torch, state, sharding, images, labels, 1)
+            t0 = time.perf_counter()
+            scaleout_steps(torch, state, sharding, images, labels,
+                           SCALEOUT_TIMED_STEPS)
+            return 128 * SCALEOUT_TIMED_STEPS / (time.perf_counter() - t0)
+
+        for name, route in SCALEOUT_ROUTES.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = copy.deepcopy(base).cuda()
+            sharding = None
+            if route is not None:
+                sharding = shard_model(model, make_mesh(device_type="cuda"),
+                                       use_fsdp=route[0], use_tp=route[1],
+                                       compute_dtype=torch.bfloat16)
+            zero_counts()
+            state, got = scaleout_checked(torch, model, sharding, images, labels)
+            k1_step = (k1.LAUNCHES_FWD / SCALEOUT_CHECK_STEPS,
+                       k1.LAUNCHES_BWD / SCALEOUT_CHECK_STEPS)
+            r = {"images_per_s": rate(state, sharding), "k1_a_step": k1_step,
+                 "losses": got["losses"], "grad_norms": got["norms"],
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "log": [] if sharding is None else sharding.log[-1:] + [
+                     f"{len(sharding.log) - 1} more lines"]}
+            if ref is None:
+                ref, unwrapped = got, state
+            else:
+                r.update(scaleout_errors(torch, got, ref, init))
+            routes[name] = r
+            log(f"[scaleout] headline step B=128 bf16 {name}: {json.dumps(r)}; {card}")
+            if k1_step != (12, 12):
+                raise AssertionError(f"{name}: K1 {k1_step} launches a step (12 + 12)")
+            if not all(math.isfinite(v) for v in got["losses"] + got["norms"]):
+                raise AssertionError(f"{name}: losses {got['losses']}, "
+                                     f"gradient norms {got['norms']}")
+            if ref is not got and not scaleout_ok(r):
+                raise AssertionError(f"{name} differs from the unwrapped step: {r}")
+            if sharding is not None:
+                del model, sharding, state
+            del got
+        # the unwrapped step once more, against itself: what the bf16
+        # step's own run-to-run differences leave under the limits
+        model = copy.deepcopy(base).cuda()
+        _, got = scaleout_checked(torch, model, None, images, labels)
+        out["unwrapped_twice"] = scaleout_errors(torch, got, ref, init)
+        log(f"[scaleout] the unwrapped step twice: "
+            f"{json.dumps(out['unwrapped_twice'])}; {card}")
+        if not scaleout_ok(out["unwrapped_twice"]):
+            raise AssertionError(f"the unwrapped step differs from itself: "
+                                 f"{out['unwrapped_twice']}")
+        # planted faults, which the check must refuse: rank 0 of two DDP
+        # ranks without the all-reduce trains on its 64 rows alone; DDP
+        # summing two ranks' equal gradients where it averages them
+        faults = {}
+        model = copy.deepcopy(base).cuda()
+        _, got = scaleout_checked(torch, model, None, images[:64], labels[:64])
+        faults["rank0_rows_alone"] = scaleout_errors(torch, got, ref, init)
+        model = copy.deepcopy(base).cuda()
+        sharding = shard_model(model, make_mesh(device_type="cuda"),
+                               use_fsdp=False, use_tp=False,
+                               compute_dtype=torch.bfloat16)
+
+        def doubled(_, bucket):
+            fut = torch.futures.Future()
+            fut.set_result(bucket.buffer() * 2)
+            return fut
+
+        sharding.model.register_comm_hook(None, doubled)
+        _, got = scaleout_checked(torch, model, sharding, images, labels)
+        faults["ddp_sums"] = scaleout_errors(torch, got, ref, init)
+        del model, sharding, got
+        out["planted_faults"] = faults
+        log(f"[scaleout] planted faults: {json.dumps(faults)}; {card}")
+        for name, err in faults.items():
+            if scaleout_ok(err):
+                raise AssertionError(f"the check passed the planted fault {name}: {err}")
+        # the unwrapped step timed again after the routes (turns: first and
+        # last); each route's share is of the two readings' mean
+        last = rate(unwrapped, None)
+        first = routes["unwrapped"]["images_per_s"]
+        routes["unwrapped"]["images_per_s_again"] = last
+        for r in routes.values():
+            r["share_of_unwrapped"] = r["images_per_s"] / ((first + last) / 2)
+        log(f"[scaleout] the unwrapped step again: {last:.1f} images/s (first "
+            f"{first:.1f}); shares {json.dumps({k: v['share_of_unwrapped'] for k, v in routes.items()})}; {card}")
+        del unwrapped, base
+        out["vit_routes"] = routes
+
+        # the LM train cell's step under DDP
+        from efficient_attention_torch.training.lm_steps import make_lm_train_step
+        from efficient_attention_torch.training.optim import make_optimizer
+        from efficient_attention_torch.training.train_state import TrainState
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm_args = train_lm.parse_args(LM_ARGV)
+        model = train_lm.build_model(lm_args, LM_VOCAB, dense_tokens=True).cuda()
+        sharding = shard_model(model, make_mesh(device_type="cuda"))
+        state = TrainState(sharding.model, make_optimizer(
+            "nag", model.named_parameters(), lambda step: 1e-3,
+            weight_decay=0.0, clip_grad=0.1), sharding=sharding)
+        lm_step = make_lm_train_step(use_adaptive=True, compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        batch = torch.randint(4, LM_VOCAB, (18, 513), generator=gen, device="cuda")
+        zero_counts()
+        lm_step(state, batch[:, :-1], batch[:, 1:], gen)
+        torch.cuda.synchronize()
+        k3_step = (k3.LAUNCHES_FWD, k3.LAUNCHES_BWD)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            m = lm_step(state, batch[:, :-1], batch[:, 1:], gen)
+        torch.cuda.synchronize()
+        out["lm_ddp"] = {"tokens_per_s": 18 * 512 * 3 / (time.perf_counter() - t0),
+                         "k3_a_step": k3_step, "loss": float(m.loss),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f"[scaleout] LM step 18x512 bf16 under DDP (NCCL, 1 rank): "
+            f"{json.dumps(out['lm_ddp'])}; {card}")
+        if k3_step != (16, 16) or not math.isfinite(out["lm_ddp"]["loss"]):
+            raise AssertionError(f"LM under DDP: K3 {k3_step} a step (16 + 16), "
+                                 f"loss {out['lm_ddp']['loss']}")
+        del model, sharding, state, batch
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # -- two gloo ranks on the one card
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--scaleout-rank",
+                               str(rank), str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(f"[scaleout] gloo rank {rank} on the card failed:\n{text[-4000:]}")
+            raise AssertionError(f"gloo rank {rank} exited {p.returncode}")
+    ranks = [torch.load(f"{SCALEOUT_OUT_DIR}/rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    err = scaleout_errors(torch, ranks[0], ref, init)
+    same = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in init)
+    out["gloo_2_ranks"] = dict(err, losses=ranks[0]["losses"],
+                               grad_norms=ranks[0]["norms"],
+                               ranks_params_equal=same,
+                               k1=[r["k1"] for r in ranks],
+                               backend=ranks[0]["backend"],
+                               wall_s=time.perf_counter() - t0)
+    log(f"[scaleout] 2 gloo ranks on one card, DDP, 64 rows a rank: "
+        f"{json.dumps(out['gloo_2_ranks'])}; {card}")
+    if (ranks[0]["losses"], ranks[0]["norms"]) != (ranks[1]["losses"], ranks[1]["norms"]) \
+            or not same:
+        raise AssertionError("the ranks' losses, gradient norms or parameters differ")
+    if not scaleout_ok(err):
+        raise AssertionError(f"2 gloo ranks differ from one process: {out['gloo_2_ranks']}")
+    if any(tuple(r["k1"]) != (24, 24) for r in ranks):
+        raise AssertionError(f"K1 launches on the ranks {[r['k1'] for r in ranks]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[scaleout] the phase took {out['phase_s']:.2f} s")
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--scaleout-rank"]:
+        return scaleout_rank(sys.argv[2:])
     t_start = time.perf_counter()
     try:
         import torch
@@ -4106,6 +4546,11 @@ def main() -> int:
         (k1, "LAUNCHES_FWD_MMA"), (k1, "LAUNCHES_BWD_MMA"), (k2, "LAUNCHES_MMA"),
         (k3, "LAUNCHES_FWD_TF32"), (k3, "LAUNCHES_BWD_TF32")))
     print(json.dumps({"zoo": zoo}), flush=True)
+
+    # ---- 7d. the mesh on torch.distributed with the one card: DDP, FSDP2,
+    # TP and FSDP2 + TP on NCCL at world size 1, two gloo ranks on the card
+    scaleout = scaleout_phase(torch, card, all_counters, k1, k3, k4)
+    print(json.dumps({"scaleout": scaleout}), flush=True)
 
     # ---- 8. timings
     # K2 in bf16 at the headline, PVT-B3's three EVA stages and DeiT-tiny-p16:

@@ -53,6 +53,10 @@ class MultiheadAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.attn_dropout = Dropout(attn_drop)
         self.proj_dropout = Dropout(proj_drop)
+        # under tensor parallelism (parallel.mesh.shard_model) the module
+        # computes only these heads of the whole model's: ``num_heads`` and
+        # ``dim`` are then the local ones and ``head_dim`` stays the model's
+        self.local_heads: Optional[slice] = None
 
     @property
     def head_dim(self) -> int:
@@ -74,11 +78,11 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, C = x.shape[0], x.shape[-1]
+        B = x.shape[0]
         seq_shape = tuple(x.shape[1:-1])
         q, k, v = self.proj_and_split_heads(x)
         output = self._apply_attention(q, k, v, key_padding_mask)
-        x = output.transpose(1, 2).reshape((B,) + seq_shape + (C,))
+        x = output.transpose(1, 2).reshape((B,) + seq_shape + (-1,))
         return self.proj_dropout(self.proj(x))
 
     def _apply_attention(self, q, k, v, key_padding_mask):

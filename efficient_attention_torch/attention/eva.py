@@ -201,7 +201,7 @@ class EVA(LocalAttention):
         if not self.use_t5_rpe:
             return super().window_bias()
         table = self.rel_pos_bias.relative_attention_bias.weight
-        return table[self.t5_buckets].permute(2, 0, 1) * self.scale
+        return self.heads_of(table[self.t5_buckets].permute(2, 0, 1)) * self.scale
 
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -234,7 +234,7 @@ class EVA(LocalAttention):
                 and supports_single(B, gh, gw, ws, j, self.adaptive_proj,
                                     3 * C, self.num_heads, x.element_size())):
             return self._forward_single(x, j)
-        if (at_eval and self.use_megakernel
+        if (at_eval and self.use_megakernel and self.local_heads is None
                 and supports_mega(B, gh, gw, ws, j, self.num_landmarks,
                                   self.adaptive_proj, C, self.num_heads,
                                   x.element_size())):
@@ -273,7 +273,7 @@ class EVA(LocalAttention):
             qkv, *self._adaptive_weights(), self.scale, self.num_heads, gw,
             self.window_size, j, self.adaptive_proj == "default",
             bias=self.window_bias())
-        return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+        return self.proj_dropout(self.proj(out.reshape(B, gh, gw, -1)))
 
     def _adaptive_weights(self):
         """``(wq, bq, wk, bk, lnq_scale, lnq_bias, lnk_scale, lnk_bias)`` of
@@ -323,6 +323,7 @@ class EVA(LocalAttention):
         qkv = self.qkv(x.reshape(B, gh * gw, C))  # [B, N, 3*H*D]
         rf_k_bar, beta = self._summaries_dispatch(qkv, (gh, gw), j)
         if (not self.training and self.fuse_output_proj
+                and self.local_heads is None
                 and supports_packed_out(B, gh * gw, gw, self.window_size,
                                         self.num_landmarks, self.head_dim,
                                         x.element_size(), self.num_heads)):
@@ -334,7 +335,7 @@ class EVA(LocalAttention):
         out = eva_attention_packed(qkv, rf_k_bar, beta, self.scale,
                                    self.num_heads, gw, self.window_size,
                                    bias=self.window_bias())
-        return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+        return self.proj_dropout(self.proj(out.reshape(B, gh, gw, -1)))
 
     def _summaries_dispatch(self, qkv: torch.Tensor, seq_shape: Tuple[int, int],
                             j: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -461,7 +462,7 @@ class EVA(LocalAttention):
             else:
                 output = self._joint_eager(w_q, w_k, w_v, rf_k_bar, beta)
             output = self.window_merge(output, seq_shape)
-        x = output.transpose(1, 2).reshape(B, gh, gw, C)
+        x = output.transpose(1, 2).reshape(B, gh, gw, -1)
         return self.proj_dropout(self.proj(x))
 
     def _joint_eager(self, w_q, w_k, w_v, rf_k_bar, beta) -> torch.Tensor:

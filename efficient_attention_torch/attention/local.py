@@ -71,15 +71,22 @@ class LocalWindows:
 
     def window_bias(self) -> Optional[torch.Tensor]:
         """Per-window additive bias, or None: ``[H, w*w, (w + 2e)**2]`` in
-        2-D, the learned table ``[H, w, w + 2e]`` itself in 1-D."""
+        2-D, the learned table ``[H, w, w + 2e]`` itself in 1-D; only the
+        ``local_heads`` under tensor parallelism."""
         if not self.rpe_enabled:
             return None
+        table = self.local_relative_position_bias_table
         if not self.attn_2d:
-            return self.local_relative_position_bias_table
+            return self.heads_of(table)
         w, e = self.window_size, self.ext_size
-        bias = self.local_relative_position_bias_table[
-            self.relative_position_index.reshape(-1)]
-        return bias.reshape(w * w, (w + 2 * e) ** 2, self.num_heads).permute(2, 0, 1)
+        bias = table[self.relative_position_index.reshape(-1)]
+        return self.heads_of(bias.reshape(w * w, (w + 2 * e) ** 2,
+                                          table.shape[-1]).permute(2, 0, 1))
+
+    def heads_of(self, bias: torch.Tensor) -> torch.Tensor:
+        """The ``local_heads`` of a per-head ``[H, ...]`` bias (all of them
+        outside tensor parallelism)."""
+        return bias if self.local_heads is None else bias[self.local_heads]
 
     def add_rel_pos_bias(self, local_dots: torch.Tensor) -> torch.Tensor:
         """``local_dots [b, h, g, i, j]`` plus the learned bias
@@ -172,7 +179,7 @@ class LocalAttention(LocalWindows, MultiheadAttention):
                 qkv = self.qkv(x.reshape(B, gh * gw, C))
                 out = local_attention_packed(qkv, self.scale, self.num_heads,
                                              gw, ws, bias=self.window_bias())
-                return self.proj_dropout(self.proj(out.reshape(B, gh, gw, C)))
+                return self.proj_dropout(self.proj(out.reshape(B, gh, gw, -1)))
         return super().forward(x, key_padding_mask)
 
     def _apply_attention(self, q, k, v, key_padding_mask):

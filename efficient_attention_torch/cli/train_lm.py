@@ -127,11 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensorboard-logdir", default="")
     p.add_argument("--wandb-project", default=None)
     p.add_argument("--azureml-logging", action="store_true")
-    dist = p.add_argument_group("distributed")
-    dist.add_argument("--distributed", action="store_true", default=False)
-    dist.add_argument("--coordinator-address", default=None, type=str)
-    dist.add_argument("--num-processes", default=None, type=int)
-    dist.add_argument("--process-id", default=None, type=int)
+    from efficient_attention_torch.parallel.distributed import add_distributed_args
+
+    add_distributed_args(p)
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device to run on ('cuda' or 'cpu')")
     return p
@@ -174,9 +172,6 @@ def check_ported(args) -> None:
         (bool(args.tensorboard_logdir), "--tensorboard-logdir", "Queue 1, item 8"),
         (args.wandb_project is not None, "--wandb-project", "Queue 1, item 8"),
         (args.azureml_logging, "--azureml-logging", "Queue 1, item 8"),
-        (args.distributed or args.coordinator_address is not None
-         or args.num_processes is not None or args.process_id is not None,
-         "the distributed flags", "Queue 1, item 7"),
     ]
     for unported, flag, item in queued:
         if unported:
@@ -269,13 +264,39 @@ def _print_profile(prof, device, logdir) -> None:
     print(prof.key_averages().table(
         sort_by="self_device_time_total" if device.type == "cuda"
         else "self_cpu_time_total", row_limit=20))
-    if logdir:
+    from efficient_attention_torch.parallel.distributed import is_primary
+
+    if logdir and is_primary():
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def main(args) -> dict:
+    """Train; in a process group (joined under ``--distributed`` or
+    ``torchrun``, and left again where this call joined it) data-parallel,
+    each rank on its rows of the global batch, rank 0 alone printing and
+    saving."""
+    from efficient_attention_torch.parallel.distributed import run_in_group
+
+    check_ported(args)
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available")
+    return run_in_group(args, _train)
+
+
+def _train(args) -> dict:
+    import torch.distributed as dist
+
     from efficient_attention_torch.data.text_data import TokenBlockDataset
+    from efficient_attention_torch.parallel import local_rows, make_mesh, shard_model
+    from efficient_attention_torch.parallel.distributed import (
+        dp_coordinate,
+        generator_states,
+        is_primary,
+        rank_seed,
+        restore_generator,
+        run_device,
+    )
     from efficient_attention_torch.training.checkpoint import (
         CheckpointManager,
         maybe_prune_for_keep,
@@ -289,10 +310,7 @@ def main(args) -> dict:
     from efficient_attention_torch.training.optim import make_optimizer
     from efficient_attention_torch.training.train_state import TrainState
 
-    check_ported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available")
+    device = run_device(args)
     # float32 means float32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -302,15 +320,22 @@ def main(args) -> dict:
     # causal attention hides from every real query and the loss masks, so
     # the model takes no padding mask and causal EVA may take K3
     model = build_model(args, vocab_size, dense_tokens=True).to(device)
+    mesh = make_mesh(device_type=device.type) if dist.is_initialized() else None
+    sharding = None if mesh is None else shard_model(model, mesh)
+    dp_rank, dp_size = dp_coordinate(mesh)
     blocks = TokenBlockDataset(tokens, args.tokens_per_sample + 1, pad_idx=1)
     accum = max(1, args.update_freq)
-    batch_size = max(accum, (args.max_tokens // args.tokens_per_sample) * accum)
-    batch_size -= batch_size % accum
+    # the global batch splits into update_freq microbatches that each split
+    # over the data-parallel ranks (JAX cli/train_lm.py:497-500)
+    quantum = dp_size * accum
+    batch_size = max(quantum, (args.max_tokens // args.tokens_per_sample) * accum)
+    batch_size -= batch_size % quantum
     optimizer = make_optimizer(args.optimizer, model.named_parameters(),
                                make_schedule(args), weight_decay=0.0,
                                clip_grad=args.clip_norm)
-    state = TrainState(model, optimizer,
-                       ema_decay=args.ema_decay if args.store_ema else 0.0)
+    state = TrainState(model if sharding is None else sharding.model, optimizer,
+                       ema_decay=args.ema_decay if args.store_ema else 0.0,
+                       sharding=sharding)
     use_adaptive = model.decoder.adaptive_softmax is not None
     train_step = make_lm_train_step(
         pad_idx=1, accum_steps=accum, use_adaptive=use_adaptive,
@@ -328,7 +353,8 @@ def main(args) -> dict:
 
     def validate() -> dict:
         """Valid-split loss and perplexity, on the float32 parameters (or
-        their EMA)."""
+        their EMA); data-parallel, rank ``r`` scores batches ``r, r + dp,
+        ...`` and the sums are reduced."""
         if valid_blocks is None:
             return {}
         model.eval()
@@ -336,7 +362,7 @@ def main(args) -> dict:
         nll_sum = tok_sum = 0.0
         vb = max(1, args.max_tokens // args.tokens_per_sample)
         n = (len(valid_blocks) // vb) * vb
-        for i in range(0, n, vb):
+        for i in range(dp_rank * vb, n, dp_size * vb):
             batch = torch.from_numpy(np.stack(
                 [valid_blocks[j] for j in range(i, i + vb)])).to(device)
             t_in, t_tg = batch[:, :-1], batch[:, 1:]
@@ -349,13 +375,17 @@ def main(args) -> dict:
                     t_in, t_tg, mask)
             nll_sum += float(ns)
             tok_sum += float(nt)
+        if sharding is not None:
+            nll_sum, tok_sum = sharding.all_reduce_dp(torch.tensor(
+                [nll_sum, tok_sum], dtype=torch.float64, device=device)).tolist()
         nll = nll_sum / max(tok_sum, 1.0)
         vm = {"valid_loss": nll, "valid_ppl": math.exp(min(nll, 50.0)),
               "valid_batches": n // vb}
         print(f"| valid loss {nll:.3f} ppl {vm['valid_ppl']:.2f}")
         return vm
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    generator = torch.Generator(device=device).manual_seed(
+        rank_seed(args.seed, mesh))
     order_rng = np.random.default_rng(args.seed)
     order = order_rng.permutation(len(blocks))
     pos = 0
@@ -365,7 +395,8 @@ def main(args) -> dict:
             order, pos = order_rng.permutation(len(blocks)), 0
         return order, pos
 
-    os.makedirs(args.save_dir, exist_ok=True)
+    if is_primary():
+        os.makedirs(args.save_dir, exist_ok=True)
     ckpt = CheckpointManager(os.path.join(args.save_dir, "ckpt"),
                              keep_last=args.keep_interval_updates,
                              save_interval_steps=args.save_interval_updates)
@@ -392,7 +423,7 @@ def main(args) -> dict:
         # function of (seed, step), so it is replayed
         saved = ckpt.load(last)
         state.load_state_dict(saved)
-        generator.set_state(saved["rng"]["generator"])
+        restore_generator(generator, saved["rng"], mesh)
         for _ in range(last):
             order, pos = advance_order(order, pos)
             pos += batch_size
@@ -408,7 +439,8 @@ def main(args) -> dict:
         order, pos = advance_order(order, pos)
         idx = order[pos:pos + batch_size]
         pos += batch_size
-        batch = torch.from_numpy(np.stack([blocks[int(i)] for i in idx])).to(device)
+        batch = local_rows(torch.from_numpy(np.stack(
+            [blocks[int(i)] for i in idx])), mesh, accum).to(device)
         if args.profile is not None and state.step == 1 and prof is None:
             prof = _profiler(device)
             prof.start()
@@ -435,7 +467,7 @@ def main(args) -> dict:
             print(f"| step {step} {logger} | wps {wps:.0f}")
         if not args.no_save and ckpt.should_save(step):
             ckpt.save(step, dict(state.state_dict(),
-                                 rng={"generator": generator.get_state()}))
+                                 rng=generator_states(generator)))
         stats = {"step": step, "loss": loss, "ppl": math.exp(min(loss, 20)),
                  "gnorm": float(metrics.grad_norm)}
         if (args.stop_time_hours > 0

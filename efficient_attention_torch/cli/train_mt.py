@@ -202,11 +202,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TensorBoard event dir (main.sh:152 parity)")
     p.add_argument("--wandb-project", default=None)
     p.add_argument("--azureml-logging", action="store_true")
-    dist = p.add_argument_group("distributed")
-    dist.add_argument("--distributed", action="store_true", default=False)
-    dist.add_argument("--coordinator-address", default=None, type=str)
-    dist.add_argument("--num-processes", default=None, type=int)
-    dist.add_argument("--process-id", default=None, type=int)
+    from efficient_attention_torch.parallel.distributed import add_distributed_args
+
+    add_distributed_args(p)
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device to run on ('cuda' or 'cpu')")
     return p
@@ -339,9 +337,6 @@ def check_ported(args) -> None:
         (bool(args.tensorboard_logdir), "--tensorboard-logdir", item8),
         (args.wandb_project is not None, "--wandb-project", item8),
         (args.azureml_logging, "--azureml-logging", item8),
-        (args.distributed or args.coordinator_address is not None
-         or args.num_processes is not None or args.process_id is not None,
-         "the distributed flags", "Queue 1, item 7"),
     ]
     for unported, flag, item in queued:
         if unported:
@@ -350,24 +345,27 @@ def check_ported(args) -> None:
 
 def epoch_batches(order_rng: np.random.Generator, sizes: np.ndarray,
                   train_ok: np.ndarray, max_tokens: int,
-                  max_sentences=None, update_freq: int = 1):
-    """One epoch's batches of pair indices (JAX ``cli/train_mt.py:540-563``,
-    one device): a permutation from ``order_rng``, the pairs within
-    ``--max-len`` (``train_ok``), a stable sort by length, token-budget
-    batches that split into ``update_freq`` microbatches, shuffled by
-    ``order_rng`` and each cut to a multiple of ``update_freq`` (empty ones
-    dropped)."""
+                  max_sentences=None, update_freq: int = 1,
+                  num_replicas: int = 1):
+    """One epoch's global batches of pair indices (JAX
+    ``cli/train_mt.py:540-563``): a permutation from ``order_rng``, the
+    pairs within ``--max-len`` (``train_ok``), a stable sort by length,
+    token-budget batches that split into ``update_freq`` microbatches of
+    ``num_replicas`` (data-parallel ranks) equal parts, shuffled by
+    ``order_rng`` and each cut to a multiple of ``update_freq x
+    num_replicas`` (empty ones dropped)."""
     from efficient_attention_torch.data.text_data import batch_by_size
 
-    quantum = max(1, update_freq)
+    quantum = max(1, update_freq) * num_replicas
     order = order_rng.permutation(len(sizes))
     order = order[train_ok[order]]
     order = order[np.argsort(sizes[order], kind="stable")]
     if max_sentences is not None and max_sentences < quantum:
         # every batch would be cut to nothing and the epoch loop would spin
-        raise ValueError(f"--batch-size {max_sentences} must be >= "
+        ranks = "" if num_replicas == 1 else f"{num_replicas} ranks x "
+        raise ValueError(f"--batch-size {max_sentences} must be >= {ranks}"
                          f"--update-freq ({quantum}): each batch must split "
-                         "into update_freq microbatches")
+                         "into update_freq microbatches over the ranks")
     batches = batch_by_size(order, sizes, max_tokens,
                             max_sentences=max_sentences,
                             required_multiple=quantum)
@@ -376,10 +374,12 @@ def epoch_batches(order_rng: np.random.Generator, sizes: np.ndarray,
     return [b for b in batches if len(b)]
 
 
-def collate_pairs(pairs, bidx, device):
+def collate_pairs(pairs, bidx, device, rows=None):
     """``(src, prev_output_tokens, tgt)`` ``[B, T]`` tensors on ``device``
     of the pairs ``bidx``, each padded to a multiple of 8; the previous
-    output tokens are the targets with eos moved to the front."""
+    output tokens are the targets with eos moved to the front.  ``rows``
+    (``parallel.local_rows`` with its mesh) picks this rank's rows of the
+    batch, which keeps the whole batch's lengths."""
     from efficient_attention_torch.data.text_data import collate_tokens
 
     samples = [pairs[int(i)] for i in bidx]
@@ -387,7 +387,8 @@ def collate_pairs(pairs, bidx, device):
     tgt = collate_tokens([t for _, t in samples], pad_idx=1)
     prev = collate_tokens([t for _, t in samples], pad_idx=1,
                           move_eos_to_beginning=True)
-    return tuple(torch.from_numpy(a).to(device) for a in (src, prev, tgt))
+    out = (torch.from_numpy(a) for a in (src, prev, tgt))
+    return tuple((t if rows is None else rows(t)).to(device) for t in out)
 
 
 def valid_batches(vpairs, max_len: int, max_tokens: int):
@@ -424,7 +425,8 @@ def remove_bpe(sentence: str, symbol) -> str:
 
 @torch.no_grad()
 def bleu_chunks(vpairs, ids, gen_args, vocab: int, model, device,
-                print_samples: bool = False, td=None, bpe_symbol=None) -> float:
+                print_samples: bool = False, td=None, bpe_symbol=None,
+                sharding=None) -> float:
     """In-train BLEU (JAX ``cli/train_mt.py:412-480``, fairseq
     ``translation.py`` ``_inference_with_bleu``) over the pairs ``ids``:
     beam search in chunks of 8 sentences, each with an output buffer of
@@ -432,8 +434,10 @@ def bleu_chunks(vpairs, ids, gen_args, vocab: int, model, device,
     before its first eos and scored against the reference without its eos:
     with a target dictionary ``td`` over its words (``bpe_symbol`` removed,
     ``--eval-bleu-remove-bpe``) through ``WordIdMapper``, else on token
-    ids."""
+    ids.  With ``sharding`` each data-parallel rank translates every
+    ``dp``-th chunk and the n-gram counts are summed over the ranks."""
     from efficient_attention_torch.data.text_data import collate_tokens
+    from efficient_attention_torch.parallel.distributed import dp_coordinate
     from efficient_attention_torch.generation.beam_search import SequenceGenerator
     from efficient_attention_torch.scoring.bleu import BleuScorer, WordIdMapper
 
@@ -441,7 +445,8 @@ def bleu_chunks(vpairs, ids, gen_args, vocab: int, model, device,
     scorer = BleuScorer()
     word_ids = WordIdMapper()
     printed = False
-    for i in range(0, len(ids), 8):
+    rank, size = dp_coordinate(None if sharding is None else sharding.mesh)
+    for i in range(8 * rank, len(ids), 8 * size):
         chunk = ids[i: i + 8]
         src_b = torch.from_numpy(collate_tokens(
             [vpairs[int(j)][0] for j in chunk], pad_idx=1)).to(device)
@@ -485,11 +490,44 @@ def bleu_chunks(vpairs, ids, gen_args, vocab: int, model, device,
                 print(f"| example hypothesis: {shown[0]}")
                 print(f"| example reference:  {shown[1]}")
                 printed = True
+    if size > 1:
+        order = scorer.order
+        counts = sharding.all_reduce_dp(torch.tensor(
+            scorer.match + scorer.total + [scorer.sys_len, scorer.ref_len],
+            dtype=torch.float64, device=device)).long().tolist()
+        scorer.match, scorer.total = counts[:order], counts[order:2 * order]
+        scorer.sys_len, scorer.ref_len = counts[2 * order:]
     return scorer.score()
 
 
 def main(args) -> dict:
+    """Train; in a process group (joined under ``--distributed`` or
+    ``torchrun``, and left again where this call joined it) data-parallel,
+    each rank on its rows of every global batch, validation and BLEU
+    reduced over the ranks, rank 0 alone printing and saving."""
+    from efficient_attention_torch.parallel.distributed import run_in_group
+
+    check_ported(args)
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available")
+    return run_in_group(args, _train)
+
+
+def _train(args) -> dict:
+    import functools
+
+    import torch.distributed as dist
+
     from efficient_attention_torch.cli.train_lm import _print_profile, _profiler
+    from efficient_attention_torch.parallel import local_rows, make_mesh, shard_model
+    from efficient_attention_torch.parallel.distributed import (
+        dp_coordinate,
+        generator_states,
+        is_primary,
+        rank_seed,
+        restore_generator,
+        run_device,
+    )
     from efficient_attention_torch.data.text_data import LanguagePairDataset
     from efficient_attention_torch.training.lm_steps import (
         make_mt_eval_step,
@@ -507,10 +545,7 @@ def main(args) -> dict:
     )
     from efficient_attention_torch.training.train_state import TrainState
 
-    check_ported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available")
+    device = run_device(args)
     # float32 means float32: no TF32 in matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -518,14 +553,21 @@ def main(args) -> dict:
     src, tgt, sd, td = load_pairs(args)
     src_vocab, tgt_vocab = vocab_sizes(args, sd, td)
     model = build_model(args, src_vocab, tgt_vocab).to(device)
+    mesh = make_mesh(device_type=device.type) if dist.is_initialized() else None
+    sharding = None if mesh is None else shard_model(model, mesh)
+    dp_rank, dp_size = dp_coordinate(mesh)
+    accum = max(1, args.update_freq)
+    rows = (None if mesh is None
+            else functools.partial(local_rows, mesh=mesh, microbatches=accum))
     pairs = LanguagePairDataset(src, tgt)
     schedule = inverse_sqrt_schedule(args.lr, args.warmup_updates,
                                      args.warmup_init_lr)
     optimizer = make_optimizer(args.optimizer, model.named_parameters(), schedule,
                                weight_decay=0.0, clip_grad=args.clip_norm or None,
                                betas=tuple(ast.literal_eval(args.adam_betas)))
-    state = TrainState(model, optimizer,
-                       ema_decay=args.ema_decay if args.store_ema else 0.0)
+    state = TrainState(model if sharding is None else sharding.model, optimizer,
+                       ema_decay=args.ema_decay if args.store_ema else 0.0,
+                       sharding=sharding)
     train_step = make_mt_train_step(
         pad_idx=1, label_smoothing=args.label_smoothing,
         accum_steps=args.update_freq,
@@ -546,8 +588,12 @@ def main(args) -> dict:
         if args.disable_validation:
             return {}
         model.eval()
-        loss_sum, nll_sum, tok_sum = valid_sums(model, eval_step, vpairs,
-                                                vbatches, device)
+        loss_sum, nll_sum, tok_sum = valid_sums(
+            model, eval_step, vpairs, vbatches[dp_rank::dp_size], device)
+        if sharding is not None:
+            loss_sum, nll_sum, tok_sum = sharding.all_reduce_dp(torch.tensor(
+                [loss_sum, nll_sum, tok_sum], dtype=torch.float64,
+                device=device)).tolist()
         n = max(tok_sum, 1.0)
         vm = {"valid_loss": loss_sum / n, "valid_nll_loss": nll_sum / n,
               "valid_ppl": math.exp(min(nll_sum / n, 50.0))}
@@ -555,7 +601,7 @@ def main(args) -> dict:
             vm["valid_bleu"] = bleu_chunks(vpairs, bleu_ids.tolist(), gen_args,
                                            tgt_vocab, model, device,
                                            args.eval_bleu_print_samples, td,
-                                           args.eval_bleu_remove_bpe)
+                                           args.eval_bleu_remove_bpe, sharding)
         print("| valid " + " ".join(f"{k.removeprefix('valid_')} {v:.3f}"
                                     for k, v in vm.items()))
         return vm
@@ -567,9 +613,11 @@ def main(args) -> dict:
         print(f"| WARNING: {n_dropped} train examples exceed --max-len "
               f"{args.max_len} and were dropped (fairseq max-positions "
               "filtering)")
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    generator = torch.Generator(device=device).manual_seed(
+        rank_seed(args.seed, mesh))
     order_rng = np.random.default_rng(args.seed)
-    os.makedirs(args.save_dir, exist_ok=True)
+    if is_primary():
+        os.makedirs(args.save_dir, exist_ok=True)
     ckpt = CheckpointManager(os.path.join(args.save_dir, "ckpt"),
                              keep_last=args.keep_last_epochs,
                              save_interval_steps=args.save_interval_updates)
@@ -600,7 +648,7 @@ def main(args) -> dict:
     if skip:
         saved = ckpt.load(skip)
         state.load_state_dict(saved)
-        generator.set_state(saved["rng"]["generator"])
+        restore_generator(generator, saved["rng"], mesh)
         print(f"| resumed from checkpoint step {skip}")
     logger = MetricLogger()
     stats: dict = {}
@@ -617,7 +665,7 @@ def main(args) -> dict:
             print(f"| stopping: --max-epoch {args.max_epoch} reached")
             break
         for bidx in epoch_batches(order_rng, sizes, train_ok, args.max_tokens,
-                                  args.batch_size, args.update_freq):
+                                  args.batch_size, args.update_freq, dp_size):
             if state.step >= args.max_update:
                 break
             if skip:
@@ -626,8 +674,8 @@ def main(args) -> dict:
             if args.profile is not None and state.step == 1 and prof is None:
                 prof = _profiler(device)
                 prof.start()
-            metrics = train_step(state, *collate_pairs(pairs, bidx, device),
-                                 generator)
+            metrics = train_step(state, *collate_pairs(pairs, bidx, device,
+                                                       rows), generator)
             if prof is not None and state.step == 4:
                 prof.stop()
                 _print_profile(prof, device, args.profile)
@@ -648,7 +696,7 @@ def main(args) -> dict:
                 print(f"| step {step} {logger} | {time.time() - t0:.0f}s")
             if not args.no_save and ckpt.should_save(step):
                 ckpt.save(step, dict(state.state_dict(),
-                                     rng={"generator": generator.get_state()}))
+                                     rng=generator_states(generator)))
             stats = {"step": step, "loss": loss}
             if (args.stop_time_hours > 0
                     and time.time() - t0 > args.stop_time_hours * 3600):

@@ -17,7 +17,13 @@ record to ``log.txt`` under ``--output-dir`` and saves a checkpoint to
 newest there, bit for bit on the CPU.  ``--eval`` scores the validation set
 and ``--throughput`` times forwards, each from the checkpoint under
 ``--resume``; ``--init-params`` loads a reference checkpoint's weights.
-The model runs on ``--device`` (default ``cuda``), on one device.  Flags
+The model runs on ``--device`` (default ``cuda``).  Under ``--distributed``
+(or ``torchrun``) training runs on every rank of the process group, on the
+mesh ``data x fsdp x model`` of ``--mesh-fsdp`` and ``--mesh-model``
+(``parallel.shard_model``: DDP, FSDP, tensor parallelism), at a global
+batch of ``--batch-size`` x the world size, each ``(data, fsdp)`` rank
+loading its own shard of the epoch; the eval scores every image once over
+the ranks, and rank 0 alone prints, writes ``log.txt`` and saves.  Flags
 whose module is not ported yet raise ``NotImplementedError`` naming their
 ROADMAP.md item.
 
@@ -31,6 +37,9 @@ and 2-D EVA, the main path):
       --clip-grad 5.0 --repeated-aug --model-ema --bf16 \\
       --data-set IMAGENET --data-path /data/imagenet --output-dir run
   # later: the same flags with --resume run/ckpt, or --eval --resume run/ckpt
+  # on 2 processes of one host, FSDP over both (gloo on the CPU):
+  torchrun --nproc-per-node 2 -m efficient_attention_torch.cli.train_vit \
+      ... --mesh-fsdp 2 --device cpu
 
 The PVTv2 archs (``--model pvt_*``, e.g. ``pvt_medium2``, PVTv2-B3) take the
 same flags, ``--use-conv-patchify`` and ``--checkpoint-activations``.
@@ -44,8 +53,11 @@ import os
 import sys
 import time
 
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -142,11 +154,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tensorboard-logdir", default=None, type=str)
     parser.add_argument("--wandb-project", default=None, type=str)
     parser.add_argument("--azureml-logging", action="store_true")
-    dist = parser.add_argument_group("distributed")
-    dist.add_argument("--distributed", action="store_true", default=False)
-    dist.add_argument("--coordinator-address", default=None, type=str)
-    dist.add_argument("--num-processes", default=None, type=int)
-    dist.add_argument("--process-id", default=None, type=int)
+    from efficient_attention_torch.parallel.distributed import add_distributed_args
+
+    add_distributed_args(parser)
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to run on ('cuda' or 'cpu')")
     return parser
@@ -176,11 +186,6 @@ def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for every flag set to something whose
     module is not ported yet, naming its ROADMAP.md item."""
     queued = [
-        (args.mesh_fsdp != 1 or args.mesh_model != 1,
-         "--mesh-fsdp/--mesh-model", "Queue 1, item 7"),
-        (args.distributed or args.coordinator_address is not None
-         or args.num_processes is not None or args.process_id is not None,
-         "the distributed flags", "Queue 1, item 7"),
         (args.tensorboard_logdir is not None, "--tensorboard-logdir",
          "Queue 1, item 8"),
         (args.wandb_project is not None, "--wandb-project", "Queue 1, item 8"),
@@ -246,25 +251,29 @@ def build_dataset(args, train: bool):
                               interpolation=args.train_interpolation)
 
 
-def epoch_indices(args, n: int, epoch: int) -> np.ndarray:
-    """One epoch's sample order: DeiT's RASampler under
-    ``--repeated-aug``, else a shuffle, both seeded by ``--seed`` +
-    ``epoch``."""
+def epoch_indices(args, n: int, epoch: int, num_replicas: int = 1,
+                  rank: int = 0) -> np.ndarray:
+    """One epoch's sample order for data-parallel ``rank`` of
+    ``num_replicas``: DeiT's RASampler under ``--repeated-aug``, else a
+    shuffle, both seeded by ``--seed`` + ``epoch``."""
     from efficient_attention_torch.data.imagenet import (
         ra_sampler_indices,
         shard_indices,
     )
 
     if args.repeated_aug:
-        return ra_sampler_indices(n, epoch, args.seed)
-    return shard_indices(n, epoch, args.seed)
+        return ra_sampler_indices(n, epoch, args.seed, num_replicas, rank)
+    return shard_indices(n, epoch, args.seed, num_replicas, rank)
 
 
-def epoch_steps(args, n: int) -> int:
+def epoch_steps(args, n: int, num_replicas: int = 1,
+                batch_size: Optional[int] = None) -> int:
     """The train steps of an epoch over ``n`` samples: the sampler's whole
-    batches (under ``--repeated-aug`` about ``n``, where the JAX CLI counts
-    ``3 n`` for its schedule), at most ``--max-steps-per-epoch``."""
-    steps = max(1, len(epoch_indices(args, n, 0)) // args.batch_size)
+    batches of ``batch_size`` (default ``--batch-size``) rows a replica
+    (under ``--repeated-aug`` about ``n``, where the JAX CLI counts ``3 n``
+    for its schedule), at most ``--max-steps-per-epoch``."""
+    steps = max(1, len(epoch_indices(args, n, 0, num_replicas))
+                // (batch_size or args.batch_size))
     if args.max_steps_per_epoch:
         steps = min(steps, args.max_steps_per_epoch)
     return steps
@@ -341,27 +350,47 @@ def build_model(args) -> torch.nn.Module:
     return model.eval()
 
 
-def evaluate(model, dataset, args, device, dtype) -> dict:
-    """Top-1, top-5 and loss over every image of ``dataset``, each batch's
-    means weighted by its images (the JAX CLI drops a last partial batch
-    and averages batch means); ``model`` is any callable from images to
-    logits."""
-    from efficient_attention_torch.data.imagenet import PrefetchLoader
-    from efficient_attention_torch.training.train_state import vit_eval_step
+def evaluate(model, dataset, args, device, dtype, sharding=None) -> dict:
+    """Top-1, top-5 and loss over every image of ``dataset``, summed over
+    the images (the JAX CLI drops a last partial batch and averages batch
+    means); ``model`` is any callable from images to logits.  With
+    ``sharding`` each ``(data, fsdp)`` rank scores its shard
+    (``shard_indices``, padded to a multiple of the ranks), the pad rows
+    masked, and the sums are reduced over the ranks, so every image counts
+    once; ``batches`` are this rank's."""
+    from efficient_attention_torch.data.imagenet import (
+        PrefetchLoader,
+        shard_indices,
+    )
+    from efficient_attention_torch.parallel.distributed import dp_coordinate
+    from efficient_attention_torch.training.train_state import vit_eval_sums
 
+    rank, size = dp_coordinate(None if sharding is None else sharding.mesh)
+    n_all = len(dataset)
+    idx = (np.arange(n_all) if size == 1 else
+           shard_indices(n_all, 0, args.seed, size, rank, shuffle=False))
+    # the padded order's position of each of this rank's indices
+    real = rank + np.arange(len(idx)) * size < n_all
     totals = {"acc1": 0.0, "acc5": 0.0, "loss": 0.0}
     n = batches = 0
-    loader = PrefetchLoader(dataset, args.batch_size, np.arange(len(dataset)),
+    loader = PrefetchLoader(dataset, args.batch_size, idx,
                             num_threads=args.num_workers, drop_last=False,
                             backend=args.decode_backend)
     for imgs, labels in loader:
-        out = vit_eval_step(
+        sums = vit_eval_sums(
             model, torch.from_numpy(imgs).to(device=device, dtype=dtype),
-            torch.from_numpy(labels).to(device=device, dtype=torch.int64))
+            torch.from_numpy(labels).to(device=device, dtype=torch.int64),
+            torch.from_numpy(real[n: n + len(labels)]).to(device))
         for k in totals:
-            totals[k] += float(out[k]) * len(labels)
+            totals[k] += float(sums[k])
         n += len(labels)
         batches += 1
+    if size > 1:
+        reduced = sharding.all_reduce_dp(torch.tensor(
+            [totals["acc1"], totals["acc5"], totals["loss"], float(real.sum())],
+            dtype=torch.float64, device=device)).tolist()
+        totals = dict(zip(("acc1", "acc5", "loss"), reduced[:3]))
+        n = int(reduced[3])
     stats = {k: v / max(n, 1) for k, v in totals.items()}
     stats.update(batches=batches, images=n)
     return stats
@@ -371,7 +400,9 @@ def _print_profile(prof, device, logdir) -> None:
     print(prof.key_averages().table(
         sort_by="self_device_time_total" if device.type == "cuda"
         else "self_cpu_time_total", row_limit=20))
-    if logdir:
+    from efficient_attention_torch.parallel.distributed import is_primary
+
+    if logdir and is_primary():
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
@@ -414,20 +445,23 @@ def compute_throughput(model, args, device, dtype) -> dict:
     return {"images_per_sec": ips}
 
 
-def restore(ckpt, state, generator) -> bool:
+def restore(ckpt, state, generator, mesh=None) -> bool:
     """Load the newest checkpoint of ``ckpt`` into ``state`` and the step's
     ``generator``; False where there is none.  An epoch's batches are a
     function of (seed, epoch), so they replay."""
+    from efficient_attention_torch.parallel.distributed import restore_generator
+
     saved = ckpt.load()
     if saved is None:
         return False
     state.load_state_dict(saved)
-    generator.set_state(saved["rng"]["generator"])
+    restore_generator(generator, saved["rng"], mesh)
     return True
 
 
-def train(args, device) -> dict:
-    """The training loop (JAX ``cli/train_vit.py:213-461``) on one device;
+def train(args, device, mesh=None) -> dict:
+    """The training loop (JAX ``cli/train_vit.py:213-461``) on one device,
+    or on ``mesh`` (``parallel.make_mesh``) over the process group;
     returns the last epoch's record."""
     from efficient_attention_torch.data.erasing import ErasingConfig
     from efficient_attention_torch.data.imagenet import PrefetchLoader
@@ -442,6 +476,12 @@ def train(args, device) -> dict:
         make_optimizer,
         step_schedule,
     )
+    from efficient_attention_torch.parallel import shard_model
+    from efficient_attention_torch.parallel.distributed import (
+        dp_coordinate,
+        generator_states,
+        rank_seed,
+    )
     from efficient_attention_torch.training.train_state import (
         TrainState,
         make_vit_train_step,
@@ -451,11 +491,23 @@ def train(args, device) -> dict:
     if args.init_params:
         load_init_params(model, args.init_params)
     model = model.to(device)  # float32 master parameters
+    sharding = None
+    if mesh is not None:
+        sharding = shard_model(model, mesh, compute_dtype=torch.bfloat16
+                               if args.bf16 else None)
+        for line in sharding.log:
+            print(f"| sharded {line}")
+    # JAX's n_dev counts every device: the global batch is --batch-size a
+    # rank, split over the (data, fsdp) ranks (ranks along model share rows)
+    dp_rank, dp_size = dp_coordinate(mesh)
+    world = dist.get_world_size() if mesh is not None else 1
+    global_batch = args.batch_size * world
+    rank_batch = global_batch // dp_size
     train_ds = build_dataset(args, train=True)
     val_ds = build_dataset(args, train=False)
     # linear lr scaling (vit/main.py:292-293)
-    lr = args.lr * args.lr_ratio * args.batch_size / 512.0
-    steps_per_epoch = epoch_steps(args, len(train_ds))
+    lr = args.lr * args.lr_ratio * global_batch / 512.0
+    steps_per_epoch = epoch_steps(args, len(train_ds), dp_size, rank_batch)
     if args.sched == "step":
         schedule = step_schedule(
             lr, warmup_steps=args.warmup_epochs * steps_per_epoch,
@@ -476,8 +528,9 @@ def train(args, device) -> dict:
                                weight_decay=args.weight_decay,
                                clip_grad=args.clip_grad, betas=betas,
                                eps=args.opt_eps, momentum=args.momentum)
-    state = TrainState(model, optimizer,
-                       ema_decay=args.model_ema_decay if args.model_ema else 0.0)
+    state = TrainState(model if sharding is None else sharding.model, optimizer,
+                       ema_decay=args.model_ema_decay if args.model_ema else 0.0,
+                       sharding=sharding)
     mixup_cfg = None
     if args.mixup > 0 or args.cutmix > 0:
         minmax = (tuple(float(v) for v in args.cutmix_minmax.split(","))
@@ -496,18 +549,17 @@ def train(args, device) -> dict:
         erasing_cfg=erasing_cfg,
         compute_dtype=torch.bfloat16 if args.bf16 else None)
 
-    def eval_model(x):
-        if state.ema_params is None:
-            return model(x)
-        return torch.func.functional_call(model, state.ema_params, (x,))
+    from efficient_attention_torch.parallel.distributed import is_primary
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if is_primary():
+        os.makedirs(args.output_dir, exist_ok=True)
     log_path = os.path.join(args.output_dir, "log.txt")
-    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    generator = torch.Generator(device=device).manual_seed(
+        rank_seed(args.seed + 1, mesh))
     ckpt = CheckpointManager(resume_directory(args), keep_last=3)
     start_epoch = 0
     if args.resume:
-        if restore(ckpt, state, generator):
+        if restore(ckpt, state, generator, mesh):
             start_epoch = state.step // steps_per_epoch
             print(f"resumed at step {state.step} (epoch {start_epoch})")
         else:
@@ -518,9 +570,9 @@ def train(args, device) -> dict:
     for epoch in range(start_epoch, args.epochs):
         logger = MetricLogger()
         # the steps an epoch takes: no batch past them is decoded
-        idx = epoch_indices(args, len(train_ds), epoch)[
-            :steps_per_epoch * args.batch_size]
-        loader = PrefetchLoader(train_ds, args.batch_size, idx,
+        idx = epoch_indices(args, len(train_ds), epoch, dp_size, dp_rank)[
+            :steps_per_epoch * rank_batch]
+        loader = PrefetchLoader(train_ds, rank_batch, idx,
                                 num_threads=args.num_workers, seed=epoch,
                                 backend=args.decode_backend)
         t0 = time.time()
@@ -547,29 +599,51 @@ def train(args, device) -> dict:
             prof.stop()
             _print_profile(prof, device, args.profile)
             prof = None
-        model.eval()
-        val_stats = evaluate(eval_model, val_ds, args, device, torch.float32)
+        state.module.eval()
+        with state.ema_weights():
+            val_stats = evaluate(state.module, val_ds, args, device,
+                                 torch.float32, sharding)
         record = {"epoch": epoch, **logger.global_avg_dict(),
                   **{f"val_{k}": v for k, v in val_stats.items()},
                   "epoch_time": time.time() - t0}
-        write_log_line(log_path, record)
+        if is_primary():
+            write_log_line(log_path, record)
         print(json.dumps(record))
         ckpt.save(state.step, dict(state.state_dict(),
-                                   rng={"generator": generator.get_state()}),
+                                   rng=generator_states(generator)),
                   metrics={"acc1": val_stats["acc1"]})
     return record
 
 
 def main(args) -> dict:
+    """Train, or ``--eval``/``--throughput``; in a process group (which it
+    joins under ``--distributed`` or ``torchrun``, and leaves again where it
+    joined it) only rank 0 prints."""
+    from efficient_attention_torch.parallel.distributed import run_in_group
+
     check_ported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
+    return run_in_group(args, _run)
+
+
+def _run(args) -> dict:
+    from efficient_attention_torch.parallel import make_mesh
+    from efficient_attention_torch.parallel.distributed import run_device
+    from efficient_attention_torch.parallel.mesh import mesh_shape
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    # an indivisible mesh raises with the numbers, in one process too
+    mesh_shape(world, fsdp=args.mesh_fsdp, model=args.mesh_model)
+    device = run_device(args)
     # float32 means float32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mesh = (make_mesh(fsdp=args.mesh_fsdp, model=args.mesh_model,
+                      device_type=device.type)
+            if dist.is_initialized() else None)
     if not (args.eval or args.throughput):
-        return train(args, device)
+        return train(args, device, mesh)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = build_model(args)
     if args.init_params:
@@ -596,10 +670,16 @@ def main(args) -> dict:
               f"{step} from {ckpt.directory}")
         del saved, params
     model = model.to(device=device, dtype=dtype)
-    if args.throughput:
+    if args.throughput:  # each rank times its own forwards
         return compute_throughput(model, args, device, dtype)
-    stats = evaluate(model, build_dataset(args, train=False), args, device,
-                     dtype)
+    sharding = None
+    if mesh is not None:  # the mesh's model; each (data, fsdp) rank its shard
+        from efficient_attention_torch.parallel import shard_model
+
+        sharding = shard_model(model, mesh)
+        model = sharding.module
+    stats = evaluate(model.eval(), build_dataset(args, train=False), args,
+                     device, dtype, sharding)
     print(json.dumps(stats))
     return stats
 

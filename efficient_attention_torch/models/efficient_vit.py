@@ -128,9 +128,11 @@ class EfficientTransformer(nn.Module):
         return parent_parser
 
 
-def _evit(embed_dim: int, num_heads: int, patch_size: int, **kwargs):
+def _evit(embed_dim: int, heads: int, patch_size: int, **kwargs):
+    # ``--num-heads`` overrides the arch's heads (the JAX factory takes both
+    # as ``num_heads`` and raises a TypeError when the flag is given)
     if kwargs.get("num_heads") is None:
-        kwargs["num_heads"] = num_heads
+        kwargs["num_heads"] = heads
     return EfficientTransformer(
         embed_dim=embed_dim, patch_size=patch_size, **kwargs)
 

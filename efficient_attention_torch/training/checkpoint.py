@@ -21,6 +21,13 @@ The policy is the JAX manager's (orbax's, with synchronous writes):
 Parameters are state-dict tensors keyed by the port's names
 (``decoder.layers.{i}...``); JAX parameters come across through
 ``interop.lm_state_dict_from_jax``.
+
+Under a process group (``parallel.init_distributed``) the state handed to
+``save`` is the whole one, which every rank has gathered
+(``TrainState.state_dict``); rank 0 alone writes it, in the same format,
+between two barriers of every rank: each rank decides whether to save on
+the steps on disk before rank 0 writes, and sees the new step after.  Every
+rank loads a checkpoint and keeps its part.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from efficient_attention_torch.parallel.distributed import barrier, is_primary
 
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
@@ -53,7 +62,8 @@ class CheckpointManager:
                  save_interval_steps: int = 1, best_fn: Optional[str] = None,
                  best_mode: Optional[str] = None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        if is_primary():
+            os.makedirs(self.directory, exist_ok=True)
         self.keep_last = keep_last
         self.save_interval_steps = save_interval_steps
         self.best_fn = best_fn
@@ -73,6 +83,8 @@ class CheckpointManager:
 
     def all_steps(self) -> List[int]:
         """The finalised steps on disk, oldest first."""
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(name) for name in os.listdir(self.directory)
                       if re.fullmatch(r"\d+", name)
                       and os.path.isdir(os.path.join(self.directory, name)))
@@ -91,11 +103,22 @@ class CheckpointManager:
              metrics: Optional[dict] = None) -> bool:
         """Write ``state`` as step ``step`` if the policy takes the step,
         then drop the steps the policy no longer keeps.  Returns whether it
-        wrote."""
+        wrote (under a process group: whether rank 0 did)."""
         step = int(step)
         if not self.should_save(step):
             return False
         metrics = {k: float(v) for k, v in (metrics or {}).items()} or None
+        # every rank reads the steps on disk for the decision above before
+        # rank 0 changes them
+        barrier()
+        if is_primary():
+            self._write(step, state, metrics)
+        barrier()
+        self._metrics[step] = metrics
+        return True
+
+    def _write(self, step: int, state: Dict[str, Any],
+               metrics: Optional[dict]) -> None:
         tmp = os.path.join(self.directory, f"{step}.tmp")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -108,7 +131,6 @@ class CheckpointManager:
         for old in self._steps_to_remove():
             shutil.rmtree(self._step_dir(old))
             self._metrics.pop(old, None)
-        return True
 
     def _steps_to_remove(self) -> List[int]:
         steps = self.all_steps()

@@ -13,6 +13,14 @@ per-token NLL of ``eval_lm`` (``--softmax-batch`` bounding the live
 logits).  ``--bf16`` is the port's master-copy scheme
 (``train_state.cast_modules``): the forward runs on a bfloat16 copy of the
 float32 parameters.
+
+Data-parallel (a state with a ``parallel.ShardedModel``), each rank holds
+its rows of every microbatch (``parallel.local_rows``), and a microbatch's
+loss is the global one: its sum over every rank divided by its global
+token (or sentence) count, which is all-reduced before the backward, as
+JAX divides on the global batch; DDP's mean is undone by the data-parallel
+size.  Ranks with unequal token counts then give the single-process
+gradient, loss and gradient norm.
 """
 from __future__ import annotations
 
@@ -31,7 +39,35 @@ from efficient_attention_torch.training.train_state import (
     TrainState,
     apply_or_skip,
     cast_modules,
+    microbatch_sync,
 )
+
+
+def _accumulate(state: TrainState, parts, loss_fn, accum_steps: int,
+                counts) -> torch.Tensor:
+    """Run the backward of every microbatch of ``parts`` and return the
+    step's loss: each microbatch's loss sum (``loss_fn(*part)``) divided by
+    its count (``counts(*part)``, clamped at 1).  Data-parallel, the counts
+    are all-reduced up front into the global ones and each rank's quotient
+    is scaled by ``dp`` before the backward, so that DDP's mean over the
+    ``dp`` ranks is the global quotient; the loss is summed over the
+    ranks."""
+    sharding = state.sharding
+    dp = 1 if sharding is None else sharding.dp_size
+    den = torch.stack([counts(*part) for part in parts]).float()
+    if sharding is not None:
+        den = sharding.all_reduce_dp(den)
+    den = den.clamp(min=1.0)
+    loss = torch.zeros((), device=parts[0][0].device)
+    for i, part in enumerate(parts):
+        with microbatch_sync(state, i, len(parts)):
+            part_loss = loss_fn(*part) / den[i]
+            (part_loss * dp / accum_steps).backward()
+        loss += part_loss.detach() / accum_steps
+    if sharding is None:
+        return loss
+    sharding.finish_grads()
+    return sharding.all_reduce_dp(loss)
 
 
 def make_lm_train_step(pad_idx: int = 1, accum_steps: int = 1,
@@ -46,11 +82,9 @@ def make_lm_train_step(pad_idx: int = 1, accum_steps: int = 1,
         with cast_modules(model, compute_dtype):
             out = model(tokens, targets) if use_adaptive else model(tokens)
         if use_adaptive:
-            loss_sum, ntokens = adaptive_loss(out, targets, pad_idx)
-        else:
-            loss_sum, _, ntokens = label_smoothed_nll_loss(
-                out, targets, epsilon=0.0, pad_idx=pad_idx)
-        return loss_sum / ntokens.clamp(min=1.0)
+            return adaptive_loss(out, targets, pad_idx)[0]
+        return label_smoothed_nll_loss(out, targets, epsilon=0.0,
+                                       pad_idx=pad_idx)[0]
 
     def train_step(state: TrainState, tokens: torch.Tensor,
                    targets: torch.Tensor,
@@ -61,11 +95,11 @@ def make_lm_train_step(pad_idx: int = 1, accum_steps: int = 1,
         if tokens.shape[0] % accum_steps:
             raise ValueError(f"batch {tokens.shape[0]} not divisible by "
                              f"--update-freq {accum_steps}")
-        loss = torch.zeros((), device=tokens.device)
-        for tk, tg in zip(tokens.chunk(accum_steps), targets.chunk(accum_steps)):
-            part = loss_fn(model, tk, tg)
-            (part / accum_steps).backward()
-            loss += part.detach() / accum_steps
+        loss = _accumulate(
+            state, list(zip(tokens.chunk(accum_steps),
+                            targets.chunk(accum_steps))),
+            lambda tk, tg: loss_fn(model, tk, tg), accum_steps,
+            lambda tk, tg: (tg != pad_idx).sum())
         grad_norm = global_norm(p.grad for p in model.parameters()
                                 if p.grad is not None)
         return StepMetrics(loss, grad_norm,
@@ -145,10 +179,12 @@ def make_mt_train_step(pad_idx: int = 1, label_smoothing: float = 0.1,
     def loss_fn(model, src, prev, targets):
         with cast_modules(model, compute_dtype):
             logits = model(src, prev)
-        loss_sum, _, ntokens = label_smoothed_nll_loss(
-            logits, targets, epsilon=label_smoothing, pad_idx=pad_idx)
-        return loss_sum / (float(targets.shape[0]) if sentence_avg
-                           else ntokens.clamp(min=1.0))
+        return label_smoothed_nll_loss(
+            logits, targets, epsilon=label_smoothing, pad_idx=pad_idx)[0]
+
+    def count(src, prev, targets):
+        return (torch.tensor(float(targets.shape[0]), device=targets.device)
+                if sentence_avg else (targets != pad_idx).sum())
 
     def train_step(state: TrainState, src: torch.Tensor, prev: torch.Tensor,
                    targets: torch.Tensor,
@@ -159,12 +195,10 @@ def make_mt_train_step(pad_idx: int = 1, label_smoothing: float = 0.1,
         if src.shape[0] % accum_steps:
             raise ValueError(f"batch {src.shape[0]} not divisible by "
                              f"--update-freq {accum_steps}")
-        loss = torch.zeros((), device=src.device)
-        for s, p, t in zip(src.chunk(accum_steps), prev.chunk(accum_steps),
-                           targets.chunk(accum_steps)):
-            part = loss_fn(model, s, p, t)
-            (part / accum_steps).backward()
-            loss += part.detach() / accum_steps
+        loss = _accumulate(
+            state, list(zip(src.chunk(accum_steps), prev.chunk(accum_steps),
+                            targets.chunk(accum_steps))),
+            lambda s, p, t: loss_fn(model, s, p, t), accum_steps, count)
         grad_norm = global_norm(p.grad for p in model.parameters()
                                 if p.grad is not None)
         return StepMetrics(loss, grad_norm,

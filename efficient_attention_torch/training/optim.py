@@ -25,6 +25,15 @@ Counterpart of ``efficient_attention_tpu/training/optim.py``:
 Every optimizer keeps float32 state, takes ``zero_grad()`` and ``step()``
 and has ``state_dict`` / ``load_state_dict``, from which a checkpoint
 resumes bit for bit.
+
+Under FSDP or tensor parallelism (``parallel.shard_model``) parameters and
+gradients are DTensors and each rank holds a piece of each.  The
+elementwise rules run on the local pieces; what needs a whole tensor is
+summed over the process groups that split it, and a tensor replicated
+there counts once: the global gradient norm of the clip, lamb's trust
+ratio, and adafactor's factored moments and root mean squares, whose
+factored moments every rank then holds whole.  So every optimizer takes
+the same step sharded as unsharded.
 """
 from __future__ import annotations
 
@@ -33,8 +42,50 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from efficient_attention_torch.parallel.mesh import is_dtensor, to_local
 
 Schedule = Callable[[int], float]
+
+
+def split_groups(t: torch.Tensor) -> tuple:
+    """The process groups over which ``t`` is split, one for each mesh
+    dimension that shards the DTensor ``t``; () for a plain tensor or a
+    replicated one."""
+    if not is_dtensor(t):
+        return ()
+    if any(p.is_partial() for p in t.placements):
+        raise ValueError(f"a partial DTensor ({t.placements}) has no norm yet")
+    # a strided shard (FSDP over a tensor-parallel shard) splits too
+    return tuple(t.device_mesh.get_group(i) for i, p in enumerate(t.placements)
+                 if not (p.is_replicate() or p.is_partial()))
+
+
+def _sum_over_groups(values: torch.Tensor, groups: List[tuple]) -> torch.Tensor:
+    """``values[i]`` summed over the process groups ``groups[i]``, in
+    place; one all-reduce a distinct set of groups."""
+    by_groups: Dict[tuple, List[int]] = {}
+    for i, g in enumerate(groups):
+        if g:
+            by_groups.setdefault(g, []).append(i)
+    for gs, idx in by_groups.items():
+        at = torch.tensor(idx, device=values.device)
+        part = values[at]
+        for g in gs:
+            dist.all_reduce(part, group=g)
+        values[at] = part
+    return values
+
+
+def sharded_norms(tensors: List[torch.Tensor], groups: List[tuple]) -> torch.Tensor:
+    """The norm of each whole tensor of which ``tensors`` holds the local
+    pieces, split over ``groups`` (``torch._foreach_norm`` where none is
+    split)."""
+    if not any(groups):
+        return torch.stack(torch._foreach_norm(tensors))
+    sq = torch.stack([t.float().square().sum() for t in tensors])
+    return torch.sqrt(_sum_over_groups(sq, groups))
 
 def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
                     warmup_init_lr: float = 1e-6, min_lr: float = 1e-5,
@@ -160,8 +211,14 @@ def weight_decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in float32 (optax
-    ``global_norm``)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    ``global_norm``), of the whole tensors where some are DTensors: each
+    local sum of squares summed over the groups that split its tensor."""
+    tensors = list(tensors)
+    groups = [split_groups(t) for t in tensors]
+    if not any(groups):
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    sq = torch.stack([to_local(t).float().square().sum() for t in tensors])
+    return torch.sqrt(_sum_over_groups(sq, groups).sum())
 
 
 class ClippedAdamW:
@@ -178,6 +235,7 @@ class ClippedAdamW:
         named = [(n, p) for n, p in named_params if p.requires_grad]
         decay = weight_decay_mask(named)
         self.params = [p for _, p in named]
+        self.names = [n for n, _ in named]
         self.schedule = schedule
         self.clip_grad = clip_grad
         self.count = 0  # updates applied so far (optax's schedule count)
@@ -187,9 +245,12 @@ class ClippedAdamW:
             {"params": [p for n, p in named if not decay[n]],
              "weight_decay": 0.0},
         ]
+        # tensor parallelism leaves some parameters plain beside DTensors,
+        # which torch's foreach kernels cannot take in one list
+        kinds = {is_dtensor(p) for p in self.params}
         self.torch_optimizer = torch.optim.AdamW(
             [g for g in groups if g["params"]], lr=schedule(0), betas=betas,
-            eps=eps)
+            eps=eps, foreach=False if len(kinds) > 1 else None)
 
     def zero_grad(self) -> None:
         self.torch_optimizer.zero_grad(set_to_none=True)
@@ -205,13 +266,40 @@ class ClippedAdamW:
         self.torch_optimizer.step()
         self.count += 1
 
-    def state_dict(self) -> dict:
-        return {"count": self.count,
-                "adamw": self.torch_optimizer.state_dict()}
+    def _indexed(self) -> List[Tuple[str, torch.Tensor]]:
+        """(name, parameter) in the index order of the AdamW state."""
+        names = {id(p): n for n, p in zip(self.names, self.params)}
+        return [(names[id(p)], p) for g in self.torch_optimizer.param_groups
+                for p in g["params"]]
 
-    def load_state_dict(self, state: dict) -> None:
+    def state_dict(self, full=None) -> dict:
+        """The state; with ``full(name, tensor)`` (``ShardedModel.full``)
+        the moments of sharded parameters whole."""
+        inner = self.torch_optimizer.state_dict()
+        if full is not None:
+            named = self._indexed()
+            inner["state"] = {
+                i: {k: (full(named[i][0], v) if k in _ADAMW_MOMENTS else v)
+                    for k, v in s.items()}
+                for i, s in inner["state"].items()}
+        return {"count": self.count, "adamw": inner}
+
+    def load_state_dict(self, state: dict, local=None) -> None:
+        """Restore :meth:`state_dict`'s output; with ``local(name, full,
+        like)`` (``ShardedModel.local``) whole moments are split as their
+        parameters are."""
         self.count = int(state["count"])
-        self.torch_optimizer.load_state_dict(state["adamw"])
+        inner = state["adamw"]
+        if local is not None:
+            named = self._indexed()
+            inner = dict(inner, state={
+                i: {k: (local(named[int(i)][0], v, named[int(i)][1])
+                        if k in _ADAMW_MOMENTS else v) for k, v in s.items()}
+                for i, s in inner["state"].items()})
+        self.torch_optimizer.load_state_dict(inner)
+
+
+_ADAMW_MOMENTS = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")
 
 
 def clip_by_global_norm(grads, clip: Optional[float]) -> None:
@@ -223,7 +311,7 @@ def clip_by_global_norm(grads, clip: Optional[float]) -> None:
     norm = global_norm(grads)
     factor = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
     for g in grads:
-        g.mul_(factor.to(g.dtype))
+        to_local(g).mul_(factor.to(g.dtype))
 
 
 def _copy_into(dst, src) -> None:
@@ -235,7 +323,7 @@ def _copy_into(dst, src) -> None:
         if d.shape != s.shape:
             raise ValueError(f"optimizer state of shape {tuple(s.shape)} for "
                              f"a parameter of shape {tuple(d.shape)}")
-        d.copy_(s)
+        to_local(d).copy_(to_local(s))
 
 
 class ClippedOptimizer:
@@ -247,7 +335,10 @@ class ClippedOptimizer:
     which the schedule is read.  A subclass makes its state in
     ``_init_state`` and returns each live parameter's step in ``_deltas``;
     ``decayed[i]`` says whether the weight-decay mask decays parameter
-    ``i``."""
+    ``i``.  A state tensor shaped like a sharded parameter is a DTensor
+    split as it is; ``_deltas`` gets the local pieces of parameters,
+    gradients and state, and ``groups[i]`` names the process groups that
+    split parameter ``i``."""
 
     STATE: Tuple[str, ...] = ()
 
@@ -257,6 +348,8 @@ class ClippedOptimizer:
         named = [(n, p) for n, p in named_params if p.requires_grad]
         decay = weight_decay_mask(named)
         self.params = [p for _, p in named]
+        self.names = [n for n, _ in named]
+        self.groups = [split_groups(p) for p in self.params]
         self.decayed = [decay[n] for n, _ in named]
         self.schedule = schedule
         self.clip_grad = clip_grad
@@ -276,10 +369,11 @@ class ClippedOptimizer:
     def step(self) -> None:
         """Clip the gradients, then apply this update's step."""
         live = [i for i, p in enumerate(self.params) if p.grad is not None]
-        params = [self.params[i] for i in live]
-        grads = [p.grad.float() for p in params]
+        grads = [self.params[i].grad.float() for i in live]
         clip_by_global_norm(grads, self.clip_grad)
-        state = {k: [v[i] for i in live] for k, v in self.state.items()}
+        params = [to_local(self.params[i]) for i in live]
+        grads = [to_local(g) for g in grads]
+        state = {k: [to_local(v[i]) for i in live] for k, v in self.state.items()}
         deltas = self._deltas(live, params, grads, state,
                               self.schedule(self.count))
         torch._foreach_add_(params, [d.to(p.dtype) for p, d in zip(params, deltas)])
@@ -288,14 +382,32 @@ class ClippedOptimizer:
     def _deltas(self, live, params, grads, state, lr) -> List[torch.Tensor]:
         raise NotImplementedError
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, **self.state}
+    def _norms(self, live, tensors) -> torch.Tensor:
+        """Each whole tensor's norm, from the local pieces ``tensors`` of
+        the live parameters' (or tensors split as they are)."""
+        return sharded_norms(tensors, [self.groups[i] for i in live])
+
+    def state_dict(self, full=None) -> dict:
+        """The state; with ``full(name, tensor)`` (``ShardedModel.full``)
+        its sharded tensors whole."""
+        if full is None:
+            return {"count": self.count, **self.state}
+        return {"count": self.count,
+                **{k: [full(n, t) for n, t in zip(self.names, v)]
+                   for k, v in self.state.items()}}
 
     @torch.no_grad()
-    def load_state_dict(self, state: dict) -> None:
+    def load_state_dict(self, state: dict, local=None) -> None:
+        """Restore :meth:`state_dict`'s output; with ``local(name, full,
+        like)`` (``ShardedModel.local``) whole tensors are split as the
+        state's own are."""
         self.count = int(state["count"])
         for k in self.STATE:
-            _copy_into(self.state[k], state[k])
+            saved = state[k]
+            if local is not None:
+                saved = [local(n, s, d) for n, s, d in
+                         zip(self.names, saved, self.state[k])]
+            _copy_into(self.state[k], saved)
 
 
 class ClippedNAG(ClippedOptimizer):
@@ -333,11 +445,11 @@ class ClippedNAG(ClippedOptimizer):
         self.lr_old = lr
         return delta
 
-    def state_dict(self) -> dict:
-        return dict(super().state_dict(), lr_old=self.lr_old)
+    def state_dict(self, full=None) -> dict:
+        return dict(super().state_dict(full), lr_old=self.lr_old)
 
-    def load_state_dict(self, state: dict) -> None:
-        super().load_state_dict(state)
+    def load_state_dict(self, state: dict, local=None) -> None:
+        super().load_state_dict(state, local)
         self.lr_old = state["lr_old"]
 
 
@@ -516,8 +628,8 @@ class ClippedLamb(ClippedOptimizer):
             if decayed:
                 torch._foreach_add_([d for d, _ in decayed], [p for _, p in decayed],
                                     alpha=self.weight_decay)
-        p_norm = torch.stack(torch._foreach_norm([p.float() for p in params]))
-        u_norm = torch.stack(torch._foreach_norm(u))
+        p_norm = self._norms(live, [p.float() for p in params])
+        u_norm = self._norms(live, u)
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                             p_norm / u_norm) * -lr
         torch._foreach_mul_(u, list(ratio.unbind()))
@@ -544,9 +656,19 @@ class ClippedAdafactor(ClippedOptimizer):
     root mean square of 1.0, times ``lr`` and the parameter's root mean
     square (at least 1e-3, ``multiply_by_parameter_scale``); the step its
     negative.  No momentum, no weight decay.  Only the factored moments'
-    row and column means take a loop over the parameters."""
+    row and column means take a loop over the parameters.  The factored
+    moments of a sharded parameter are held whole on every rank: its local
+    sums are placed at its piece's indices and summed over the groups that
+    split it."""
 
     STATE = ("v_row", "v_col", "v")
+
+    def __init__(self, named_params, schedule, clip_grad: Optional[float] = None):
+        super().__init__(named_params, schedule, clip_grad)
+        self.shapes = [tuple(p.shape) for p in self.params]
+        # per sharded parameter, the global index of its local piece along
+        # each dim (made on first use)
+        self._index: Dict[int, List[torch.Tensor]] = {}
 
     def _init_state(self, key, p):
         dims = _factored_dims(tuple(p.shape))
@@ -560,13 +682,56 @@ class ClippedAdafactor(ClippedOptimizer):
         shape = [s for i, s in enumerate(p.shape) if i != drop]
         return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
+    def _piece_index(self, i: int) -> List[torch.Tensor]:
+        """The global indices, along each dim, of parameter ``i``'s local
+        piece (a product of one index set a dim)."""
+        if i not in self._index:
+            from torch.distributed.tensor import distribute_tensor
+
+            p, shape = self.params[i], self.shapes[i]
+            flat = torch.arange(p.numel(), device=p.device).view(shape)
+            mine = distribute_tensor(flat, p.device_mesh, p.placements,
+                                     src_data_rank=None).to_local()
+            coords = torch.unravel_index(mine.reshape(-1), shape)
+            local_shape = mine.shape
+            self._index[i] = [
+                c.view(local_shape).movedim(k, 0).reshape(local_shape[k], -1)[:, 0]
+                for k, c in enumerate(coords)]
+        return self._index[i]
+
+    def _mean(self, i: int, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The mean over ``dim`` of the whole tensor of which ``x`` is
+        parameter ``i``'s local piece, whole."""
+        if not self.groups[i]:
+            return x.mean(dim=dim)
+        index = self._piece_index(i)
+        kept = [k for k in range(x.dim()) if k != dim]
+        whole = x.new_zeros([self.shapes[i][k] for k in kept])
+        at = tuple(index[k].view([-1 if a == j else 1 for j in range(len(kept))])
+                   for a, k in enumerate(kept))
+        whole[at] = x.sum(dim=dim)
+        for g in self.groups[i]:
+            dist.all_reduce(whole, group=g)
+        return whole / self.shapes[i][dim]
+
+    def _piece(self, i: int, whole: torch.Tensor, dropped: int) -> torch.Tensor:
+        """Parameter ``i``'s local piece of ``whole``, a tensor over all its
+        dims but ``dropped``."""
+        if not self.groups[i]:
+            return whole
+        index = self._piece_index(i)
+        kept = [k for k in range(len(self.shapes[i])) if k != dropped]
+        for a, k in enumerate(kept):
+            whole = whole.index_select(a, index[k])
+        return whole
+
     def _deltas(self, live, params, grads, state, lr):
         # optax's decay, in float32
         rate = float(np.float32(1.0) - np.float32(self.count + 1)
                      ** np.float32(-ADAFACTOR_DECAY_RATE))
         grad_sqr = torch._foreach_mul(grads, grads)
         torch._foreach_add_(grad_sqr, ADAFACTOR_EPS)
-        dims = [_factored_dims(tuple(p.shape)) for p in params]
+        dims = [_factored_dims(self.shapes[i]) for i in live]
         whole = [j for j, d in enumerate(dims) if d is None]
         split = [j for j, d in enumerate(dims) if d is not None]
         out = [None] * len(params)
@@ -582,23 +747,27 @@ class ClippedAdafactor(ClippedOptimizer):
             v_row = [state["v_row"][j] for j in split]
             v_col = [state["v_col"][j] for j in split]
             torch._foreach_mul_(v_row, rate)
-            torch._foreach_add_(v_row, [grad_sqr[j].mean(dim=dims[j][1])
+            torch._foreach_add_(v_row, [self._mean(live[j], grad_sqr[j],
+                                                   dims[j][1])
                                         for j in split], alpha=1 - rate)
             torch._foreach_mul_(v_col, rate)
-            torch._foreach_add_(v_col, [grad_sqr[j].mean(dim=dims[j][0])
+            torch._foreach_add_(v_col, [self._mean(live[j], grad_sqr[j],
+                                                   dims[j][0])
                                         for j in split], alpha=1 - rate)
             col_factor = torch._foreach_pow(v_col, -0.5)
             for j, row, col in zip(split, v_row, col_factor):
                 d1, d0 = dims[j]
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_factor = (row / row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                row_factor = self._piece(live[j], row_factor, d0)
+                col = self._piece(live[j], col, d1)
                 out[j] = grads[j] * row_factor.unsqueeze(d0) * col.unsqueeze(d1)
         # The update's root mean square clipped to the threshold, then the
         # step scaled by lr and the parameter's root mean square.
-        numel = torch.tensor([float(p.numel()) for p in params],
+        numel = torch.tensor([float(math.prod(self.shapes[i])) for i in live],
                              device=params[0].device).sqrt()
-        u_rms = torch.stack(torch._foreach_norm(out)) / numel
-        p_rms = torch.stack(torch._foreach_norm([p.float() for p in params])) / numel
+        u_rms = self._norms(live, out) / numel
+        p_rms = self._norms(live, [p.float() for p in params]) / numel
         denom = torch.clamp(u_rms / ADAFACTOR_CLIPPING_THRESHOLD, min=1.0)
         scale = torch.where(p_rms <= ADAFACTOR_MIN_SCALE,
                             torch.full_like(p_rms, ADAFACTOR_MIN_SCALE), p_rms)

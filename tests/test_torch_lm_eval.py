@@ -487,8 +487,14 @@ def test_check_ported_takes_data_and_checkpoint_flags():
     for extra in (["--pipeline-stages", "2"], ["--seq-parallel", "2"],
                   ["--base-layers", "1"], ["--heartbeat-timeout", "5"],
                   ["--tensorboard-logdir", "tb"], ["--wandb-project", "p"],
-                  ["--azureml-logging"], ["--distributed"],
-                  ["--coordinator-address", "localhost:1"],
-                  ["--num-processes", "2"], ["--process-id", "0"]):
+                  ["--azureml-logging"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_lm.check_ported(train_lm.parse_args(extra + ["--device", "cpu"]))
+    # the distributed flags are ported (tests/test_torch_distributed.py runs
+    # them): check_ported takes them, and a world without a coordinator raises
+    distributed = ["--distributed", "--coordinator-address", "localhost:1",
+                   "--num-processes", "2", "--process-id", "0"]
+    train_lm.check_ported(train_lm.parse_args(distributed + ["--device", "cpu"]))
+    with pytest.raises(ValueError, match="coordinator-address"):
+        train_lm.main(train_lm.parse_args(
+            ["--distributed", "--num-processes", "2", "--device", "cpu"]))

@@ -402,16 +402,28 @@ def test_cli_trains_on_cpu(tmp_path, capsys):
     assert "aten::" in capsys.readouterr().out  # the profile of steps 1-3
 
 
+# the mesh and distributed flags are ported: a mesh that a one-process world
+# does not divide, and several processes without a coordinator, raise
+_PORTED_FLAG_ERRORS = {
+    "--mesh-fsdp": (ValueError, "world of 1 devices"),
+    "--mesh-model": (ValueError, "world of 1 devices"),
+    "--distributed": (ValueError, "coordinator-address"),
+}
+
+
 @pytest.mark.parametrize("flag", [
-    ["--mesh-fsdp", "2"], ["--distributed"],
+    ["--mesh-fsdp", "2"], ["--distributed", "--num-processes", "2"],
     ["--tensorboard-logdir", "x"], ["--wandb-project", "x"],
     ["--azureml-logging"], ["--mesh-model", "2"],
 ])
 def test_cli_unported_flags_raise(tmp_path, flag):
     from efficient_attention_torch.cli import train_vit
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = _PORTED_FLAG_ERRORS.get(flag[0],
+                                           (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         train_vit.cli_main(_train_argv(tmp_path, *flag))
+    assert not (tmp_path / "log.txt").exists()
 
 
 @pytest.mark.parametrize("alphas", [(0.0, 1.0), (0.8, 0.0)])

@@ -295,7 +295,7 @@ def test_cli_without_eval_raises():
     from efficient_attention_torch.cli import train_vit
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_vit.cli_main(_eval_argv("--mesh-fsdp", "2"))
+        train_vit.cli_main(_eval_argv("--azureml-logging"))
 
 
 def test_cli_nested_flags():
